@@ -1,0 +1,520 @@
+"""Query engine: load a space into device memory and search it.
+
+The counterpart of :mod:`metrovector_tpu.engine`. A :class:`DeviceSpace`
+holds the padded corpus resident on one ``torch.device`` and every search is
+one launch of the fused distance + top-k kernel
+(:func:`~.ops.topk_kernel.fused_topk`); on a CPU device the kernel's plain
+PyTorch version runs instead. Asking for a CUDA device on a machine without
+CUDA raises: nothing falls back to the CPU.
+
+This slice covers f32 spaces at ``precision="highest"`` (exact f32) and
+``"default"`` (bf16 on the device), and f16 spaces kept f16 on the device
+(f16 ⊂ f32, so results equal the reference's f32 upcast). Other dtypes and
+precisions raise :class:`NotImplementedError` naming the ROADMAP item that
+brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from metrovector_tpu.errors import (
+    DimensionMismatchError,
+    IndexOutOfBoundsError,
+    InvalidVectorTypeError,
+    VectorIdNotFoundError,
+)
+from metrovector_tpu.format.constants import DataType, DistanceMetric
+from metrovector_tpu.format.reader import Reader
+from metrovector_tpu.utils.filters import checked_prepared_mask, padded_filter_plane
+from metrovector_tpu.vectors.space import VectorSpace
+
+from .ops.distances import distances_np
+from .ops.topk_kernel import fused_topk
+from .utils.transfer import put_chunked
+
+PRECISIONS = ("highest", "high", "high_verified", "default")
+_SUPPORTED_DTYPES = (DataType.FLOAT32, DataType.FLOAT16)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing a CUDA device that is not there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is False"
+        )
+    return dev
+
+
+def _check_supported(dtype: DataType, precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; one of {', '.join(PRECISIONS)}"
+        )
+    if precision in ("high", "high_verified"):
+        raise NotImplementedError(
+            f"precision={precision!r} is not ported yet (ROADMAP A2 precision "
+            "ladder; the 'high_verified' repair leg is B3)"
+        )
+    if dtype not in _SUPPORTED_DTYPES:
+        raise NotImplementedError(
+            f"{DataType(dtype).name} spaces are not ported yet (ROADMAP A2 "
+            "dtypes: int8, uint8 offset and bf16 storage)"
+        )
+
+
+@dataclasses.dataclass
+class SearchResult:
+    """Top-k results for a query batch.
+
+    ``indices``: ``[Q, k]`` int32 row ids (−1 only where fewer than k rows
+    qualify). ``scores``: ``[Q, k]`` f32 internal greater-is-better scores.
+    ``distances``: Euclidean distance for L2 (ascending), similarity for
+    cosine and dot product for IP (descending). ``ids``: ``[Q, k]`` u64
+    stable IDs (row positions when the space has no ID column; 2**64−1 in
+    unfilled slots)."""
+
+    indices: np.ndarray
+    scores: np.ndarray
+    distances: np.ndarray
+    metric: DistanceMetric
+    ids: np.ndarray | None = None
+
+    ID_SENTINEL = np.uint64(2**64 - 1)
+
+    def __len__(self) -> int:
+        return self.indices.shape[0]
+
+    def top(self, query: int = 0) -> list[tuple[int, float]]:
+        """(index, distance) pairs for one query, best first."""
+        return [
+            (int(i), float(d))
+            for i, d in zip(self.indices[query], self.distances[query])
+            if i >= 0
+        ]
+
+
+@dataclasses.dataclass
+class RadiusResult:
+    """Range-query results: per query, every row within the threshold,
+    best first. ``truncated[q]`` is True when the capped candidate list
+    filled up with rows that all met the threshold."""
+
+    indices: list[np.ndarray]
+    distances: list[np.ndarray]
+    ids: list[np.ndarray] | None
+    metric: DistanceMetric
+    truncated: np.ndarray  # [Q] bool
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+
+def radius_from_topk(res: SearchResult, radius: float,
+                     max_results: int, num_valid: int | None = None) -> RadiusResult:
+    """Cut a best-first top-``max_results`` result down to the rows within
+    ``radius``: L2 keeps ``distance <= radius``, cosine/IP keep
+    ``similarity >= radius``. ``truncated`` stays False when the list
+    already covered all ``num_valid`` rows."""
+    ascending = res.metric == DistanceMetric.L2
+    idx, dist, ids = [], [], ([] if res.ids is not None else None)
+    nq = res.indices.shape[0]
+    truncated = np.zeros(nq, bool)
+    capped = num_valid is None or max_results < num_valid
+    for q in range(nq):
+        live = res.indices[q] >= 0
+        ok = live & (
+            (res.distances[q] <= radius) if ascending
+            else (res.distances[q] >= radius)
+        )
+        idx.append(res.indices[q][ok])
+        dist.append(res.distances[q][ok])
+        if ids is not None:
+            ids.append(res.ids[q][ok])
+        truncated[q] = capped and bool(ok.all()) and int(ok.sum()) == max_results
+    return RadiusResult(indices=idx, distances=dist, ids=ids,
+                        metric=res.metric, truncated=truncated)
+
+
+def merged_append_ids(host_ids, ids, n_new: int, num_valid: int):
+    """Validate and merge the ID column for an append of ``n_new`` rows:
+    appends carry ``ids`` iff the structure has an ID column, and merged
+    ids stay unique. Returns the new host ID column, or None."""
+    if ids is not None:
+        ids = np.ascontiguousarray(ids, dtype=np.uint64).reshape(-1)
+        if ids.shape[0] != n_new:
+            raise DimensionMismatchError(expected=n_new, actual=int(ids.shape[0]))
+        if host_ids is None and num_valid > 0:
+            raise InvalidVectorTypeError(
+                "space has no ID column; appended rows cannot carry ids"
+            )
+    elif host_ids is not None:
+        raise InvalidVectorTypeError(
+            "space has an ID column; appended rows must carry ids"
+        )
+    else:
+        return None
+    old = host_ids if host_ids is not None else np.zeros(0, np.uint64)
+    merged = np.concatenate([old[:num_valid], ids])
+    if np.unique(merged).shape[0] != merged.shape[0]:
+        raise InvalidVectorTypeError("appended ids collide")
+    return merged
+
+
+def ids_for_rows(host_ids, idx):
+    """Result row positions → stable external IDs (the positions themselves
+    without an ID column; the u64-max sentinel for unfilled slots)."""
+    if host_ids is not None:
+        ids = host_ids[np.clip(idx, 0, None)].astype(np.uint64)
+    else:
+        ids = idx.astype(np.int64).astype(np.uint64)
+    ids[idx < 0] = SearchResult.ID_SENTINEL
+    return ids
+
+
+@dataclasses.dataclass
+class PreparedFilter:
+    """A row predicate uploaded once and reusable across searches (see
+    :meth:`SearchEngine.prepare_filter`). ``mask`` is the padded
+    ``[padded_rows]`` f32 plane (1.0 = searchable), composed with the
+    space's live tombstones at launch time."""
+
+    mask: torch.Tensor
+    num_valid: int
+
+
+@dataclasses.dataclass
+class PreparedQueries:
+    """A device-ready query batch and the host scalars needed to turn raw
+    kernel scores into distances."""
+
+    qdev: torch.Tensor
+    sq_norms: np.ndarray  # ‖q‖² of the original float queries
+
+
+class DeviceSpace:
+    """One vector space resident on one device: the padded corpus block,
+    its squared norms and an optional validity mask, as tensors ready for
+    :func:`~.ops.topk_kernel.fused_topk`."""
+
+    def __init__(
+        self,
+        data: torch.Tensor,
+        norms: torch.Tensor,
+        num_valid: int,
+        dim: int,
+        metric: DistanceMetric,
+        valid_mask: torch.Tensor | None = None,
+        dtype: DataType = DataType.FLOAT32,
+        name: str = "",
+        precision: str = "highest",
+        host_ids: np.ndarray | None = None,
+    ):
+        _check_supported(DataType(dtype), precision)
+        self.data = data
+        self.norms = norms
+        self.num_valid = int(num_valid)
+        self.dim = int(dim)
+        self.metric = DistanceMetric(metric)
+        self.valid_mask = valid_mask
+        self.dtype = DataType(dtype)
+        self.name = name
+        self.precision = precision
+        # Host-side stable ID column (u64), only to translate result rows.
+        self.host_ids = host_ids
+        self._id_lut: dict | None = None  # lazy id → row map (delete_rows)
+        self._norm_bounds: tuple[float, float] | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    # -- construction ---------------------------------------------------------
+
+    @classmethod
+    def from_space(
+        cls,
+        space: VectorSpace,
+        device="cuda",
+        include_tombstones: bool = True,
+        precision: str = "highest",
+    ) -> "DeviceSpace":
+        """Upload a host :class:`VectorSpace` view to ``device``. The padded
+        block goes up verbatim (bf16 on the device for ``"default"``);
+        tombstones become a validity mask applied in the kernel epilogue."""
+        _check_supported(space.dtype, precision)
+        dev = resolve_device(device)
+        target = torch.bfloat16 if precision == "default" else None
+        mask = None
+        if include_tombstones:
+            host_mask = space.tombstone_mask()
+            if host_mask is not None:
+                full = np.ones(space.padded_rows, dtype=np.float32)
+                full[: space.num_vectors] = (~host_mask).astype(np.float32)
+                mask = torch.from_numpy(full).to(dev)
+        norms = np.array(space.norms(), dtype=np.float32)  # a writable copy
+        return cls(
+            data=put_chunked(space.padded_array(), dev, dtype=target),
+            norms=torch.from_numpy(norms).to(dev),
+            num_valid=space.num_vectors,
+            dim=space.dim,
+            metric=space.metric,
+            valid_mask=mask,
+            dtype=space.dtype,
+            name=space.name,
+            precision=precision,
+            host_ids=space.ids(),
+        )
+
+    @classmethod
+    def from_state(cls, state: dict, device="cuda") -> "DeviceSpace":
+        """Build from a dict of host arrays and scalars — what ``np.asarray``
+        gives for a reference ``DeviceSpace``'s ``data``, ``norms``,
+        ``valid_mask``, ``num_valid``, ``dim``, ``metric``, ``dtype``,
+        ``precision`` and ``host_ids`` — on ``device``."""
+        dev = resolve_device(device)
+        data = np.array(state["data"])  # a writable, contiguous copy
+        if data.dtype.name == "bfloat16":  # ml_dtypes' type, by its bits
+            data_t = torch.from_numpy(data.view(np.uint16)).view(torch.bfloat16)
+        else:
+            data_t = torch.from_numpy(data)
+        mask = state.get("valid_mask")
+        return cls(
+            data=data_t.to(dev),
+            norms=torch.from_numpy(
+                np.array(state["norms"], dtype=np.float32)
+            ).to(dev),
+            num_valid=int(state["num_valid"]),
+            dim=int(state["dim"]),
+            metric=DistanceMetric(int(state["metric"])),
+            valid_mask=None if mask is None else torch.from_numpy(
+                np.array(mask, dtype=np.float32)
+            ).to(dev),
+            dtype=DataType(int(state["dtype"])),
+            precision=str(state.get("precision", "highest")),
+            host_ids=state.get("host_ids"),
+        )
+
+    # -- online mutation ------------------------------------------------------
+
+    def add_rows(self, rows, ids=None, reserve: float = 1.5) -> None:
+        raise NotImplementedError(
+            "add_rows is not ported yet (ROADMAP A2: capacity steps and the "
+            "one-snapshot mutation contract)"
+        )
+
+    def delete_rows(self, rows=None, ids=None) -> None:
+        """Tombstone rows on the live device corpus (by position or by
+        stable ID). Deleted rows never surface in results."""
+        idx = []
+        if rows is not None:
+            for r in np.atleast_1d(rows):
+                r = int(r)
+                if r < 0 or r >= self.num_valid:
+                    raise IndexOutOfBoundsError(r, self.num_valid)
+                idx.append(r)
+        if ids is not None:
+            if self.host_ids is None:
+                idx.extend(int(i) for i in np.atleast_1d(ids))
+                for r in idx:
+                    if r < 0 or r >= self.num_valid:
+                        raise IndexOutOfBoundsError(r, self.num_valid)
+            else:
+                if self._id_lut is None:
+                    self._id_lut = {
+                        int(v): i for i, v in enumerate(self.host_ids)
+                    }
+                for i in np.atleast_1d(ids):
+                    try:
+                        idx.append(self._id_lut[int(i)])
+                    except KeyError:
+                        raise VectorIdNotFoundError(int(i)) from None
+        if not idx:
+            return
+        mask = (
+            self.valid_mask.clone()
+            if self.valid_mask is not None
+            else torch.ones(self.padded_rows, dtype=torch.float32,
+                            device=self.device)
+        )
+        mask[torch.as_tensor(idx, dtype=torch.int64, device=self.device)] = 0.0
+        self.valid_mask = mask  # one reference swap: searches see old or new
+
+    def norm_bounds(self) -> tuple[float, float]:
+        """(max, min) squared L2 norm over the logical rows, cached."""
+        if self._norm_bounds is None:
+            nrm = self.norms[: self.num_valid]
+            self._norm_bounds = (float(nrm.max()), float(nrm.min()))
+        return self._norm_bounds
+
+    @property
+    def padded_rows(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def padded_dim(self) -> int:
+        return int(self.data.shape[1])
+
+    @property
+    def nbytes(self) -> int:
+        n = self.data.nbytes + self.norms.nbytes
+        if self.valid_mask is not None:
+            n += self.valid_mask.nbytes
+        return n
+
+    # -- query preprocessing --------------------------------------------------
+
+    def prepare_queries(self, queries) -> PreparedQueries:
+        """Validate, pre-normalize (cosine), pad to ``padded_dim`` and upload
+        as f32; for ``"default"`` round through bf16 as the corpus was."""
+        q = np.asarray(queries, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        if q.ndim != 2 or q.shape[1] != self.dim:
+            raise DimensionMismatchError(
+                expected=self.dim, actual=int(q.shape[-1])
+            )
+        qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
+        if self.metric == DistanceMetric.COSINE:
+            q = q / np.maximum(np.sqrt(qnorms)[:, None], 1e-30)
+        if self.padded_dim != self.dim:
+            q = np.pad(q, ((0, 0), (0, self.padded_dim - self.dim)))
+        qdev = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32))
+        qdev = qdev.to(self.device)
+        if self.data.dtype == torch.bfloat16:
+            qdev = qdev.to(torch.bfloat16).float()
+        return PreparedQueries(qdev=qdev, sq_norms=qnorms)
+
+
+class SearchEngine:
+    """Exact brute-force top-k search over one :class:`DeviceSpace`.
+
+    >>> import numpy as np, tempfile, os
+    >>> from metrovector_tpu_torch import Builder, SearchEngine
+    >>> b = Builder()
+    >>> _ = b.add_vector_space("e", dim=3)
+    >>> b.add_vectors("e", np.eye(3, dtype=np.float32))
+    >>> path = os.path.join(tempfile.mkdtemp(), "q.mvt")
+    >>> b.build().save(path)
+    >>> eng = SearchEngine.open(path, device="cpu")
+    >>> eng.search(np.array([[0.9, 0.1, 0.0]], np.float32), k=1).indices.tolist()
+    [[0]]
+    """
+
+    def __init__(self, space: VectorSpace | DeviceSpace, device="cuda",
+                 precision: str = "highest"):
+        """``space``: a host :class:`VectorSpace` (uploaded to ``device`` at
+        ``precision``) or a :class:`DeviceSpace` already resident."""
+        if isinstance(space, VectorSpace):
+            space = DeviceSpace.from_space(space, device=device,
+                                           precision=precision)
+        self.space = space
+
+    @classmethod
+    def open(cls, path, space_name: str | None = None, **kw) -> "SearchEngine":
+        """mmap the file and upload the named (or first) space."""
+        r = Reader.open(path)
+        name = space_name or r.vector_space_names[0]
+        return cls(r.vector_space(name), **kw)
+
+    def search(self, queries, k: int = 10, filter_mask=None) -> SearchResult:
+        """Batched exact top-k. ``queries``: ``[Q, dim]`` or one vector.
+        ``filter_mask``: optional ``[num_vectors]`` boolean/int predicate
+        or a :class:`PreparedFilter`; rows with 0 are excluded exactly,
+        together with tombstones. Where fewer than ``k`` rows qualify the
+        tail holds ``-1``."""
+        return self._finalize(self._launch(queries, k, filter_mask), k)
+
+    def search_radius(self, queries, radius: float, max_results: int = 128,
+                      filter_mask=None) -> RadiusResult:
+        """Every row within ``radius`` (L2: distance ≤ radius; cosine/IP:
+        similarity ≥ radius), best first, through a capped top-k pass;
+        ``truncated`` flags queries that filled the cap."""
+        k = min(max_results, max(self.space.num_valid, 1))
+        res = self.search(queries, k=k, filter_mask=filter_mask)
+        return radius_from_topk(res, radius, k, self.space.num_valid)
+
+    def prepare_filter(self, filter_mask) -> PreparedFilter:
+        """Upload a ``[num_vectors]`` predicate once for many searches."""
+        sp = self.space
+        full = padded_filter_plane(filter_mask, sp.num_valid, sp.padded_rows)
+        return PreparedFilter(
+            mask=torch.from_numpy(full).to(sp.device), num_valid=sp.num_valid
+        )
+
+    def search_pipelined(self, query_batches, k: int = 10):
+        """Results of an iterable of batches in order, with one batch in
+        flight: batch ``i+1`` is uploaded and launched before batch ``i`` is
+        read back."""
+        pending = None
+        for q in query_batches:
+            launched = self._launch(q, k)
+            if pending is not None:
+                yield self._finalize(pending, k)
+            pending = launched
+        if pending is not None:
+            yield self._finalize(pending, k)
+
+    def _launch(self, queries, k: int, filter_mask=None):
+        """Upload and launch without waiting for the device. Returns a
+        pending tuple for :meth:`_finalize`."""
+        sp = self.space
+        if sp.metric == DistanceMetric.CUSTOM:
+            raise InvalidVectorTypeError(
+                "CUSTOM metric spaces need a user-provided score function; "
+                "use ops.distances directly"
+            )
+        prep = sp.prepare_queries(queries)
+        if sp.num_valid == 0:  # empty space: all-sentinel results
+            return (None, None, prep, 0)
+        k_eff = min(k, sp.num_valid)
+        eff_mask = sp.valid_mask
+        if filter_mask is not None:
+            if isinstance(filter_mask, PreparedFilter):
+                fdev = checked_prepared_mask(
+                    filter_mask, sp.num_valid, sp.padded_rows
+                )
+            else:
+                fdev = torch.from_numpy(
+                    padded_filter_plane(filter_mask, sp.num_valid, sp.padded_rows)
+                ).to(sp.device)
+            eff_mask = fdev if eff_mask is None else eff_mask * fdev
+        scores, idx = fused_topk(
+            prep.qdev, sp.data, sp.norms, sp.num_valid, k_eff, sp.metric,
+            valid_mask=eff_mask,
+        )
+        return (scores, idx, prep, k_eff)
+
+    def _finalize(self, pending, k: int) -> SearchResult:
+        """Read back and convert to a user-facing result."""
+        sp = self.space
+        scores, idx, prep, k_eff = pending
+        nq = prep.qdev.shape[0]
+        if k_eff == 0:  # empty space
+            return SearchResult(
+                indices=np.full((nq, k), -1, np.int32),
+                scores=np.full((nq, k), -np.inf, np.float32),
+                distances=np.full(
+                    (nq, k),
+                    np.inf if sp.metric == DistanceMetric.L2 else -np.inf,
+                    np.float32,
+                ),
+                metric=sp.metric,
+                ids=np.full((nq, k), SearchResult.ID_SENTINEL, np.uint64),
+            )
+        scores = scores.cpu().numpy()
+        idx = idx.cpu().numpy()
+        dist = distances_np(scores, sp.metric, prep.sq_norms)
+        if k_eff < k:  # pad out to the requested k with sentinels
+            pad = ((0, 0), (0, k - k_eff))
+            idx = np.pad(idx, pad, constant_values=-1)
+            scores = np.pad(scores, pad, constant_values=-np.inf)
+            dist = np.pad(dist, pad, constant_values=np.inf
+                          if sp.metric == DistanceMetric.L2 else -np.inf)
+        ids = ids_for_rows(sp.host_ids, idx)
+        return SearchResult(indices=idx, scores=scores, distances=dist,
+                            metric=sp.metric, ids=ids)

@@ -1,0 +1,101 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+The sources under ``csrc/`` have a plain C interface, so they compile in
+seconds without PyTorch's headers. The shared library goes to
+``build/metrovector_tpu_torch/<hash>/`` under the repository root, where
+``<hash>`` covers the sources and the flags: an edit rebuilds, an unchanged
+tree reuses the library. The build runs at first use, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "metrovector_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, into build.log
+]
+LIB_NAME = "libmvt_kernels.so"
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found on PATH or under /usr/local/cuda/bin; the port's "
+        "CUDA kernels are built from source at first use"
+    )
+
+
+def build_dir() -> Path:
+    """The directory the current sources and flags build into."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _compile(out_dir: Path) -> None:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out_dir / LIB_NAME)  # atomic: a reader never sees half
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built first if the sources changed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out_dir = build_dir()
+            if not (out_dir / LIB_NAME).exists():
+                _compile(out_dir)
+            lib = ctypes.CDLL(str(out_dir / LIB_NAME))
+            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            lib.mvt_fused_topk.argtypes = [
+                p, p, i32, p, p,          # q, db, db_dtype, norms, mask
+                i64, i64, i64, i64,       # nq, n, d, num_valid
+                i32, i32, i32, i64,       # k, metric, splits, rows_per_split
+                p, p, p, p,               # part_s, part_i, out_s, out_i
+                p,                        # stream
+            ]
+            lib.mvt_fused_topk.restype = i32
+            lib.mvt_fused_topk_occupancy.argtypes = [i32, i64, i32, p]
+            lib.mvt_fused_topk_occupancy.restype = i32
+            lib.mvt_cuda_error_string.argtypes = [i32]
+            lib.mvt_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib

@@ -1,0 +1,170 @@
+"""Score conventions and the plain PyTorch exact top-k path.
+
+The counterpart of :mod:`metrovector_tpu.ops.distances`, which is the
+behavioural spec: every metric maps to a score where greater is better,
+
+* ``INNER_PRODUCT``: ``q · x``
+* ``COSINE``:        ``(q · x) / (‖q‖ ‖x‖)``
+* ``L2``:            ``2 q·x − ‖x‖²`` (``‖q‖²`` is restored only when
+  scores become user-facing distances)
+
+and top-k orders by (score descending, row index ascending). Accumulation
+is f32 whatever the storage dtype. f32 matmuls here run in full f32: the
+setting is pinned inside each call (:func:`full_f32_matmul`), never taken
+from the process-wide defaults, because TF32 keeps about three decimal
+digits and visibly reorders near-ties.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from metrovector_tpu.format.constants import DistanceMetric
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run f32 matmuls in full f32 inside the block, then restore the
+    caller's settings."""
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    prev_prec = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        torch.set_float32_matmul_precision(prev_prec)
+
+
+def scores_block(
+    queries: torch.Tensor,
+    db: torch.Tensor,
+    db_norms: torch.Tensor,
+    metric: DistanceMetric,
+    query_inv_norms: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Greater-is-better score matrix ``[Q, N]`` for one corpus block.
+    ``db`` may be any float dtype; it is widened to f32 (exact for f16 and
+    bf16). ``query_inv_norms``: ``[Q]`` reciprocal query norms (cosine)."""
+    with full_f32_matmul():
+        dots = queries.float() @ db.float().T
+    metric = DistanceMetric(metric)
+    if metric == DistanceMetric.INNER_PRODUCT:
+        return dots
+    if metric == DistanceMetric.L2:
+        return 2.0 * dots - db_norms[None, :]
+    if metric == DistanceMetric.COSINE:
+        inv_db = 1.0 / torch.sqrt(torch.clamp(db_norms, min=1e-30))
+        if query_inv_norms is None:
+            q32 = queries.float()
+            query_inv_norms = 1.0 / torch.sqrt(
+                torch.clamp((q32 * q32).sum(-1), min=1e-30)
+            )
+        return dots * inv_db[None, :] * query_inv_norms[:, None]
+    raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
+
+
+def scores_to_distances(
+    scores: torch.Tensor, metric: DistanceMetric,
+    query_sq_norms: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Internal scores → the user-facing quantity: Euclidean distance for
+    L2 (ascending), similarity for cosine, dot product for IP."""
+    metric = DistanceMetric(metric)
+    if metric == DistanceMetric.L2:
+        if query_sq_norms is None:
+            raise ValueError("L2 distance conversion requires query norms")
+        return torch.sqrt(torch.clamp(query_sq_norms[:, None] - scores, min=0.0))
+    return scores
+
+
+def distances_np(scores, metric: DistanceMetric, query_sq_norms=None):
+    """NumPy twin of :func:`scores_to_distances` for host-side result
+    finalization."""
+    metric = DistanceMetric(metric)
+    scores = np.asarray(scores)
+    if metric == DistanceMetric.L2:
+        if query_sq_norms is None:
+            raise ValueError("L2 distance conversion requires query norms")
+        return np.sqrt(
+            np.maximum(np.asarray(query_sq_norms)[:, None] - scores, 0.0)
+        )
+    return scores
+
+
+def mask_scores(
+    scores: torch.Tensor,
+    row_offset: int,
+    num_valid: int,
+    valid_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Force padded rows (global row ≥ ``num_valid``) and tombstoned rows
+    (``valid_mask == 0``) to −inf so they never enter the top-k."""
+    n = scores.shape[1]
+    rows = row_offset + torch.arange(n, device=scores.device)
+    neg_inf = torch.tensor(float("-inf"), device=scores.device)
+    out = torch.where(rows[None, :] < num_valid, scores, neg_inf)
+    if valid_mask is not None:
+        out = torch.where(valid_mask[None, :] != 0, out, neg_inf)
+    return out
+
+
+def exact_topk(
+    queries: torch.Tensor,
+    db: torch.Tensor,
+    db_norms: torch.Tensor,
+    num_valid: int,
+    k: int,
+    metric: DistanceMetric,
+    valid_mask: torch.Tensor | None = None,
+    block_rows: int = 16384,
+    query_inv_norms: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k in plain PyTorch, the twin of ``exact_topk_xla``: scans
+    the corpus in ``block_rows`` blocks with a carried candidate list, so
+    ``[Q, N]`` never exists whole. Returns ``(scores [Q, k] f32,
+    indices [Q, k] int32)`` best first; slots beyond the unmasked rows hold
+    (−inf, −1).
+
+    Ties go to the lowest index: the carried candidates (earlier rows) come
+    before the block's rows, each part already in ascending index order
+    among equal scores, so one stable sort on −score orders by
+    (score descending, index ascending). ``torch.topk`` promises no tie
+    order and is not used."""
+    metric = DistanceMetric(metric)
+    q = queries.float()
+    if metric == DistanceMetric.COSINE and query_inv_norms is None:
+        query_inv_norms = 1.0 / torch.sqrt(
+            torch.clamp((q * q).sum(-1), min=1e-30)
+        )
+    nq, n = q.shape[0], db.shape[0]
+    dev = q.device
+    best_s = torch.empty((nq, 0), dtype=torch.float32, device=dev)
+    best_i = torch.empty((nq, 0), dtype=torch.int64, device=dev)
+    for start in range(0, n, block_rows):
+        stop = min(n, start + block_rows)
+        s = scores_block(q, db[start:stop], db_norms[start:stop], metric,
+                         query_inv_norms)
+        vm = None if valid_mask is None else valid_mask[start:stop]
+        s = mask_scores(s, start, num_valid, vm)
+        idx = torch.arange(start, stop, device=dev).expand(nq, -1)
+        cand_s = torch.cat([best_s, s], dim=1)
+        cand_i = torch.cat([best_i, idx], dim=1)
+        order = torch.sort(-cand_s, dim=1, stable=True).indices[:, :k]
+        best_s = torch.gather(cand_s, 1, order)
+        best_i = torch.gather(cand_i, 1, order)
+    if best_s.shape[1] < k:  # fewer rows than k: pad with sentinels
+        pad = k - best_s.shape[1]
+        best_s = torch.cat(
+            [best_s, torch.full((nq, pad), float("-inf"), device=dev)], dim=1
+        )
+        best_i = torch.cat(
+            [best_i, torch.full((nq, pad), -1, dtype=torch.int64, device=dev)],
+            dim=1,
+        )
+    best_i = torch.where(torch.isneginf(best_s), -1, best_i)
+    return best_s, best_i.to(torch.int32)

@@ -1,0 +1,202 @@
+"""The port's main path end to end against the JAX package: one ``.mvt``
+file opened by both ``SearchEngine``s (the JAX one on its Pallas backend,
+interpreted on the CPU), compared on indices, ids, distances, range
+queries, filters, tombstones, an empty space and ``k`` above the corpus
+size; ``DeviceSpace.from_state`` fed from a JAX ``DeviceSpace``; the
+shared ``MicroBatcher`` over the port's engine; and the chunked upload."""
+
+import numpy as np
+import pytest
+import torch
+
+from metrovector_tpu import Builder, DataType, DistanceMetric, Reader
+from metrovector_tpu.engine import DeviceSpace as JaxDeviceSpace
+from metrovector_tpu.engine import SearchEngine as JaxEngine
+from metrovector_tpu_torch import MicroBatcher, SearchEngine
+from metrovector_tpu_torch.engine import DeviceSpace
+
+from _torch_parity import METRICS, make_data
+
+N, D = 300, 24
+
+
+def _file(tmp_path, metric=DistanceMetric.L2, dtype=DataType.FLOAT32, n=N,
+          ids=None, deleted=(), seed=0):
+    rng = np.random.default_rng(seed)
+    x, q = make_data(rng, "integer", n, D, 6)
+    b = Builder()
+    b.add_vector_space("v", dim=D, metric=metric, dtype=dtype)
+    if n:
+        b.add_vectors("v", x, ids=ids)
+    for r in deleted:
+        b.delete_vector("v", r)
+    path = tmp_path / "db.mvt"
+    b.build().save(path)
+    return path, x, q
+
+
+def _engines(path, precision="highest"):
+    port = SearchEngine.open(path, device="cpu", precision=precision)
+    ref = JaxEngine.open(path, backend="pallas", precision=precision)
+    return port, ref
+
+
+def _assert_same(a, b):
+    np.testing.assert_array_equal(a.indices, b.indices)
+    np.testing.assert_array_equal(a.scores, b.scores)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_allclose(a.distances, b.distances, rtol=1e-6)
+    assert a.metric == b.metric
+
+
+@pytest.mark.parametrize("storage", ["f32_highest", "f32_default", "f16"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_search_matches_reference_engine(tmp_path, metric, storage):
+    """Integer-valued data: L2/IP bit-identical to the reference; cosine
+    (normalization rounds differently) identical in indices here and
+    within 1e-6 in score."""
+    dtype = DataType.FLOAT16 if storage == "f16" else DataType.FLOAT32
+    precision = "default" if storage == "f32_default" else "highest"
+    path, x, q = _file(tmp_path, metric, dtype)
+    port, ref = _engines(path, precision)
+    a, b = port.search(q, k=10), ref.search(q, k=10)
+    if storage == "f16":
+        assert port.space.data.dtype == torch.float16  # kept f16 resident
+    if storage == "f32_default":
+        assert port.space.data.dtype == torch.bfloat16
+    if metric == DistanceMetric.COSINE:
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_allclose(a.scores, b.scores, rtol=0, atol=1e-6)
+    else:
+        _assert_same(a, b)
+
+
+def test_search_radius_matches_reference(tmp_path):
+    path, x, q = _file(tmp_path)
+    port, ref = _engines(path)
+    radius = float(np.median(np.linalg.norm(q[:, None] - x[None], axis=-1)))
+    a = port.search_radius(q, radius)  # the default cap, 128 < N rows
+    b = ref.search_radius(q, radius)
+    np.testing.assert_array_equal(a.truncated, b.truncated)
+    assert a.truncated.any() and not a.truncated.all()
+    for r in range(len(q)):
+        np.testing.assert_array_equal(a.indices[r], b.indices[r])
+        np.testing.assert_array_equal(a.ids[r], b.ids[r])
+        np.testing.assert_allclose(a.distances[r], b.distances[r], rtol=1e-6)
+
+
+def test_filters_and_tombstones_match_reference(tmp_path):
+    path, x, q = _file(tmp_path, deleted=(3, 77))
+    port, ref = _engines(path)
+    mask = np.random.default_rng(1).random(N) < 0.5
+    _assert_same(port.search(q, k=10), ref.search(q, k=10))
+    _assert_same(port.search(q, k=10, filter_mask=mask),
+                 ref.search(q, k=10, filter_mask=mask))
+    _assert_same(port.search(q, k=10, filter_mask=port.prepare_filter(mask)),
+                 ref.search(q, k=10, filter_mask=ref.prepare_filter(mask)))
+    victims = port.search(q, k=1).indices[:, 0]
+    port.space.delete_rows(victims)
+    ref.space.delete_rows(victims)
+    a, b = port.search(q, k=10, filter_mask=mask), ref.search(q, k=10, filter_mask=mask)
+    _assert_same(a, b)
+    assert not np.isin(a.indices, [3, 77, *victims]).any()
+
+
+def test_ids_and_delete_by_id_match_reference(tmp_path):
+    ids = np.arange(N, dtype=np.uint64)[::-1] * np.uint64(1000) + np.uint64(5)
+    path, x, q = _file(tmp_path, ids=ids)
+    port, ref = _engines(path)
+    a = port.search(q, k=5)
+    np.testing.assert_array_equal(a.ids, ids[a.indices])
+    port.space.delete_rows(ids=a.ids[:, 0])
+    ref.space.delete_rows(ids=a.ids[:, 0])
+    _assert_same(port.search(q, k=5), ref.search(q, k=5))
+
+
+def test_k_above_corpus_and_empty_space(tmp_path):
+    path, x, q = _file(tmp_path, n=6)
+    port, ref = _engines(path)
+    _assert_same(port.search(q, k=10), ref.search(q, k=10))
+    empty_dir = tmp_path / "empty"
+    empty_dir.mkdir()
+    path, _, q = _file(empty_dir, n=0)
+    port = SearchEngine(Reader.open(path).vector_space("v"), device="cpu")
+    ref = JaxEngine(Reader.open(path).vector_space("v"), backend="pallas")
+    _assert_same(port.search(q, k=4), ref.search(q, k=4))
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("dtype", [DataType.FLOAT32, DataType.FLOAT16])
+def test_from_state_of_reference_device_space(tmp_path, dtype, precision):
+    path, x, q = _file(tmp_path, DistanceMetric.INNER_PRODUCT, dtype,
+                       deleted=(10,))
+    jsp = JaxDeviceSpace.from_space(Reader.open(path).vector_space("v"),
+                                    precision=precision)
+    state = {name: np.asarray(getattr(jsp, name)) for name in
+             ("data", "norms", "valid_mask")}
+    state.update(num_valid=jsp.num_valid, dim=jsp.dim, metric=jsp.metric,
+                 dtype=jsp.dtype, precision=jsp.precision,
+                 host_ids=jsp.host_ids)
+    port = SearchEngine(DeviceSpace.from_state(state, device="cpu"))
+    ref = JaxEngine(jsp, backend="pallas")
+    _assert_same(port.search(q, k=10), ref.search(q, k=10))
+
+
+def test_unported_modes_raise(tmp_path):
+    path, _, _ = _file(tmp_path, dtype=DataType.INT8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SearchEngine.open(path, device="cpu")
+    path, _, _ = _file(tmp_path)
+    for precision in ("high", "high_verified"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SearchEngine.open(path, device="cpu", precision=precision)
+    eng = SearchEngine.open(path, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.space.add_rows(np.zeros((1, D), np.float32))
+
+
+def test_microbatcher_over_port_engine(tmp_path):
+    path, x, q = _file(tmp_path)
+    port = SearchEngine.open(path, device="cpu")
+    qs = np.concatenate([q, x[:10] + 1.0])
+    want = port.search(qs, k=5)
+    with MicroBatcher(port, k=5, max_batch=8, max_wait_ms=1.0) as mb:
+        futs = [mb.submit(v) for v in qs]
+        got = [f.result(timeout=60) for f in futs]
+    for i, r in enumerate(got):
+        np.testing.assert_array_equal(r.indices[0], want.indices[i])
+        np.testing.assert_array_equal(r.scores[0], want.scores[i])
+        np.testing.assert_array_equal(r.ids[0], want.ids[i])
+
+
+def test_search_pipelined_matches_search(tmp_path):
+    path, x, q = _file(tmp_path)
+    port = SearchEngine.open(path, device="cpu")
+    batches = [q[:2], q[2:], x[:3]]
+    for batch, res in zip(batches, port.search_pipelined(iter(batches), k=4)):
+        _assert_same(res, port.search(batch, k=4))
+
+
+def test_engine_doctest_runs():
+    import doctest
+
+    import metrovector_tpu_torch.engine as mod
+
+    results = doctest.testmod(mod, optionflags=doctest.ELLIPSIS)
+    assert results.attempted > 0 and results.failed == 0
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("chunk_rows", [1, 7, 64, 1000])
+def test_put_chunked_is_exact_across_chunk_edges(monkeypatch, chunk_rows, dtype):
+    """Uploads in row chunks equal a one-piece copy, also when the chunk
+    size does not divide the rows and when converting on the way."""
+    from metrovector_tpu_torch.utils import transfer
+
+    rng = np.random.default_rng(4)
+    arr = rng.standard_normal((100, 12)).astype(np.float16)
+    arr.setflags(write=False)  # as the mapped file's view is
+    monkeypatch.setattr(transfer, "CHUNK_BYTES", chunk_rows * arr[0].nbytes)
+    out = transfer.put_chunked(arr, "cpu", dtype=dtype)
+    want = torch.from_numpy(arr.copy())
+    assert torch.equal(out, want if dtype is None else want.to(dtype))
