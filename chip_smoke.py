@@ -16,7 +16,19 @@ Phases, one line each; any failure exits non-zero:
    NumPy oracle, the kernel's launch count, and CUDA-event times of the
    kernel and of its plain version;
 4. filters, tombstones and stable IDs;
-5. serving: the shared ``MicroBatcher`` answers 64 concurrent requests.
+5. serving: the shared ``MicroBatcher`` answers 64 concurrent requests;
+6. ADC kernel vs plain: ``fused_adc_topk`` against
+   ``fused_adc_topk_reference`` over metrics, uint8 and packed4 codes, f32
+   and bf16 LUTs, batch sizes, k up to 1024 and masks;
+7. gather and rescore kernels vs plain: ``gather_rows`` bit for bit over
+   dtypes and clamped indices, ``rescore_candidates`` in both tie modes;
+8. the PQ path at full size: a 1M x 128 clustered corpus, PQ trained and
+   encoded on the card, ``Builder.set_pq_index`` -> ``Reader.open`` ->
+   ``PQIndex.from_space(device="cuda")`` -> ``search(k=10, rerank=400)``
+   at batches 256 and 32 for 4-bit m=32 and 8-bit m=16 codes, recall
+   against a float64 oracle on the card, the kernels' launch counts, the
+   result held against the plain re-rank, CUDA-event times of each kernel
+   and its plain version; then a 20k-row corpus with a full re-rank.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -36,7 +48,8 @@ import numpy as np
 
 N_MAIN, D_MAIN = 1_000_000, 128
 SEED = 7
-KERNEL_SOURCE = "metrovector_tpu_torch/ops/csrc/topk_kernel.cu"
+CSRC = "metrovector_tpu_torch/ops/csrc/"
+KERNEL_SOURCE = CSRC + "topk_kernel.cu"
 KERNEL_REPLACES = "metrovector_tpu/ops/topk_kernel.py:741"
 
 
@@ -66,10 +79,6 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load()
     dt = time.perf_counter() - t0
-    log = (_build.build_dir() / "build.log").read_text()
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say("  ptxas:", line.strip())
     say(f"phase 1 build: ok ({dt:.2f} s, {_build.build_dir()})")
 
 
@@ -373,6 +382,472 @@ def phase_serving(engine):
         f"occupancy {stats.occupancy:.2f}, p50 {stats.p50_ms:.2f} ms)")
 
 
+ADC_CONFIGS = (  # (codes, m, ksub, packed4)
+    ("uint8", 16, 256, False), ("uint8", 8, 64, False),
+    ("packed4", 32, 16, True), ("packed4", 5, 16, True),
+)
+
+
+def _adc_scores64(lut64, codes, m, ksub, rnorms, metric, live):
+    """float64 ADC scores [Q, N] of the LUT both versions use; -inf where
+    not live."""
+    from metrovector_tpu_torch import DistanceMetric
+
+    s = np.zeros((lut64.shape[0], codes.shape[0]))
+    for j in range(m):
+        s += lut64[:, j * ksub + codes[:, j].astype(np.int64)]
+    r64 = rnorms.astype(np.float64)
+    if metric == DistanceMetric.L2:
+        s = 2.0 * s - r64[None, :]
+    elif metric == DistanceMetric.COSINE:
+        s = s / np.sqrt(np.maximum(r64, 1e-30))[None, :]
+    s[:, ~live] = -np.inf
+    return s
+
+
+def _adc_band(lut64, m, ksub, metric, rnorms, scores64):
+    """Two f32 sums of m LUT entries differ by at most
+    2(m-1)2^-24 sum_j max_c |LUT[q,j,c]|; L2 doubles it, cosine scales it
+    by 1/min|x^|; the epilogue adds a rounding of the score."""
+    from metrovector_tpu_torch import DistanceMetric
+
+    base = (2 * (m - 1) * 2.0**-24
+            * np.abs(lut64).reshape(len(lut64), m, ksub).max(2).sum(1))
+    if metric == DistanceMetric.L2:
+        base = 2 * base
+    elif metric == DistanceMetric.COSINE:
+        base = base / np.sqrt(max(float(rnorms.min()), 1e-30))
+    fin = np.where(np.isfinite(scores64), np.abs(scores64), 0.0)
+    return base + 4 * 2.0**-24 * fin.max(1)
+
+
+def phase_adc_vs_plain(torch, dev) -> tuple[float, int]:
+    """Every combination of data kind, code layout, LUT type, metric, Q
+    and k; the mask and num_valid variant rotates with the case number;
+    then k above the rows left after masking. Integer-valued queries and
+    codebooks make every LUT entry and sum exact: there the kernel and the
+    plain version must be identical (both add the m entries of a row in
+    ascending order in f32, so they agree on float data too, but only the
+    band of _adc_band is required there)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        adc_lut, fused_adc_topk, fused_adc_topk_reference,
+    )
+
+    rng = np.random.default_rng(SEED + 6)
+    n, dsub = 3001, 4
+    metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+               DistanceMetric.COSINE)
+    max_err, cases, identical = 0.0, 0, 0
+    for kind in ("integer", "normal"):
+        for layout, m, ksub, packed in ADC_CONFIGS:
+            d = m * dsub
+            if kind == "integer":
+                books = rng.integers(0, 8, (m, ksub, dsub)).astype(np.float32)
+                q_host = rng.integers(0, 8, (256, d)).astype(np.float32)
+            else:
+                books = rng.standard_normal((m, ksub, dsub)).astype(np.float32)
+                q_host = rng.standard_normal((256, d)).astype(np.float32)
+            codes = rng.integers(0, ksub, (n, m)).astype(np.uint8)
+            recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], 1)
+            rnorms = (recon.astype(np.float64) ** 2).sum(1).astype(np.float32)
+            mask = (rng.random(n) > 0.2).astype(np.float32)
+            codes_d = torch.from_numpy(pack_codes4(codes) if packed else codes).to(dev)
+            books_d = torch.from_numpy(books).to(dev)
+            rn_d = torch.from_numpy(rnorms).to(dev)
+            mask_d = torch.from_numpy(mask).to(dev)
+            for exact_lut in (True, False):
+                for metric in metrics:
+                    q_all = q_host
+                    if metric == DistanceMetric.COSINE:
+                        q_all = (q_host / np.maximum(np.linalg.norm(
+                            q_host, axis=1, keepdims=True), 1e-30)).astype(np.float32)
+                    for nq in (1, 37, 256):
+                        qd = torch.from_numpy(np.ascontiguousarray(q_all[:nq])).to(dev)
+                        lut64 = adc_lut(qd, books_d, exact_lut).double().cpu().numpy()
+                        runs = []
+                        for k in (1, 10, 400, 1024):
+                            variant = cases % 4
+                            runs.append((k, n - 77 if variant >= 2 else n,
+                                         variant % 2 == 1))
+                            cases += 1
+                        runs.append((400, 60, True))  # k > live rows
+                        cases += 1
+                        for k, num_valid, masked in runs:
+                            vm = mask_d if masked else None
+                            args = (qd, codes_d, books_d, rn_d, num_valid, k,
+                                    metric, vm, exact_lut, packed)
+                            got = fused_adc_topk(*args)
+                            ref = fused_adc_topk_reference(*args)
+                            live = np.arange(n) < num_valid
+                            if masked:
+                                live &= mask != 0
+                            scores = _adc_scores64(lut64, codes, m, ksub, rnorms,
+                                                   metric, live)
+                            i_k = got[1].cpu().numpy()
+                            if (i_k[:, min(k, int(live.sum())):] != -1).any():
+                                raise AssertionError("slots beyond the live rows are not -1")
+                            exact = kind == "integer" and metric != DistanceMetric.COSINE
+                            what = (f"ADC {kind} {layout} m={m} ksub={ksub} "
+                                    f"{'f32' if exact_lut else 'bf16'} LUT "
+                                    f"{metric.name} Q={nq} k={k} "
+                                    f"num_valid={num_valid} mask={masked}")
+                            max_err = max(max_err, _compare(
+                                got, ref, exact,
+                                _adc_band(lut64, m, ksub, metric, rnorms, scores),
+                                scores, what))
+                            identical += bool(torch.equal(got[0], ref[0])
+                                              and torch.equal(got[1], ref[1]))
+    torch.cuda.synchronize()
+    say(f"phase 6 ADC kernel vs plain: ok ({cases} cases, {identical} "
+        f"bit-identical, max |score diff| {max_err:.3g})")
+    return max_err, cases
+
+
+_BITS = {torch_name: bits for torch_name, bits in (
+    ("float32", "int32"), ("float16", "int16"), ("bfloat16", "int16"),
+    ("int8", "int8"), ("uint8", "uint8"), ("int32", "int32"))}
+
+
+def phase_gather_vs_plain(torch, dev) -> tuple[float, float]:
+    """gather_rows against db[clamp(idx)] bit for bit, over dtypes, an odd
+    row width and an aligned one, int32 and int64 indices with negative
+    and >= N entries. rescore_candidates against its plain version in
+    both tie modes, with -1 candidates and a corpus of duplicate rows:
+    identical on integer data (L2/IP); within the f32 dot band of phase 2
+    on float data and for cosine."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.gather_kernel import (
+        gather_rows, gather_rows_reference, rescore_candidates,
+        rescore_candidates_reference,
+    )
+
+    rng = np.random.default_rng(SEED + 7)
+    n = 3001
+    gathers, gather_err = 0, 0.0
+    for name, bits in _BITS.items():
+        dt = getattr(torch, name)
+        bdt = getattr(torch, bits)
+        for d in (128, 13):
+            src = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32) * 100)
+            db = src.to(dt).to(dev)
+            for idx_dt in (torch.int32, torch.int64):
+                idx = torch.cat([torch.from_numpy(rng.integers(0, n, 5000)),
+                                 torch.tensor([-1, -7, n, n + 5, 2**30])]).to(idx_dt).to(dev)
+                got = gather_rows(db, idx)
+                ref = gather_rows_reference(db, idx)
+                want = db[idx.long().clamp(0, n - 1)]
+                if not (torch.equal(got.view(bdt), ref.view(bdt))
+                        and torch.equal(got.view(bdt), want.view(bdt))):
+                    raise AssertionError(f"gather_rows differs from db[idx] ({name}, D={d})")
+                gather_err = max(gather_err, float(
+                    (got.double() - want.double()).abs().max()))
+                gathers += 1
+
+    metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+               DistanceMetric.COSINE)
+    d = 128
+    max_err, cases = 0.0, 0
+    for kind in ("integer", "normal"):
+        base = (rng.integers(0, 256, (n // 4, d)) if kind == "integer"
+                else rng.standard_normal((n // 4, d))).astype(np.float32)
+        x = base[rng.integers(0, n // 4, n)]  # duplicate rows: exact ties
+        q_host = (rng.integers(0, 256, (256, d)) if kind == "integer"
+                  else rng.standard_normal((256, d))).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        norms_host = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
+        norms = torch.from_numpy(norms_host).to(dev)
+        for metric in metrics:
+            for nq, r, k in ((1, 37, 37), (37, 400, 10), (256, 400, 10),
+                             (8, 4096, 100), (256, 4096, 1)):
+                q = q_host[:nq]
+                cand = rng.integers(0, n, (nq, r)).astype(np.int32)
+                cand[:, ::7] = -1
+                cand_d = torch.from_numpy(cand).to(dev)
+                qd = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
+                scores = _f64_scores(q, x, norms_host, metric)
+                if metric == DistanceMetric.COSINE:
+                    scores /= np.linalg.norm(q.astype(np.float64), axis=1,
+                                             keepdims=True)
+                    tol = np.full(nq, 4 * d * 2.0**-24 + 2.0**-22)
+                else:
+                    tol = (4 * d * 2.0**-24 * np.linalg.norm(q, axis=1)
+                           * np.sqrt(norms_host.max()))
+                member = np.zeros((nq, n), bool)
+                np.put_along_axis(member, np.maximum(cand, 0), cand >= 0, axis=1)
+                scores[~member] = -np.inf
+                for tie in ("position", "row"):
+                    args = (qd, xd, norms, cand_d, k, metric, tie)
+                    got = rescore_candidates(*args)
+                    ref = rescore_candidates_reference(*args)
+                    exact = kind == "integer" and metric != DistanceMetric.COSINE
+                    max_err = max(max_err, _compare(
+                        got, ref, exact, tol, scores,
+                        f"rescore {kind} {metric.name} Q={nq} R={r} k={k} tie={tie}"))
+                    cases += 1
+    torch.cuda.synchronize()
+    say(f"phase 7 gather and rescore kernels vs plain: ok ({gathers} gathers "
+        f"bit-identical, max |diff| {gather_err:.3g}; {cases} rescore cases, "
+        f"max |score diff| {max_err:.3g})")
+    return gather_err, max_err
+
+
+PQ_CONFIGS = (  # benchmarks/suite.py's sift1m-pq4 and sift1m-pq: (name, m, ksub, packed4)
+    ("sift1m-pq4", 32, 16, True), ("sift1m-pq", 16, 256, False),
+)
+RERANK, K_PQ = 400, 10
+
+
+def _clustered_u8_corpus(rng, n, d, ncenters=4096, spread=12.0):
+    """SIFT-like rows: u8 values around cluster centers (the algebra of
+    benchmarks/suite.py::_clustered_u8_corpus)."""
+    centers = rng.integers(0, 256, (ncenters, d)).astype(np.float32)
+    rows = centers[rng.integers(0, ncenters, n)]
+    rows += rng.normal(0.0, spread, (n, d)).astype(np.float32)
+    return np.clip(np.rint(rows), 0, 255).astype(np.float32)
+
+
+def _pq_queries(rng, x, nq):
+    """Noisy copies of corpus rows (the suite's queries), rounded so that
+    every exact L2 score is an f32 integer."""
+    base = x[rng.integers(0, x.shape[0], nq)]
+    return np.clip(np.rint(base + rng.normal(0, 8, base.shape)), 0,
+                   255).astype(np.float32)
+
+
+def _recall_on_card(torch, x64, norms64, q, rows, k):
+    """recall@k against a float64 oracle computed on the card. A returned
+    row is a hit when its exact distance is within the k-th best, so exact
+    ties at the boundary all count as right answers."""
+    hits = 0
+    for c0 in range(0, q.shape[0], 64):
+        qd = torch.from_numpy(q[c0 : c0 + 64]).to(x64.device, torch.float64)
+        d2 = norms64[None, :] - 2.0 * (qd @ x64.T)
+        kth = torch.topk(d2, k, dim=1, largest=False).values[:, -1:]
+        r = torch.from_numpy(rows[c0 : c0 + 64].astype(np.int64)).to(x64.device)
+        got = torch.gather(d2, 1, r.clamp(min=0))
+        hits += int(((got <= kth) & (r >= 0)).sum())
+    return hits / (q.shape[0] * k)
+
+
+def _same_candidates(torch, got, ref, lut, codes, rnorms, m, ksub, what):
+    """K2 against its plain version at full size (L2): identical, or
+    scores within the f32 band of phase 6 and differing rows only at
+    near-ties of the last slot. Returns whether they were identical."""
+    if torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]):
+        return True
+    lut64 = lut.double().cpu().numpy()
+    band = 4 * (m - 1) * 2.0**-24 * np.abs(lut64).reshape(
+        len(lut64), m, ksub).max(2).sum(1)
+    s_k, i_k = (t.cpu().numpy() for t in got)
+    s_r, i_r = (t.cpu().numpy() for t in ref)
+    tol = band[:, None] + 4 * 2.0**-24 * np.abs(s_r)
+    if (np.abs(s_k - s_r) > tol).any():
+        raise AssertionError(f"{what}: ADC scores differ beyond the band")
+    for r in range(len(i_k)):
+        odd = np.array(sorted(set(i_k[r]) ^ set(i_r[r])), np.int64)
+        if odd.size:
+            sub = codes[odd].astype(np.int64)
+            s64 = 2 * sum(lut64[r, j * ksub + sub[:, j]] for j in range(m)) \
+                - rnorms[odd].astype(np.float64)
+            if (np.abs(s64 - s_r[r, -1]) > tol[r, -1]).any():
+                raise AssertionError(f"{what}: query {r} differs outside the tie band")
+    return False
+
+
+def phase_pq_path(torch, dev, card):
+    """The PQ path end to end at full size (module docstring, phase 8)."""
+    from metrovector_tpu_torch import Builder, DistanceMetric, Reader
+    from metrovector_tpu_torch.index.pq import (
+        PQIndex, encode_pq, pack_codes4, train_pq, unpack_codes4,
+    )
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        adc_lut, fused_adc_topk, fused_adc_topk_reference,
+    )
+    from metrovector_tpu_torch.ops.gather_kernel import (
+        gather_rows, gather_rows_reference, rescore_candidates,
+        rescore_candidates_reference,
+    )
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+    from metrovector_tpu_torch.utils.timing import cuda_ms, sync_time
+
+    L2 = DistanceMetric.L2
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    x = _clustered_u8_corpus(rng, N_MAIN, D_MAIN)
+    x64 = torch.from_numpy(x).to(dev, torch.float64)
+    norms64 = (x64 * x64).sum(1)
+    say(f"  corpus {N_MAIN}x{D_MAIN} clustered u8-valued f32 (seed {SEED}) "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    queries = {bsz: _pq_queries(rng, x, bsz) for bsz in (256, 32)}
+    wrappers = (fused_adc_topk, rescore_candidates, gather_rows)
+    counts = {fn.__name__: 0 for fn in wrappers}
+    times, recalls = {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        for name, m, ksub, packed in PQ_CONFIGS:
+            t0 = time.perf_counter()
+            books = train_pq(x, m=m, ksub=ksub, seed=SEED, device=dev)
+            codes = encode_pq(x, books, device=dev)
+            t_train = time.perf_counter() - t0
+            stored = pack_codes4(codes) if packed else codes
+            path = os.path.join(tmp.name, f"{name}.mvt")
+            t0 = time.perf_counter()
+            b = Builder()
+            b.add_vector_space("sift", dim=D_MAIN, metric=L2)
+            b.add_vectors("sift", x)
+            b.set_pq_index("sift", books, stored, packed4=packed)
+            b.build().save(path)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            idx = PQIndex.from_space(Reader.open(path).vector_space("sift"),
+                                     device="cuda")
+            torch.cuda.synchronize()
+            t_open = time.perf_counter() - t0
+            if not (idx.packed4 == packed
+                    and np.array_equal(idx.codes.cpu().numpy(), stored)
+                    and np.array_equal(idx.codebooks, books)):
+                raise AssertionError(f"{name}: from_space did not reuse the sidecar")
+            say(f"  {name}: train_pq + encode_pq on the card {t_train:.1f} s; "
+                f"file written {t_save:.1f} s; Reader.open + PQIndex.from_space "
+                f"{t_open:.2f} s; {idx.code_bytes_per_vector} B/row codes")
+
+            # The main path: every count at 0, the searches, counts read.
+            # search() itself runs K2 and the fused rescore; gather_rows has
+            # no caller in the package, so its launches here are this
+            # script's own fetch of the answers' rows from the card.
+            for fn in wrappers + (fused_topk,):
+                fn.launches = 0
+            results = {}
+            for bsz, q in queries.items():
+                before = (fused_adc_topk.launches, rescore_candidates.launches)
+                res = idx.search(q, k=K_PQ, rerank=RERANK)
+                if (fused_adc_topk.launches, rescore_candidates.launches) != (
+                        before[0] + 1, before[1] + 1):
+                    raise AssertionError(f"{name}: search() did not launch "
+                                         "K2 and K3 once each")
+                rows = gather_rows(idx.db, torch.from_numpy(
+                    res.indices.reshape(-1)).to(dev))
+                if not np.array_equal(rows.cpu().numpy(),
+                                      x[res.indices.reshape(-1)]):
+                    raise AssertionError(f"{name}: gathered rows differ")
+                results[bsz] = res
+            for fn in wrappers:
+                counts[fn.__name__] += fn.launches
+            if fused_topk.launches:
+                raise AssertionError(f"{name}: the PQ path ran the exact kernel")
+
+            codes_u8 = unpack_codes4(stored, m) if packed else stored
+            for bsz, q in queries.items():
+                rec = _recall_on_card(torch, x64, norms64, q,
+                                      results[bsz].indices, K_PQ)
+                recalls[(name, bsz)] = rec
+                if rec < 0.99:
+                    raise AssertionError(f"{name}: recall@10 {rec} < 0.99 at batch {bsz}")
+                qd = torch.from_numpy(q).to(dev)
+                adc_args = (qd, idx.codes, idx._books, idx.recon_norms,
+                            idx.num_vectors, RERANK, L2, idx.valid, True, packed)
+                got = fused_adc_topk(*adc_args)
+                ref = fused_adc_topk_reference(*adc_args)
+                same = _same_candidates(
+                    torch, got, ref, adc_lut(qd, idx._books, True), codes_u8,
+                    idx.recon_norms.cpu().numpy(), m, ksub, f"{name} batch={bsz}")
+                s_r, i_r = rescore_candidates_reference(
+                    qd, idx.db, idx.db_norms, got[1], K_PQ, L2, "position")
+                if not (np.array_equal(results[bsz].indices, i_r.cpu().numpy())
+                        and np.array_equal(results[bsz].scores, s_r.cpu().numpy())):
+                    raise AssertionError(f"{name}: search() differs from the "
+                                         "plain re-rank of its candidates")
+                say(f"  {name} batch={bsz}: recall@10 = {rec:.4f} against the "
+                    f"float64 oracle on the card; K2 vs plain at full size "
+                    f"{'identical' if same else 'within the band'}; re-rank "
+                    f"identical to the plain version")
+
+            for bsz in queries:
+                iters = 20
+                qs = [torch.from_numpy(_pq_queries(rng, x, bsz)).to(dev)
+                      for _ in range(iters)]
+
+                def k2(q):
+                    return fused_adc_topk(q, idx.codes, idx._books, idx.recon_norms,
+                                          idx.num_vectors, RERANK, L2, None, True, packed)
+
+                def k2_plain(q):
+                    return fused_adc_topk_reference(
+                        q, idx.codes, idx._books, idx.recon_norms,
+                        idx.num_vectors, RERANK, L2, None, True, packed)
+
+                cands = [k2(q)[1] for q in qs]
+                pairs = list(zip(qs, cands))
+                flat = [c.reshape(-1) for c in cands]
+
+                def k3(p):
+                    return rescore_candidates(p[0], idx.db, idx.db_norms, p[1],
+                                              K_PQ, L2)
+
+                def k3_plain(p):
+                    return rescore_candidates_reference(p[0], idx.db, idx.db_norms,
+                                                        p[1], K_PQ, L2)
+
+                def gat(r):
+                    return gather_rows(idx.db, r)
+
+                def gat_plain(r):
+                    return gather_rows_reference(idx.db, r)
+
+                def k1(q):
+                    return fused_topk(q, idx.db, idx.db_norms, idx.num_vectors,
+                                      K_PQ, L2)
+
+                row = {}
+                for key, kern, plain, inputs in (
+                        ("k2", k2, k2_plain, qs), ("k3", k3, k3_plain, pairs),
+                        ("gather", gat, gat_plain, flat)):
+                    kern(inputs[0])
+                    plain(inputs[0])
+                    few = inputs[:5]
+                    p1 = cuda_ms(plain, few, dev)
+                    a1 = cuda_ms(kern, inputs, dev)
+                    a2 = cuda_ms(kern, inputs, dev)
+                    p2 = cuda_ms(plain, few, dev)
+                    row[key] = ((a1 + a2) / 2, (p1 + p2) / 2)
+                k1(qs[0])
+                row["k1"] = cuda_ms(k1, qs, dev)
+                host = [q.cpu().numpy() for q in qs]
+                row["e2e"] = float(np.median([
+                    sync_time(idx.search, q, k=K_PQ, rerank=RERANK, device=dev)[0]
+                    for q in host])) * 1e3
+                times[(name, bsz)] = row
+                say(f"  timing {name} batch={bsz}: K2 {row['k2'][0]:.4f} ms "
+                    f"(plain {row['k2'][1]:.4f}) | K3 rescore {row['k3'][0]:.4f} ms "
+                    f"(plain {row['k3'][1]:.4f}) | gather {bsz * RERANK} rows "
+                    f"{row['gather'][0]:.4f} ms (plain {row['gather'][1]:.4f}) | "
+                    f"search() p50 {row['e2e']:.4f} ms = "
+                    f"{bsz / row['e2e'] * 1e3:.0f} QPS | K1 exact search "
+                    f"{row['k1']:.4f} ms | {card}")
+            del idx
+            torch.cuda.empty_cache()
+    finally:
+        tmp.cleanup()
+
+    # A full re-rank is exact search: it must equal the exact oracle.
+    rng20 = np.random.default_rng(SEED + 8)
+    x20 = _clustered_u8_corpus(rng20, 20_000, D_MAIN)
+    books20 = train_pq(x20, m=32, ksub=16, seed=SEED, device=dev)
+    idx20 = PQIndex.build(x20, L2, codebooks=books20, pack4=True, device="cuda")
+    q20 = _pq_queries(rng20, x20, 32)
+    res = idx20.search(q20, k=K_PQ, rerank=idx20.num_vectors)
+    x20_64 = x20.astype(np.float64)
+    want = _oracle_topk(q20, x20_64, (x20_64 ** 2).sum(1), K_PQ)
+    if not np.array_equal(res.indices, want):
+        raise AssertionError("20k full re-rank differs from the exact oracle")
+    say(f"phase 8 PQ path: ok (recall@10 "
+        + ", ".join(f"{n} batch {b} {r:.4f}" for (n, b), r in recalls.items())
+        + f"; launches {counts}; 20k full re-rank identical to the oracle)")
+    return counts, times
+
+
 def main() -> int:
     import torch
 
@@ -386,12 +861,34 @@ def main() -> int:
         phase_serving(engine)
     finally:
         tmp.cleanup()
+    del engine
+    torch.cuda.empty_cache()
+    adc_err, _ = phase_adc_vs_plain(torch, dev)
+    gather_err, rescore_err = phase_gather_vs_plain(torch, dev)
+    pq_launches, pq_times = phase_pq_path(torch, dev, card)
     kms, pms = times[(256, 10)]
-    say(json.dumps({"kernels": [{
-        "name": "fused_topk", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": kms, "plain_ms": pms,
-    }]}))
+    main_cell = pq_times[(PQ_CONFIGS[0][0], 256)]
+    say(json.dumps({"kernels": [
+        {"name": "fused_topk", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": KERNEL_REPLACES, "launches": launches,
+         "max_abs_err": max_err, "ms": kms, "plain_ms": pms},
+        {"name": "fused_adc_topk", "route": "cuda",
+         "source": CSRC + "adc_kernel.cu",
+         "replaces": "metrovector_tpu/ops/adc_kernel.py:248",
+         "launches": pq_launches["fused_adc_topk"], "max_abs_err": adc_err,
+         "ms": main_cell["k2"][0], "plain_ms": main_cell["k2"][1]},
+        {"name": "gather_rows", "route": "cuda",
+         "source": CSRC + "gather_kernel.cu",
+         "replaces": "metrovector_tpu/ops/gather_kernel.py:137",
+         "launches": pq_launches["gather_rows"], "max_abs_err": gather_err,
+         "ms": main_cell["gather"][0], "plain_ms": main_cell["gather"][1]},
+        {"name": "rescore_candidates", "route": "cuda",
+         "source": CSRC + "gather_kernel.cu",
+         "replaces": "metrovector_tpu/ops/gather_kernel.py:137",
+         "launches": pq_launches["rescore_candidates"],
+         "max_abs_err": rescore_err,
+         "ms": main_cell["k3"][0], "plain_ms": main_cell["k3"][1]},
+    ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name,
         "count": torch.cuda.device_count(),

@@ -2,8 +2,9 @@
 
 The same MVT file format and host layers as :mod:`metrovector_tpu` (they
 import no JAX and are shared, not copied), with every line of device code
-owned here: the engine runs on a ``torch.device`` and its search goes
-through a hand-written CUDA kernel for Hopper (``ops/csrc``).
+owned here: the engine and the PQ index run on a ``torch.device`` and
+their searches go through hand-written CUDA kernels for Hopper
+(``ops/csrc``).
 
 Module names mirror the JAX package, so each module's counterpart sits at
 the same path. The compute-path names below import lazily, so
@@ -43,6 +44,12 @@ _LAZY = {
     "PreparedFilter": "metrovector_tpu_torch.engine",
     "PreparedQueries": "metrovector_tpu_torch.engine",
     "RadiusResult": "metrovector_tpu_torch.engine",
+    "PQIndex": "metrovector_tpu_torch.index.pq",
+    "train_pq": "metrovector_tpu_torch.index.pq",
+    "encode_pq": "metrovector_tpu_torch.index.pq",
+    "pack_codes4": "metrovector_tpu_torch.index.pq",
+    "unpack_codes4": "metrovector_tpu_torch.index.pq",
+    "reconstruct_pq": "metrovector_tpu_torch.index.pq",
     # the shared batcher: duck-typed on the engine's _launch / _finalize /
     # prepare_filter / space.dim
     "MicroBatcher": "metrovector_tpu.serving",
@@ -71,6 +78,7 @@ __all__ = [
     "IndexKind",
     "MicroBatcher",
     "MvtError",
+    "PQIndex",
     "PreparedFilter",
     "PreparedQueries",
     "RadiusResult",
@@ -86,6 +94,11 @@ __all__ = [
     "Writer",
     "builder_from_reader",
     "compact",
+    "encode_pq",
     "errors",
+    "pack_codes4",
+    "reconstruct_pq",
     "rewrite_hints",
+    "train_pq",
+    "unpack_codes4",
 ]

@@ -1,21 +1,38 @@
-"""Device compute: the fused distance + top-k kernel and its plain
-PyTorch version (counterpart of :mod:`metrovector_tpu.ops`)."""
+"""Device compute: the fused distance + top-k, ADC + top-k and gather +
+rescore kernels and their plain PyTorch versions (counterpart of
+:mod:`metrovector_tpu.ops`). Importing builds nothing: the kernels are
+compiled at their first launch."""
 
+from .adc_kernel import fused_adc_topk, fused_adc_topk_reference
 from .distances import (
     distances_np,
     exact_topk,
     mask_scores,
+    rescore_topk,
     scores_block,
     scores_to_distances,
+)
+from .gather_kernel import (
+    gather_rows,
+    gather_rows_reference,
+    rescore_candidates,
+    rescore_candidates_reference,
 )
 from .topk_kernel import fused_topk, fused_topk_reference
 
 __all__ = [
     "distances_np",
     "exact_topk",
+    "fused_adc_topk",
+    "fused_adc_topk_reference",
     "fused_topk",
     "fused_topk_reference",
+    "gather_rows",
+    "gather_rows_reference",
     "mask_scores",
+    "rescore_candidates",
+    "rescore_candidates_reference",
+    "rescore_topk",
     "scores_block",
     "scores_to_distances",
 ]

@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 The sources under ``csrc/`` have a plain C interface, so they compile in
-seconds without PyTorch's headers. The shared library goes to
+seconds without PyTorch's headers. Each ``.cu`` compiles in its own
+``nvcc`` process, all started together, and one link makes the shared
+library. It goes to
 ``build/metrovector_tpu_torch/<hash>/`` under the repository root, where
 ``<hash>`` covers the sources and the flags: an edit rebuilds, an unchanged
 tree reuses the library. The build runs at first use, never at import.
@@ -22,8 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "metrovector_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",  # registers, shared memory and spills, into build.log
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 LIB_NAME = "libmvt_kernels.so"
 
@@ -59,19 +60,32 @@ def build_dir() -> Path:
 
 def _compile(out_dir: Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+    nvcc = _nvcc()
+    objs, jobs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        objs.append(str(obj))
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{out[-4000:]}")
+    if not failed:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out_dir / LIB_NAME)  # atomic: a reader never sees half
 
 
@@ -95,7 +109,36 @@ def load() -> ctypes.CDLL:
             lib.mvt_fused_topk.restype = i32
             lib.mvt_fused_topk_occupancy.argtypes = [i32, i64, i32, p]
             lib.mvt_fused_topk_occupancy.restype = i32
+            lib.mvt_adc_topk.argtypes = [
+                p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
+                p, p,                     # norms, mask
+                i64, i64, i32, i32, i64,  # nq, n, m, ksub, num_valid
+                i32, i32, i32, i32, i64,  # k, metric, qt, splits, rows_per_split
+                p, p, p, p,               # part_s, part_i, out_s, out_i
+                p,                        # stream
+            ]
+            lib.mvt_adc_topk.restype = i32
+            lib.mvt_adc_topk_occupancy.argtypes = [i32, i32, i32, i32, i32,
+                                                   i32, p]
+            lib.mvt_adc_topk_occupancy.restype = i32
+            lib.mvt_gather_rows.argtypes = [p, i64, i64, p, i64, p, p]
+            lib.mvt_gather_rows.restype = i32
+            lib.mvt_rescore.argtypes = [
+                p, p, i32, p, p,          # q, db, db_dtype, norms, cand
+                i64, i64, i32, i32, i32,  # nq, n, d, r, k
+                i32, i32, p, p,           # metric, tie_rows, out_s, out_i
+                p,                        # stream
+            ]
+            lib.mvt_rescore.restype = i32
             lib.mvt_cuda_error_string.argtypes = [i32]
             lib.mvt_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def raise_for(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error (a launch that
+    was refused never runs, and no later synchronize reports it)."""
+    if err != 0:
+        msg = lib.mvt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")

@@ -130,11 +130,8 @@ def exact_topk(
     indices [Q, k] int32)`` best first; slots beyond the unmasked rows hold
     (−inf, −1).
 
-    Ties go to the lowest index: the carried candidates (earlier rows) come
-    before the block's rows, each part already in ascending index order
-    among equal scores, so one stable sort on −score orders by
-    (score descending, index ascending). ``torch.topk`` promises no tie
-    order and is not used."""
+    Ties go to the lowest index (:func:`carry_topk`). ``torch.topk``
+    promises no tie order and is not used."""
     metric = DistanceMetric(metric)
     q = queries.float()
     if metric == DistanceMetric.COSINE and query_inv_norms is None:
@@ -142,21 +139,43 @@ def exact_topk(
             torch.clamp((q * q).sum(-1), min=1e-30)
         )
     nq, n = q.shape[0], db.shape[0]
-    dev = q.device
-    best_s = torch.empty((nq, 0), dtype=torch.float32, device=dev)
-    best_i = torch.empty((nq, 0), dtype=torch.int64, device=dev)
+    best = empty_topk(nq, q.device)
     for start in range(0, n, block_rows):
         stop = min(n, start + block_rows)
         s = scores_block(q, db[start:stop], db_norms[start:stop], metric,
                          query_inv_norms)
         vm = None if valid_mask is None else valid_mask[start:stop]
-        s = mask_scores(s, start, num_valid, vm)
-        idx = torch.arange(start, stop, device=dev).expand(nq, -1)
-        cand_s = torch.cat([best_s, s], dim=1)
-        cand_i = torch.cat([best_i, idx], dim=1)
-        order = torch.sort(-cand_s, dim=1, stable=True).indices[:, :k]
-        best_s = torch.gather(cand_s, 1, order)
-        best_i = torch.gather(cand_i, 1, order)
+        best = carry_topk(best, mask_scores(s, start, num_valid, vm), start, k)
+    return finish_topk(best, k)
+
+
+def empty_topk(nq: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The carried candidates before the first block: none."""
+    return (torch.empty((nq, 0), dtype=torch.float32, device=device),
+            torch.empty((nq, 0), dtype=torch.int64, device=device))
+
+
+def carry_topk(best, s: torch.Tensor, start: int, k: int):
+    """Merge one block's scores ``s [Q, B]`` (rows ``start .. start+B-1``)
+    into the carried candidates ``best`` and keep the k best. The carried
+    candidates (earlier rows) come first and each part is in ascending row
+    order among equal scores, so one stable sort on −score orders by
+    (score descending, row ascending)."""
+    best_s, best_i = best
+    nq = s.shape[0]
+    idx = torch.arange(start, start + s.shape[1], device=s.device).expand(nq, -1)
+    cand_s = torch.cat([best_s, s], dim=1)
+    cand_i = torch.cat([best_i, idx], dim=1)
+    order = torch.sort(-cand_s, dim=1, stable=True).indices[:, :k]
+    return torch.gather(cand_s, 1, order), torch.gather(cand_i, 1, order)
+
+
+def finish_topk(best, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Carried candidates → ``(scores [Q, k] f32, indices [Q, k] int32)``,
+    padded with (−inf, −1) where fewer than k rows were scanned; −inf
+    slots carry −1."""
+    best_s, best_i = best
+    nq, dev = best_s.shape[0], best_s.device
     if best_s.shape[1] < k:  # fewer rows than k: pad with sentinels
         pad = k - best_s.shape[1]
         best_s = torch.cat(
@@ -168,3 +187,24 @@ def exact_topk(
         )
     best_i = torch.where(torch.isneginf(best_s), -1, best_i)
     return best_s, best_i.to(torch.int32)
+
+
+def rescore_topk(
+    queries: torch.Tensor,
+    db: torch.Tensor,
+    db_norms: torch.Tensor,
+    cand_idx: torch.Tensor,
+    k: int,
+    metric: DistanceMetric,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 re-scoring of a candidate set, the verified top-k: the
+    counterpart of ``metrovector_tpu.ops.distances.rescore_topk`` (the
+    ``high_verified`` repair leg). ``queries``: ``[Q, D]`` f32 (cosine
+    queries pre-normalized); ``cand_idx``: ``[Q, R]`` rows, ``-1`` for an
+    unfilled slot. Ties break to the lowest row index. Runs through the
+    gather + rescore kernel (:func:`.gather_kernel.rescore_candidates`) on
+    CUDA tensors and its plain version on CPU tensors."""
+    from .gather_kernel import rescore_candidates
+
+    return rescore_candidates(queries, db, db_norms, cand_idx, k, metric,
+                              tie="row")

@@ -65,19 +65,16 @@ def _shared_bytes(d: int, k: int) -> int:
     return 4 * floats + 4 * _QUERY_TILE * k
 
 
-def _raise_for(lib, err: int) -> None:
-    if err != 0:
-        msg = lib.mvt_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_topk kernel launch failed: {msg} ({err})")
-
-
 def _splits(lib, nq: int, n: int, d: int, k: int, dtype_code: int,
             device: torch.device) -> tuple[int, int]:
     """Row splits S and rows per split: as many scan blocks as fit on the
     card at once (one full wave), but at least one split."""
+    from ._build import raise_for
+
     per_sm = ctypes.c_int(0)
-    _raise_for(lib, lib.mvt_fused_topk_occupancy(dtype_code, d, k,
-                                                 ctypes.byref(per_sm)))
+    raise_for(lib, lib.mvt_fused_topk_occupancy(dtype_code, d, k,
+                                                ctypes.byref(per_sm)),
+              "fused_topk")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_tiles = -(-nq // _QUERY_TILE)
     tiles = -(-n // _ROW_TILE)
@@ -151,7 +148,7 @@ def fused_topk(
     if queries.device.type != "cuda":
         raise ValueError(f"fused_topk runs on CUDA or CPU, not {queries.device}")
     _check(queries, db, db_norms, k, valid_mask)
-    from ._build import load
+    from ._build import load, raise_for
 
     lib = load()
     nq, d = queries.shape
@@ -176,7 +173,7 @@ def fused_topk(
             out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_for(lib, err)
+    raise_for(lib, err, "fused_topk")
     fused_topk.launches += 1
     return out_s, out_i
 

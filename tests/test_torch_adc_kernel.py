@@ -1,0 +1,233 @@
+"""The port's ADC scan (``fused_adc_topk`` on CPU tensors, i.e. its plain
+version) against the JAX package: the Pallas ``fused_adc_topk`` run in
+interpret mode, as the JAX package's own kernel tests run it, and the XLA
+``_adc_search``.
+
+Tolerance. Integer-valued queries and codebooks make every LUT entry and
+every sum of m entries an exact f32 integer (and every entry exact in
+bf16), so there L2/IP results must be identical. On float data with an f32
+LUT each engine's sum of m entries errs by at most
+(m−1)·2⁻²⁴·Σ_j max_c|LUT[q,j,c]|, so two engines differ by at most twice
+that; L2 doubles the sum; cosine scales it by 1/‖x̂‖; and the epilogue adds
+a rounding of the score itself. Indices must agree outside near-ties.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from metrovector_tpu import DistanceMetric
+from metrovector_tpu.index.pq import _adc_search, pack_codes4
+from metrovector_tpu.ops.adc_kernel import fused_adc_topk as jax_fused_adc_topk
+from metrovector_tpu_torch.ops import adc_kernel
+from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk
+
+from _torch_parity import METRICS, assert_topk_match, exact_scores, unit_rows
+
+N, DSUB, NQ = 300, 4, 5
+
+
+def _pq_inputs(kind, m, ksub, seed=5):
+    """(codebooks [m, ksub, DSUB], codes [N, m] u8, recon [N, D], recon
+    norms [N], queries [NQ, D], mask [N])."""
+    rng = np.random.default_rng(seed)
+    if kind == "integer":
+        books = rng.integers(0, 8, (m, ksub, DSUB)).astype(np.float32)
+        q = rng.integers(0, 8, (NQ, m * DSUB)).astype(np.float32)
+    else:
+        books = rng.standard_normal((m, ksub, DSUB)).astype(np.float32)
+        q = rng.standard_normal((NQ, m * DSUB)).astype(np.float32)
+    codes = rng.integers(0, ksub, (N, m)).astype(np.uint8)
+    recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], axis=1)
+    rnorms = (recon.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    mask = (rng.random(N) > 0.3).astype(np.float32)
+    return books, codes, recon, rnorms, q, mask
+
+
+def _band(q, books, recon, metric):
+    """Per-query bound on |score_a − score_b| (module docstring)."""
+    m = books.shape[0]
+    lut = np.einsum("qmd,mkd->qmk", q.reshape(len(q), m, -1).astype(np.float64),
+                    books.astype(np.float64))
+    base = 2 * (m - 1) * 2.0**-24 * np.abs(lut).max(axis=2).sum(axis=1)
+    norms = (recon.astype(np.float64) ** 2).sum(1)
+    if DistanceMetric(metric) == DistanceMetric.L2:
+        base = 2 * base
+    elif DistanceMetric(metric) == DistanceMetric.COSINE:
+        base = base / np.sqrt(max(norms.min(), 1e-30))
+    top = np.abs(exact_scores(q, recon, metric)).max(axis=1)
+    return base + 4 * 2.0**-24 * top
+
+
+def _port(q, codes, books, rnorms, num_valid, k, metric, mask=None,
+          exact_lut=True, packed4=False):
+    before = fused_adc_topk.launches
+    s, i = fused_adc_topk(
+        torch.from_numpy(q), torch.from_numpy(codes), torch.from_numpy(books),
+        torch.from_numpy(rnorms), num_valid, k, metric,
+        None if mask is None else torch.from_numpy(mask),
+        exact_lut=exact_lut, packed4=packed4,
+    )
+    assert fused_adc_topk.launches == before  # the plain path is no launch
+    return s.numpy(), i.numpy()
+
+
+CASES = [  # (kind, m, ksub, packed4, exact_lut, masked)
+    ("integer", 4, 16, False, True, False),
+    ("integer", 4, 16, True, False, True),
+    ("integer", 5, 16, True, True, True),
+    ("normal", 4, 32, False, True, True),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("metric", METRICS)
+def test_cpu_path_matches_pallas_interpret(metric, case):
+    kind, m, ksub, packed4, exact_lut, masked = case
+    books, codes, recon, rnorms, q, mask = _pq_inputs(kind, m, ksub)
+    if metric == DistanceMetric.COSINE:
+        q = unit_rows(q)
+    num_valid, vm, k = (N - 23, mask, 12) if masked else (N, None, 10)
+    stored = pack_codes4(codes) if packed4 else codes
+    got = _port(q, stored, books, rnorms, num_valid, k, metric, vm,
+                exact_lut, packed4)
+    want = jax_fused_adc_topk(q, stored, books, rnorms, np.int32(num_valid), k,
+                              metric, valid_mask=vm, exact_lut=exact_lut,
+                              block_rows=128, interpret=True, packed4=packed4)
+    live = np.arange(N) < num_valid
+    if vm is not None:
+        live &= vm != 0
+    assert_topk_match(
+        got, tuple(np.asarray(a) for a in want),
+        exact=kind == "integer" and metric != DistanceMetric.COSINE,
+        tol=_band(q, books, recon, metric),
+        scores64=exact_scores(q, recon, metric, live),
+    )
+
+
+@pytest.mark.parametrize("kind", ["integer", "normal"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_cpu_path_matches_xla_adc_search(metric, kind):
+    """Against ``_adc_search`` (raw queries, cosine through its query
+    norm), with a mask, ``num_valid`` < N and k above the live rows. f32
+    LUT only: the XLA CPU backend has no bf16 dot, so the bf16 LUT is held
+    against the Pallas kernel above, on integer data. (On float data no f32
+    band would hold for bf16 anyway: two f32 LUTs one ulp apart can round
+    to bf16 values one bf16 ulp apart.)"""
+    exact_lut = True
+    books, codes, recon, rnorms, q, mask = _pq_inputs(kind, 5, 16, seed=6)
+    qk = unit_rows(q) if metric == DistanceMetric.COSINE else q
+    for num_valid, k in ((N, 10), (150, 120)):  # 150 rows, ~105 live < 120
+        got = _port(qk, codes, books, rnorms, num_valid, k, metric, mask,
+                    exact_lut)
+        want = _adc_search(q, codes.astype(np.int32),
+                           books.reshape(-1, DSUB), rnorms,
+                           np.int32(num_valid), k, metric, valid_mask=mask,
+                           block_rows=64, exact_lut=exact_lut)
+        live = (np.arange(N) < num_valid) & (mask != 0)
+        assert (got[1][:, live.sum():] == -1).all()
+        assert_topk_match(
+            got, tuple(np.asarray(a) for a in want),
+            exact=kind == "integer" and metric != DistanceMetric.COSINE,
+            tol=_band(q, books, recon, metric),
+            scores64=exact_scores(q, recon, metric, live),
+        )
+
+
+def test_packed_and_unpacked_codes_agree():
+    books, codes, _, rnorms, q, mask = _pq_inputs("normal", 5, 16)
+    a = _port(q, codes, books, rnorms, N, 40, DistanceMetric.L2, mask)
+    b = _port(q, pack_codes4(codes), books, rnorms, N, 40, DistanceMetric.L2,
+              mask, packed4=True)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_reference_ties_go_to_lowest_row():
+    """Rows with equal codes tie exactly; the lower row must come first,
+    across the reference's row blocks too."""
+    books, codes, _, rnorms, q, _ = _pq_inputs("integer", 2, 4)
+    s, i = adc_kernel.fused_adc_topk_reference(
+        torch.from_numpy(q), torch.from_numpy(codes), torch.from_numpy(books),
+        torch.from_numpy(rnorms), N, 60, DistanceMetric.INNER_PRODUCT,
+        exact_lut=True, block_rows=32)
+    s, i = s.numpy(), i.numpy()
+    same = s[:, 1:] == s[:, :-1]
+    assert same.any() and (i[:, 1:][same] > i[:, :-1][same]).all()
+
+
+def _bad(name):
+    books = torch.zeros((4, 16, 2))
+    codes = torch.zeros((10, 4), dtype=torch.uint8)
+    q = torch.zeros((2, 8))
+    packed4 = False
+    if name == "dim_mismatch":
+        q = torch.zeros((2, 6))
+    elif name == "ksub_above_256":
+        books = torch.zeros((4, 300, 2))
+    elif name == "packed_ksub_above_16":
+        books, packed4 = torch.zeros((4, 32, 2)), True
+        codes = torch.zeros((10, 2), dtype=torch.uint8)
+    elif name == "packed_columns":
+        packed4 = True
+    elif name == "code_columns":
+        codes = torch.zeros((10, 3), dtype=torch.uint8)
+    return q, codes, books, packed4
+
+
+@pytest.mark.parametrize("name", ["dim_mismatch", "ksub_above_256",
+                                  "packed_ksub_above_16", "packed_columns",
+                                  "code_columns"])
+def test_shape_checks_raise(name):
+    q, codes, books, packed4 = _bad(name)
+    with pytest.raises(ValueError):
+        fused_adc_topk(q, codes, books, torch.zeros(10), 10, 3,
+                       DistanceMetric.L2, packed4=packed4)
+
+
+@pytest.mark.parametrize("name", ["k_zero", "k_above_limit", "codes_dtype",
+                                  "norms_shape", "lut_too_big"])
+def test_kernel_input_checks_raise(name):
+    q, codes, books = torch.zeros((2, 8)), torch.zeros((10, 4), dtype=torch.uint8), \
+        torch.zeros((4, 16, 2))
+    norms, k = torch.zeros(10), 10
+    if name == "k_zero":
+        k = 0
+    elif name == "k_above_limit":
+        k = adc_kernel.MAX_K + 1
+    elif name == "codes_dtype":
+        codes = codes.to(torch.int32)
+    elif name == "norms_shape":
+        norms = torch.zeros(11)
+    elif name == "lut_too_big":  # one query's f32 LUT above shared memory
+        q, books = torch.zeros((2, 256)), torch.zeros((256, 256, 1))
+        codes = torch.zeros((10, 256), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        adc_kernel._check_cuda(q, codes, books, norms, k, None, True)
+
+
+def test_query_tile_fits_shared_memory():
+    """Only tiles whose block fits in shared memory are offered; the tile
+    grows with the batch up to the largest with 3 resident blocks per SM.
+    The occupancies are an H100's for 4-bit m=32 and 8-bit m=16 codes with
+    an f32 LUT at k=400."""
+    assert adc_kernel._fitting_tiles(512, 400, True) == [1, 2, 4, 8, 16, 32]
+    assert adc_kernel._fitting_tiles(4096, 400, True) == [1, 2, 4, 8]
+    assert adc_kernel._fitting_tiles(4096, 1024, True) == [1, 2, 4, 8]
+    for qt, mk, k in ((32, 512, 400), (8, 4096, 1024)):
+        assert adc_kernel._shared_bytes(qt, mk, k, True) <= adc_kernel.SMEM_LIMIT
+    pq4 = {1: 5, 2: 5, 4: 6, 8: 4, 16: 2, 32: 1}
+    pq8 = {1: 5, 2: 5, 4: 2, 8: 1}
+    assert adc_kernel._query_tile(1, pq4) == 1
+    assert adc_kernel._query_tile(5, pq4) == 8
+    assert adc_kernel._query_tile(256, pq4) == 8
+    assert adc_kernel._query_tile(256, pq8) == 2
+    assert adc_kernel._query_tile(256, {1: 2, 2: 1}) == 1  # none has 3
+
+
+def test_other_device_raises():
+    q = torch.zeros((2, 8), device="meta")
+    with pytest.raises(ValueError):
+        fused_adc_topk(q, torch.zeros((10, 4), dtype=torch.uint8, device="meta"),
+                       torch.zeros((4, 16, 2), device="meta"),
+                       torch.zeros(10, device="meta"), 10, 3, DistanceMetric.L2)

@@ -1,4 +1,5 @@
-"""``import metrovector_tpu_torch`` and a search on its CPU path pull in no
+"""``import metrovector_tpu_torch`` (its PQ index and kernel modules
+included) and a dense and a PQ search on its CPU path pull in no
 JAX, no Triton and none of the JAX package's device modules. Checked in a
 fresh interpreter, because this test session imported JAX at start.
 
@@ -35,17 +36,23 @@ shared = set(sys.modules)
 import numpy as np
 import metrovector_tpu_torch as mvt
 from metrovector_tpu_torch.utils import timing, transfer
+from metrovector_tpu_torch.index import pq
+from metrovector_tpu_torch.ops import adc_kernel, gather_kernel
 b = mvt.Builder()
 b.add_vector_space("v", dim=8)
 b.add_vectors("v", np.arange(64, dtype=np.float32).reshape(8, 8))
 path = os.path.join(tempfile.mkdtemp(), "i.mvt")
 b.build().save(path)
 res = mvt.SearchEngine.open(path, device="cpu").search(np.ones((1, 8), np.float32), k=3)
+idx = mvt.PQIndex.from_space(mvt.Reader.open(path).vector_space("v"), m=2,
+                             ksub=4, iters=2, device="cpu")
+pq_top = idx.search(np.ones((1, 8), np.float32), k=3, rerank=4).indices
 print(json.dumps({{
     "loaded": sorted(m for m in sys.modules if sys.modules[m] is not None),
     "added": sorted(m for m in set(sys.modules) - shared
                     if sys.modules[m] is not None),
     "top": res.indices.tolist(),
+    "pq_top": pq_top.tolist(),
 }}))
 """
 
@@ -69,6 +76,7 @@ def _top_level(names):
 def test_port_imports_no_jax(block_ml_dtypes):
     got = _run(block_ml_dtypes)
     assert got["top"] == [[0, 1, 2]]
+    assert got["pq_top"] == [[0, 1, 2]]
     loaded = set(got["loaded"])
     assert not _top_level(got["added"]) & set(FORBIDDEN)
     assert not loaded & {"jax", "jaxlib", "triton"}
@@ -82,6 +90,9 @@ def test_port_sources_import_no_jax():
     pattern = re.compile(
         r"^\s*(import|from)\s+(%s)\b" % "|".join(FORBIDDEN), re.M
     )
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"index/pq.py", "index/ivf.py", "ops/adc_kernel.py",
+            "ops/gather_kernel.py"} <= scanned
     offenders = [
         str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
         if pattern.search(p.read_text())
