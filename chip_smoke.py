@@ -28,9 +28,29 @@ Phases, one line each; any failure exits non-zero:
    at batches 256 and 32 for 4-bit m=32 and 8-bit m=16 codes, recall
    against a float64 oracle on the card, the kernels' launch counts, the
    result held against the plain re-rank, CUDA-event times of each kernel
-   and its plain version; then a 20k-row corpus with a full re-rank.
+   and its plain version; then a 20k-row corpus with a full re-rank;
+9. any k and any D: ``fused_topk`` at k in {257, 1000, 1025, 5000, N} over
+   20k rows and at D in {1536, 3072}, ``fused_adc_topk`` at k in {1025,
+   4096, N}, ``rescore_candidates`` at R in {4097, 8192} in both tie modes,
+   each against its plain version; then at full size ``sift1m-pq4``
+   ``search(k=10, rerank=2000)`` (K2 then K3, recall against the float64
+   oracle) and ``SearchEngine.search(k=1000)`` on the 1M x 128 corpus,
+   identical to the plain version;
+10. sparse kernels vs plain: ``ell_dots`` and ``ell_topk`` against
+   ``ell_dots_reference`` and ``ell_topk_reference`` over metrics, batch
+   sizes, k up to 2000, overflow rows, empty rows, tombstones, a filter and
+   k above the rows left;
+11. the sparse path at full size (``sparse1m``): a 1M x 30,522 corpus of 48
+   entries a row (the algebra of benchmarks/suite.py::bench_sparse1m,
+   seed 12), ``Builder.add_sparse_vectors`` -> ``Reader.open`` ->
+   ``SparseSearchEngine(device="cuda")`` (ELL) -> ``search(k=10)`` at
+   batches 256 and 32, recall@10 against a float64 oracle on the card, one
+   ``ell_topk`` launch per search, CUDA-event times of ``ell_topk``, its
+   plain version, ``ell_dots`` against ``torch.sparse.mm``, ``search`` end
+   to end, and the COO formulation once.
 
-The second-to-last line is a JSON object describing each kernel; the last
+The second-to-last line is a JSON object describing each kernel (with its
+bound from the H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s); the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -42,6 +62,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -51,6 +72,16 @@ SEED = 7
 CSRC = "metrovector_tpu_torch/ops/csrc/"
 KERNEL_SOURCE = CSRC + "topk_kernel.cu"
 KERNEL_REPLACES = "metrovector_tpu/ops/topk_kernel.py:741"
+# H100 SXM data sheet at 700 W: the floor of a
+# kernel's time is the larger of its FLOPs over the f32 rate and its bytes
+# (each input read once, each output written once) over the HBM rate.
+F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a kernel's work."""
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def say(*parts) -> None:
@@ -684,6 +715,7 @@ def phase_pq_path(torch, dev, card):
     wrappers = (fused_adc_topk, rescore_candidates, gather_rows)
     counts = {fn.__name__: 0 for fn in wrappers}
     times, recalls = {}, {}
+    kept = None  # the pq4 index and its oracle data, for phase 9
     tmp = tempfile.TemporaryDirectory()
     try:
         for name, m, ksub, packed in PQ_CONFIGS:
@@ -796,6 +828,9 @@ def phase_pq_path(torch, dev, card):
                 def gat_plain(r):
                     return gather_rows_reference(idx.db, r)
 
+                def gat_library(r):
+                    return torch.index_select(idx.db, 0, r)
+
                 def k1(q):
                     return fused_topk(q, idx.db, idx.db_norms, idx.num_vectors,
                                       K_PQ, L2)
@@ -812,6 +847,9 @@ def phase_pq_path(torch, dev, card):
                     a2 = cuda_ms(kern, inputs, dev)
                     p2 = cuda_ms(plain, few, dev)
                     row[key] = ((a1 + a2) / 2, (p1 + p2) / 2)
+                long_flat = [f.long() for f in flat]
+                gat_library(long_flat[0])
+                row["gather_library"] = cuda_ms(gat_library, long_flat, dev)
                 k1(qs[0])
                 row["k1"] = cuda_ms(k1, qs, dev)
                 host = [q.cpu().numpy() for q in qs]
@@ -822,30 +860,488 @@ def phase_pq_path(torch, dev, card):
                 say(f"  timing {name} batch={bsz}: K2 {row['k2'][0]:.4f} ms "
                     f"(plain {row['k2'][1]:.4f}) | K3 rescore {row['k3'][0]:.4f} ms "
                     f"(plain {row['k3'][1]:.4f}) | gather {bsz * RERANK} rows "
-                    f"{row['gather'][0]:.4f} ms (plain {row['gather'][1]:.4f}) | "
+                    f"{row['gather'][0]:.4f} ms (plain {row['gather'][1]:.4f}, "
+                    f"index_select {row['gather_library']:.4f}) | "
                     f"search() p50 {row['e2e']:.4f} ms = "
                     f"{bsz / row['e2e'] * 1e3:.0f} QPS | K1 exact search "
                     f"{row['k1']:.4f} ms | {card}")
-            del idx
+            if packed:
+                kept = (idx, x64, norms64, queries)
+            else:
+                del idx
             torch.cuda.empty_cache()
     finally:
         tmp.cleanup()
 
-    # A full re-rank is exact search: it must equal the exact oracle.
+    # A full re-rank takes the reference's route (the ADC fetch of every
+    # row, then the re-rank with ties by candidate position): the same as
+    # the plain versions of K2 and K3, and exact search up to exact ties.
     rng20 = np.random.default_rng(SEED + 8)
     x20 = _clustered_u8_corpus(rng20, 20_000, D_MAIN)
     books20 = train_pq(x20, m=32, ksub=16, seed=SEED, device=dev)
     idx20 = PQIndex.build(x20, L2, codebooks=books20, pack4=True, device="cuda")
     q20 = _pq_queries(rng20, x20, 32)
+    for fn in (fused_adc_topk, rescore_candidates, fused_topk):
+        fn.launches = 0
     res = idx20.search(q20, k=K_PQ, rerank=idx20.num_vectors)
-    x20_64 = x20.astype(np.float64)
-    want = _oracle_topk(q20, x20_64, (x20_64 ** 2).sum(1), K_PQ)
-    if not np.array_equal(res.indices, want):
-        raise AssertionError("20k full re-rank differs from the exact oracle")
+    if (fused_adc_topk.launches, rescore_candidates.launches,
+            fused_topk.launches) != (1, 1, 0):
+        raise AssertionError("the 20k full re-rank did not run K2 then K3")
+    qd = torch.from_numpy(q20).to(dev)
+    _, cand = fused_adc_topk_reference(qd, idx20.codes, idx20._books,
+                                       idx20.recon_norms, idx20.num_vectors,
+                                       idx20.num_vectors, L2, None, True, True)
+    s_r, i_r = rescore_candidates_reference(qd, idx20.db, idx20.db_norms, cand,
+                                            K_PQ, L2, "position")
+    if not (np.array_equal(res.indices, i_r.cpu().numpy())
+            and np.array_equal(res.scores, s_r.cpu().numpy())):
+        raise AssertionError("20k full re-rank differs from the plain route")
+    x20_64 = torch.from_numpy(x20).to(dev, torch.float64)
+    rec20 = _recall_on_card(torch, x20_64, (x20_64 * x20_64).sum(1), q20,
+                            res.indices, K_PQ)
+    if rec20 != 1.0:
+        raise AssertionError(f"20k full re-rank recall@10 {rec20} != 1")
     say(f"phase 8 PQ path: ok (recall@10 "
         + ", ".join(f"{n} batch {b} {r:.4f}" for (n, b), r in recalls.items())
-        + f"; launches {counts}; 20k full re-rank identical to the oracle)")
-    return counts, times
+        + f"; launches {counts}; 20k full re-rank through K2 + K3 identical "
+        "to the plain route, recall@10 1.0000)")
+    return counts, times, kept
+
+
+def _identical(torch, got, ref, what) -> None:
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError(f"{what}: kernel differs from plain on integer data")
+
+
+def phase_any_k(torch, dev, card, engine, pq4):
+    """Phase 9 (module docstring). Integer data keeps every sum exact in
+    f32 (values in [0, 15] at D = 1536 and 3072), so each kernel must be
+    identical to its plain version."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        fused_adc_topk, fused_adc_topk_reference,
+    )
+    from metrovector_tpu_torch.ops.gather_kernel import (
+        rescore_candidates, rescore_candidates_reference,
+    )
+    from metrovector_tpu_torch.ops.topk_kernel import (
+        fused_topk, fused_topk_reference,
+    )
+    from metrovector_tpu_torch.utils.timing import cuda_ms, sync_time
+
+    L2, IP = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT
+    rng = np.random.default_rng(SEED + 9)
+    n, nq, cases = 20_000, 37, 0
+    for d, hi, ks in ((128, 256, (257, 1000, 1025, 5000, n)),
+                      (1536, 16, (10, 300)), (3072, 16, (10, 300))):
+        x = torch.from_numpy(rng.integers(0, hi, (n, d)).astype(np.float32)).to(dev)
+        norms = (x.double() ** 2).sum(1).float()
+        q = torch.from_numpy(rng.integers(0, hi, (nq, d)).astype(np.float32)).to(dev)
+        mask = torch.from_numpy((rng.random(n) > 0.1).astype(np.float32)).to(dev)
+        for k in ks:
+            for metric in (L2, IP):
+                args = (q, x, norms, n - 11, k, metric, mask if k % 2 else None)
+                _identical(torch, fused_topk(*args), fused_topk_reference(*args),
+                           f"fused_topk D={d} k={k} {metric.name}")
+                cases += 1
+    for packed, m, ksub in ((False, 16, 256), (True, 32, 16)):
+        books = rng.integers(0, 8, (m, ksub, 4)).astype(np.float32)
+        codes = rng.integers(0, ksub, (n, m)).astype(np.uint8)
+        recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], 1)
+        rn = torch.from_numpy((recon.astype(np.float64) ** 2).sum(1).astype(np.float32)).to(dev)
+        codes_d = torch.from_numpy(pack_codes4(codes) if packed else codes).to(dev)
+        books_d = torch.from_numpy(books).to(dev)
+        q = torch.from_numpy(rng.integers(0, 8, (nq, m * 4)).astype(np.float32)).to(dev)
+        for k in (1025, 4096, n):
+            args = (q, codes_d, books_d, rn, n, k, L2, None, True, packed)
+            _identical(torch, fused_adc_topk(*args), fused_adc_topk_reference(*args),
+                       f"fused_adc_topk packed4={packed} k={k}")
+            cases += 1
+    base = rng.integers(0, 256, (n // 8, D_MAIN)).astype(np.float32)
+    x = torch.from_numpy(base[rng.integers(0, n // 8, n)]).to(dev)  # twins
+    norms = (x.double() ** 2).sum(1).float()
+    q = torch.from_numpy(rng.integers(0, 256, (nq, D_MAIN)).astype(np.float32)).to(dev)
+    for r, k in ((4097, 100), (8192, 10), (8192, 8192)):
+        cand = rng.integers(0, n, (nq, r)).astype(np.int32)
+        cand[:, ::9] = -1
+        cand = torch.from_numpy(cand).to(dev)
+        for tie in ("position", "row"):
+            args = (q, x, norms, cand, k, L2, tie)
+            _identical(torch, rescore_candidates(*args),
+                       rescore_candidates_reference(*args),
+                       f"rescore_candidates R={r} k={k} tie={tie}")
+            cases += 1
+    torch.cuda.synchronize()
+
+    # At full size: a re-rank of 2000 candidates (K2 keeps its lists in
+    # device memory above k = 1024).
+    idx, x64, norms64, queries = pq4
+    q32 = queries[32]
+    for fn in (fused_adc_topk, rescore_candidates, fused_topk):
+        fn.launches = 0
+    res = idx.search(q32, k=K_PQ, rerank=2000)
+    if (fused_adc_topk.launches, rescore_candidates.launches,
+            fused_topk.launches) != (1, 1, 0):
+        raise AssertionError("search(rerank=2000) did not run K2 then K3")
+    rec = _recall_on_card(torch, x64, norms64, q32, res.indices, K_PQ)
+    if rec < 0.99:
+        raise AssertionError(f"sift1m-pq4 rerank=2000 recall@10 {rec} < 0.99")
+    pq_ms = float(np.median([sync_time(idx.search, q32, k=K_PQ, rerank=2000,
+                                       device=dev)[0] for _ in range(10)])) * 1e3
+
+    # SearchEngine.search(k=1000) on the 1M x 128 corpus of phase 3.
+    sp = engine.space
+    qh = rng.integers(0, 256, (32, D_MAIN)).astype(np.float32)
+    fused_topk.launches = 0
+    res = engine.search(qh, k=1000)
+    if fused_topk.launches != 1:
+        raise AssertionError("search(k=1000) did not launch fused_topk once")
+    qd = torch.from_numpy(qh).to(dev)
+    s_r, i_r = fused_topk_reference(qd, sp.data, sp.norms, sp.num_valid, 1000,
+                                    L2, sp.valid_mask)
+    if not (np.array_equal(res.indices, i_r.cpu().numpy())
+            and np.array_equal(res.scores, s_r.cpu().numpy())):
+        raise AssertionError("search(k=1000) differs from the plain version")
+    inputs = [torch.from_numpy(rng.integers(0, 256, (32, D_MAIN)).astype(
+        np.float32)).to(dev) for _ in range(10)]
+
+    def k1000(q):
+        return fused_topk(q, sp.data, sp.norms, sp.num_valid, 1000, L2,
+                          sp.valid_mask)
+
+    def k1000_plain(q):
+        return fused_topk_reference(q, sp.data, sp.norms, sp.num_valid, 1000,
+                                    L2, sp.valid_mask)
+
+    k1000(inputs[0])
+    k1000_plain(inputs[0])
+    kms = cuda_ms(k1000, inputs, dev)
+    pms = cuda_ms(k1000_plain, inputs[:3], dev)
+    say(f"  sift1m-pq4 batch=32 search(k=10, rerank=2000): recall@10 = {rec:.4f}, "
+        f"K2 then K3 once each, p50 {pq_ms:.4f} ms | {card}")
+    say(f"  SearchEngine.search(k=1000) batch=32 on 1M x 128: identical to the "
+        f"plain version; fused_topk {kms:.4f} ms (plain {pms:.4f}) | {card}")
+    say(f"phase 9 any k and D: ok ({cases} cases identical to the plain versions)")
+    return {"pq_rerank2000_ms": pq_ms, "k1000_ms": kms, "k1000_plain_ms": pms,
+            "recall": rec}
+
+
+def _sparse_corpus(rng, kind, n, dim):
+    """A CSR corpus of up to 40 entries a row (columns may repeat), every
+    tenth of the first 100 rows empty, 20 rows of 100-300 entries (past the
+    ELL width: they spill into the overflow)."""
+    counts = rng.integers(1, 41, n)
+    counts[:100:10] = 0
+    counts[rng.choice(np.arange(100, n), 20, replace=False)] = rng.integers(100, 301, 20)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    cols = rng.integers(0, dim, int(indptr[-1])).astype(np.int32)
+    vals = (rng.integers(-4, 5, cols.size) if kind == "integer"
+            else rng.standard_normal(cols.size)).astype(np.float32)
+    return indptr, cols, vals
+
+
+def phase_sparse_vs_plain(torch, dev) -> tuple[float, float]:
+    """Phase 10 (module docstring). Both versions add a row's products in
+    slot order, then its overflow entries, each product and sum rounded to
+    f32 on its own, so on integer data they must be identical. On float data
+    the band is two f32 sums of the row's R terms, 2 R 2^-24 sum_r |q v|
+    (doubled for L2, scaled by 1/|x| for cosine)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.sparse_kernel import (
+        ell_dots, ell_dots_reference, ell_topk, ell_topk_reference,
+    )
+    from metrovector_tpu_torch.sparse import ell_layout
+
+    rng = np.random.default_rng(SEED + 10)
+    n, dim = 20_000, 4096
+    metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+               DistanceMetric.COSINE)
+    max_err, dots_err, cases, identical = 0.0, 0.0, 0, 0
+    for kind in ("integer", "normal"):
+        indptr, cols, vals = _sparse_corpus(rng, kind, n, dim)
+        lay = ell_layout(indptr, cols, vals, n)
+        n_pad = lay["cols_ell"].shape[0]
+        t = {key: torch.from_numpy(v).to(dev) for key, v in lay.items()}
+        if int(lay["ovf_ptr"][-1]) == 0:
+            raise AssertionError("no row spilled into the overflow")
+        rows = np.repeat(np.arange(n), np.diff(indptr))
+        x64 = torch.zeros((n, dim), dtype=torch.float64, device=dev)
+        x64.index_put_((torch.from_numpy(rows).to(dev), torch.from_numpy(cols).long().to(dev)),
+                       torch.from_numpy(vals).double().to(dev), accumulate=True)
+        norms = torch.zeros(n_pad, device=dev)
+        norms[:n] = (x64 ** 2).sum(1).float()
+        cnt = torch.from_numpy(np.diff(indptr)).to(dev).double()
+        absx = torch.zeros_like(x64)
+        absx.index_put_((torch.from_numpy(rows).to(dev), torch.from_numpy(cols).long().to(dev)),
+                        torch.from_numpy(np.abs(vals)).double().to(dev), accumulate=True)
+        tomb = torch.from_numpy((rng.random(n_pad) > 0.1).astype(np.float32)).to(dev)
+        filt = torch.from_numpy((rng.random(n_pad) > 0.5).astype(np.float32)).to(dev)
+        few = torch.zeros(n_pad, device=dev)
+        few[torch.from_numpy(rng.choice(n, 1500, replace=False)).to(dev)] = 1.0
+        q_all = (rng.integers(-3, 4, (256, dim)) if kind == "integer"
+                 else rng.standard_normal((256, dim))).astype(np.float32)
+        for nq in (1, 37, 256):
+            qt = torch.from_numpy(np.ascontiguousarray(q_all[:nq].T)).to(dev)
+            got, ref = ell_dots(qt, t["cols_ell"], t["vals_ell"]), \
+                ell_dots_reference(qt, t["cols_ell"], t["vals_ell"])
+            if kind == "integer" and not torch.equal(got, ref):
+                raise AssertionError(f"ell_dots Q={nq} differs from plain on integer data")
+            err = float((got - ref).abs().max())
+            if kind == "normal" and err > 1e-3:
+                raise AssertionError(f"ell_dots Q={nq}: |diff| {err}")
+            identical += bool(torch.equal(got, ref))
+            dots_err = max(dots_err, err)
+            cases += 1
+            for metric in metrics:
+                q = q_all[:nq]
+                if metric == DistanceMetric.COSINE:
+                    q = (q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True),
+                                        1e-30)).astype(np.float32)
+                qt = torch.from_numpy(np.ascontiguousarray(q.T)).to(dev)
+                q64 = qt.double().T
+                dots64 = q64 @ x64.T
+                band = (2 * cnt[None] * 2.0**-24 * (q64.abs() @ absx.T))
+                if metric == DistanceMetric.L2:
+                    s64 = 2 * dots64 - norms[:n].double()[None]
+                    band = 2 * band
+                elif metric == DistanceMetric.COSINE:
+                    inv = 1 / norms[:n].double().clamp(min=1e-30).sqrt()
+                    s64, band = dots64 * inv[None], band * inv[None] + 2.0**-21
+                else:
+                    s64 = dots64
+                tol = (band.max(1).values + 4 * 2.0**-24 * s64.abs().max(1).values).cpu().numpy()
+                runs = []
+                for k in (1, 10, 100, 2000):
+                    variant = (cases + len(runs)) % 4
+                    vm = (None, tomb, tomb * filt, tomb)[variant]
+                    runs.append((k, n - 77 if variant == 3 else n, vm))
+                runs.append((2000, n, few))  # k above the 1500 live rows
+                for k, num_rows, vm in runs:
+                    args = (qt, t["cols_ell"], t["vals_ell"], t["ovf_ptr"],
+                            t["ovf_cols"], t["ovf_vals"], norms, num_rows, k,
+                            metric, vm)
+                    got = ell_topk(*args)
+                    ref = ell_topk_reference(*args)
+                    live = torch.arange(n, device=dev) < num_rows
+                    if vm is not None:
+                        live &= vm[:n] != 0
+                    scores = torch.where(live[None], s64, float("-inf")).cpu().numpy()
+                    n_live = int(live.sum())
+                    if (got[1][:, min(k, n_live):] != -1).any():
+                        raise AssertionError("ell_topk: slots beyond the live rows are not -1")
+                    exact = kind == "integer" and metric != DistanceMetric.COSINE
+                    what = (f"ell_topk {kind} {metric.name} Q={nq} k={k} "
+                            f"num_rows={num_rows} mask={vm is not None}")
+                    max_err = max(max_err, _compare(got, ref, exact, tol, scores, what))
+                    identical += bool(torch.equal(got[0], ref[0])
+                                      and torch.equal(got[1], ref[1]))
+                    cases += 1
+        del x64, absx
+    torch.cuda.synchronize()
+    say(f"phase 10 sparse kernels vs plain: ok ({cases} cases, {identical} "
+        f"bit-identical, max |score diff| {max_err:.3g}, ell_dots max |diff| "
+        f"{dots_err:.3g})")
+    return max_err, dots_err
+
+
+SPARSE_N, SPARSE_DIM, SPARSE_NNZ, SPARSE_QNNZ = 1_000_000, 30_522, 48, 256
+
+
+def _splade_corpus(rng):
+    """benchmarks/suite.py::bench_sparse1m's corpus (seed 12): 48 entries
+    a row over a 30,522-term vocabulary, |N(0, 1)| values."""
+    nnz = SPARSE_N * SPARSE_NNZ
+    cols = rng.integers(0, SPARSE_DIM, nnz).astype(np.int32)
+    vals = np.abs(rng.standard_normal(nnz)).astype(np.float32)
+    return cols, vals
+
+
+def _splade_queries(rng, nq):
+    """The suite's queries: 256 nonzeros each, |N(0, 1)| values."""
+    q = np.zeros((nq, SPARSE_DIM), np.float32)
+    qc = rng.integers(0, SPARSE_DIM, (nq, SPARSE_QNNZ))
+    q[np.arange(nq)[:, None], qc] = np.abs(
+        rng.standard_normal((nq, SPARSE_QNNZ))).astype(np.float32)
+    return q
+
+
+def _sparse_recall(torch, cols_d, vals_d, q, got, k):
+    """recall@k against float64 scores on the card. A returned row is a hit
+    when its exact score is within the f32 band (2 R 2^-24 of the score:
+    values and queries are non-negative) of the k-th best."""
+    hits = 0
+    c2 = cols_d.view(SPARSE_N, SPARSE_NNZ).long()
+    v2 = vals_d.view(SPARSE_N, SPARSE_NNZ).double()
+    for q0 in range(0, q.shape[0], 4):
+        qd = torch.from_numpy(q[q0:q0 + 4]).to(cols_d.device, torch.float64)
+        s = torch.stack([(qq[c2] * v2).sum(1) for qq in qd])
+        kth = torch.sort(s, dim=1, descending=True).values[:, k - 1:k]
+        r = torch.from_numpy(got[q0:q0 + 4].astype(np.int64)).to(cols_d.device)
+        mine = torch.gather(s, 1, r.clamp(min=0))
+        tol = 2 * SPARSE_NNZ * 2.0**-24 * kth
+        hits += int(((mine >= kth - tol) & (r >= 0)).sum())
+    return hits / (q.shape[0] * k)
+
+
+def phase_sparse_path(torch, dev, card):
+    """Phase 11 (module docstring): returns the timings and launch counts
+    for the kernels line."""
+    from metrovector_tpu_torch import (
+        Builder, DistanceMetric, Reader, SparseSearchEngine, VectorType,
+    )
+    from metrovector_tpu_torch.ops import sparse_kernel
+    from metrovector_tpu_torch.ops.sparse_kernel import (
+        ell_dots, ell_dots_reference, ell_topk, ell_topk_reference,
+    )
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+    from metrovector_tpu_torch.utils.timing import cuda_ms, sync_time
+
+    IP = DistanceMetric.INNER_PRODUCT
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    cols, vals = _splade_corpus(rng)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        path = os.path.join(tmp.name, "sparse1m.mvt")
+        b = Builder()
+        b.add_vector_space("splade", dim=SPARSE_DIM, vector_type=VectorType.SPARSE,
+                           metric=IP)
+        b.add_sparse_vectors("splade", zip(cols.reshape(SPARSE_N, SPARSE_NNZ),
+                                           vals.reshape(SPARSE_N, SPARSE_NNZ)))
+        b.build().save(path)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        space = Reader.open(path).vector_space("splade")
+        engine = SparseSearchEngine(space, device="cuda")
+        torch.cuda.synchronize()
+        t_open = time.perf_counter() - t0
+    finally:
+        tmp.cleanup()
+    if engine.formulation != "ell" or engine.r_cap != SPARSE_NNZ:
+        raise AssertionError(f"auto chose {engine.formulation} R={engine.r_cap}")
+    say(f"  sparse1m {SPARSE_N} x {SPARSE_DIM}, {SPARSE_NNZ} entries a row: "
+        f"built and saved in {t_build:.1f} s; Reader.open + SparseSearchEngine "
+        f"{t_open:.1f} s (ELL R={engine.r_cap}, {engine.nbytes / 2**20:.0f} MiB "
+        "on the card)")
+    # The file's CSR order (columns sorted within a row), for the oracle.
+    indptr, fcols, fvals = space.sparse_csr()
+    cols_d = torch.from_numpy(np.array(fcols, np.int32)).to(dev)
+    vals_d = torch.from_numpy(np.array(fvals, np.float32)).to(dev)
+    queries = {bsz: _splade_queries(rng, bsz) for bsz in (256, 32)}
+
+    # The main path: every count at 0, the searches, counts read. The plain
+    # version is counted through a wrapper that only the CPU path would call;
+    # ell_dots has no caller in the package, so its launches are this
+    # script's check of each answer's scores through the ELL contraction.
+    plain_calls = []
+    real_plain = sparse_kernel.ell_topk_reference
+    sparse_kernel.ell_topk_reference = lambda *a, **kw: (
+        plain_calls.append(1), real_plain(*a, **kw))[1]
+    for fn in (ell_topk, ell_dots, fused_topk):
+        fn.launches = 0
+    results = {}
+    try:
+        for bsz, q in queries.items():
+            before = ell_topk.launches
+            res = engine.search(q, k=10)
+            if ell_topk.launches != before + 1:
+                raise AssertionError("search() did not launch ell_topk once")
+            rows = torch.from_numpy(res.indices.reshape(-1).astype(np.int64)).to(dev)
+            qt = torch.from_numpy(np.ascontiguousarray(q.T)).to(dev)
+            dots = ell_dots(qt, engine._cols_ell[rows].contiguous(),
+                            engine._vals_ell[rows].contiguous())
+            diag = torch.arange(bsz, device=dev)
+            own = dots.view(bsz, 10, bsz)[diag, :, diag]
+            if not np.array_equal(own.cpu().numpy(), res.scores):
+                raise AssertionError("search() scores differ from ell_dots of its rows")
+            results[bsz] = res
+    finally:
+        sparse_kernel.ell_topk_reference = real_plain
+    launches = {"ell_topk": ell_topk.launches, "ell_dots": ell_dots.launches}
+    if plain_calls or fused_topk.launches:
+        raise AssertionError("the sparse path ran a plain version or K1")
+
+    recalls = {}
+    for bsz, res in results.items():
+        recalls[bsz] = _sparse_recall(torch, cols_d, vals_d, queries[bsz],
+                                      res.indices, 10)
+        if recalls[bsz] != 1.0:
+            raise AssertionError(f"sparse1m recall@10 {recalls[bsz]} at batch {bsz}")
+    say("  sparse1m recall@10 against the float64 oracle on the card: "
+        + ", ".join(f"batch {b} {r:.4f}" for b, r in recalls.items())
+        + f"; launches {launches}")
+
+    with warnings.catch_warnings():  # torch flags sparse CSR as beta
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(np.asarray(indptr, np.int64)).to(dev),
+            cols_d.long(), vals_d, size=(SPARSE_N, SPARSE_DIM),
+            check_invariants=False)
+    times = {}
+    for bsz in (256, 32):
+        host = [_splade_queries(rng, bsz) for _ in range(6)]  # [Q, dim], as callers pass them
+        qts = [torch.from_numpy(np.ascontiguousarray(q.T)).to(dev) for q in host]
+        e = engine
+
+        def kern(qt):
+            return ell_topk(qt, e._cols_ell, e._vals_ell, None, None, None,
+                            e._norms, e.num_vectors, 10, IP, e._valid)
+
+        def plain(qt):
+            return ell_topk_reference(qt, e._cols_ell, e._vals_ell, None, None,
+                                      None, e._norms, e.num_vectors, 10, IP,
+                                      e._valid)
+
+        def dots(qt):
+            return ell_dots(qt, e._cols_ell, e._vals_ell)
+
+        def dots_plain(qt):
+            return ell_dots_reference(qt, e._cols_ell, e._vals_ell)
+
+        def library(qt):
+            return torch.sparse.mm(csr, qt)
+
+        row = {}
+        got, ref = kern(qts[0]), plain(qts[0])
+        _identical(torch, got, ref, f"ell_topk at sparse1m batch {bsz}")
+        d_k, d_l = dots(qts[0])[:SPARSE_N], library(qts[0])
+        row["dots_err"] = float((d_k - d_l).abs().max())
+        del d_k, d_l
+        p1 = cuda_ms(plain, qts[:1], dev)
+        k1 = cuda_ms(kern, qts, dev)
+        k2 = cuda_ms(kern, qts, dev)
+        p2 = cuda_ms(plain, qts[:1], dev)
+        row["ell_topk"], row["plain"] = (k1 + k2) / 2, (p1 + p2) / 2
+        row["ell_dots"] = cuda_ms(dots, qts, dev)
+        row["dots_plain"] = cuda_ms(dots_plain, qts[:1], dev)
+        row["library"] = cuda_ms(library, qts, dev)
+        row["e2e"] = float(np.median([sync_time(engine.search, q, k=10, device=dev)[0]
+                                      for q in host + host])) * 1e3
+        times[bsz] = row
+        say(f"  timing sparse1m batch={bsz}: ell_topk {row['ell_topk']:.4f} ms "
+            f"(runs {k1:.4f}, {k2:.4f}; plain {row['plain']:.4f}) | ell_dots "
+            f"{row['ell_dots']:.4f} ms (plain {row['dots_plain']:.4f}) vs "
+            f"torch.sparse.mm {row['library']:.4f} "
+            f"(max |diff| {row['dots_err']:.3g}) | search() p50 {row['e2e']:.4f} ms "
+            f"= {bsz / row['e2e'] * 1e3:.0f} QPS | {card}")
+        torch.cuda.empty_cache()
+
+    coo = SparseSearchEngine(space, device="cuda", formulation="coo")
+    for bsz in (256, 32):
+        t_coo, res = sync_time(coo.search, queries[bsz], k=10, device=dev)
+        rec = _sparse_recall(torch, cols_d, vals_d, queries[bsz], res.indices, 10)
+        if rec != 1.0:
+            raise AssertionError(f"COO recall@10 {rec} at batch {bsz}")
+        times[bsz]["coo"] = t_coo * 1e3
+        say(f"  COO formulation batch={bsz}: {t_coo * 1e3:.1f} ms, recall@10 "
+            f"{rec:.4f} (same answers as ELL up to f32 near-ties) | {card}")
+    del coo, engine, csr
+    torch.cuda.empty_cache()
+    say(f"phase 11 sparse path: ok (recall@10 1.0000 at batches 256 and 32, "
+        f"one ell_topk launch per search)")
+    return launches, times
 
 
 def main() -> int:
@@ -861,33 +1357,68 @@ def main() -> int:
         phase_serving(engine)
     finally:
         tmp.cleanup()
-    del engine
-    torch.cuda.empty_cache()
     adc_err, _ = phase_adc_vs_plain(torch, dev)
     gather_err, rescore_err = phase_gather_vs_plain(torch, dev)
-    pq_launches, pq_times = phase_pq_path(torch, dev, card)
+    pq_launches, pq_times, pq4 = phase_pq_path(torch, dev, card)
+    phase_any_k(torch, dev, card, engine, pq4)
+    del engine, pq4
+    torch.cuda.empty_cache()
+    sparse_err, dots_err = phase_sparse_vs_plain(torch, dev)
+    sparse_launches, sparse_times = phase_sparse_path(torch, dev, card)
+
+    # The kernels line: each kernel at the main path's timed point, its
+    # bound from this run's shapes (module docstring).
     kms, pms = times[(256, 10)]
     main_cell = pq_times[(PQ_CONFIGS[0][0], 256)]
+    n, d, q = N_MAIN, D_MAIN, 256
+    k1_bound = bound(2 * q * n * d, 4 * (n * d + n + q * d) + 8 * q * 10)
+    k2_bound = bound(q * n * 32, n * 16 + 4 * n + 4 * q * 32 * 16 + 8 * q * 400)
+    rows = q * RERANK
+    k3_bound = bound(2 * rows * d, 4 * rows * d + 4 * rows + 4 * q * d + 8 * q * K_PQ)
+    g_bound = bound(0, 2 * 4 * rows * d + 8 * rows)
+    n_pad = -(-SPARSE_N // 8192) * 8192
+    ell_bytes = n_pad * SPARSE_NNZ * 8 + 4 * SPARSE_DIM * q + 4 * n_pad
+    ell_flops = 2 * SPARSE_N * SPARSE_NNZ * q
+    s_row = sparse_times[256]
     say(json.dumps({"kernels": [
         {"name": "fused_topk", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches,
-         "max_abs_err": max_err, "ms": kms, "plain_ms": pms},
+         "max_abs_err": max_err, "ms": kms, "plain_ms": pms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "fused_adc_topk", "route": "cuda",
          "source": CSRC + "adc_kernel.cu",
          "replaces": "metrovector_tpu/ops/adc_kernel.py:248",
          "launches": pq_launches["fused_adc_topk"], "max_abs_err": adc_err,
-         "ms": main_cell["k2"][0], "plain_ms": main_cell["k2"][1]},
+         "ms": main_cell["k2"][0], "plain_ms": main_cell["k2"][1],
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
         {"name": "gather_rows", "route": "cuda",
          "source": CSRC + "gather_kernel.cu",
          "replaces": "metrovector_tpu/ops/gather_kernel.py:137",
          "launches": pq_launches["gather_rows"], "max_abs_err": gather_err,
-         "ms": main_cell["gather"][0], "plain_ms": main_cell["gather"][1]},
+         "ms": main_cell["gather"][0], "plain_ms": main_cell["gather"][1],
+         "bound_ms": g_bound[0], "bound_by": g_bound[1],
+         "library_ms": main_cell["gather_library"]},
         {"name": "rescore_candidates", "route": "cuda",
          "source": CSRC + "gather_kernel.cu",
          "replaces": "metrovector_tpu/ops/gather_kernel.py:137",
          "launches": pq_launches["rescore_candidates"],
          "max_abs_err": rescore_err,
-         "ms": main_cell["k3"][0], "plain_ms": main_cell["k3"][1]},
+         "ms": main_cell["k3"][0], "plain_ms": main_cell["k3"][1],
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+        {"name": "ell_topk", "route": "cuda", "source": CSRC + "sparse_kernel.cu",
+         "replaces": "benchmarks/sparse_vmem_proto.py:87",
+         "launches": sparse_launches["ell_topk"], "max_abs_err": sparse_err,
+         "ms": s_row["ell_topk"], "plain_ms": s_row["plain"],
+         **dict(zip(("bound_ms", "bound_by"),
+                    bound(ell_flops, ell_bytes + 8 * q * 10))),
+         "library_ms": None},
+        {"name": "ell_dots", "route": "cuda", "source": CSRC + "sparse_kernel.cu",
+         "replaces": "benchmarks/sparse_vmem_proto.py:87",
+         "launches": sparse_launches["ell_dots"], "max_abs_err": dots_err,
+         "ms": s_row["ell_dots"], "plain_ms": s_row["dots_plain"],
+         **dict(zip(("bound_ms", "bound_by"),
+                    bound(ell_flops, ell_bytes + 4 * n_pad * q))),
+         "library_ms": s_row["library"]},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name,

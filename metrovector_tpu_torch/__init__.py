@@ -1,19 +1,21 @@
 """metrovector_tpu_torch — the PyTorch + CUDA port of metrovector_tpu.
 
-The same MVT file format and host layers as :mod:`metrovector_tpu` (they
-import no JAX and are shared, not copied), with every line of device code
-owned here: the engine and the PQ index run on a ``torch.device`` and
-their searches go through hand-written CUDA kernels for Hopper
-(``ops/csrc``).
+Self-contained: the port carries its own copy of every host layer it uses
+(``errors``, ``format``, ``vectors``, ``utils``, the native codec and the
+``MicroBatcher``) and imports nothing of :mod:`metrovector_tpu`. Both
+packages read and write the same MVT bytes (``tests/test_torch_format.py``).
+Every line of device code is owned here: the dense engine, the PQ index and
+the sparse engine run on a ``torch.device`` and their searches go through
+hand-written CUDA kernels for Hopper (``ops/csrc``).
 
 Module names mirror the JAX package, so each module's counterpart sits at
 the same path. The compute-path names below import lazily, so
 ``import metrovector_tpu_torch`` loads neither torch nor any kernel.
 """
 
-from metrovector_tpu import errors
-from metrovector_tpu.errors import MvtError
-from metrovector_tpu.format import (
+from . import errors
+from .errors import MvtError
+from .format import (
     Builder,
     BuiltFile,
     CompressionAlgorithm,
@@ -28,7 +30,7 @@ from metrovector_tpu.format import (
     compact,
     rewrite_hints,
 )
-from metrovector_tpu.vectors import (
+from .vectors import (
     AccessPattern,
     DimensionSlice,
     Vector,
@@ -50,10 +52,11 @@ _LAZY = {
     "pack_codes4": "metrovector_tpu_torch.index.pq",
     "unpack_codes4": "metrovector_tpu_torch.index.pq",
     "reconstruct_pq": "metrovector_tpu_torch.index.pq",
-    # the shared batcher: duck-typed on the engine's _launch / _finalize /
+    "SparseSearchEngine": "metrovector_tpu_torch.sparse",
+    # the batcher: duck-typed on the engine's _launch / _finalize /
     # prepare_filter / space.dim
-    "MicroBatcher": "metrovector_tpu.serving",
-    "BatcherStats": "metrovector_tpu.serving",
+    "MicroBatcher": "metrovector_tpu_torch.serving",
+    "BatcherStats": "metrovector_tpu_torch.serving",
 }
 
 
@@ -85,6 +88,7 @@ __all__ = [
     "Reader",
     "SearchEngine",
     "SearchResult",
+    "SparseSearchEngine",
     "TombstoneFormat",
     "Vector",
     "VectorChunkIterator",

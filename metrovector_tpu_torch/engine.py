@@ -21,16 +21,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from metrovector_tpu.errors import (
+from .errors import (
     DimensionMismatchError,
     IndexOutOfBoundsError,
     InvalidVectorTypeError,
     VectorIdNotFoundError,
 )
-from metrovector_tpu.format.constants import DataType, DistanceMetric
-from metrovector_tpu.format.reader import Reader
-from metrovector_tpu.utils.filters import checked_prepared_mask, padded_filter_plane
-from metrovector_tpu.vectors.space import VectorSpace
+from .format.constants import DataType, DistanceMetric
+from .format.reader import Reader
+from .utils.filters import checked_prepared_mask, padded_filter_plane
+from .vectors.space import VectorSpace
 
 from .ops.distances import distances_np
 from .ops.topk_kernel import fused_topk
@@ -409,7 +409,7 @@ class SearchEngine:
                  precision: str = "highest"):
         """``space``: a host :class:`VectorSpace` (uploaded to ``device`` at
         ``precision``) or a :class:`DeviceSpace` already resident."""
-        if isinstance(space, VectorSpace):
+        if not isinstance(space, DeviceSpace):
             space = DeviceSpace.from_space(space, device=device,
                                            precision=precision)
         self.space = space

@@ -27,16 +27,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from metrovector_tpu.errors import DimensionMismatchError, IndexOutOfBoundsError
-from metrovector_tpu.format.constants import DistanceMetric
-from metrovector_tpu.utils.filters import checked_prepared_mask, padded_filter_plane
+from ..errors import DimensionMismatchError, IndexOutOfBoundsError
+from ..format.constants import DistanceMetric
+from ..utils.filters import checked_prepared_mask, padded_filter_plane
 
 from ..engine import PreparedFilter, SearchResult, ids_for_rows, resolve_device
-from ..ops import adc_kernel, gather_kernel
 from ..ops.adc_kernel import fused_adc_topk
 from ..ops.distances import distances_np, full_f32_matmul
 from ..ops.gather_kernel import rescore_candidates
-from ..ops.topk_kernel import fused_topk
 from ..utils.transfer import put_chunked
 from .ivf import train_kmeans
 
@@ -260,7 +258,7 @@ class PQIndex:
         device="cuda",
     ) -> "PQIndex":
         """The search-ready index of a host
-        :class:`~metrovector_tpu.vectors.space.VectorSpace` on ``device``,
+        :class:`~metrovector_tpu_torch.vectors.space.VectorSpace` on ``device``,
         reusing the codebooks and codes persisted in the file when present
         (no retraining, no re-encoding). Tombstoned rows are masked."""
         dev = resolve_device(device)
@@ -422,12 +420,10 @@ class PQIndex:
         with the tombstones. ``backend`` takes only ``"auto"`` (the device
         decides); ``block_rows`` is accepted and ignored.
 
-        On a CUDA device each search is one launch of the ADC kernel
-        (``k ≤ 1024`` after ``max(k, rerank)``) and, with ``rerank``, one
-        of the rescore kernel. A re-rank of every row that is too wide for
-        those two kernels is exact search, so it goes to the exact kernel
-        (:func:`~..ops.topk_kernel.fused_topk`, ties to the lowest row,
-        ``k ≤ 256``) and skips the scan."""
+        On a CUDA device each search is one launch of the ADC kernel and,
+        with ``rerank``, one of the rescore kernel, at any fetch up to the
+        whole corpus: the reference's route, with its ties by candidate
+        position, even for a re-rank of every row."""
         if backend != "auto":
             raise ValueError(
                 f"backend={backend!r}: the port has one backend, 'auto' "
@@ -453,25 +449,21 @@ class PQIndex:
         eff_valid = self._effective_mask(filter_mask)
         fetch = max(k, rerank) if rerank else k
         fetch = min(fetch, self.num_vectors) or 1
-        if (rerank and fetch >= self.num_vectors
-                and fetch > min(adc_kernel.MAX_K, gather_kernel.MAX_CANDIDATES)):
-            s, i = self._exact(q, qnorms, min(k, fetch), eff_valid)
+        qk = qdev
+        if self.metric == DistanceMetric.COSINE:
+            qk = qdev * (1.0 / torch.sqrt(torch.clamp(
+                (qdev * qdev).sum(1, keepdim=True), min=1e-30)))
+        s, i = fused_adc_topk(
+            qk, self.codes, self._books, self.recon_norms,
+            self.num_vectors, fetch, self.metric, valid_mask=eff_valid,
+            exact_lut=exact_lut, packed4=self.packed4,
+        )
+        if rerank:
+            s, i = rescore_candidates(qdev, self.db, self.db_norms, i,
+                                      min(k, fetch), self.metric,
+                                      tie="position")
         else:
-            qk = qdev
-            if self.metric == DistanceMetric.COSINE:
-                qk = qdev * (1.0 / torch.sqrt(torch.clamp(
-                    (qdev * qdev).sum(1, keepdim=True), min=1e-30)))
-            s, i = fused_adc_topk(
-                qk, self.codes, self._books, self.recon_norms,
-                self.num_vectors, fetch, self.metric, valid_mask=eff_valid,
-                exact_lut=exact_lut, packed4=self.packed4,
-            )
-            if rerank:
-                s, i = rescore_candidates(qdev, self.db, self.db_norms, i,
-                                          min(k, fetch), self.metric,
-                                          tie="position")
-            else:
-                s, i = s[:, :k], i[:, :k]
+            s, i = s[:, :k], i[:, :k]
         s, i = s.cpu().numpy(), i.cpu().numpy()
         dist = distances_np(s, self.metric, qnorms)
         bad_fill = np.inf if self.metric == DistanceMetric.L2 else -np.inf
@@ -484,11 +476,3 @@ class PQIndex:
         return SearchResult(indices=i, scores=s, distances=dist,
                             metric=self.metric,
                             ids=ids_for_rows(self.host_ids, i))
-
-    def _exact(self, q, qnorms, k, valid):
-        """Exact top-k over the original rows: the full re-rank."""
-        if self.metric == DistanceMetric.COSINE:
-            q = q / np.maximum(np.sqrt(qnorms)[:, None], 1e-30)
-        qdev = torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(self.device)
-        return fused_topk(qdev, self.db, self.db_norms, self.num_vectors, k,
-                          self.metric, valid_mask=valid)

@@ -1,0 +1,263 @@
+"""ctypes loader for the native MVT codec.
+
+Compiles ``codec.cpp`` on first use with the system ``g++`` into
+``build/metrovector_tpu_torch/native/`` under the repository root (a
+git-ignored tree; the source directory stays read-only), then exposes typed
+wrappers. Everything here is optional: if the toolchain is missing or
+``MVT_NO_NATIVE=1`` is set, callers use the numpy implementations in
+:mod:`..format.packing` — identical semantics, verified by tests that run
+both paths. This is host code with one file format either way, not a device
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "codec.cpp")
+_BUILD = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
+                      "metrovector_tpu_torch", "native")
+_SO = os.path.join(_BUILD, "libmvtcodec.so")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _build() -> str | None:
+    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        return _SO
+    # Build under a private name, then rename: a concurrent reader never
+    # loads half a library.
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = [
+        "g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+        "-fopenmp", _SRC, "-o", tmp, "-lz",
+    ]
+    try:
+        os.makedirs(_BUILD, exist_ok=True)
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
+        return _SO
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def load():
+    """The loaded codec library, or None when unavailable/disabled."""
+    global _lib, _tried
+    if _lib is not None:
+        return _lib
+    if _tried or os.environ.get("MVT_NO_NATIVE") == "1":
+        return _lib
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        so = _build()
+        if so is None:
+            return None
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError:
+            return None
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.mvt_crc32.restype = ctypes.c_uint32
+        lib.mvt_crc32.argtypes = [ctypes.c_uint32, u8p, ctypes.c_size_t]
+        lib.mvt_pack_rows.restype = None
+        lib.mvt_pack_rows.argtypes = [u8p, u8p] + [ctypes.c_size_t] * 5
+        lib.mvt_sq_norms.restype = None
+        lib.mvt_sq_norms.argtypes = [
+            u8p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, f32p,
+        ]
+        lib.mvt_pack_block.restype = ctypes.c_uint32
+        lib.mvt_pack_block.argtypes = [
+            u8p, u8p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t,
+            ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, f32p,
+        ]
+        lib.mvt_lz4_bound.restype = ctypes.c_size_t
+        lib.mvt_lz4_bound.argtypes = [ctypes.c_size_t]
+        lib.mvt_lz4_compress.restype = ctypes.c_size_t
+        lib.mvt_lz4_compress.argtypes = [u8p, ctypes.c_size_t, u8p,
+                                         ctypes.c_size_t]
+        lib.mvt_lz4_decompress.restype = ctypes.c_size_t
+        lib.mvt_lz4_decompress.argtypes = [u8p, ctypes.c_size_t, u8p,
+                                           ctypes.c_size_t]
+        i8p = ctypes.POINTER(ctypes.c_int8)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        lib.mvt_prep_f16_to_f32.restype = None
+        lib.mvt_prep_f16_to_f32.argtypes = [
+            u16p, f32p, ctypes.c_size_t, ctypes.c_size_t,
+        ]
+        lib.mvt_prep_u8_dequant.restype = None
+        lib.mvt_prep_u8_dequant.argtypes = [
+            u8p, f32p, ctypes.c_float, ctypes.c_float,
+            ctypes.c_size_t, ctypes.c_size_t,
+        ]
+        lib.mvt_prep_u8_offset.restype = None
+        lib.mvt_prep_u8_offset.argtypes = [
+            u8p, i8p, f32p, ctypes.c_size_t, ctypes.c_size_t,
+            ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t,
+        ]
+        lib.mvt_abi_version.restype = ctypes.c_int
+        if lib.mvt_abi_version() != 3:
+            return None
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+def _u8(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def crc32(data: np.ndarray | bytes | memoryview, value: int = 0) -> int:
+    """zlib-compatible CRC32 via the native slice-by-8 implementation."""
+    lib = load()
+    buf = np.frombuffer(data, dtype=np.uint8) if not isinstance(data, np.ndarray) \
+        else data.reshape(-1).view(np.uint8)
+    if lib is None:
+        import zlib
+
+        return zlib.crc32(buf.tobytes(), value) & 0xFFFFFFFF
+    return int(lib.mvt_crc32(value, _u8(buf), buf.nbytes))
+
+
+def lz4_compress(data) -> bytes | None:
+    """LZ4 block-format compression via the native codec, or None when it
+    is unavailable (caller falls back to the pure-Python encoder)."""
+    lib = load()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, dtype=np.uint8) if not isinstance(
+        data, np.ndarray
+    ) else data.reshape(-1).view(np.uint8)
+    out = np.empty(int(lib.mvt_lz4_bound(buf.nbytes)), dtype=np.uint8)
+    wrote = lib.mvt_lz4_compress(_u8(buf), buf.nbytes, _u8(out), out.nbytes)
+    if wrote == 0 and buf.nbytes:
+        return None
+    return out[:wrote].tobytes()
+
+
+def lz4_decompress(data, uncompressed_size: int) -> bytes | None:
+    """LZ4 block-format decompression via the native codec; None when the
+    codec is unavailable. Raises ValueError on malformed input."""
+    lib = load()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, dtype=np.uint8) if not isinstance(
+        data, np.ndarray
+    ) else data.reshape(-1).view(np.uint8)
+    out = np.empty(max(uncompressed_size, 1), dtype=np.uint8)
+    wrote = lib.mvt_lz4_decompress(
+        _u8(buf), buf.nbytes, _u8(out), uncompressed_size
+    )
+    if wrote != uncompressed_size:
+        raise ValueError(
+            f"malformed LZ4 block: decoded {wrote} of "
+            f"{uncompressed_size} expected bytes"
+        )
+    return out[:uncompressed_size].tobytes()
+
+
+def pack_block_fused(
+    rows: np.ndarray,
+    padded_rows: int,
+    padded_dim: int,
+    dtype_code: int,
+    scale: float = 1.0,
+    zero_point: float = 0.0,
+):
+    """Fused pack + dequantized-norms + CRC. ``rows`` is a C-contiguous
+    ``[n, dim]`` array. Returns ``(block, norms, crc)`` or None when the
+    native codec is unavailable (caller falls back to numpy)."""
+    lib = load()
+    if lib is None:
+        return None
+    n, dim = rows.shape
+    esz = rows.dtype.itemsize
+    rows = np.ascontiguousarray(rows)
+    block = np.empty((padded_rows, padded_dim), dtype=rows.dtype)
+    norms = np.empty(padded_rows, dtype=np.float32)
+    crc = lib.mvt_pack_block(
+        _u8(rows.view(np.uint8).reshape(-1)),
+        _u8(block.view(np.uint8).reshape(-1)),
+        n, dim, esz, padded_rows, padded_dim, dtype_code,
+        ctypes.c_float(scale), ctypes.c_float(zero_point),
+        norms.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    return block, norms, int(crc)
+
+
+def prep_f16_to_f32(src: np.ndarray, out_rows: int) -> np.ndarray | None:
+    """Streaming chunk prep: exact f16→f32 upcast of a ``[n, dimp]`` chunk
+    into a zero-padded ``[out_rows, dimp]`` f32 array in ONE native pass
+    (F16C + OpenMP) — the numpy twin costs an astype temp plus an np.pad
+    copy. None when the codec is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src)
+    n, dimp = src.shape
+    out = np.empty((out_rows, dimp), np.float32)
+    lib.mvt_prep_f16_to_f32(
+        src.view(np.uint16).ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        n * dimp, out_rows * dimp,
+    )
+    return out
+
+
+def prep_u8_dequant(
+    src: np.ndarray, out_rows: int, scale: float, zero_point: float
+) -> np.ndarray | None:
+    """Streaming chunk prep: dequantize a ``[n, dimp]`` u8 chunk to
+    ``(c − zp)·scale`` f32 (numpy-matching f32 arithmetic) into a
+    zero-padded ``[out_rows, dimp]`` array in one native pass."""
+    lib = load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, np.uint8)
+    n, dimp = src.shape
+    out = np.empty((out_rows, dimp), np.float32)
+    lib.mvt_prep_u8_dequant(
+        _u8(src), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_float(scale), ctypes.c_float(zero_point),
+        n * dimp, out_rows * dimp,
+    )
+    return out
+
+
+def prep_u8_offset(
+    src: np.ndarray, out_rows: int, dim: int, nvalid: int
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """Streaming chunk prep for the offset-u8 kernel path: recenter a
+    ``[n, dimp]`` u8 chunk to int8 ``c − 128`` over the logical ``dim``
+    columns and emit the per-row code-sum bias, zeroing rows ≥ ``nvalid``
+    and the pad tail, in one native pass. Returns ``(codes, bias)``."""
+    lib = load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, np.uint8)
+    n, dimp = src.shape
+    codes = np.empty((out_rows, dimp), np.int8)
+    bias = np.empty(out_rows, np.float32)
+    lib.mvt_prep_u8_offset(
+        _u8(src),
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        bias.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        n, dimp, dim, nvalid, out_rows,
+    )
+    return codes, bias

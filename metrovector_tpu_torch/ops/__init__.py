@@ -1,7 +1,7 @@
-"""Device compute: the fused distance + top-k, ADC + top-k and gather +
-rescore kernels and their plain PyTorch versions (counterpart of
-:mod:`metrovector_tpu.ops`). Importing builds nothing: the kernels are
-compiled at their first launch."""
+"""Device compute: the fused distance + top-k, ADC + top-k, gather +
+rescore and sparse ELL scan + top-k kernels and their plain PyTorch
+versions (counterpart of :mod:`metrovector_tpu.ops`). Importing builds
+nothing: the kernels are compiled at their first launch."""
 
 from .adc_kernel import fused_adc_topk, fused_adc_topk_reference
 from .distances import (
@@ -18,10 +18,15 @@ from .gather_kernel import (
     rescore_candidates,
     rescore_candidates_reference,
 )
+from .sparse_kernel import ell_dots, ell_dots_reference, ell_topk, ell_topk_reference
 from .topk_kernel import fused_topk, fused_topk_reference
 
 __all__ = [
     "distances_np",
+    "ell_dots",
+    "ell_dots_reference",
+    "ell_topk",
+    "ell_topk_reference",
     "exact_topk",
     "fused_adc_topk",
     "fused_adc_topk_reference",

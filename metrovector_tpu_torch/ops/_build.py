@@ -103,18 +103,20 @@ def load() -> ctypes.CDLL:
                 p, p, i32, p, p,          # q, db, db_dtype, norms, mask
                 i64, i64, i64, i64,       # nq, n, d, num_valid
                 i32, i32, i32, i64,       # k, metric, splits, rows_per_split
-                p, p, p, p,               # part_s, part_i, out_s, out_i
+                i32, i32,                 # list_len, wide
+                p, p, p, p, p, p,         # part_s/i, tmp_s/i, out_s/i
                 p,                        # stream
             ]
             lib.mvt_fused_topk.restype = i32
-            lib.mvt_fused_topk_occupancy.argtypes = [i32, i64, i32, p]
+            lib.mvt_fused_topk_occupancy.argtypes = [i32, i64, i32, i32, i32, p]
             lib.mvt_fused_topk_occupancy.restype = i32
             lib.mvt_adc_topk.argtypes = [
                 p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
                 p, p,                     # norms, mask
                 i64, i64, i32, i32, i64,  # nq, n, m, ksub, num_valid
                 i32, i32, i32, i32, i64,  # k, metric, qt, splits, rows_per_split
-                p, p, p, p,               # part_s, part_i, out_s, out_i
+                i32,                      # list_len (0: lists in shared memory)
+                p, p, p, p, p, p,         # part_s/i, tmp_s/i, out_s/i
                 p,                        # stream
             ]
             lib.mvt_adc_topk.restype = i32
@@ -126,10 +128,28 @@ def load() -> ctypes.CDLL:
             lib.mvt_rescore.argtypes = [
                 p, p, i32, p, p,          # q, db, db_dtype, norms, cand
                 i64, i64, i32, i32, i32,  # nq, n, d, r, k
-                i32, i32, p, p,           # metric, tie_rows, out_s, out_i
+                i32, i32,                 # metric, tie_rows
+                p, p, p, p, p, p,         # part_s/i, tmp_s/i, out_s/i
                 p,                        # stream
             ]
             lib.mvt_rescore.restype = i32
+            lib.mvt_ell_dots.argtypes = [
+                p, p, p, i64, i32, i64,   # qt, cols, vals, n, r, nq
+                p, p,                     # dots, stream
+            ]
+            lib.mvt_ell_dots.restype = i32
+            lib.mvt_ell_topk.argtypes = [
+                p, p, p, p, p, p,         # qt, cols, vals, ovf_ptr/cols/vals
+                p, p,                     # norms, mask
+                i64, i64, i32, i64,       # nq, n, r, num_rows
+                i32, i32, i32, i32, i64,  # k, metric, qg, splits, rows_per_split
+                i32,                      # list_len
+                p, p, p, p, p, p, p, p,   # part_s/i, buf_s/i, tmp_s/i, out_s/i
+                p,                        # stream
+            ]
+            lib.mvt_ell_topk.restype = i32
+            lib.mvt_ell_topk_occupancy.argtypes = [i32, p]
+            lib.mvt_ell_topk_occupancy.restype = i32
             lib.mvt_cuda_error_string.argtypes = [i32]
             lib.mvt_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

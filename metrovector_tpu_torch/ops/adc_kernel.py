@@ -14,7 +14,8 @@ rounded to bf16 unless ``exact_lut``. Both versions add the m looked-up
 entries of a row in ascending j in f32, so they agree bit for bit. The int8
 LUT and the IVF ``group_bias``/``group_rows``/``group_ids`` variants, and
 the Mosaic knobs (``block_rows``, ``query_tile``, ``vmem_retry``), are not
-ported.
+ported. Any ``1 ≤ k ≤ N``: above k = 1024 the per-split lists live in
+device memory and a merge tree folds them (:mod:`.select`).
 """
 
 from __future__ import annotations
@@ -24,12 +25,13 @@ import functools
 
 import torch
 
-from metrovector_tpu.format.constants import DistanceMetric
+from ..format.constants import DistanceMetric
 
+from . import select
 from .distances import carry_topk, empty_topk, finish_topk, full_f32_matmul, mask_scores
-from .topk_kernel import MAX_SPLITS, SMEM_LIMIT
+from .topk_kernel import SMEM_LIMIT
 
-MAX_K = 1024
+SMEM_K = 1024  # lists in shared memory up to this k
 # Shape constants of csrc/adc_kernel.cu
 _QUERY_TILES = (1, 2, 4, 8, 16, 32)
 _ROW_TILE = 256
@@ -110,9 +112,11 @@ def fused_adc_topk_reference(
 
 
 def _shared_bytes(qt: int, mk: int, k: int, exact_lut: bool) -> int:
-    """Dynamic shared memory of one scan block: the candidate lists and
-    buffers, the score tile and the LUT of ``qt`` queries."""
-    return qt * (8 * k + 8 * _BUFFER + 4 + 4 * _ROW_TILE
+    """Dynamic shared memory of one scan block: the candidate lists (none
+    above :data:`SMEM_K`: they live in device memory) and buffers, the
+    score tile and the LUT of ``qt`` queries."""
+    lists = k if k <= SMEM_K else 0
+    return qt * (8 * lists + 8 * _BUFFER + 4 + 4 * _ROW_TILE
                  + mk * (4 if exact_lut else 2))
 
 
@@ -144,7 +148,8 @@ def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
     for qt in _fitting_tiles(m * ksub, k, lut_code == 0):
         per_sm = ctypes.c_int(0)
         raise_for(lib, lib.mvt_adc_topk_occupancy(
-            lut_code, packed4, qt, m, ksub, k, ctypes.byref(per_sm)),
+            lut_code, packed4, qt, m, ksub, k if k <= SMEM_K else 0,
+            ctypes.byref(per_sm)),
             "fused_adc_topk")
         out.append((qt, per_sm.value))
     return tuple(out)
@@ -191,8 +196,8 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
     n = codes.shape[0]
     if n >= 2**31:
         raise ValueError(f"N={n} rows: the kernel's row indices are int32")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} is outside the kernel's limit 1 <= k <= {MAX_K}")
+    if k < 1 or (n and k > n):  # an empty corpus leaves every slot unfilled
+        raise ValueError(f"k={k} is outside the kernel's limit 1 <= k <= N={n}")
     m, ksub, _ = codebooks.shape
     need = _shared_bytes(1, m * ksub, k, exact_lut)
     if need > SMEM_LIMIT:
@@ -226,7 +231,7 @@ def fused_adc_topk(
     norms ``recon_norms [N]`` f32; rows ≥ ``num_valid`` and rows where
     ``valid_mask [N]`` (f32) is 0 never enter. Returns ``(scores [Q, k]
     f32, indices [Q, k] int32)`` by (score descending, row ascending);
-    unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ 1024``."""
+    unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
@@ -252,24 +257,25 @@ def fused_adc_topk(
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
     lut = adc_lut(queries, codebooks, exact_lut)
     lut_code = 0 if exact_lut else 1
+    big = k > SMEM_K
     with torch.cuda.device(dev):
         occupancy = dict(_occupancy(dev.index, lut_code, int(packed4), m,
-                                    ksub, k))
+                                    ksub, min(k, SMEM_K + 1)))
         qt = _query_tile(nq, occupancy)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tiles = -(-n // _ROW_TILE)
         want = max(1, sms * max(1, occupancy[qt]) // -(-nq // qt))
-        rows_per_split = -(-tiles // max(1, min(want, MAX_SPLITS, tiles))) * _ROW_TILE
-        splits = -(-n // rows_per_split)
-        part_s = torch.empty((nq, splits, k), dtype=torch.float32, device=dev)
-        part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=dev)
+        splits, rows_per_split, length = select.row_splits(
+            n, _ROW_TILE, want, nq, k, lists_in_smem=not big)
+        part_s, part_i, tmp_s, tmp_i = select.scratch(nq, splits, length, k,
+                                                      dev, tree=big)
         err = lib.mvt_adc_topk(
             lut.data_ptr(), lut_code, codes.data_ptr(), cols, int(packed4),
             recon_norms.data_ptr(),
             None if valid_mask is None else valid_mask.data_ptr(),
             nq, n, m, ksub, max(0, min(int(num_valid), n)), k, int(metric),
-            qt, splits, rows_per_split,
+            qt, splits, rows_per_split, length if big else 0,
             part_s.data_ptr(), part_i.data_ptr(),
+            tmp_s.data_ptr(), tmp_i.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

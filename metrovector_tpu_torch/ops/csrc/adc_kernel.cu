@@ -43,10 +43,14 @@
 //   ballot; rows that beat it are appended to the query's buffer, and a
 //   full buffer is sorted and merged into the list at once (select.cuh).
 //   Inserting each row on its own, with a warp-wide shift of the list, took
-//   most of the kernel's time at k = 400 (PERF.md).
+//   most of the kernel's time at k = 400 (PERF.md). Above k = 1024 the
+//   lists (L = min(k, rows per split) entries) live in the [Q, S, L]
+//   scratch in device memory instead; only the buffers stay in shared
+//   memory.
 // * Pass 2 (merge_kernel, select.cuh) merges the S partial lists, one
 //   block per query (a warp per query walking the list heads in turn took
-//   0.3 ms at k = 400 whatever the batch; PERF.md).
+//   0.3 ms at k = 400 whatever the batch; PERF.md); above k = 1024 the
+//   merge tree of select.cuh folds them.
 //
 // Codes must be < ksub (as PQ encoding makes them); the wrapper checks
 // shapes, dtypes and limits.
@@ -92,19 +96,22 @@ __device__ __forceinline__ void add_lookup(float (&acc)[QT], const LT* lq,
   for (int qq = 0; qq < QT; ++qq) acc[qq] += as_f32(lq[qq * mk]);
 }
 
-template <int QT, bool PACKED, typename LT>
+template <int QT, bool PACKED, typename LT, bool GLOBAL>
 __global__ void __launch_bounds__(kThreads)
     adc_scan_kernel(const void* lut_raw, const uint8_t* __restrict__ codes,
                     int cols, const float* __restrict__ norms,
                     const float* __restrict__ mask, int64_t nq, int64_t n,
                     int m, int ksub, int64_t num_valid, int k, int metric,
-                    int64_t rows_per_split, int vec, float* __restrict__ part_s,
-                    int* __restrict__ part_i) {
+                    int64_t rows_per_split, int vec,
+                    float* __restrict__ part_s, int* __restrict__ part_i) {
+  // GLOBAL: k is the length of each split's list, which lives in part_*
+  // ([nq, splits, k]) instead of shared memory.
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int mk = m * ksub;
+  const int ks = GLOBAL ? 0 : k;
   float* cs = reinterpret_cast<float*>(smem_raw);  // [QT][k] list scores
-  int* ci = reinterpret_cast<int*>(cs + QT * k);   // [QT][k] list rows
-  float* bs = reinterpret_cast<float*>(ci + QT * k);  // [QT][kBuf] buffer
+  int* ci = reinterpret_cast<int*>(cs + QT * ks);  // [QT][k] list rows
+  float* bs = reinterpret_cast<float*>(ci + QT * ks);  // [QT][kBuf] buffer
   int* bi = reinterpret_cast<int*>(bs + QT * kBuf);   // [QT][kBuf]
   int* bc = bi + QT * kBuf;                           // [QT] buffer fill
   float* sc = reinterpret_cast<float*>(bc + QT);      // [QT][kRows] scores
@@ -116,6 +123,7 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * QT;
   const int split = blockIdx.y;
+  const int splits = gridDim.y;
   const int64_t row_begin = split * rows_per_split;
   const int64_t row_end =
       row_begin + rows_per_split < n ? row_begin + rows_per_split : n;
@@ -127,9 +135,26 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t g = q0 * mk + e;
     ls[e] = lut[g < lut_end ? g : lut_end - 1];
   }
-  for (int e = tid; e < QT * k; e += kThreads) {
-    cs[e] = -CUDART_INF_F;
-    ci[e] = kSentinel;
+  // Query qq's list: in shared memory, or its split's list in part_*.
+  auto list_s = [&](int qq) {
+    return GLOBAL ? part_s + ((q0 + qq) * splits + split) * k : cs + qq * k;
+  };
+  auto list_i = [&](int qq) {
+    return GLOBAL ? part_i + ((q0 + qq) * splits + split) * k : ci + qq * k;
+  };
+  if (GLOBAL) {
+    for (int64_t e = tid; e < static_cast<int64_t>(QT) * k; e += kThreads) {
+      const int qq = static_cast<int>(e / k);
+      if (q0 + qq < nq) {
+        list_s(qq)[e % k] = -CUDART_INF_F;
+        list_i(qq)[e % k] = kSentinel;
+      }
+    }
+  } else {
+    for (int e = tid; e < QT * k; e += kThreads) {
+      cs[e] = -CUDART_INF_F;
+      ci[e] = kSentinel;
+    }
   }
   for (int e = tid; e < QT; e += kThreads) bc[e] = 0;
   __syncthreads();
@@ -180,8 +205,8 @@ __global__ void __launch_bounds__(kThreads)
 
     for (int qq = warp; qq < QT; qq += kWarps) {
       if (q0 + qq >= nq) break;
-      float* lsq = cs + qq * k;
-      int* liq = ci + qq * k;
+      float* lsq = list_s(qq);
+      int* liq = list_i(qq);
       float* bsq = bs + qq * kBuf;
       int* biq = bi + qq * kBuf;
       int cnt = bc[qq];
@@ -216,13 +241,13 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int qq = warp; qq < QT; qq += kWarps) {  // the buffers' last entries
     if (q0 + qq < nq && bc[qq] > 0) {
-      flush_buffer(cs + qq * k, ci + qq * k, k, bs + qq * kBuf,
+      flush_buffer(list_s(qq), list_i(qq), k, bs + qq * kBuf,
                    bi + qq * kBuf, bc[qq], lane);
     }
   }
+  if (GLOBAL) return;
   __syncthreads();
 
-  const int splits = gridDim.y;
   for (int e = tid; e < QT * k; e += kThreads) {
     const int qq = e / k;
     const int64_t gq = q0 + qq;
@@ -234,41 +259,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool PACKED, typename LT>
+template <bool PACKED, typename LT, bool GLOBAL>
 const void* pick_qt(int qt) {
   switch (qt) {
     case 1:
-      return reinterpret_cast<const void*>(adc_scan_kernel<1, PACKED, LT>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<1, PACKED, LT, GLOBAL>);
     case 2:
-      return reinterpret_cast<const void*>(adc_scan_kernel<2, PACKED, LT>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<2, PACKED, LT, GLOBAL>);
     case 4:
-      return reinterpret_cast<const void*>(adc_scan_kernel<4, PACKED, LT>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<4, PACKED, LT, GLOBAL>);
     case 8:
-      return reinterpret_cast<const void*>(adc_scan_kernel<8, PACKED, LT>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<8, PACKED, LT, GLOBAL>);
     case 16:
-      return reinterpret_cast<const void*>(adc_scan_kernel<16, PACKED, LT>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<16, PACKED, LT, GLOBAL>);
     case 32:
-      return reinterpret_cast<const void*>(adc_scan_kernel<32, PACKED, LT>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<32, PACKED, LT, GLOBAL>);
     default:
       return nullptr;
   }
 }
 
-const void* pick(int qt, int packed4, int lut_dtype) {
-  if (lut_dtype == kLutF32) {
-    return packed4 ? pick_qt<true, float>(qt) : pick_qt<false, float>(qt);
+template <typename LT>
+const void* pick_lt(int qt, int packed4, int global) {
+  if (global) {
+    return packed4 ? pick_qt<true, LT, true>(qt) : pick_qt<false, LT, true>(qt);
   }
-  if (lut_dtype == kLutBF16) {
-    return packed4 ? pick_qt<true, __nv_bfloat16>(qt)
-                   : pick_qt<false, __nv_bfloat16>(qt);
-  }
+  return packed4 ? pick_qt<true, LT, false>(qt) : pick_qt<false, LT, false>(qt);
+}
+
+const void* pick(int qt, int packed4, int lut_dtype, int global) {
+  if (lut_dtype == kLutF32) return pick_lt<float>(qt, packed4, global);
+  if (lut_dtype == kLutBF16) return pick_lt<__nv_bfloat16>(qt, packed4, global);
   return nullptr;
 }
 
-size_t scan_smem_bytes(int qt, int lut_dtype, int mk, int k) {
+// smem_k: the length of the lists kept in shared memory, 0 when they live
+// in device memory.
+size_t scan_smem_bytes(int qt, int lut_dtype, int mk, int smem_k) {
   const size_t lsz = lut_dtype == kLutF32 ? 4 : 2;
   return static_cast<size_t>(qt) *
-         (static_cast<size_t>(k) * 8 + kBuf * 8 + 4 + kRows * 4 +
+         (static_cast<size_t>(smem_k) * 8 + kBuf * 8 + 4 + kRows * 4 +
           static_cast<size_t>(mk) * lsz);
 }
 
@@ -284,22 +314,29 @@ extern "C" {
 
 // Launch the scan and the merge on `stream`; returns the cudaError_t of the
 // launches (0 on success). `lut` is [nq, m*ksub] f32 (lut_dtype 0) or bf16
-// (1); `codes` [n, cols] u8; `mask` may be null. The caller allocates
-// part_* as [nq, splits, k] and out_* as [nq, k].
+// (1); `codes` [n, cols] u8; `mask` may be null. With list_len 0 the lists
+// stay in shared memory (k <= 1024): the caller allocates part_* as
+// [nq, splits, k] and tmp_* is unused. Otherwise each split's list has
+// list_len entries in part_*, and part_* and tmp_* are as large as every
+// level of the merge tree needs (ops/select.py::merge_scratch). out_* are
+// [nq, k].
 int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
                  int cols, int packed4, const float* norms, const float* mask,
                  int64_t nq, int64_t n, int m, int ksub, int64_t num_valid,
                  int k, int metric, int qt, int splits, int64_t rows_per_split,
-                 float* part_s, int* part_i, float* out_s, int* out_i,
-                 void* stream) {
+                 int list_len, float* part_s, int* part_i, float* tmp_s,
+                 int* tmp_i, float* out_s, int* out_i, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* fn = pick(qt, packed4, lut_dtype);
-  const size_t smem = scan_smem_bytes(qt, lut_dtype, m * ksub, k);
+  const int lists_global = list_len > 0;
+  const void* fn = pick(qt, packed4, lut_dtype, lists_global);
+  int kl = lists_global ? list_len : k;
+  const size_t smem =
+      scan_smem_bytes(qt, lut_dtype, m * ksub, lists_global ? 0 : k);
   cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return err;
   int vec = cols % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 4 == 0;
   void* args[] = {&lut,  &codes, &cols, &norms,     &mask, &nq,
-                  &n,    &m,     &ksub, &num_valid, &k,    &metric,
+                  &n,    &m,     &ksub, &num_valid, &kl,   &metric,
                   &rows_per_split, &vec, &part_s, &part_i};
   const dim3 grid(static_cast<unsigned>((nq + qt - 1) / qt),
                   static_cast<unsigned>(splits));
@@ -307,17 +344,22 @@ int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (lists_global) {
+    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, list_len, k,
+                      nullptr, 0, out_s, out_i, st);
+  }
   merge_kernel<<<static_cast<unsigned>(nq), kMergeThreads, merge_smem_bytes(k),
                  st>>>(part_s, part_i, nq, k, splits, out_s, out_i);
   return cudaGetLastError();
 }
 
-// Scan blocks that fit on one SM at once for this variant, written to
+// Scan blocks that fit on one SM at once for this variant with lists of
+// smem_k entries in shared memory (0: in device memory), written to
 // *blocks_per_sm; returns the cudaError_t.
 int mvt_adc_topk_occupancy(int lut_dtype, int packed4, int qt, int m,
-                           int ksub, int k, int* blocks_per_sm) {
-  const void* fn = pick(qt, packed4, lut_dtype);
-  const size_t smem = scan_smem_bytes(qt, lut_dtype, m * ksub, k);
+                           int ksub, int smem_k, int* blocks_per_sm) {
+  const void* fn = pick(qt, packed4, lut_dtype, smem_k == 0);
+  const size_t smem = scan_smem_bytes(qt, lut_dtype, m * ksub, smem_k);
   const cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,

@@ -26,8 +26,15 @@
 //
 // What bounds it: at R = 400, D = 128 f32 a query reads 200 KB of
 // scattered rows, so the gather from HBM/L2 sets the pace; each warp reads
-// one whole row per 16-byte load instruction (D = 128 f32). Limits: R <=
-// 4096 (the sort's 32 KB of shared memory), D <= 1024; the wrapper checks.
+// one whole row per 16-byte load instruction (D = 128 f32).
+//
+// Any R: above 4096 candidates (the sort's 32 KB of shared memory) each
+// block takes one chunk of 4096 of a query's candidates, sorts it the same
+// way and writes its best min(k, 4096) (score, key) pairs to a [Q, chunks,
+// L] scratch; the merge tree of select.cuh folds the chunks into the top k
+// (keys are positions in the whole candidate row, so ties by position hold
+// across chunks). D is bounded only by the query's place in shared memory
+// beside the sort; the wrapper checks.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -42,6 +49,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGatherBlocks = 4096;
+constexpr int kChunk = 4096;  // candidates sorted in one block
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
@@ -100,13 +108,18 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// Block (query, chunk) scores candidates [chunk*chunk_len, +chunk_len) of
+// the query's row and sorts them in shared memory. With `final` (one
+// chunk) it writes the query's top k as the result; otherwise the chunk's
+// best k (score, key) pairs go to out_* as [nq, chunks, k] for the merge.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rescore_kernel(const float* __restrict__ q, const T* __restrict__ db,
                    const float* __restrict__ norms,
                    const int* __restrict__ cand, int64_t n, int d, int r,
-                   int p, int k, int metric, int tie_rows, int vec,
-                   float* __restrict__ out_s, int* __restrict__ out_i) {
+                   int chunk_len, int p, int k, int metric, int tie_rows,
+                   int vec, int final_out, float* __restrict__ out_s,
+                   int* __restrict__ out_i) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                               // [d] the query
   float* ss = qs + ((d + 3) / 4) * 4;             // [p] scores
@@ -118,6 +131,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int64_t gq = blockIdx.x;
   const int* cq = cand + gq * r;
+  const int c0 = blockIdx.y * chunk_len;
+  const int len = r - c0 < chunk_len ? r - c0 : chunk_len;
 
   for (int e = tid; e < d; e += kThreads) qs[e] = q[gq * d + e];
   __syncthreads();
@@ -132,14 +147,14 @@ __global__ void __launch_bounds__(kThreads)
   const float qin = qin_s;
 
   for (int c = warp; c < p; c += kWarps) {
-    if (c >= r) {  // padding up to the sort's power of two
+    if (c >= len) {  // padding up to the sort's power of two
       if (lane == 0) {
         ss[c] = -CUDART_INF_F;
         ks[c] = kSentinel;
       }
       continue;
     }
-    const int row = cq[c];
+    const int row = cq[c0 + c];
     const bool valid = row >= 0;
     const int64_t safe = row < 0 ? 0 : (row >= n ? n - 1 : row);
     const T* x = db + safe * d;
@@ -170,7 +185,7 @@ __global__ void __launch_bounds__(kThreads)
         s = acc * (1.0f / sqrtf(fmaxf(nrm, 1e-30f))) * qin;
       }
       ss[c] = valid ? s : -CUDART_INF_F;
-      ks[c] = tie_rows ? (valid ? row : kSentinel) : c;
+      ks[c] = tie_rows ? (valid ? row : kSentinel) : c0 + c;
     }
   }
   __syncthreads();
@@ -199,8 +214,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = tid; j < k; j += kThreads) {
     const float s = ss[j];
     const int key = ks[j];
-    out_s[gq * k + j] = s;
-    out_i[gq * k + j] = s > -CUDART_INF_F ? (tie_rows ? key : cq[key]) : -1;
+    if (final_out) {
+      out_s[gq * k + j] = s;
+      out_i[gq * k + j] = s > -CUDART_INF_F ? (tie_rows ? key : cq[key]) : -1;
+    } else {
+      const int64_t o = (gq * gridDim.y + blockIdx.y) * k + j;
+      out_s[o] = s;
+      out_i[o] = key;
+    }
   }
 }
 
@@ -208,16 +229,35 @@ template <typename T>
 cudaError_t launch_rescore(const float* q, const void* db, const float* norms,
                            const int* cand, int64_t nq, int64_t n, int d,
                            int r, int k, int metric, int tie_rows,
-                           float* out_s, int* out_i, cudaStream_t stream) {
+                           float* part_s, int* part_i, float* tmp_s,
+                           int* tmp_i, float* out_s, int* out_i,
+                           cudaStream_t stream) {
+  const int chunk_len = r < kChunk ? r : kChunk;
+  const int chunks = (r + chunk_len - 1) / chunk_len;
   int p = 1;
-  while (p < r) p <<= 1;
+  while (p < chunk_len) p <<= 1;
   const size_t smem = (static_cast<size_t>((d + 3) / 4) * 4 + 2 * p) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      rescore_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   const int vec = d % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(db) % (4 * sizeof(T)) == 0;
-  rescore_kernel<T><<<static_cast<unsigned>(nq), kThreads, smem, stream>>>(
-      q, static_cast<const T*>(db), norms, cand, n, d, r, p, k, metric,
-      tie_rows, vec, out_s, out_i);
-  return cudaGetLastError();
+  const dim3 grid(static_cast<unsigned>(nq), static_cast<unsigned>(chunks));
+  if (chunks == 1) {
+    rescore_kernel<T><<<grid, kThreads, smem, stream>>>(
+        q, static_cast<const T*>(db), norms, cand, n, d, r, chunk_len, p, k,
+        metric, tie_rows, vec, 1, out_s, out_i);
+    return cudaGetLastError();
+  }
+  const int len = k < chunk_len ? k : chunk_len;
+  rescore_kernel<T><<<grid, kThreads, smem, stream>>>(
+      q, static_cast<const T*>(db), norms, cand, n, d, r, chunk_len, p, len,
+      metric, tie_rows, vec, 0, part_s, part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, chunks, len, k,
+                    tie_rows ? nullptr : cand, r, out_s, out_i, stream);
 }
 
 }  // namespace
@@ -241,22 +281,29 @@ int mvt_gather_rows(const void* db, int64_t n, int64_t row_bytes,
 }
 
 // Exact rescore of cand [nq, r] (int32 rows, -1 = none) against db [n, d]
-// (f32 / f16 / bf16 by db_dtype) and the top k into out_* [nq, k].
+// (f32 / f16 / bf16 by db_dtype) and the top k into out_* [nq, k]. Above
+// 4096 candidates part_* hold [nq, chunks, min(k, 4096)] and part_* and
+// tmp_* are as large as the merge tree needs (ops/select.py); below they
+// are unused.
 int mvt_rescore(const float* q, const void* db, int db_dtype,
                 const float* norms, const int* cand, int64_t nq, int64_t n,
-                int d, int r, int k, int metric, int tie_rows, float* out_s,
+                int d, int r, int k, int metric, int tie_rows, float* part_s,
+                int* part_i, float* tmp_s, int* tmp_i, float* out_s,
                 int* out_i, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (db_dtype) {
     case kF32:
       return launch_rescore<float>(q, db, norms, cand, nq, n, d, r, k, metric,
-                                   tie_rows, out_s, out_i, st);
+                                   tie_rows, part_s, part_i, tmp_s, tmp_i,
+                                   out_s, out_i, st);
     case kF16:
       return launch_rescore<__half>(q, db, norms, cand, nq, n, d, r, k,
-                                    metric, tie_rows, out_s, out_i, st);
+                                    metric, tie_rows, part_s, part_i, tmp_s,
+                                    tmp_i, out_s, out_i, st);
     case kBF16:
       return launch_rescore<__nv_bfloat16>(q, db, norms, cand, nq, n, d, r, k,
-                                           metric, tie_rows, out_s, out_i, st);
+                                           metric, tie_rows, part_s, part_i,
+                                           tmp_s, tmp_i, out_s, out_i, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

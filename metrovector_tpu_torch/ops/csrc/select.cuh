@@ -1,8 +1,10 @@
-// Top-k selection pieces shared by the ADC scan (adc_kernel.cu) and the
-// gather + rescore kernel (gather_kernel.cu): the ranking rule, a
-// buffered merge into a sorted list of any length, and the merge of
-// per-split partial lists (the last two used by the ADC scan only). Everything ranks by (score descending, key
-// ascending); slots that stay -inf carry index -1 in the final output.
+// Top-k selection pieces shared by the kernels of this directory: the
+// ranking rule, a buffered merge into a sorted list of any length (the
+// list in shared memory, or in global memory when k is too large for it),
+// the merge of per-split partial lists in shared memory (k <= 1024), and a
+// merge tree in global memory for lists of any length. Everything ranks by
+// (score descending, key ascending); slots that stay -inf carry index -1
+// in the final output.
 
 #pragma once
 
@@ -254,6 +256,165 @@ __global__ void __launch_bounds__(kMergeThreads)
     out_s[q * k + e] = sv;
     out_i[q * k + e] = sv > -CUDART_INF_F ? ai[e] : -1;
   }
+}
+
+// Offer one score per lane (key `idx`) to a query's sorted list (ls, li)
+// of length k through its buffer (bs, bi) of kBuf entries: the lanes whose
+// score beats the list's cached k-th entry (ts, ti) append to the buffer,
+// and a buffer that would overflow is merged into the list first
+// (flush_buffer), which refreshes (ts, ti). `cnt` is the buffer's fill.
+// Called by the whole warp that owns the list; most calls cost one vote.
+__device__ __forceinline__ void offer(float s, int idx, float* ls, int* li,
+                                      int k, float* bs, int* bi, int& cnt,
+                                      float& ts, int& ti, int lane) {
+  bool pass = s > -CUDART_INF_F && better(s, idx, ts, ti);
+  unsigned vote = __ballot_sync(kFull, pass);
+  if (vote == 0) return;
+  if (cnt + __popc(vote) > kBuf) {
+    flush_buffer(ls, li, k, bs, bi, cnt, lane);
+    cnt = 0;
+    ts = ls[k - 1];
+    ti = li[k - 1];
+    pass = s > -CUDART_INF_F && better(s, idx, ts, ti);
+    vote = __ballot_sync(kFull, pass);
+  }
+  if (pass) {
+    const int at = cnt + __popc(vote & ((1u << lane) - 1u));
+    bs[at] = s;
+    bi[at] = idx;
+  }
+  cnt += __popc(vote);
+}
+
+// Entries of the sorted list (s, i)[0, len) that rank before (t, j) or tie
+// with it exactly.
+__device__ __forceinline__ int count_not_worse(const float* s, const int* i,
+                                               int len, float t, int j) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (!better(t, j, s[mid], i[mid])) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+constexpr int kTreeThreads = 256;
+constexpr int64_t kTreeBlocks = 132 * 16;
+
+// One level of the merge tree: src holds `lists` sorted lists of len_in
+// per query ([nq, lists, len_in]); list 2p and 2p+1 merge into list p of
+// dst ([nq, ceil(lists/2), len_out], len_out <= 2 len_in). Each entry
+// finds its slot by a binary search in the other list: an entry of the
+// first list lands after the second list's entries that beat it, an entry
+// of the second after the first list's entries that beat it or tie with
+// it. That is a stable merge, so the slots are distinct even where entries
+// repeat (the -inf fill, or one row offered twice). A list without a
+// partner is copied and its tail filled with (-inf, kSentinel).
+__global__ void __launch_bounds__(kTreeThreads)
+    merge_pairs_kernel(const float* __restrict__ src_s,
+                       const int* __restrict__ src_i, int64_t nq, int lists,
+                       int len_in, float* __restrict__ dst_s,
+                       int* __restrict__ dst_i, int len_out) {
+  const int pairs = (lists + 1) / 2;
+  const int64_t total = nq * pairs * 2 * static_cast<int64_t>(len_in);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kTreeThreads;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kTreeThreads + threadIdx.x;
+       e < total; e += step) {
+    const int pos = static_cast<int>(e % len_in);
+    int64_t rest = e / len_in;
+    const int side = static_cast<int>(rest & 1);
+    rest >>= 1;
+    const int p = static_cast<int>(rest % pairs);
+    const int64_t q = rest / pairs;
+    const int64_t a = (q * lists + 2 * p) * static_cast<int64_t>(len_in);
+    const int64_t b = a + len_in;
+    const bool has_b = 2 * p + 1 < lists;
+    float v = -CUDART_INF_F;
+    int key = kSentinel;
+    int r;
+    if (side == 0) {
+      v = src_s[a + pos];
+      key = src_i[a + pos];
+      r = pos + (has_b ? count_better(src_s + b, src_i + b, len_in, v, key) : 0);
+    } else if (has_b) {
+      v = src_s[b + pos];
+      key = src_i[b + pos];
+      r = pos + count_not_worse(src_s + a, src_i + a, len_in, v, key);
+    } else {
+      r = len_in + pos;  // the fill of a list without a partner
+    }
+    if (r < len_out) {
+      const int64_t o = (q * pairs + p) * static_cast<int64_t>(len_out) + r;
+      dst_s[o] = v;
+      dst_i[o] = key;
+    }
+  }
+}
+
+// The one list left ([nq, len]) -> out [nq, k]: -inf slots get index -1;
+// with `cand` ([nq, r]) a key is a position in the query's candidate row
+// and the output index is the candidate it names.
+__global__ void __launch_bounds__(kTreeThreads)
+    finish_kernel(const float* __restrict__ src_s,
+                  const int* __restrict__ src_i, int64_t nq, int len, int k,
+                  const int* __restrict__ cand, int64_t r,
+                  float* __restrict__ out_s, int* __restrict__ out_i) {
+  const int64_t total = nq * k;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kTreeThreads;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kTreeThreads + threadIdx.x;
+       e < total; e += step) {
+    const int64_t q = e / k;
+    const int j = static_cast<int>(e % k);
+    const float s = j < len ? src_s[q * len + j] : -CUDART_INF_F;
+    const int key = j < len ? src_i[q * len + j] : kSentinel;
+    out_s[e] = s;
+    out_i[e] = s > -CUDART_INF_F ? (cand != nullptr ? cand[q * r + key] : key)
+                                 : -1;
+  }
+}
+
+inline unsigned tree_blocks(int64_t total) {
+  const int64_t want = (total + kTreeThreads - 1) / kTreeThreads;
+  return static_cast<unsigned>(want < 1 ? 1 : (want < kTreeBlocks ? want : kTreeBlocks));
+}
+
+// Fold `lists` sorted lists of `len` per query (part [nq, lists, len]) into
+// the top k of each query (out [nq, k]), one tree level per launch, the
+// levels alternating between part and tmp. The caller sizes both for every
+// level (ops/select.py::merge_scratch) and keeps their contents scratch.
+inline cudaError_t merge_tree(float* part_s, int* part_i, float* tmp_s,
+                              int* tmp_i, int64_t nq, int lists, int len,
+                              int k, const int* cand, int64_t r, float* out_s,
+                              int* out_i, cudaStream_t stream) {
+  float* src_s = part_s;
+  int* src_i = part_i;
+  float* dst_s = tmp_s;
+  int* dst_i = tmp_i;
+  while (lists > 1) {
+    const int len_out = static_cast<int>(
+        2 * static_cast<int64_t>(len) < k ? 2 * static_cast<int64_t>(len) : k);
+    const int pairs = (lists + 1) / 2;
+    merge_pairs_kernel<<<tree_blocks(nq * pairs * 2 * static_cast<int64_t>(len)),
+                         kTreeThreads, 0, stream>>>(src_s, src_i, nq, lists, len,
+                                                    dst_s, dst_i, len_out);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    float* ts = src_s;
+    int* ti = src_i;
+    src_s = dst_s;
+    src_i = dst_i;
+    dst_s = ts;
+    dst_i = ti;
+    lists = pairs;
+    len = len_out;
+  }
+  finish_kernel<<<tree_blocks(nq * k), kTreeThreads, 0, stream>>>(
+      src_s, src_i, nq, len, k, cand, r, out_s, out_i);
+  return cudaGetLastError();
 }
 
 }  // namespace

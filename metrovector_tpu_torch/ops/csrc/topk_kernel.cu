@@ -37,19 +37,34 @@
 //   warp-wide insertion; most tiles cost one vote per query.
 // * The grid holds about one wave: S is chosen from the occupancy the
 //   runtime reports, so no second, mostly empty wave of blocks trails.
-// * Pass 2 (merge_kernel), one warp per query, merges the S sorted partial
-//   lists ([Q, S, k] scratch allocated by the caller) into the final top-k.
+// * Pass 2 (warp_merge_kernel), one warp per query, merges the S sorted
+//   partial lists ([Q, S, k] scratch allocated by the caller) into the
+//   final top-k.
+//
+// Any k and any D, in two more variants of the scan (template flags):
+// * BIG_K (k > 256): the lists no longer fit in shared memory. Each query's
+//   list of L = min(k, rows per split) entries lives in the [Q, S, L]
+//   scratch itself, and the warp that owns the query appends rows that
+//   beat its k-th entry to a 64-entry buffer in shared memory, merged into
+//   the list when full (select.cuh, as the ADC scan does). The merge tree
+//   of select.cuh then folds the S lists into the top k.
+// * WIDE (the query tile of all D dims does not fit in half the shared
+//   memory): only the 64-dim chunk of the 32 queries that the step needs is
+//   staged, beside the corpus chunk. The dots still accumulate over
+//   d = 0..D-1 in order.
 //
 // Row offsets are 64-bit (N*D passes 2^31 at 100M x 768). The corpus may
 // be float, __half or __nv_bfloat16 (converted to f32 per element with the
-// intrinsics); queries are f32. Limits: 1 <= k <= 256, D <= 1024,
-// S <= 512, N < 2^31; the Python wrapper checks them.
+// intrinsics); queries are f32. Limits: 1 <= k <= N < 2^31, S <= 512; the
+// Python wrapper checks them.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "select.cuh"
 
 namespace {
 
@@ -60,12 +75,11 @@ constexpr int kRT = 128;       // corpus rows per tile
 constexpr int kDC = 64;        // dims per staged chunk
 constexpr int kXStride = kDC + 1;  // padded: row r starts on bank r % 32
 constexpr int kStageLoads = kRT * kDC / 4 / kThreads;
-constexpr int kMaxK = 256;
+constexpr int kQStageLoads = kQT * kDC / 4 / kThreads;
+constexpr int kMaxK = 256;  // lists in shared memory up to this k
 constexpr int kPerLane = kMaxK / 32;
 constexpr int kMaxSplits = 512;
 constexpr int kSplitsPerLane = kMaxSplits / 32;
-constexpr int kSentinel = 0x7fffffff;
-constexpr unsigned kFull = 0xffffffffu;
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
@@ -98,11 +112,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 b =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// (s, i) ranks before (t, j): score descending, then index ascending.
-__device__ __forceinline__ bool better(float s, int i, float t, int j) {
-  return s > t || (s == t && i < j);
 }
 
 // Insert (s, idx) into the sorted list (ls, li) of length k, dropping the
@@ -185,7 +194,45 @@ __device__ __forceinline__ void stage_store(const float4 (&v)[kStageLoads],
   }
 }
 
-template <typename T>
+// One thread's share of the [kQT x kDC] query chunk at dims d0.. (zeros
+// past the batch or past D), stored transposed: qs[c][query]. Lanes take
+// consecutive queries, so the shared-memory stores hit distinct banks.
+__device__ __forceinline__ void stage_q_load(float4 (&v)[kQStageLoads],
+                                             const float* __restrict__ q,
+                                             int64_t q0, int64_t nq,
+                                             int64_t d0, int64_t d, int tid) {
+#pragma unroll
+  for (int j = 0; j < kQStageLoads; ++j) {
+    const int e = tid + j * kThreads;
+    const int qq = e % kQT;
+    const int c = (e / kQT) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + qq < nq) {
+      const float* p = q + (q0 + qq) * d + d0 + c;
+      const int64_t left = d - d0 - c;
+      if (left > 0) x.x = p[0];
+      if (left > 1) x.y = p[1];
+      if (left > 2) x.z = p[2];
+      if (left > 3) x.w = p[3];
+    }
+    v[j] = x;
+  }
+}
+
+__device__ __forceinline__ void stage_q_store(const float4 (&v)[kQStageLoads],
+                                              float* qs, int tid) {
+#pragma unroll
+  for (int j = 0; j < kQStageLoads; ++j) {
+    const int e = tid + j * kThreads;
+    float* dst = qs + ((e / kQT) * 4) * kQT + e % kQT;
+    dst[0] = v[j].x;
+    dst[kQT] = v[j].y;
+    dst[2 * kQT] = v[j].z;
+    dst[3 * kQT] = v[j].w;
+  }
+}
+
+template <typename T, bool WIDE, bool BIG_K>
 __global__ void __launch_bounds__(kThreads)
     scan_kernel(const float* __restrict__ q, const T* __restrict__ db,
                 const float* __restrict__ norms,
@@ -193,12 +240,14 @@ __global__ void __launch_bounds__(kThreads)
                 int64_t d, int64_t num_valid, int k, int metric,
                 int64_t rows_per_split, int splits, int vec4,
                 float* __restrict__ part_s, int* __restrict__ part_i) {
+  // BIG_K: k is the length of each split's list, which lives in part_*.
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // [d][kQT], transposed
-  float* xs = qs + kQT * d;          // [kRT][kXStride] staged corpus chunk
+  float* qs = smem;  // [d][kQT] transposed (WIDE: [kDC][kQT], one chunk)
+  float* xs = qs + kQT * (WIDE ? kDC : d);  // [kRT][kXStride] corpus chunk
   float* sws = xs + kRT * kXStride;  // [kWarps][kRT] one query's scores
-  float* cs = sws + kWarps * kRT;    // [kQT][k] candidate scores
-  int* ci = reinterpret_cast<int*>(cs + kQT * k);  // [kQT][k] indices
+  float* cs = sws + kWarps * kRT;    // [kQT][k] candidate scores (BIG_K:
+                                     // [kQT][kBuf] buffers)
+  int* ci = reinterpret_cast<int*>(cs + kQT * (BIG_K ? kBuf : k));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -208,14 +257,32 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t row_begin = split * rows_per_split;
   const int64_t row_end = min64(n, row_begin + rows_per_split);
 
-  const int64_t q_elems = static_cast<int64_t>(kQT) * d;
-  for (int64_t e = tid; e < q_elems; e += kThreads) {
-    const int64_t g = q0 * d + e;  // coalesced read of query row e / d
-    qs[(e % d) * kQT + e / d] = g < nq * d ? q[g] : 0.f;
+  if (!WIDE) {
+    const int64_t q_elems = static_cast<int64_t>(kQT) * d;
+    for (int64_t e = tid; e < q_elems; e += kThreads) {
+      const int64_t g = q0 * d + e;  // coalesced read of query row e / d
+      qs[(e % d) * kQT + e / d] = g < nq * d ? q[g] : 0.f;
+    }
   }
-  for (int e = tid; e < kQT * k; e += kThreads) {
-    cs[e] = -CUDART_INF_F;
-    ci[e] = kSentinel;
+  if (BIG_K) {  // each warp clears the lists of the 4 queries it owns
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int64_t gq = q0 + 4 * warp + a;
+      if (gq < nq) {
+        float* ls = part_s + (gq * splits + split) * k;
+        int* li = part_i + (gq * splits + split) * k;
+        for (int j = lane; j < k; j += 32) {
+          ls[j] = -CUDART_INF_F;
+          li[j] = kSentinel;
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    for (int e = tid; e < kQT * k; e += kThreads) {
+      cs[e] = -CUDART_INF_F;
+      ci[e] = kSentinel;
+    }
   }
   __syncthreads();
 
@@ -226,9 +293,14 @@ __global__ void __launch_bounds__(kThreads)
   const int nchunks = static_cast<int>((d + kDC - 1) / kDC);
   const int64_t steps = ntiles * nchunks;
   float4 stage[kStageLoads];
+  float4 qstage[kQStageLoads];
   if (steps > 0) {
     stage_load(stage, db, row_begin, 0, row_end, d, vec4, tid);
     stage_store(stage, xs, tid);
+    if (WIDE) {
+      stage_q_load(qstage, q, q0, nq, 0, d, tid);
+      stage_q_store(qstage, qs, tid);
+    }
   }
   __syncthreads();
 
@@ -237,10 +309,12 @@ __global__ void __launch_bounds__(kThreads)
   float* sw = sws + warp * kRT;
   float ws[4];
   int wi[4];
+  int cnt[4];  // BIG_K: each query's buffer fill
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     ws[a] = -CUDART_INF_F;
     wi[a] = kSentinel;
+    cnt[a] = 0;
   }
   float acc[4][4];
   for (int64_t st = 0; st < steps; ++st) {
@@ -254,7 +328,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
     }
-    const float* qcol = qs + d0 * kQT + 4 * warp;
+    const float* qcol = qs + (WIDE ? 0 : d0 * kQT) + 4 * warp;
 #pragma unroll 8
     for (int c = 0; c < dc; ++c) {
       const float4 q4 = *reinterpret_cast<const float4*>(qcol + c * kQT);
@@ -273,6 +347,11 @@ __global__ void __launch_bounds__(kThreads)
       stage_load(stage, db, next == 0 ? t0 + kRT : t0,
                  static_cast<int64_t>(next) * kDC, row_end, d, vec4, tid);
       stage_store(stage, xs, tid);
+      if (WIDE) {
+        stage_q_load(qstage, q, q0, nq, static_cast<int64_t>(next) * kDC, d,
+                     tid);
+        stage_q_store(qstage, qs, tid);
+      }
     }
     if (chunk + 1 == nchunks) {
       // Epilogue and masks, then each query's 4 x 32 scores go against its
@@ -296,8 +375,23 @@ __global__ void __launch_bounds__(kThreads)
           acc[a][b] = live ? s : -CUDART_INF_F;
         }
       }
+      if (BIG_K) {  // through the buffers into the lists in part_*
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+        for (int a = 0; a < 4; ++a) {
+          const int qq = 4 * warp + a;
+          const int64_t gq = q0 + qq;
+          if (gq >= nq) continue;  // the same in every lane
+          float* ls = part_s + (gq * splits + split) * k;
+          int* li = part_i + (gq * splits + split) * k;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            offer(acc[a][b], static_cast<int>(t0 + lane + 32 * b), ls, li, k,
+                  cs + qq * kBuf, ci + qq * kBuf, cnt[a], ws[a], wi[a], lane);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4 && !BIG_K; ++a) {
         const int qq = 4 * warp + a;
         bool beats = false;
 #pragma unroll
@@ -333,6 +427,19 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the next chunk is staged
   }
 
+  if (BIG_K) {  // the buffers' last entries
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int qq = 4 * warp + a;
+      const int64_t gq = q0 + qq;
+      if (gq < nq && cnt[a] > 0) {
+        flush_buffer(part_s + (gq * splits + split) * k,
+                     part_i + (gq * splits + split) * k, k, cs + qq * kBuf,
+                     ci + qq * kBuf, cnt[a], lane);
+      }
+    }
+    return;
+  }
   for (int e = tid; e < kQT * k; e += kThreads) {
     const int qq = e / k;
     const int j = e % k;
@@ -347,10 +454,10 @@ __global__ void __launch_bounds__(kThreads)
 
 // One warp per query: merge S sorted lists of k into the final top-k.
 __global__ void __launch_bounds__(kThreads)
-    merge_kernel(const float* __restrict__ part_s,
-                 const int* __restrict__ part_i, int64_t nq, int k,
-                 int splits, float* __restrict__ out_s,
-                 int* __restrict__ out_i) {
+    warp_merge_kernel(const float* __restrict__ part_s,
+                      const int* __restrict__ part_i, int64_t nq, int k,
+                      int splits, float* __restrict__ out_s,
+                      int* __restrict__ out_i) {
   const int lane = threadIdx.x & 31;
   const int64_t gq = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (gq >= nq) return;  // whole warp; the kernel has no block barrier
@@ -413,99 +520,98 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t scan_smem_bytes(int64_t d, int k) {
-  return (static_cast<size_t>(kQT) * d + static_cast<size_t>(kRT) * kXStride +
-          static_cast<size_t>(kWarps) * kRT + static_cast<size_t>(kQT) * k) *
+size_t scan_smem_bytes(int64_t d, int k, int wide, int big_k) {
+  const size_t lists = static_cast<size_t>(kQT) * (big_k ? kBuf : k);
+  return (static_cast<size_t>(kQT) * (wide ? kDC : d) +
+          static_cast<size_t>(kRT) * kXStride +
+          static_cast<size_t>(kWarps) * kRT + lists) *
              sizeof(float) +
-         static_cast<size_t>(kQT) * k * sizeof(int);
+         lists * sizeof(int);
 }
 
 template <typename T>
-cudaError_t prepare(int64_t d, int k, size_t* smem) {
-  *smem = scan_smem_bytes(d, k);
-  return cudaFuncSetAttribute(scan_kernel<T>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
+const void* pick_t(int wide, int big_k) {
+  if (wide) {
+    return big_k ? reinterpret_cast<const void*>(scan_kernel<T, true, true>)
+                 : reinterpret_cast<const void*>(scan_kernel<T, true, false>);
+  }
+  return big_k ? reinterpret_cast<const void*>(scan_kernel<T, false, true>)
+               : reinterpret_cast<const void*>(scan_kernel<T, false, false>);
 }
 
-template <typename T>
-cudaError_t occupancy(int64_t d, int k, int* blocks_per_sm) {
-  size_t smem = 0;
-  const cudaError_t err = prepare<T>(d, k, &smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, scan_kernel<T>, kThreads, smem);
+const void* pick(int db_dtype, int wide, int big_k) {
+  switch (db_dtype) {
+    case kF32:
+      return pick_t<float>(wide, big_k);
+    case kF16:
+      return pick_t<__half>(wide, big_k);
+    case kBF16:
+      return pick_t<__nv_bfloat16>(wide, big_k);
+    default:
+      return nullptr;
+  }
 }
 
-template <typename T>
-cudaError_t launch(const float* q, const void* db, const float* norms,
-                   const float* mask, int64_t nq, int64_t n, int64_t d,
-                   int64_t num_valid, int k, int metric, int splits,
-                   int64_t rows_per_split, float* part_s, int* part_i,
-                   float* out_s, int* out_i, cudaStream_t stream) {
-  size_t smem = 0;
-  cudaError_t err = prepare<T>(d, k, &smem);
-  if (err != cudaSuccess) return err;
-  const uintptr_t align = 4 * sizeof(T);
-  const int vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(db) % align == 0;
-  const dim3 grid(static_cast<unsigned>((nq + kQT - 1) / kQT),
-                  static_cast<unsigned>(splits));
-  scan_kernel<T><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(db), norms, mask, nq, n, d, num_valid, k,
-      metric, rows_per_split, splits, vec4, part_s, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const unsigned merge_blocks = static_cast<unsigned>((nq + kWarps - 1) / kWarps);
-  merge_kernel<<<merge_blocks, kThreads, 0, stream>>>(part_s, part_i, nq, k,
-                                                       splits, out_s, out_i);
-  return cudaGetLastError();
+cudaError_t prepare(const void* fn, size_t smem) {
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch both passes on `stream`. Returns the cudaError_t of the launches
-// (0 on success). `mask` may be null. The caller allocates part_* as
-// [nq, splits, k] and out_* as [nq, k].
+// Launch the scan and the merge on `stream`. Returns the cudaError_t of the
+// launches (0 on success). `mask` may be null. For k <= 256 the caller
+// allocates part_* as [nq, splits, k] (list_len = k, tmp_* unused); above,
+// part_* as [nq, splits, list_len] and both part_* and tmp_* as large as
+// every level of the merge tree needs (ops/select.py::merge_scratch).
+// out_* are [nq, k]. `wide` stages queries chunk by chunk.
 int mvt_fused_topk(const float* q, const void* db, int db_dtype,
                    const float* norms, const float* mask, int64_t nq,
                    int64_t n, int64_t d, int64_t num_valid, int k, int metric,
-                   int splits, int64_t rows_per_split, float* part_s,
-                   int* part_i, float* out_s, int* out_i, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (db_dtype) {
-    case kF32:
-      return launch<float>(q, db, norms, mask, nq, n, d, num_valid, k, metric,
-                           splits, rows_per_split, part_s, part_i, out_s,
-                           out_i, s);
-    case kF16:
-      return launch<__half>(q, db, norms, mask, nq, n, d, num_valid, k,
-                            metric, splits, rows_per_split, part_s, part_i,
-                            out_s, out_i, s);
-    case kBF16:
-      return launch<__nv_bfloat16>(q, db, norms, mask, nq, n, d, num_valid, k,
-                                   metric, splits, rows_per_split, part_s,
-                                   part_i, out_s, out_i, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+                   int splits, int64_t rows_per_split, int list_len, int wide,
+                   float* part_s, int* part_i, float* tmp_s, int* tmp_i,
+                   float* out_s, int* out_i, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int big_k = k > kMaxK;
+  const void* fn = pick(db_dtype, wide, big_k);
+  int kl = big_k ? list_len : k;
+  const size_t smem = scan_smem_bytes(d, kl, wide, big_k);
+  cudaError_t err = prepare(fn, smem);
+  if (err != cudaSuccess) return err;
+  const size_t esz = db_dtype == kF32 ? 4 : 2;
+  int vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(db) % (4 * esz) == 0;
+  void* args[] = {&q,     &db,    &norms,         &mask,   &nq,
+                  &n,     &d,     &num_valid,     &kl,     &metric,
+                  &rows_per_split, &splits, &vec4, &part_s, &part_i};
+  const dim3 grid(static_cast<unsigned>((nq + kQT - 1) / kQT),
+                  static_cast<unsigned>(splits));
+  err = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, st);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (big_k) {
+    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, list_len, k,
+                      nullptr, 0, out_s, out_i, st);
   }
+  const unsigned merge_blocks = static_cast<unsigned>((nq + kWarps - 1) / kWarps);
+  warp_merge_kernel<<<merge_blocks, kThreads, 0, st>>>(part_s, part_i, nq, k,
+                                                        splits, out_s, out_i);
+  return cudaGetLastError();
 }
 
-// Scan blocks that fit on one SM at once for this corpus dtype, D and k,
-// written to *blocks_per_sm; returns the cudaError_t.
-int mvt_fused_topk_occupancy(int db_dtype, int64_t d, int k,
-                             int* blocks_per_sm) {
-  switch (db_dtype) {
-    case kF32:
-      return occupancy<float>(d, k, blocks_per_sm);
-    case kF16:
-      return occupancy<__half>(d, k, blocks_per_sm);
-    case kBF16:
-      return occupancy<__nv_bfloat16>(d, k, blocks_per_sm);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Scan blocks that fit on one SM at once for this corpus dtype, D, list
+// length and variant, written to *blocks_per_sm; returns the cudaError_t.
+int mvt_fused_topk_occupancy(int db_dtype, int64_t d, int k, int wide,
+                             int big_k, int* blocks_per_sm) {
+  const void* fn = pick(db_dtype, wide, big_k);
+  const size_t smem = scan_smem_bytes(d, k, wide, big_k);
+  const cudaError_t err = prepare(fn, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                       kThreads, smem);
 }
 
 const char* mvt_cuda_error_string(int err) {

@@ -22,7 +22,7 @@ import contextlib
 import numpy as np
 import torch
 
-from metrovector_tpu.format.constants import DistanceMetric
+from ..format.constants import DistanceMetric
 
 
 @contextlib.contextmanager

@@ -9,19 +9,22 @@ raises; a CPU tensor goes to the plain version. ``gather_rows.launches`` and
 ``rescore_candidates.launches`` count kernel launches.
 
 The TPU kernel's strip fetch, its ``N % 8`` rule and ``auto_select``'s
-routing region were Mosaic limits and have no counterpart here.
+routing region were Mosaic limits and have no counterpart here. The rescore
+takes any number R of candidates: above 4096 it sorts chunks of 4096 and a
+merge tree folds them (:mod:`.select`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from metrovector_tpu.format.constants import DistanceMetric
+from ..format.constants import DistanceMetric
 
+from . import select
 from .distances import full_f32_matmul
-from .topk_kernel import MAX_DIM
+from .topk_kernel import SMEM_LIMIT
 
-MAX_CANDIDATES = 4096
+CHUNK = 4096  # candidates one block sorts in shared memory (csrc kChunk)
 TIES = ("position", "row")
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _GATHER_DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.int8,
@@ -118,6 +121,13 @@ def rescore_candidates_reference(
     return top_s, torch.where(torch.isneginf(top_s), -1, top_i).to(torch.int32)
 
 
+def _rescore_smem(d: int, r: int) -> int:
+    """Dynamic shared memory of one rescore block: the query and the sort
+    of one chunk, padded to a power of two."""
+    p = 1 << (min(r, CHUNK) - 1).bit_length()
+    return 4 * (-(-d // 4) * 4 + 2 * p)
+
+
 def _check_rescore(queries, db, db_norms, cand_idx, k) -> None:
     dev = queries.device
     for name, t in (("db", db), ("db_norms", db_norms), ("cand_idx", cand_idx)):
@@ -133,8 +143,14 @@ def _check_rescore(queries, db, db_norms, cand_idx, k) -> None:
     n = db.shape[0]
     if db.shape[1] != d:
         raise ValueError(f"queries have D={d}, db has D={db.shape[1]}")
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"D={d} is outside the kernel's limit 1 <= D <= {MAX_DIM}")
+    r = cand_idx.shape[1]
+    if _rescore_smem(d, r) > SMEM_LIMIT:
+        raise ValueError(
+            f"D={d} needs {_rescore_smem(d, r)} bytes of shared memory beside "
+            f"the sort, above the {SMEM_LIMIT} a block may use"
+        )
+    if -(-r // CHUNK) >= 2**16:
+        raise ValueError(f"R={r} candidates: more chunks than a grid holds")
     if n >= 2**31:
         raise ValueError(f"N={n} rows: the kernel's row indices are int32")
     if db_norms.dtype != torch.float32 or tuple(db_norms.shape) != (n,):
@@ -176,8 +192,6 @@ def rescore_candidates(
     if queries.device.type != "cuda":
         raise ValueError(f"rescore_candidates runs on CUDA or CPU, not {queries.device}")
     _check_rescore(queries, db, db_norms, cand_idx, k)
-    if r > MAX_CANDIDATES:
-        raise ValueError(f"R={r} candidates is above the kernel's limit {MAX_CANDIDATES}")
     from ._build import load, raise_for
 
     lib = load()
@@ -188,11 +202,18 @@ def rescore_candidates(
     if nq == 0:
         return out_s, out_i
     cand = cand_idx.to(torch.int32).contiguous()
+    chunks = -(-r // CHUNK)
     with torch.cuda.device(dev):
+        part_s, part_i, tmp_s, tmp_i = select.scratch(
+            nq if chunks > 1 else 0, chunks, min(k, CHUNK), k, dev,
+            tree=chunks > 1)
         err = lib.mvt_rescore(
             queries.data_ptr(), db.data_ptr(), _DTYPE_CODES[db.dtype],
             db_norms.data_ptr(), cand.data_ptr(), nq, db.shape[0], d, r, k,
-            int(metric), int(tie == "row"), out_s.data_ptr(), out_i.data_ptr(),
+            int(metric), int(tie == "row"),
+            part_s.data_ptr(), part_i.data_ptr(),
+            tmp_s.data_ptr(), tmp_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_for(lib, err, "rescore_candidates")

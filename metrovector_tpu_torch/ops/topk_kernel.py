@@ -7,8 +7,12 @@ goes to the kernel or the call raises; a CPU tensor goes to
 (both passes of one call count once), so a run can show that its main path
 went through the kernel.
 
-The Mosaic/VMEM tuning knobs of the TPU kernel (``block_rows``,
-``query_tile``, ``merge``, ``vmem_retry``) have no counterpart here.
+Like the TPU kernel it takes any ``1 ≤ k ≤ N`` and any D: above k = 256 the
+per-split lists move from shared memory into device memory and a merge
+tree folds them (:mod:`.select`), and a query tile too wide for shared
+memory is staged 64 dims at a time. The Mosaic/VMEM tuning knobs of the TPU
+kernel (``block_rows``, ``query_tile``, ``merge``, ``vmem_retry``) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -17,19 +21,20 @@ import ctypes
 
 import torch
 
-from metrovector_tpu.format.constants import DistanceMetric
+from ..format.constants import DistanceMetric
 
+from . import select
 from .distances import exact_topk
 
-MAX_K = 256
-MAX_DIM = 1024
-MAX_SPLITS = 512
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may opt into (sm_90)
 # Shape constants of csrc/topk_kernel.cu
+SMEM_K = 256  # lists in shared memory up to this k
 _QUERY_TILE = 32
 _ROW_TILE = 128
 _DIM_CHUNK = 64
 _WARPS = 8
+_BUFFER = 64
+_WIDE_DIM = 512  # 32 queries x 512 dims x 4 B = 64 KB
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _METRICS = (
@@ -57,31 +62,38 @@ def fused_topk_reference(
                       valid_mask=valid_mask, query_inv_norms=inv_q)
 
 
-def _shared_bytes(d: int, k: int) -> int:
-    """Dynamic shared memory of one scan block: the query tile, the staged
-    corpus chunk, one score row per warp and the candidate lists."""
-    floats = (_QUERY_TILE * d + _ROW_TILE * (_DIM_CHUNK + 1)
-              + _WARPS * _ROW_TILE + _QUERY_TILE * k)
-    return 4 * floats + 4 * _QUERY_TILE * k
+def _shared_bytes(d: int, k: int, wide: bool) -> int:
+    """Dynamic shared memory of one scan block: the query tile (``wide``:
+    one 64-dim chunk of it), the staged corpus chunk, one score row per
+    warp, and the candidate lists (above :data:`SMEM_K`, their buffers)."""
+    lists = _QUERY_TILE * (_BUFFER if k > SMEM_K else k)
+    floats = (_QUERY_TILE * (_DIM_CHUNK if wide else d)
+              + _ROW_TILE * (_DIM_CHUNK + 1) + _WARPS * _ROW_TILE + lists)
+    return 4 * floats + 4 * lists
+
+
+def _wide(d: int) -> bool:
+    """Stage queries chunk by chunk when the whole query tile would take
+    more than 64 KB of shared memory, so that at least two scan blocks
+    share an SM."""
+    return d > _WIDE_DIM
 
 
 def _splits(lib, nq: int, n: int, d: int, k: int, dtype_code: int,
-            device: torch.device) -> tuple[int, int]:
-    """Row splits S and rows per split: as many scan blocks as fit on the
-    card at once (one full wave), but at least one split."""
+            wide: bool, device: torch.device) -> tuple[int, int, int]:
+    """Row splits S, rows per split and list length: as many scan blocks
+    as fit on the card at once (one full wave), but at least one split;
+    above :data:`SMEM_K` fewer if the lists would pass the scratch bound."""
     from ._build import raise_for
 
+    big = k > SMEM_K
     per_sm = ctypes.c_int(0)
-    raise_for(lib, lib.mvt_fused_topk_occupancy(dtype_code, d, k,
-                                                ctypes.byref(per_sm)),
-              "fused_topk")
+    raise_for(lib, lib.mvt_fused_topk_occupancy(
+        dtype_code, d, min(k, SMEM_K), int(wide), int(big),
+        ctypes.byref(per_sm)), "fused_topk")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-nq // _QUERY_TILE)
-    tiles = -(-n // _ROW_TILE)
-    want = max(1, sms * max(1, per_sm.value) // q_tiles)
-    splits = max(1, min(want, MAX_SPLITS, tiles))
-    rows_per_split = -(-tiles // splits) * _ROW_TILE
-    return -(-n // rows_per_split), rows_per_split
+    want = max(1, sms * max(1, per_sm.value) // -(-nq // _QUERY_TILE))
+    return select.row_splits(n, _ROW_TILE, want, nq, k, lists_in_smem=not big)
 
 
 def _check(queries, db, db_norms, k, valid_mask) -> None:
@@ -105,15 +117,10 @@ def _check(queries, db, db_norms, k, valid_mask) -> None:
     n = db.shape[0]
     if db.shape[1] != d:
         raise ValueError(f"queries have D={d}, db has D={db.shape[1]}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} is outside the kernel's limit 1 <= k <= {MAX_K}")
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"D={d} is outside the kernel's limit 1 <= D <= {MAX_DIM}")
-    if _shared_bytes(d, k) > SMEM_LIMIT:
-        raise ValueError(
-            f"D={d} with k={k} needs {_shared_bytes(d, k)} bytes of shared "
-            f"memory, above the {SMEM_LIMIT} a block may use"
-        )
+    if k < 1 or (n and k > n):  # an empty corpus leaves every slot unfilled
+        raise ValueError(f"k={k} is outside the kernel's limit 1 <= k <= N={n}")
+    if d < 1:
+        raise ValueError("queries and db need at least one dimension")
     if n >= 2**31:
         raise ValueError(f"N={n} rows: the kernel's row indices are int32")
     for name, t in named[1:]:
@@ -138,7 +145,7 @@ def fused_topk(
     ``db_norms [N]`` f32; rows ≥ ``num_valid`` and rows where
     ``valid_mask [N]`` (f32) is 0 never enter. Returns ``(scores [Q, k]
     f32, indices [Q, k] int32)`` by (score descending, index ascending);
-    unfilled slots hold (−inf, −1)."""
+    unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``, any D."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
@@ -159,17 +166,20 @@ def fused_topk(
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
     code = _DTYPE_CODES[db.dtype]
+    wide = _wide(d)
     with torch.cuda.device(dev):
-        splits, rows_per_split = _splits(lib, nq, n, d, k, code, dev)
-        part_s = torch.empty((nq, splits, k), dtype=torch.float32, device=dev)
-        part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=dev)
+        splits, rows_per_split, length = _splits(lib, nq, n, d, k, code, wide,
+                                                 dev)
+        part_s, part_i, tmp_s, tmp_i = select.scratch(
+            nq, splits, length, k, dev, tree=k > SMEM_K)
         err = lib.mvt_fused_topk(
             queries.data_ptr(), db.data_ptr(), code,
             db_norms.data_ptr(),
             None if valid_mask is None else valid_mask.data_ptr(),
             nq, n, d, max(0, min(int(num_valid), n)), k, int(metric),
-            splits, rows_per_split,
+            splits, rows_per_split, length, int(wide),
             part_s.data_ptr(), part_i.data_ptr(),
+            tmp_s.data_ptr(), tmp_i.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -1,1 +1,2 @@
-"""Host ↔ device transfer and timing on the card."""
+"""Host-side utilities: transfer and timing on the card, filter planes,
+logging, tuning hints."""

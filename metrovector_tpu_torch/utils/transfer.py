@@ -15,7 +15,8 @@ import torch
 CHUNK_BYTES = 256 << 20
 
 _TORCH_DTYPES = {np.dtype("float32"): torch.float32,
-                 np.dtype("float16"): torch.float16}
+                 np.dtype("float16"): torch.float16,
+                 np.dtype("int32"): torch.int32}
 
 
 def put_chunked(
@@ -23,7 +24,7 @@ def put_chunked(
     device: torch.device,
     dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Copy the f32 or f16 array ``arr`` to ``device`` in row chunks of at
+    """Copy the f32, f16 or int32 array ``arr`` to ``device`` in row chunks of at
     most ``CHUNK_BYTES``, converting to ``dtype`` (default: the array's
     own) on the device. Returns a new contiguous tensor; ``arr`` is only
     read."""
@@ -31,7 +32,7 @@ def put_chunked(
     try:
         src_dtype = _TORCH_DTYPES[arr.dtype]
     except KeyError:
-        raise TypeError(f"put_chunked uploads f32 or f16, not {arr.dtype}") from None
+        raise TypeError(f"put_chunked uploads f32, f16 or int32, not {arr.dtype}") from None
     out = torch.empty(arr.shape, dtype=dtype or src_dtype, device=device)
     if arr.size == 0:
         return out

@@ -134,6 +134,27 @@ def test_cpu_path_matches_xla_adc_search(metric, kind):
         )
 
 
+@pytest.mark.parametrize("k", [257, 1000, 1024, 1025, 1200])
+@pytest.mark.parametrize("packed4", [False, True])
+def test_any_k_matches_pallas_interpret(k, packed4):
+    """k past the old limit of 1024 up to k = N, on integer data: identical
+    to the JAX kernel."""
+    n = 1200
+    rng = np.random.default_rng(8)
+    books = rng.integers(0, 8, (4, 16, DSUB)).astype(np.float32)
+    q = rng.integers(0, 8, (3, 4 * DSUB)).astype(np.float32)
+    codes = rng.integers(0, 16, (n, 4)).astype(np.uint8)
+    recon = np.concatenate([books[j][codes[:, j]] for j in range(4)], axis=1)
+    rnorms = (recon.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    stored = pack_codes4(codes) if packed4 else codes
+    got = _port(q, stored, books, rnorms, n, k, DistanceMetric.L2,
+                packed4=packed4)
+    want = jax_fused_adc_topk(q, stored, books, rnorms, np.int32(n), k,
+                              DistanceMetric.L2, exact_lut=True, block_rows=128,
+                              interpret=True, packed4=packed4)
+    assert_topk_match(got, tuple(np.asarray(a) for a in want), exact=True)
+
+
 def test_packed_and_unpacked_codes_agree():
     books, codes, _, rnorms, q, mask = _pq_inputs("normal", 5, 16)
     a = _port(q, codes, books, rnorms, N, 40, DistanceMetric.L2, mask)
@@ -193,8 +214,8 @@ def test_kernel_input_checks_raise(name):
     norms, k = torch.zeros(10), 10
     if name == "k_zero":
         k = 0
-    elif name == "k_above_limit":
-        k = adc_kernel.MAX_K + 1
+    elif name == "k_above_limit":  # the limit is the corpus: k <= N
+        k = 11
     elif name == "codes_dtype":
         codes = codes.to(torch.int32)
     elif name == "norms_shape":

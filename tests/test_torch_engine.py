@@ -113,6 +113,37 @@ def test_ids_and_delete_by_id_match_reference(tmp_path):
     _assert_same(port.search(q, k=5), ref.search(q, k=5))
 
 
+@pytest.mark.parametrize("k", [257, 1000])
+def test_search_above_k_256_matches_reference(tmp_path, k):
+    """k past the old 256 (and above the corpus: k_eff = N), and a range
+    query with max_results = 300, as the JAX engine answers them."""
+    path, x, q = _file(tmp_path, deleted=(5,))
+    port, ref = _engines(path)
+    _assert_same(port.search(q, k=k), ref.search(q, k=k))
+    a = port.search_radius(q, 4e5, max_results=300)
+    b = ref.search_radius(q, 4e5, max_results=300)
+    np.testing.assert_array_equal(a.truncated, b.truncated)
+    for r in range(len(q)):
+        np.testing.assert_array_equal(a.indices[r], b.indices[r])
+
+
+@pytest.mark.parametrize("metric", [DistanceMetric.L2, DistanceMetric.INNER_PRODUCT])
+def test_wide_corpus_matches_reference(tmp_path, metric):
+    """D = 1536 (text-embedding-3-small's width), past the old 1024. Values
+    in [0, 15] keep every score exact in f32: identical results."""
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 16, (200, 1536)).astype(np.float32)
+    q = rng.integers(0, 16, (5, 1536)).astype(np.float32)
+    b = Builder()
+    b.add_vector_space("v", dim=1536, metric=metric)
+    b.add_vectors("v", x)
+    path = tmp_path / "wide.mvt"
+    b.build().save(path)
+    port, ref = _engines(path)
+    _assert_same(port.search(q, k=10), ref.search(q, k=10))
+    _assert_same(port.search(q, k=300), ref.search(q, k=300))
+
+
 def test_k_above_corpus_and_empty_space(tmp_path):
     path, x, q = _file(tmp_path, n=6)
     port, ref = _engines(path)

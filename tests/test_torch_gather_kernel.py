@@ -122,6 +122,30 @@ def test_pq_rerank_matches_reference_tie_rules(metric):
         np.testing.assert_array_equal(by_pos[0].numpy(), by_row[0].numpy())
 
 
+@pytest.mark.parametrize("r, k", [(4097, 10), (5000, 257), (8192, 8192)])
+@pytest.mark.parametrize("tie", ["position", "row"])
+def test_rescore_any_r_matches_reference(r, k, tie):
+    """More candidates than the old 4096 (the kernel then sorts chunks and
+    merges them), in both tie modes, on a corpus of duplicate rows; R = k
+    keeps every candidate."""
+    rng = np.random.default_rng(7)
+    n = 9000
+    x = rng.integers(0, 16, (n // 8, 16)).astype(np.float32)[rng.integers(0, n // 8, n)]
+    q = rng.integers(0, 16, (3, 16)).astype(np.float32)
+    cand = np.stack([rng.permutation(n)[:r] for _ in range(3)]).astype(np.int32)
+    cand[:, ::11] = -1
+    norms = sq_norms(x)
+    got = rescore_candidates(torch.from_numpy(q), torch.from_numpy(x),
+                             torch.from_numpy(norms), torch.from_numpy(cand), k,
+                             DistanceMetric.L2, tie=tie)
+    if tie == "position":
+        want = _rerank_impl(q, x, norms, cand, k, DistanceMetric.L2, False)
+    else:
+        want = jax_rescore_topk(q, x, norms, cand, k, DistanceMetric.L2)
+    assert_topk_match(tuple(t.numpy() for t in got),
+                      tuple(np.asarray(a) for a in want), exact=True)
+
+
 def test_rescore_invalid_candidates_are_sentinels():
     x, q, cand = _rescore_inputs(4, r=8)
     cand[0, :] = -1

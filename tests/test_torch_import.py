@@ -1,13 +1,10 @@
-"""``import metrovector_tpu_torch`` (its PQ index and kernel modules
-included) and a dense and a PQ search on its CPU path pull in no
-JAX, no Triton and none of the JAX package's device modules. Checked in a
-fresh interpreter, because this test session imported JAX at start.
-
-``ml_dtypes`` is the one shared-layer subtlety: the shared
-``metrovector_tpu.format.constants`` imports it when it is installed (for
-its bfloat16 numpy dtype). So one case checks that the port adds no such
-import of its own, and another runs the port with ``ml_dtypes`` made
-unimportable, as on a machine that does not have it."""
+"""The port stands alone: ``import metrovector_tpu_torch`` and a dense, a
+PQ and a sparse search on its CPU path load no module of the JAX package
+(``metrovector_tpu`` or ``metrovector_tpu.*``), no JAX, no ``ml_dtypes`` and
+no Triton. Checked in a fresh interpreter, because the pytest process
+imported JAX at start; once as installed and once with ``ml_dtypes`` made
+unimportable, as on a machine that does not have it. A scan of the sources
+holds every module of the port and ``chip_smoke.py`` to the same rule."""
 
 import json
 import os
@@ -21,38 +18,36 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "metrovector_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "triton")
-JAX_DEVICE_MODULES = (
-    "metrovector_tpu.engine", "metrovector_tpu.ops", "metrovector_tpu.index",
-    "metrovector_tpu.parallel", "metrovector_tpu.database",
-    "metrovector_tpu.sparse",
-)
 
 _SCRIPT = r"""
 import json, os, sys, tempfile
 if {block_ml_dtypes}:
     sys.modules["ml_dtypes"] = None  # import ml_dtypes now raises
-import metrovector_tpu.format  # the shared layer alone
-shared = set(sys.modules)
 import numpy as np
 import metrovector_tpu_torch as mvt
 from metrovector_tpu_torch.utils import timing, transfer
 from metrovector_tpu_torch.index import pq
-from metrovector_tpu_torch.ops import adc_kernel, gather_kernel
+from metrovector_tpu_torch.ops import adc_kernel, gather_kernel, sparse_kernel
 b = mvt.Builder()
 b.add_vector_space("v", dim=8)
 b.add_vectors("v", np.arange(64, dtype=np.float32).reshape(8, 8))
+b.add_vector_space("s", dim=8, vector_type=mvt.VectorType.SPARSE,
+                   metric=mvt.DistanceMetric.INNER_PRODUCT)
+b.add_sparse_vectors("s", [([i], [1.0 + i]) for i in range(8)])
 path = os.path.join(tempfile.mkdtemp(), "i.mvt")
 b.build().save(path)
-res = mvt.SearchEngine.open(path, device="cpu").search(np.ones((1, 8), np.float32), k=3)
-idx = mvt.PQIndex.from_space(mvt.Reader.open(path).vector_space("v"), m=2,
-                             ksub=4, iters=2, device="cpu")
+res = mvt.SearchEngine.open(path, "v", device="cpu").search(np.ones((1, 8), np.float32), k=3)
+reader = mvt.Reader.open(path)
+idx = mvt.PQIndex.from_space(reader.vector_space("v"), m=2, ksub=4, iters=2,
+                             device="cpu")
 pq_top = idx.search(np.ones((1, 8), np.float32), k=3, rerank=4).indices
+sp_top = mvt.SparseSearchEngine(reader.vector_space("s"), device="cpu").search(
+    np.ones((1, 8), np.float32), k=3).indices
 print(json.dumps({{
     "loaded": sorted(m for m in sys.modules if sys.modules[m] is not None),
-    "added": sorted(m for m in set(sys.modules) - shared
-                    if sys.modules[m] is not None),
     "top": res.indices.tolist(),
     "pq_top": pq_top.tolist(),
+    "sp_top": sp_top.tolist(),
 }}))
 """
 
@@ -67,34 +62,32 @@ def _run(block_ml_dtypes: bool) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def _top_level(names):
-    return {n.split(".")[0] for n in names}
-
-
 @pytest.mark.parametrize("block_ml_dtypes", [False, True],
                          ids=["as_installed", "without_ml_dtypes"])
 def test_port_imports_no_jax(block_ml_dtypes):
     got = _run(block_ml_dtypes)
     assert got["top"] == [[0, 1, 2]]
     assert got["pq_top"] == [[0, 1, 2]]
+    assert got["sp_top"] == [[7, 6, 5]]
     loaded = set(got["loaded"])
-    assert not _top_level(got["added"]) & set(FORBIDDEN)
-    assert not loaded & {"jax", "jaxlib", "triton"}
-    assert not loaded & set(JAX_DEVICE_MODULES)
-    if block_ml_dtypes:
-        assert "ml_dtypes" not in loaded
+    jax_package = {m for m in loaded
+                   if m == "metrovector_tpu" or m.startswith("metrovector_tpu.")}
+    assert jax_package == set()
+    assert not {m.split(".")[0] for m in loaded} & set(FORBIDDEN)
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port names jax, ml_dtypes or triton in an import."""
+    """No module of the port, and not chip_smoke.py, names jax, ml_dtypes,
+    triton or the JAX package in an import."""
     pattern = re.compile(
-        r"^\s*(import|from)\s+(%s)\b" % "|".join(FORBIDDEN), re.M
+        r"^\s*(import|from)\s+(%s|metrovector_tpu(?!_torch))\b" % "|".join(FORBIDDEN),
+        re.M,
     )
-    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
-    assert {"index/pq.py", "index/ivf.py", "ops/adc_kernel.py",
-            "ops/gather_kernel.py"} <= scanned
-    offenders = [
-        str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
-        if pattern.search(p.read_text())
-    ]
+    sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scanned = {str(p.relative_to(REPO)) for p in sources}
+    assert {"metrovector_tpu_torch/index/pq.py", "metrovector_tpu_torch/sparse.py",
+            "metrovector_tpu_torch/ops/sparse_kernel.py",
+            "metrovector_tpu_torch/format/constants.py", "chip_smoke.py"} <= scanned
+    offenders = [str(p.relative_to(REPO)) for p in sources
+                 if pattern.search(p.read_text())]
     assert offenders == []

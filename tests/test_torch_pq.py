@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from metrovector_tpu import Builder, DataType, DistanceMetric, Reader
-from metrovector_tpu.errors import DimensionMismatchError
+from metrovector_tpu_torch.errors import DimensionMismatchError
 from metrovector_tpu.index import pq as jax_pq
 from metrovector_tpu.index.ivf import train_kmeans as jax_train_kmeans
 from metrovector_tpu.ops import numpy_oracle
@@ -172,6 +172,28 @@ def test_full_rerank_matches_reference_on_duplicate_rows(metric, k):
     _same(a, b, metric, q, data, None)
     _, lowest_row_first = numpy_oracle(q, data, k, metric)
     assert not np.array_equal(a.indices, lowest_row_first)
+
+
+@pytest.mark.parametrize("rerank", [1025, 1500, 2999])
+@pytest.mark.parametrize("metric", [DistanceMetric.L2, DistanceMetric.INNER_PRODUCT])
+def test_rerank_above_1024_matches_reference(metric, rerank):
+    """1024 < rerank < N on 3,000 rows, every row twice with different
+    codes: the ADC fetch and the re-rank with ties by candidate position,
+    as JAX ``search(backend="xla")`` gives them (the old limit raised)."""
+    data, rng = _clusters(6, n=1500)
+    data = np.concatenate([data, data])
+    books = np.rint(jax_pq.train_pq(data, m=4, ksub=16, iters=3, seed=6))
+    codes = rng.integers(0, 16, (len(data), 4)).astype(np.uint8)
+    recon = jax_pq.reconstruct_pq(codes, books).astype(np.float64)
+    ref = dataclasses.replace(
+        jax_pq.PQIndex.build(data, metric, codebooks=books),
+        codes=jnp.asarray(codes),
+        recon_norms=jnp.asarray((recon ** 2).sum(1).astype(np.float32)))
+    port = PQIndex.from_state(_state(ref), device="cpu")
+    q = (data[rng.integers(0, 1500, 4)] + rng.integers(-9, 10, (4, 16))).astype(np.float32)
+    for k in (10, 300):
+        _same(port.search(q, k=k, rerank=rerank),
+              ref.search(q, k=k, rerank=rerank, backend="xla"), metric, q, data, None)
 
 
 def test_adc_ranks_like_reconstructed_bruteforce(rng):

@@ -82,6 +82,27 @@ def test_half_storage_matches_pallas(metric, storage):
                       tuple(np.asarray(a) for a in want), exact=True)
 
 
+@pytest.mark.parametrize("n, d, k", [
+    (1200, 128, 257), (1200, 128, 1000), (1200, 128, 1200),
+    (600, 1536, 10), (600, 1536, 300),
+])
+@pytest.mark.parametrize("metric", [DistanceMetric.L2, DistanceMetric.INNER_PRODUCT])
+def test_any_k_and_wide_dim_match_pallas_interpret(metric, n, d, k):
+    """k above the old 256 up to k = N, and D = 1536, as the JAX kernel takes
+    them. Values in [0, 15] keep every score exact in f32 at D = 1536, so the
+    results are identical."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 16, (n, d)).astype(np.float32)
+    q = rng.integers(0, 16, (7, d)).astype(np.float32)
+    norms = sq_norms(x)
+    got = fused_topk(torch.from_numpy(q), torch.from_numpy(x),
+                     torch.from_numpy(norms), n - 3, k, metric)
+    want = jax_fused_topk(q, x, norms, np.int32(n - 3), k, metric,
+                          block_rows=256, interpret=True)
+    assert_topk_match(tuple(t.numpy() for t in got),
+                      tuple(np.asarray(a) for a in want), exact=True)
+
+
 def test_k_above_valid_rows_gives_sentinels():
     x, q, norms, _ = _inputs("normal", DistanceMetric.L2)
     s, i = fused_topk(torch.from_numpy(q), torch.from_numpy(x),
@@ -112,11 +133,8 @@ def _bad_inputs(name):
     k = 10
     if name == "k_zero":
         k = 0
-    elif name == "k_above_limit":
-        k = topk_kernel.MAX_K + 1
-    elif name == "dim_above_limit":
-        q = torch.zeros((2, topk_kernel.MAX_DIM + 1))
-        x = torch.zeros((64, topk_kernel.MAX_DIM + 1))
+    elif name == "k_above_limit":  # the limit is the corpus: k <= N
+        k = 65
     elif name == "int8_corpus":
         x = torch.zeros((64, 16), dtype=torch.int8)
     elif name == "dim_mismatch":
@@ -129,13 +147,27 @@ def _bad_inputs(name):
 
 
 @pytest.mark.parametrize("name", [
-    "k_zero", "k_above_limit", "dim_above_limit", "int8_corpus",
+    "k_zero", "k_above_limit", "int8_corpus",
     "dim_mismatch", "not_contiguous", "norms_dtype",
 ])
 def test_kernel_input_checks_raise(name):
     q, x, nrm, k = _bad_inputs(name)
     with pytest.raises(ValueError):
         topk_kernel._check(q, x, nrm, k, None)
+
+
+@pytest.mark.parametrize("k, d, wide", [
+    (10, 128, False), (256, 128, False), (257, 128, False), (2000, 128, False),
+    (10, 512, False), (10, 1024, True), (300, 1536, True), (10, 3072, True),
+])
+def test_kernel_takes_any_k_and_dim(k, d, wide):
+    """The checks take every 1 <= k <= N and any D; a query tile wider than
+    512 dims is staged chunk by chunk, and either way a scan block fits."""
+    n = 2000
+    topk_kernel._check(torch.zeros((2, d)), torch.zeros((n, d)), torch.zeros(n),
+                       k, None)
+    assert topk_kernel._wide(d) == wide
+    assert topk_kernel._shared_bytes(d, k, wide) <= topk_kernel.SMEM_LIMIT
 
 
 def test_other_device_raises():
