@@ -133,22 +133,30 @@ def load() -> ctypes.CDLL:
                 p,                        # stream
             ]
             lib.mvt_rescore.restype = i32
+            lib.mvt_query_postings.argtypes = [
+                p, i64, i64, i32,         # qt, dim, nq, qtile
+                p, p, p, p,               # scratch, qptr, post, stream
+            ]
+            lib.mvt_query_postings.restype = i32
             lib.mvt_ell_dots.argtypes = [
-                p, p, p, i64, i32, i64,   # qt, cols, vals, n, r, nq
-                p, p,                     # dots, stream
+                p, p, p, i64,             # qt, qptr, post, dim
+                p, p, i64, i32, i64, i32,  # cols, vals, n, r, nq, qg
+                p, i64, p,                # dots, ldo, stream
             ]
             lib.mvt_ell_dots.restype = i32
             lib.mvt_ell_topk.argtypes = [
-                p, p, p, p, p, p,         # qt, cols, vals, ovf_ptr/cols/vals
+                p, p, p, i64,             # qt, qptr, post, dim
+                p, p, p, p, p,            # cols, vals, ovf_ptr/cols/vals
                 p, p,                     # norms, mask
                 i64, i64, i32, i64,       # nq, n, r, num_rows
-                i32, i32, i32, i32, i64,  # k, metric, qg, splits, rows_per_split
-                i32,                      # list_len
-                p, p, p, p, p, p, p, p,   # part_s/i, buf_s/i, tmp_s/i, out_s/i
+                i32, i32, i32, i32,       # k, metric, qg, rows
+                i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
+                p, p, p, p, p,            # part_s/i, buf_s/i, kth_key
+                p, p, p, p,               # tmp_s/i, out_s/i
                 p,                        # stream
             ]
             lib.mvt_ell_topk.restype = i32
-            lib.mvt_ell_topk_occupancy.argtypes = [i32, p]
+            lib.mvt_ell_topk_occupancy.argtypes = [i32, i32, i32, p]
             lib.mvt_ell_topk_occupancy.restype = i32
             lib.mvt_cuda_error_string.argtypes = [i32]
             lib.mvt_cuda_error_string.restype = ctypes.c_char_p

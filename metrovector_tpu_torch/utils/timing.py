@@ -44,3 +44,21 @@ def cuda_ms(fn, inputs, device: torch.device) -> float:
     stop.record(stream)
     stop.synchronize()
     return start.elapsed_time(stop) / len(inputs)
+
+
+def device_ms(fn, inputs, device: torch.device) -> float:
+    """Device milliseconds per call of ``fn(x)`` over ``inputs`` for work
+    shorter than its launch on the host: the device first sleeps, so the
+    host has queued every call before the start event is reached and the
+    events time the device alone. Warm ``fn`` up before calling this."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    stream = torch.cuda.current_stream(device)
+    with torch.cuda.device(device):
+        torch.cuda._sleep(50_000_000)  # about 25 ms at 2 GHz
+    start.record(stream)
+    for x in inputs:
+        fn(x)
+    stop.record(stream)
+    stop.synchronize()
+    return start.elapsed_time(stop) / len(inputs)

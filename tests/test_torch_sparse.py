@@ -179,6 +179,28 @@ def test_from_state_matches_reference_engine(tmp_path, rng, formulation, metric)
     assert port.num_valid == ref.num_valid == 119
 
 
+@pytest.mark.parametrize("k", [10, 200])
+@pytest.mark.parametrize("metric", METRICS)
+def test_splade_shaped_queries_match_reference_engine(tmp_path, rng, metric, k):
+    """SPLADE-shaped queries (32 nonzeros of 2,048 terms, one query all
+    zero) against rows of up to 12 entries: most rows score exactly 0, and
+    up to k = N ties decide, lowest row first, in both engines."""
+    rows = _random_sparse(rng, n=200, dim=2048, nnz_per_row=12, integer=True)
+    sp = _file(tmp_path, rows, 2048, metric, deleted=(7,))
+    port = SparseSearchEngine(sp, device="cpu")
+    ref = JaxSparse(sp)
+    assert port.formulation == ref.formulation == "ell"
+    q = np.zeros((5, 2048), np.float32)
+    for i in range(4):
+        q[i, rng.choice(2048, 32, replace=False)] = rng.choice([-3, -2, -1, 1, 2, 3], 32)
+    a, b = port.search(q, k=k), ref.search(q, k=k)
+    _same(a, b, metric)
+    if metric == DistanceMetric.INNER_PRODUCT:
+        assert (a.scores == 0).sum() > a.scores.size // 2
+        live = [r for r in range(200) if r != 7]
+        assert a.indices[4].tolist() == (live + [-1])[:k]  # the all-zero query
+
+
 def test_tombstones_and_k_above_live_rows(tmp_path, rng):
     rows = _random_sparse(rng, n=100, dim=64, nnz_per_row=6)
     sp = _file(tmp_path, rows, 64, deleted=(42,))

@@ -3,7 +3,9 @@ against the JAX package: ``ell_dots_reference`` against the TPU kernel
 ``benchmarks/sparse_vmem_proto.py::vmem_tiled_dots`` run in interpret mode
 (imported from its file, which stays as it is) and against
 ``sparse._ell_dots``; ``ell_topk_reference`` against ``_sparse_topk_ell``
-with an overflow tail, masks, the three metrics and k above the rows left.
+with an overflow tail, masks, the three metrics, k above the rows left and
+sparse queries whose zero scores tie; the postings of a query batch
+(``query_postings_reference``) against a NumPy loop.
 
 Tolerance. On integer-valued values and queries every sum is exact in f32,
 so IP and L2 agree bit for bit whatever the order of the sums. Otherwise
@@ -28,6 +30,7 @@ from metrovector_tpu_torch.ops.sparse_kernel import (
     ell_dots_reference,
     ell_topk,
     ell_topk_reference,
+    query_postings,
 )
 from metrovector_tpu_torch.sparse import ell_layout
 
@@ -261,13 +264,147 @@ def test_kernel_input_checks_raise(name):
         sparse_kernel._check(*_bad(name))
 
 
-def test_query_groups_and_shared_memory():
+def test_tile_shape_and_shared_memory():
     """A block covers the batch with the fewest groups of 32 queries, at
-    most 8; its shared memory (the score tile) is about 33 KB for each."""
-    assert [sparse_kernel._query_groups(nq) for nq in (1, 32, 33, 64, 65, 256, 300)
+    most 8, and 16 or 32 rows a tile (half a 64-entry buffer at most);
+    its lists live in shared memory up to k = 16, and every block fits in
+    the 227 KB an H100 block may use."""
+    assert [sparse_kernel._tile_shape(nq)[0] for nq in (1, 32, 33, 64, 65, 256, 300)
             ] == [1, 1, 2, 2, 4, 8, 8]
-    sizes = {sparse_kernel._shared_bytes(qg) for qg in (1, 2, 4, 8)}
-    assert max(sizes) <= 35_000
+    for qg in (1, 2, 4, 8):
+        rows = sparse_kernel._tile_shape(32 * qg)[1]
+        assert rows in (16, 32)
+        assert (sparse_kernel._shared_bytes(qg, rows, 16)
+                == sparse_kernel._shared_bytes(qg, rows, 17) + 32 * qg * 8 * 16)
+        assert sparse_kernel._shared_bytes(qg, 32, 16) <= 227 * 1024
+
+
+@pytest.mark.parametrize("dim,nq", [(30_522, 70_400), (30_522, 256),
+                                    (4096, 32_768 + 232), (512, 10**6),
+                                    (2**24, 100)])
+def test_query_chunks_cover_large_batches(dim, nq):
+    """On the card a batch runs in chunks of whole query tiles, one launch
+    each, whose worst-case postings stay within the cap and below int32
+    offsets: 30,522 terms x 70,400 queries (past 2^31 entries) is answered
+    in 17 chunks, not refused."""
+    chunks = sparse_kernel._query_chunks(dim, nq)
+    assert chunks[0][0] == 0 and chunks[-1][1] == nq
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    tile = 256 if dim * 256 <= sparse_kernel._POSTINGS_CAP else 32
+    for q0, q1 in chunks:
+        assert q1 > q0 and q0 % tile == 0
+        assert dim * (q1 - q0) <= max(sparse_kernel._POSTINGS_CAP, 32 * dim) < 2**31
+    assert (len(chunks) == 1) == (dim * nq <= sparse_kernel._POSTINGS_CAP)
+    if (dim, nq) == (30_522, 70_400):
+        assert len(chunks) == 17
+
+
+def test_query_chunks_refuse_past_int32_offsets():
+    """A vocabulary whose 32-query postings pass 2^31 entries is refused."""
+    with pytest.raises(ValueError):
+        sparse_kernel._query_chunks(2**26, 1)
+
+
+def _np_postings(q, qtile):
+    """The postings of ``q [dim, nq]`` by a loop: keys (tile, term) in
+    order, queries ascending, every value != 0 kept."""
+    dim, nq = q.shape
+    qptr, post_q, post_v = [0], [], []
+    for b in range(-(-nq // qtile)):
+        for c in range(dim):
+            for j in range(b * qtile, min(nq, (b + 1) * qtile)):
+                if q[c, j] != 0:
+                    post_q.append(j)
+                    post_v.append(q[c, j])
+            qptr.append(len(post_q))
+    return (np.array(qptr), np.array(post_q, np.int64),
+            np.array(post_v, np.float32))
+
+
+def _postings_case(rng, case):
+    """(qt [dim, nq], qtile) of one postings case."""
+    if case == "empty_batch":
+        return np.zeros((50, 0), np.float32), 32
+    if case == "dense":
+        return rng.integers(1, 4, (20, 40)).astype(np.float32), 32
+    nq = 100 if case == "tiles" else 9
+    q = rng.integers(-2, 3, (50, nq)).astype(np.float32)
+    q[rng.random(q.shape) < 0.8] = 0
+    q[3, :4] = -0.0
+    q[4, 1], q[5, 2], q[6, 3] = np.inf, -np.inf, np.nan
+    if case == "all_zero_query":
+        q[:, 2] = 0
+        q[::2, 2] = -0.0
+    return q, 32
+
+
+@pytest.mark.parametrize("case", ["signed_zero_inf_nan", "empty_batch",
+                                  "all_zero_query", "tiles", "dense"])
+def test_query_postings_match_numpy(case):
+    rng = np.random.default_rng(6)
+    q, qtile = _postings_case(rng, case)
+    before = query_postings.launches
+    qptr, post_q, post_v = (a.numpy() for a in query_postings(torch.from_numpy(q), qtile))
+    assert query_postings.launches == before  # the plain path is no launch
+    want = _np_postings(q, qtile)
+    np.testing.assert_array_equal(qptr, want[0])
+    np.testing.assert_array_equal(post_q, want[1])
+    np.testing.assert_array_equal(post_v, want[2])  # NaN matches NaN
+    assert qptr.dtype == post_q.dtype == np.int32
+    for key in range(qptr.size - 1):  # queries ascending within a key
+        assert (np.diff(post_q[qptr[key]:qptr[key + 1]]) > 0).all()
+    if case == "signed_zero_inf_nan":
+        assert not np.isin([0, 1, 2, 3], post_q[qptr[3]:qptr[4]]).any()  # -0 dropped
+        assert np.isposinf(post_v[qptr[4]:qptr[5]]).any()
+        assert np.isneginf(post_v[qptr[5]:qptr[6]]).any()
+        assert np.isnan(post_v[qptr[6]:qptr[7]]).any()
+    if case == "all_zero_query":
+        assert 2 not in post_q
+    if case == "tiles":
+        assert qptr.size == 4 * 50 + 1
+        for b in range(4):
+            keys = post_q[qptr[b * 50]:qptr[(b + 1) * 50]]
+            assert ((keys >= 32 * b) & (keys < 32 * (b + 1))).all()
+    if case == "dense":
+        np.testing.assert_array_equal(np.diff(qptr), [32] * 20 + [8] * 20)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_ell_topk_sparse_queries_tie_at_zero(metric):
+    """Queries of 8 nonzeros of 512 terms (one all zero): most rows score
+    exactly 0 (−‖x‖² for L2), and at k = N the ties go to the lowest row,
+    as in the JAX package."""
+    rng = np.random.default_rng(7)
+    n = 300
+    indptr, cols, vals = _corpus(rng, "integer", n=n, wide=(4,))
+    layout = ell_layout(indptr, cols, vals, n)
+    n_pad = layout["cols_ell"].shape[0]
+    x = _dense(indptr, cols, vals, n, DIM)
+    norms = np.zeros(n_pad, np.float32)
+    norms[:n] = (x ** 2).sum(1)
+    q = np.zeros((5, DIM), np.float32)
+    for i in range(4):
+        q[i, rng.choice(DIM, 8, replace=False)] = rng.choice([-3, -2, -1, 1, 2, 3], 8)
+    if metric == DistanceMetric.COSINE:
+        q = (q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+             ).astype(np.float32)
+    oc, orow, ov = _jax_overflow(layout)
+    want = jax_sparse._sparse_topk_ell(
+        q, layout["cols_ell"], layout["vals_ell"], oc, orow, ov, norms, None,
+        n, metric, n, 2048, 256, True)
+    t = torch.from_numpy
+    got = ell_topk(t(np.ascontiguousarray(q.T)), t(layout["cols_ell"]),
+                   t(layout["vals_ell"]), t(layout["ovf_ptr"]),
+                   t(layout["ovf_cols"]), t(layout["ovf_vals"]), t(norms), n,
+                   n, metric)
+    s = got[0].numpy()
+    if metric == DistanceMetric.INNER_PRODUCT:
+        assert (s == 0).sum() > s.size // 2  # zero ties decide most slots
+    exact = metric != DistanceMetric.COSINE
+    assert_topk_match(
+        tuple(a.numpy() for a in got), tuple(np.asarray(a) for a in want),
+        exact=exact, tol=_tolerance(q, indptr, cols, vals, metric, norms),
+        scores64=_scores64(q, x, metric, np.ones(n, bool)))
 
 
 def test_other_device_raises():
