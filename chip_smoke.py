@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With ``--parent DIR`` (another checkout of the port, such as the parent
+commit unpacked by ``git archive``) it also times that checkout's K1, K2
+and K4 beside this one's, one process each (``tools/scan_kernel_timing.py``).
 
 Phases, one line each; any failure exits non-zero:
 
@@ -10,16 +14,25 @@ Phases, one line each; any failure exits non-zero:
 1. build: compile the fused top-k kernel from the sources in this checkout;
 2. kernel vs plain: ``fused_topk`` against ``fused_topk_reference`` on the
    same CUDA tensors over metrics, corpus dtypes, masks, batch sizes and k;
+   then over 200,003 integer rows with twins across splits (f32/f16/bf16,
+   D in {128, 100, 1536}, batches 1, 33, 37, 255, k in {10, 100, 256,
+   257}, num_valid ending inside a split, a mask that empties whole
+   splits), each case run twice and identical to the plain version;
 3. main path at full size: ``Builder`` writes a 1M x 128 integer-valued
    f32 L2 space, ``Reader.open`` -> ``SearchEngine(device="cuda")`` ->
    ``search`` at k=10 (batches 32-256) and k=100, recall against a float64
    NumPy oracle, the kernel's launch count, and CUDA-event times of the
-   kernel and of its plain version;
+   kernel and of its plain version, and of one ``torch.mm`` of the batch-256
+   product as a yardstick for the scan alone;
 4. filters, tombstones and stable IDs;
 5. serving: the shared ``MicroBatcher`` answers 64 concurrent requests;
 6. ADC kernel vs plain: ``fused_adc_topk`` against
    ``fused_adc_topk_reference`` over metrics, uint8 and packed4 codes, f32
-   and bf16 LUTs, batch sizes, k up to 1024 and masks;
+   and bf16 LUTs, batch sizes, k up to 1024 and masks; then over 200,003
+   rows of codes with twins across splits (pq4 and pq8, f32 and bf16 LUTs,
+   integer and float codebooks, batches 1, 33, 37, 255, k in {1, 10, 400},
+   num_valid and masks as in phase 2), bit-identical on float data too and
+   run twice on integer data;
 7. gather and rescore kernels vs plain: ``gather_rows`` bit for bit over
    dtypes and clamped indices, ``rescore_candidates`` in both tie modes;
 8. the PQ path at full size: a 1M x 128 clustered corpus, PQ trained and
@@ -32,7 +45,8 @@ Phases, one line each; any failure exits non-zero:
 9. any k and any D: ``fused_topk`` at k in {257, 1000, 1025, 5000, N} over
    20k rows and at D in {1536, 3072}, ``fused_adc_topk`` at k in {1025,
    4096, N}, ``rescore_candidates`` at R in {4097, 8192} in both tie modes,
-   each against its plain version; then at full size ``sift1m-pq4``
+   each against its plain version, and both scans at k equal to the rows
+   of a split; then at full size ``sift1m-pq4``
    ``search(k=10, rerank=2000)`` (K2 then K3, recall against the float64
    oracle) and ``SearchEngine.search(k=1000)`` on the 1M x 128 corpus,
    identical to the plain version;
@@ -58,8 +72,9 @@ Phases, one line each; any failure exits non-zero:
    formulation once.
 
 The second-to-last line is a JSON object describing each kernel (with its
-bound from the H100 SXM data sheet: 67 TFLOP/s f32, 3.35 TB/s); the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
+operations, and 3.35 TB/s); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -205,7 +220,7 @@ def phase_kernel_vs_plain(torch, dev) -> tuple[float, int]:
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk
 
     rng = np.random.default_rng(SEED)
-    n, d = 3001, 128  # a multiple of no tile (32 queries, 128 rows, 64 dims)
+    n, d = 3001, 128  # a multiple of no tile (32 queries, 256 rows, 16 dims)
     metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
                DistanceMetric.COSINE)
     max_err, cases = 0.0, 0
@@ -241,6 +256,7 @@ def phase_kernel_vs_plain(torch, dev) -> tuple[float, int]:
                             torch, dev, kind, q, db, x, norms, 60, mask, k,
                             metric))
                         cases += 1
+    cases += _k1_split_cases(torch, dev, rng)
     empty = torch.empty((0, d), device=dev)  # an empty corpus launches nothing
     s_e, i_e = fused_topk(torch.ones((3, d), device=dev), empty,
                           torch.empty(0, device=dev), 0, 5, DistanceMetric.L2)
@@ -250,6 +266,64 @@ def phase_kernel_vs_plain(torch, dev) -> tuple[float, int]:
     say(f"phase 2 kernel vs plain: ok ({cases} cases, max |score diff| "
         f"{max_err:.3g})")
     return max_err, cases
+
+
+SPLIT_N = 200_003  # rows of the split cases: long splits at every batch
+
+
+def _twin_rows(rng, n, d, hi, distinct=3000):
+    """n integer rows in [0, hi) drawn from `distinct` base rows: every row
+    has twins in other splits, so exact ties decide across splits."""
+    return rng.integers(0, hi, (distinct, d)).astype(np.float32)[
+        rng.integers(0, distinct, n)]
+
+
+def _twice_identical(torch, fn, args, ref, what) -> None:
+    """Two launches on the same inputs, each identical to the plain version:
+    the race of the splits over the shared bar may change the work, never
+    the answer."""
+    for _ in range(2):
+        _identical(torch, fn(*args), ref, what)
+
+
+def _k1_split_cases(torch, dev, rng) -> int:
+    """fused_topk on 200,003 integer rows with twins across splits, f32/f16/
+    bf16 corpora at D in {128, 100, 1536}, batches 1, 33, 37 and 255 (none
+    fills a tile), k in {10, 100, 256, 257}, with num_valid ending inside a
+    split and a mask that empties whole splits; each case run twice and
+    identical to the plain version. Returns the cases run."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import (
+        fused_topk, fused_topk_reference,
+    )
+
+    n, cases = SPLIT_N, 0
+    mask = np.ones(n, np.float32)
+    mask[40_000:120_000] = 0  # every split that starts in here is empty
+    mask_d = torch.from_numpy(mask).to(dev)
+    for d in (128, 100, 1536):
+        x = torch.from_numpy(_twin_rows(rng, n, d, 16)).to(dev)
+        norms = (x.double() ** 2).sum(1).float()
+        q_host = rng.integers(0, 16, (255, d)).astype(np.float32)
+        for dt in (torch.float32, torch.float16, torch.bfloat16):
+            db = x.to(dt)
+            for nq in (1, 33, 37, 255):
+                q = torch.from_numpy(q_host[:nq]).to(dev)
+                for k in (10, 100, 256, 257):
+                    metric = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT)[cases % 2]
+                    variant = (cases + cases // 4) % 4
+                    num_valid = n - 70_001 if variant & 1 else n
+                    args = (q, db, norms, num_valid, k, metric,
+                            mask_d if variant & 2 else None)
+                    _twice_identical(
+                        torch, fused_topk, args, fused_topk_reference(*args),
+                        f"fused_topk split case {dt} D={d} Q={nq} k={k} "
+                        f"{metric.name} num_valid={num_valid} mask={bool(variant & 2)}")
+                    cases += 1
+            del db
+        del x, norms
+        torch.cuda.empty_cache()
+    return cases
 
 
 def _oracle_topk(q, x64, norms64, k):
@@ -353,6 +427,18 @@ def phase_main_path(torch, dev, card):
             f"({nq / kms * 1e3:.0f} QPS; runs {k1:.4f}, {k2:.4f}) | plain "
             f"{pms:.4f} ms/batch ({nq / pms * 1e3:.0f} QPS; runs {p1:.4f}, "
             f"{p2:.4f}) | search() end to end p50 {e2e * 1e3:.4f} ms | {card}")
+    # A yardstick for the scan alone: one cuBLAS product of the batch-256
+    # queries with the corpus, in full f32 (TF32 off); it selects nothing,
+    # so it is not fused_topk's library_ms.
+    xt = sp.data.T
+    qs = [torch.from_numpy(rng.integers(0, 256, (256, D_MAIN)).astype(np.float32)).to(dev)
+          for _ in range(iters)]
+    torch.mm(qs[0], xt)
+    mm_ms = cuda_ms(lambda q: torch.mm(q, xt), qs, dev)
+    times["mm"] = mm_ms
+    say(f"  yardstick: torch.mm [256,{D_MAIN}] x [{D_MAIN},{N_MAIN}] f32 (TF32 off) "
+        f"{mm_ms:.4f} ms; fused_topk batch=256 k=10 {times[(256, 10)][0]:.4f} ms | {card}")
+    del qs
     say(f"phase 3 main path: ok (recall 1.000 at k=10 and k=100, "
         f"fused_topk launches {launches})")
     return engine, tmp, launches, times
@@ -538,10 +624,72 @@ def phase_adc_vs_plain(torch, dev) -> tuple[float, int]:
                                 scores, what))
                             identical += bool(torch.equal(got[0], ref[0])
                                               and torch.equal(got[1], ref[1]))
+    split_cases = _k2_split_cases(torch, dev, rng)
+    cases += split_cases
+    identical += split_cases
     torch.cuda.synchronize()
     say(f"phase 6 ADC kernel vs plain: ok ({cases} cases, {identical} "
         f"bit-identical, max |score diff| {max_err:.3g})")
     return max_err, cases
+
+
+def _k2_split_cases(torch, dev, rng) -> int:
+    """fused_adc_topk on 200,003 rows of codes with twins across splits,
+    4-bit m=32 and 8-bit m=16 codes, f32 and bf16 LUTs, integer and float
+    codebooks, batches 1, 33, 37 and 255, k in {1, 10, 400}, with num_valid
+    ending inside a split and a mask that empties whole splits: identical to
+    the plain version on float data too, and run twice on integer data.
+    Returns the cases run."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        fused_adc_topk, fused_adc_topk_reference,
+    )
+
+    n, cases = SPLIT_N, 0
+    metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+               DistanceMetric.COSINE)
+    mask = np.ones(n, np.float32)
+    mask[40_000:120_000] = 0
+    mask_d = torch.from_numpy(mask).to(dev)
+    for kind in ("integer", "normal"):
+        for packed, m, ksub in ((True, 32, 16), (False, 16, 256)):
+            if kind == "integer":
+                books = rng.integers(0, 8, (m, ksub, 4)).astype(np.float32)
+                q_host = rng.integers(0, 8, (255, m * 4)).astype(np.float32)
+            else:
+                books = rng.standard_normal((m, ksub, 4)).astype(np.float32)
+                q_host = rng.standard_normal((255, m * 4)).astype(np.float32)
+            codes = rng.integers(0, ksub, (3000, m)).astype(np.uint8)[
+                rng.integers(0, 3000, n)]
+            recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], 1)
+            rn = torch.from_numpy((recon.astype(np.float64) ** 2).sum(1).astype(
+                np.float32)).to(dev)
+            codes_d = torch.from_numpy(pack_codes4(codes) if packed else codes).to(dev)
+            books_d = torch.from_numpy(books).to(dev)
+            for exact_lut in (True, False):
+                for nq in (1, 33, 37, 255):
+                    for k in (1, 10, 400):
+                        metric = metrics[cases % 3]
+                        q = q_host[:nq]
+                        if metric == DistanceMetric.COSINE:
+                            q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+                        variant = (cases + cases // 3) % 4
+                        num_valid = n - 70_001 if variant & 1 else n
+                        args = (torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(dev),
+                                codes_d, books_d, rn, num_valid, k, metric,
+                                mask_d if variant & 2 else None, exact_lut, packed)
+                        what = (f"fused_adc_topk split case {kind} m={m} ksub={ksub} "
+                                f"{'f32' if exact_lut else 'bf16'} LUT Q={nq} k={k} "
+                                f"{metric.name} num_valid={num_valid} "
+                                f"mask={bool(variant & 2)}")
+                        ref = fused_adc_topk_reference(*args)
+                        if kind == "integer":
+                            _twice_identical(torch, fused_adc_topk, args, ref, what)
+                        else:
+                            _identical(torch, fused_adc_topk(*args), ref, what)
+                        cases += 1
+    return cases
 
 
 _BITS = {torch_name: bits for torch_name, bits in (
@@ -921,6 +1069,73 @@ def _identical(torch, got, ref, what) -> None:
         raise AssertionError(f"{what}: kernel differs from plain on integer data")
 
 
+def _k_at_split_length(torch, dev, rng) -> tuple[str, int]:
+    """k equal to the rows of a split, so that a split's list holds k rows
+    only after its last one: fused_topk at batches 32 and 33 (one query
+    tile and two) and fused_adc_topk at batches 1 and 37 over 20,000 rows
+    with twins, k
+    taken from the split the wrapper chose (read through
+    select.row_splits) until the two agree; each case run twice and
+    identical to the plain version. Returns (what was hit, cases)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops import select
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        fused_adc_topk, fused_adc_topk_reference,
+    )
+    from metrovector_tpu_torch.ops.topk_kernel import (
+        fused_topk, fused_topk_reference,
+    )
+
+    L2 = DistanceMetric.L2
+    n = 20_000
+    x = torch.from_numpy(_twin_rows(rng, n, D_MAIN, 256, 500)).to(dev)
+    norms = (x.double() ** 2).sum(1).float()
+    books = rng.integers(0, 8, (32, 16, 4)).astype(np.float32)
+    codes = rng.integers(0, 16, (500, 32)).astype(np.uint8)[rng.integers(0, 500, n)]
+    recon = np.concatenate([books[j][codes[:, j]] for j in range(32)], 1)
+    rn = torch.from_numpy((recon.astype(np.float64) ** 2).sum(1).astype(np.float32)).to(dev)
+    codes_d = torch.from_numpy(pack_codes4(codes)).to(dev)
+    books_d = torch.from_numpy(books).to(dev)
+    runs = [("fused_topk", nq, fused_topk, fused_topk_reference,
+             lambda q, k: (q, x, norms, n, k, L2),
+             rng.integers(0, 256, (nq, D_MAIN))) for nq in (32, 33)]
+    runs += [("fused_adc_topk", nq, fused_adc_topk, fused_adc_topk_reference,
+              lambda q, k: (q, codes_d, books_d, rn, n, k, L2, None, True, True),
+              rng.integers(0, 8, (nq, 128))) for nq in (1, 37)]
+    seen = []
+    real = select.row_splits
+
+    def spy(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    hit, cases = [], 0
+    select.row_splits = spy
+    try:
+        for name, nq, fn, plain, make, q_host in runs:
+            q = torch.from_numpy(q_host.astype(np.float32)).to(dev)
+            k = 10
+            for _ in range(6):  # the split depends on k through occupancy
+                seen.clear()
+                fn(*make(q, k))
+                rows = seen[-1][1]
+                if rows == k or rows > n:
+                    break
+                k = rows
+            args = make(q, k)
+            _twice_identical(torch, fn, args, plain(*args),
+                             f"{name} Q={nq} k={k} (rows per split {rows})")
+            cases += 1
+            if rows == k:
+                hit.append(f"{name} Q={nq} k={k}")
+    finally:
+        select.row_splits = real
+    if not hit:
+        raise AssertionError("no case reached k = rows per split")
+    return ", ".join(hit), cases
+
+
 def phase_any_k(torch, dev, card, engine, pq4):
     """Phase 9 (module docstring). Integer data keeps every sum exact in
     f32 (values in [0, 15] at D = 1536 and 3072), so each kernel must be
@@ -980,6 +1195,8 @@ def phase_any_k(torch, dev, card, engine, pq4):
                        rescore_candidates_reference(*args),
                        f"rescore_candidates R={r} k={k} tie={tie}")
             cases += 1
+    at_split, split_cases = _k_at_split_length(torch, dev, rng)
+    cases += split_cases
     torch.cuda.synchronize()
 
     # At full size: a re-rank of 2000 candidates (K2 keeps its lists in
@@ -1030,7 +1247,8 @@ def phase_any_k(torch, dev, card, engine, pq4):
         f"K2 then K3 once each, p50 {pq_ms:.4f} ms | {card}")
     say(f"  SearchEngine.search(k=1000) batch=32 on 1M x 128: identical to the "
         f"plain version; fused_topk {kms:.4f} ms (plain {pms:.4f}) | {card}")
-    say(f"phase 9 any k and D: ok ({cases} cases identical to the plain versions)")
+    say(f"phase 9 any k and D: ok ({cases} cases identical to the plain versions; "
+        f"k = rows per split: {at_split})")
     return {"pq_rerank2000_ms": pq_ms, "k1000_ms": kms, "k1000_plain_ms": pms,
             "recall": rec}
 
@@ -1488,9 +1706,53 @@ def phase_sparse_path(torch, dev, card):
     return launches, times
 
 
+def lookup_figures(torch, lookups: int, card: str) -> None:
+    """K2's shared-memory lookups at the timed point (sift1m-pq4, batch
+    256), one wavefront (128 bytes) a clock an SM at the 1,980 MHz boost
+    clock: at 4 bytes a query-lookup, one wavefront per 32; in the
+    query-interleaved 8-byte entries of adc_kernel.cu, a warp's load takes
+    two wavefronts (measured on an H100, PERF.md) and serves 64
+    query-lookups of an f32 LUT (2 queries an entry), 128 of a bf16 one."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_ms = sms * 1.98e9 / 1e3  # wavefronts a millisecond
+    say(f"  K2 lookups at sift1m-pq4 batch 256: {lookups} query-lookups; at 4 B "
+        f"each (one wavefront per 32) {lookups / 32 / per_ms:.4f} ms; in 8-byte "
+        f"entries (2 wavefronts a load) f32 LUT {lookups / 32 / per_ms:.4f} ms, "
+        f"bf16 LUT {lookups / 64 / per_ms:.4f} ms | {card}")
+
+
+def time_parent(parent: str, card: str) -> None:
+    """K1, K2 and K4 of another checkout (the parent commit, unpacked by
+    the caller) at the kernels-line points, in a process of its own
+    (tools/scan_kernel_timing.py), beside this one's in the same process
+    layout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(here, "tools", "scan_kernel_timing.py")
+    t0 = time.perf_counter()
+    for root in (os.path.abspath(parent), here):
+        run = subprocess.run([sys.executable, tool, "--root", root],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise RuntimeError(f"timing {root} failed: {run.stderr[-2000:]}")
+        got = json.loads(run.stdout.strip().splitlines()[-1])
+        say(f"  {'parent' if root != here else 'this tree'} ({root}): K1 " + ", ".join(
+            f"batch={p.split(',')[0]} k={p.split(',')[1]} {v:.4f} ms"
+            for p, v in got["k1"].items())
+            + " | K2 k=400 " + ", ".join(f"{p} {v:.4f} ms" for p, v in got["k2"].items())
+            + " | K4 ell_topk k=10 " + ", ".join(
+                f"batch={p} {v:.4f} ms" for p, v in got["k4"].items()) + f" | {card}")
+    say(f"  timing both checkouts took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
+    parent = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        parent = sys.argv[2]
+    elif len(sys.argv) != 1:
+        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     card_name, card = phase_device(torch)
     dev = torch.device("cuda", 0)
     phase_build()
@@ -1516,7 +1778,10 @@ def main() -> int:
     main_cell = pq_times[(PQ_CONFIGS[0][0], 256)]
     n, d, q = N_MAIN, D_MAIN, 256
     k1_bound = bound(2 * q * n * d, 4 * (n * d + n + q * d) + 8 * q * 10)
-    k2_bound = bound(q * n * 32, n * 16 + 4 * n + 4 * q * 32 * 16 + 8 * q * 400)
+    # K2's adds are f32 instructions: 33.5 T/s, half the 67 TFLOP/s that
+    # counts an FMA as two operations, so each add counts 2.
+    k2_bound = bound(2 * q * n * 32, n * 16 + 4 * n + 4 * q * 32 * 16 + 8 * q * 400)
+    lookup_figures(torch, q * n * 32, card)
     rows = q * RERANK
     k3_bound = bound(2 * rows * d, 4 * rows * d + 4 * rows + 4 * q * d + 8 * q * K_PQ)
     g_bound = bound(0, 2 * 4 * rows * d + 8 * rows)
@@ -1542,6 +1807,8 @@ def main() -> int:
         f"{r32['macs_topk']} nonzero multiply-adds), ell_dots {d32[0]:.4f} ms "
         f"({d32[1]}); shares ell_topk {t32[0] / r32['ell_topk']:.1%}, ell_dots "
         f"{d32[0] / r32['ell_dots']:.1%}")
+    if parent is not None:
+        time_parent(parent, card)
     say(json.dumps({"kernels": [
         {"name": "fused_topk", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches,

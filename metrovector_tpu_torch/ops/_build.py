@@ -102,21 +102,23 @@ def load() -> ctypes.CDLL:
             lib.mvt_fused_topk.argtypes = [
                 p, p, i32, p, p,          # q, db, db_dtype, norms, mask
                 i64, i64, i64, i64,       # nq, n, d, num_valid
-                i32, i32, i32, i64,       # k, metric, splits, rows_per_split
-                i32, i32,                 # list_len, wide
-                p, p, p, p, p, p,         # part_s/i, tmp_s/i, out_s/i
+                i32, i32, i32,            # k, metric, tile
+                i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
+                p, p, p,                  # part_s/i, slots
+                p, p, p, p,               # tmp_s/i, out_s/i
                 p,                        # stream
             ]
             lib.mvt_fused_topk.restype = i32
-            lib.mvt_fused_topk_occupancy.argtypes = [i32, i64, i32, i32, i32, p]
+            lib.mvt_fused_topk_occupancy.argtypes = [i32, i32, i32, i32, p]
             lib.mvt_fused_topk_occupancy.restype = i32
             lib.mvt_adc_topk.argtypes = [
                 p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
                 p, p,                     # norms, mask
                 i64, i64, i32, i32, i64,  # nq, n, m, ksub, num_valid
                 i32, i32, i32, i32, i64,  # k, metric, qt, splits, rows_per_split
-                i32,                      # list_len (0: lists in shared memory)
-                p, p, p, p, p, p,         # part_s/i, tmp_s/i, out_s/i
+                i32, i32,                 # list_len (0: lists in shared memory), tree
+                p, p, p,                  # part_s/i, slots
+                p, p, p, p,               # tmp_s/i, out_s/i
                 p,                        # stream
             ]
             lib.mvt_adc_topk.restype = i32

@@ -111,19 +111,24 @@ def fused_adc_topk_reference(
     return finish_topk(best, k)
 
 
-def _shared_bytes(qt: int, mk: int, k: int, exact_lut: bool) -> int:
-    """Dynamic shared memory of one scan block: the candidate lists (none
-    above :data:`SMEM_K`: they live in device memory) and buffers, the
-    score tile and the LUT of ``qt`` queries."""
-    lists = k if k <= SMEM_K else 0
-    return qt * (8 * lists + 8 * _BUFFER + 4 + 4 * _ROW_TILE
-                 + mk * (4 if exact_lut else 2))
+def _shared_bytes(qt: int, mk: int, k: int, exact_lut: bool,
+                  lists_in_smem: bool = True) -> int:
+    """Dynamic shared memory of one scan block: the LUT of ``qt`` queries
+    (rounded up to 16 bytes), then per query the bar, two score rows and
+    two sets of candidate words, the buffer and its fill, and the list (none above
+    :data:`SMEM_K` or without ``lists_in_smem``: it lives in device
+    memory)."""
+    lut = -(-qt * mk * (4 if exact_lut else 2) // 16) * 16
+    lists = k if lists_in_smem and k <= SMEM_K else 0
+    return lut + qt * (8 + 2 * (4 * _ROW_TILE + _ROW_TILE // 8) + 8 * _BUFFER + 4
+                       + 8 * lists)
 
 
-def _fitting_tiles(mk: int, k: int, exact_lut: bool) -> list[int]:
+def _fitting_tiles(mk: int, k: int, exact_lut: bool,
+                   lists_in_smem: bool = True) -> list[int]:
     """The query tiles whose scan block fits in shared memory."""
     return [t for t in _QUERY_TILES
-            if _shared_bytes(t, mk, k, exact_lut) <= SMEM_LIMIT]
+            if _shared_bytes(t, mk, k, exact_lut, lists_in_smem) <= SMEM_LIMIT]
 
 
 def _query_tile(nq: int, occupancy: dict[int, int]) -> int:
@@ -138,18 +143,18 @@ def _query_tile(nq: int, occupancy: dict[int, int]) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
-               ksub: int, k: int) -> tuple[tuple[int, int], ...]:
+               ksub: int, k: int, lists_in_smem: bool) -> tuple[tuple[int, int], ...]:
     """(tile, scan blocks per SM) for each tile that fits, from the
     runtime's occupancy calculator on the current device."""
     from ._build import load, raise_for
 
     lib = load()
+    smem_k = k if lists_in_smem and k <= SMEM_K else 0
     out = []
-    for qt in _fitting_tiles(m * ksub, k, lut_code == 0):
+    for qt in _fitting_tiles(m * ksub, k, lut_code == 0, lists_in_smem):
         per_sm = ctypes.c_int(0)
         raise_for(lib, lib.mvt_adc_topk_occupancy(
-            lut_code, packed4, qt, m, ksub, k if k <= SMEM_K else 0,
-            ctypes.byref(per_sm)),
+            lut_code, packed4, qt, m, ksub, smem_k, ctypes.byref(per_sm)),
             "fused_adc_topk")
         out.append((qt, per_sm.value))
     return tuple(out)
@@ -199,7 +204,7 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
     if k < 1 or (n and k > n):  # an empty corpus leaves every slot unfilled
         raise ValueError(f"k={k} is outside the kernel's limit 1 <= k <= N={n}")
     m, ksub, _ = codebooks.shape
-    need = _shared_bytes(1, m * ksub, k, exact_lut)
+    need = _shared_bytes(1, m * ksub, k, exact_lut, lists_in_smem=False)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"m*ksub={m * ksub} with k={k} needs {need} bytes of shared "
@@ -244,11 +249,11 @@ def fused_adc_topk(
         raise ValueError(f"fused_adc_topk runs on CUDA or CPU, not {queries.device}")
     _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
                 exact_lut)
-    from ._build import load, raise_for
+    from ._build import load
 
     lib = load()
     nq = queries.shape[0]
-    n, cols = codes.shape
+    n = codes.shape[0]
     m, ksub, _ = codebooks.shape
     dev = queries.device
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
@@ -256,32 +261,50 @@ def fused_adc_topk(
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
     lut = adc_lut(queries, codebooks, exact_lut)
-    lut_code = 0 if exact_lut else 1
-    big = k > SMEM_K
     with torch.cuda.device(dev):
-        occupancy = dict(_occupancy(dev.index, lut_code, int(packed4), m,
-                                    ksub, min(k, SMEM_K + 1)))
+        occupancy = dict(_occupancy(dev.index, int(not exact_lut), int(packed4),
+                                    m, ksub, min(k, SMEM_K + 1), True))
         qt = _query_tile(nq, occupancy)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        want = max(1, sms * max(1, occupancy[qt]) // -(-nq // qt))
-        splits, rows_per_split, length = select.row_splits(
-            n, _ROW_TILE, want, nq, k, lists_in_smem=not big)
-        part_s, part_i, tmp_s, tmp_i = select.scratch(nq, splits, length, k,
-                                                      dev, tree=big)
-        err = lib.mvt_adc_topk(
-            lut.data_ptr(), lut_code, codes.data_ptr(), cols, int(packed4),
-            recon_norms.data_ptr(),
-            None if valid_mask is None else valid_mask.data_ptr(),
-            nq, n, m, ksub, max(0, min(int(num_valid), n)), k, int(metric),
-            qt, splits, rows_per_split, length if big else 0,
-            part_s.data_ptr(), part_i.data_ptr(),
-            tmp_s.data_ptr(), tmp_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    raise_for(lib, err, "fused_adc_topk")
+        _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
+                packed4, m, ksub, qt, k <= SMEM_K, occupancy[qt], out_s, out_i)
     fused_adc_topk.launches += 1
     return out_s, out_i
+
+
+def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
+            packed4, m, ksub, qt, lists_in_smem, blocks_per_sm, out_s, out_i,
+            splits=None) -> None:
+    """One launch of the scan and the merge for checked inputs and a LUT
+    ``[Q, m·ksub]`` (f32 or bf16) with query tile ``qt``, the lists in
+    shared memory or not, into ``out_s``/``out_i``; ``splits`` (default: one
+    wave of ``blocks_per_sm`` blocks on every SM) sets the row splits."""
+    from ._build import raise_for
+
+    nq = lut.shape[0]
+    n, cols = codes.shape
+    dev = lut.device
+    if splits is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = max(1, sms * max(1, blocks_per_sm) // -(-nq // qt))
+    splits, rows_per_split, length = select.row_splits(
+        n, _ROW_TILE, splits, nq, k, lists_in_smem=lists_in_smem)
+    tree = select.merge_by_tree(splits, k, lists_in_smem)
+    part_s, part_i, tmp_s, tmp_i = select.scratch(nq, splits, length, k, dev,
+                                                  tree=tree)
+    slots = select.bar_slots(nq, splits, dev)
+    err = lib.mvt_adc_topk(
+        lut.data_ptr(), int(lut.dtype != torch.float32), codes.data_ptr(), cols,
+        int(packed4), recon_norms.data_ptr(),
+        None if valid_mask is None else valid_mask.data_ptr(),
+        nq, n, m, ksub, max(0, min(int(num_valid), n)), k, int(metric),
+        qt, splits, rows_per_split, 0 if lists_in_smem else length, int(tree),
+        part_s.data_ptr(), part_i.data_ptr(),
+        slots.data_ptr(),
+        tmp_s.data_ptr(), tmp_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_for(lib, err, "fused_adc_topk")
 
 
 fused_adc_topk.launches = 0

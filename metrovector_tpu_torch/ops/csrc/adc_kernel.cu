@@ -16,41 +16,48 @@
 //   slots that stay -inf carry row -1.
 //
 // The TPU kernel multiplies one-hot code matrices by the LUT on the MXU,
-// because a TPU has no fast gather. Hopper does: here the LUT of a tile of
-// QT queries sits in shared memory and each row's sum is m shared-memory
-// lookups. What bounds it on an H100: a row costs m bytes (or m/2) of HBM
-// but m * QT lookups, so at 1M rows the scan is bound by shared-memory
-// lookups, not by HBM (16 MB of codes). What the design does about it:
+// because a TPU has no fast gather. Hopper does: the LUT of a tile of QT
+// queries sits in shared memory and a row's sum is m lookups per query.
+// What bounds the scan is shared memory: an SM serves one 4-byte load of a
+// warp a clock, one 8-byte load in two and one 16-byte load in two to four
+// (a half-warp or quarter-warp a pass; measured on an H100, PERF.md), so
+// with ksub = 16 a warp's lookups of 32 rows for one f32 query cost a clock
+// however they are laid out: at pq4, batch 256, 8.19 G lookups take at
+// least 0.98 ms. Next comes the selection at k = 400: the warm-up of each
+// split's list and the buffer flushes. The design:
 //
 // * Grid (ceil(Q/QT), S). A block stages the LUT of its QT queries once,
-//   then walks its share of the rows in tiles of 256, one row per thread.
-//   The thread reads its row's codes four bytes at a time and, for each
-//   subspace in ascending order, adds that code's LUT entry of all QT
-//   queries into QT registers: a code is decoded once for QT queries.
-// * With ksub = 16 the 32 lanes of a warp read at most 16 distinct LUT
-//   words of one subspace, one per bank: no bank conflicts. With ksub = 256
-//   random codes collide on banks; a bf16 LUT halves the words.
-// * Rows that are masked or past num_valid skip the lookups.
-// * QT is one of {1, 2, 4, 8, 16, 32}. A larger tile decodes a code for
-//   more queries but needs more shared memory, so fewer blocks share an
-//   SM and the lookups' latency shows; the wrapper takes the largest tile
-//   that still leaves 3 blocks per SM (at most the batch), which on an
-//   H100 beat the largest tile that fits by up to 2x (PERF.md).
-// * Each block keeps a sorted list of k entries per query in shared memory
-//   (k up to 1024, so the lists, a 64-entry buffer per query, the LUT and
-//   a 256-row score tile of QT queries must fit). One
-//   warp per query tests 32 scores against the list's k-th entry with one
-//   ballot; rows that beat it are appended to the query's buffer, and a
-//   full buffer is sorted and merged into the list at once (select.cuh).
-//   Inserting each row on its own, with a warp-wide shift of the list, took
-//   most of the kernel's time at k = 400 (PERF.md). Above k = 1024 the
-//   lists (L = min(k, rows per split) entries) live in the [Q, S, L]
-//   scratch in device memory instead; only the buffers stay in shared
-//   memory.
-// * Pass 2 (merge_kernel, select.cuh) merges the S partial lists, one
-//   block per query (a warp per query walking the list heads in turn took
-//   0.3 ms at k = 400 whatever the batch; PERF.md); above k = 1024 the
-//   merge tree of select.cuh folds them.
+//   query-interleaved in 8-byte entries: [QT/GW][m*ksub][GW], GW = 2
+//   queries of an f32 LUT or 4 of a bf16 one. One 8-byte load fetches one
+//   code's entries for GW queries, and a half-warp's 16 lanes read 16
+//   distinct entries (ksub = 16) in one pass: a clock for 32 lookups of an
+//   f32 LUT, as before, with half the load instructions, and half a clock
+//   for a bf16 LUT. (16-byte entries of 4 f32 queries cost more: a
+//   quarter-warp's 8 lanes often hit two entries of one bank group.) Each
+//   query still adds its m entries in ascending j in f32, so the sums are
+//   the plain version's bit for bit.
+// * A tile is 256 rows, one per thread. The thread reads its row's codes
+//   16 bytes at a time (one load for pq4 and pq8 rows), the first 16 bytes,
+//   the norm and the mask value a tile ahead; it decodes each code once for
+//   all QT queries and scores the row.
+// * Selection (select.cuh): each query's bar in shared memory is the
+//   larger of its list's k-th entry and the group bar, which the splits of
+//   the query share through slots [Q, S]. The scoring threads test their
+//   own row against the bar's score and vote; only rows that pass are
+//   written to the score tile, with one candidate bit each. Then one warp
+//   per query walks the set bits, appends rows that beat the bar by the
+//   exact rank rule to a 64-entry buffer, merges a full buffer into the
+//   sorted list at once and publishes the list's entry for the group bar.
+//   Past the warm-up most tiles cost a query one load and one vote.
+// * QT is one of {1, 2, 4, 8, 16, 32}: the wrapper picks it and where the
+//   lists live (shared memory up to k = 1024) from the occupancy the
+//   runtime reports (PERF.md has the sweep). In device memory each split's
+//   list (L = min(k, rows per split) entries) sits in the [Q, S, L]
+//   scratch; only the buffers stay in shared memory.
+// * Pass 2 merges the S partial lists: merge_kernel (select.cuh), one block
+//   per query, or the merge tree of select.cuh past 64 splits (and for
+//   lists in device memory), where one block folding the lists one by one
+//   took longer than the tree's log2(S) launches.
 //
 // Codes must be < ksub (as PQ encoding makes them); the wrapper checks
 // shapes, dtypes and limits.
@@ -66,34 +73,88 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kThreads;  // rows per tile, one per thread
+constexpr int kRows = kThreads;     // rows per tile, one per thread
+constexpr int kWords = kRows / 32;  // candidate words per query and tile
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
 enum LutType { kLutF32 = 0, kLutBF16 = 1 };
 
-__device__ __forceinline__ float as_f32(float v) { return v; }
-__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Add the GW entries at p (one code, GW consecutive queries) to a[0..GW),
+// from one shared-memory load.
+template <int GW>
+__device__ __forceinline__ void lut_add(float* a, const float* p) {
+  if constexpr (GW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    a[0] += v.x;
+    a[1] += v.y;
+    a[2] += v.z;
+    a[3] += v.w;
+  } else if constexpr (GW == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a[0] += v.x;
+    a[1] += v.y;
+  } else {
+    a[0] += *p;
+  }
 }
 
-// Bytes b..b+3 of a row's codes as one little-endian word; bytes past
-// `cols` read as 0. `vec`: cols % 4 == 0 and the codes are 4-byte aligned.
-__device__ __forceinline__ uint32_t code_word(const uint8_t* rc, int b,
-                                              int cols, int vec) {
-  if (vec) return *reinterpret_cast<const uint32_t*>(rc + b);
-  uint32_t w = 0;
+__device__ __forceinline__ float bf_lo(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+template <int GW>
+__device__ __forceinline__ void lut_add(float* a, const __nv_bfloat16* p) {
+  if constexpr (GW == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    a[0] += bf_lo(u.x);
+    a[1] += bf_hi(u.x);
+    a[2] += bf_lo(u.y);
+    a[3] += bf_hi(u.y);
+  } else if constexpr (GW == 2) {
+    const unsigned u = *reinterpret_cast<const unsigned*>(p);
+    a[0] += bf_lo(u);
+    a[1] += bf_hi(u);
+  } else {
+    a[0] += __bfloat162float(*p);
+  }
+}
+
+// Bytes b..b+15 of a row's codes as four little-endian words; bytes past
+// `cols` read as 0. vec 16: cols % 16 == 0 and 16-byte aligned codes (one
+// load); vec 4: cols % 4 == 0 and 4-byte aligned; else byte by byte.
+__device__ __forceinline__ uint4 code_block(const uint8_t* rc, int b, int cols,
+                                            int vec) {
+  if (vec == 16) return *reinterpret_cast<const uint4*>(rc + b);
+  uint32_t w[4];
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    if (b + t < cols) w |= static_cast<uint32_t>(rc[b + t]) << (8 * t);
+    const int o = b + 4 * t;
+    w[t] = 0;
+    if (vec == 4) {
+      if (o < cols) w[t] = *reinterpret_cast<const uint32_t*>(rc + o);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (o + u < cols) w[t] |= static_cast<uint32_t>(rc[o + u]) << (8 * u);
+      }
+    }
   }
-  return w;
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-template <int QT, typename LT>
-__device__ __forceinline__ void add_lookup(float (&acc)[QT], const LT* lq,
-                                           int mk) {
-#pragma unroll
-  for (int qq = 0; qq < QT; ++qq) acc[qq] += as_f32(lq[qq * mk]);
+// Shared memory of one scan block (bytes): the LUT, then per query the
+// bar, two score tiles and two sets of candidate words (tiles alternate),
+// the buffer and its fill, and the lists when they live in shared memory
+// (smem_k entries, else 0).
+__host__ __device__ constexpr size_t lut_bytes(int qt, int lsz, int mk) {
+  return (static_cast<size_t>(qt) * mk * lsz + 15) / 16 * 16;
+}
+__host__ __device__ constexpr size_t scan_smem_bytes(int qt, int lsz, int mk,
+                                                     int smem_k) {
+  return lut_bytes(qt, lsz, mk) +
+         static_cast<size_t>(qt) * (8 + 2 * (4 * kRows + 4 * kWords) + 8 * kBuf + 4 +
+                                    8 * static_cast<size_t>(smem_k));
 }
 
 template <int QT, bool PACKED, typename LT, bool GLOBAL>
@@ -102,20 +163,31 @@ __global__ void __launch_bounds__(kThreads)
                     int cols, const float* __restrict__ norms,
                     const float* __restrict__ mask, int64_t nq, int64_t n,
                     int m, int ksub, int64_t num_valid, int k, int metric,
-                    int64_t rows_per_split, int vec,
-                    float* __restrict__ part_s, int* __restrict__ part_i) {
+                    int64_t rows_per_split, int vec, int topk,
+                    float* __restrict__ part_s, int* __restrict__ part_i,
+                    unsigned long long* __restrict__ slots) {
   // GLOBAL: k is the length of each split's list, which lives in part_*
-  // ([nq, splits, k]) instead of shared memory.
+  // ([nq, splits, k]) instead of shared memory; topk is the k asked for.
+  // slots ([nq, splits]) holds the group bars' keys (select.cuh).
+  // Queries per LUT load: 8-byte entries, which a half-warp's 16 lanes
+  // read in one pass when their codes differ (ksub = 16).
+  constexpr int kEntry = 8 / static_cast<int>(sizeof(LT));
+  constexpr int GW = QT < kEntry ? QT : kEntry;
+  constexpr int G = QT / GW;
+  constexpr int kPerWarp = (QT + kWarps - 1) / kWarps;  // queries a warp selects for
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int mk = m * ksub;
   const int ks = GLOBAL ? 0 : k;
-  float* cs = reinterpret_cast<float*>(smem_raw);  // [QT][k] list scores
-  int* ci = reinterpret_cast<int*>(cs + QT * ks);  // [QT][k] list rows
-  float* bs = reinterpret_cast<float*>(ci + QT * ks);  // [QT][kBuf] buffer
-  int* bi = reinterpret_cast<int*>(bs + QT * kBuf);   // [QT][kBuf]
-  int* bc = bi + QT * kBuf;                           // [QT] buffer fill
-  float* sc = reinterpret_cast<float*>(bc + QT);      // [QT][kRows] scores
-  LT* ls = reinterpret_cast<LT*>(sc + QT * kRows);    // [QT][mk] the LUT
+  LT* ls = reinterpret_cast<LT*>(smem_raw);  // [G][mk][GW] the LUT
+  auto* bar = reinterpret_cast<unsigned long long*>(
+      smem_raw + lut_bytes(QT, sizeof(LT), mk));      // [QT] rank keys
+  float* sc2 = reinterpret_cast<float*>(bar + QT);    // [2][QT][kRows] scores
+  unsigned* cand2 = reinterpret_cast<unsigned*>(sc2 + 2 * QT * kRows);  // [2][QT][kWords]
+  float* bs = reinterpret_cast<float*>(cand2 + 2 * QT * kWords);  // [QT][kBuf] buffer
+  int* bi = reinterpret_cast<int*>(bs + QT * kBuf);          // [QT][kBuf]
+  int* bc = bi + QT * kBuf;                                  // [QT] buffer fill
+  float* cs = reinterpret_cast<float*>(bc + QT);             // [QT][k] lists
+  int* ci = reinterpret_cast<int*>(cs + QT * ks);
 
   const LT* lut = static_cast<const LT*>(lut_raw);
   const int tid = threadIdx.x;
@@ -132,8 +204,10 @@ __global__ void __launch_bounds__(kThreads)
   // batch repeat its last entry (their results are never written).
   const int64_t lut_end = nq * mk;
   for (int e = tid; e < QT * mk; e += kThreads) {
-    const int64_t g = q0 * mk + e;
-    ls[e] = lut[g < lut_end ? g : lut_end - 1];
+    const int qq = e / mk;
+    const int c = e - qq * mk;
+    const int64_t g = (q0 + qq) * mk + c;
+    ls[((qq / GW) * mk + c) * GW + qq % GW] = lut[g < lut_end ? g : lut_end - 1];
   }
   // Query qq's list: in shared memory, or its split's list in part_*.
   auto list_s = [&](int qq) {
@@ -156,40 +230,75 @@ __global__ void __launch_bounds__(kThreads)
       ci[e] = kSentinel;
     }
   }
-  for (int e = tid; e < QT; e += kThreads) bc[e] = 0;
+  for (int e = tid; e < QT; e += kThreads) {
+    bc[e] = 0;
+    bar[e] = 0;
+  }
   __syncthreads();
 
+  // A thread's row of the next tile is loaded a tile ahead: its first 16
+  // bytes of codes, its norm and its mask value.
+  auto fetch = [&](int64_t row, uint4& cw, float& nrm, float& keep, bool& in) {
+    in = row < row_end && row < num_valid;
+    cw = in ? code_block(codes + row * cols, 0, cols, vec) : make_uint4(0, 0, 0, 0);
+    nrm = in ? norms[row] : 0.f;
+    keep = in && mask != nullptr ? mask[row] : 1.f;
+  };
+  uint4 next_cw;
+  float next_nrm, next_keep;
+  bool next_in;
+  fetch(row_begin + tid, next_cw, next_nrm, next_keep, next_in);
+
+  // Warp w selects for queries w, w + 8, ...; at the top of each tile its
+  // lanes load those queries' group slots, so that the loads are in flight
+  // during the scan.
+  const int place = bar_place(splits, topk);
   for (int64_t t0 = row_begin; t0 < row_end; t0 += kRows) {
+    // Tiles alternate between two score tiles and sets of words: a warp
+    // still selecting for tile t reads one while the others score tile t + 1
+    // into the other, and the one barrier a tile keeps them a tile apart.
+    // (The bars may be read while a selecting lane raises them: a stale bar
+    // only lets more rows through.)
+    const int par = static_cast<int>(((t0 - row_begin) / kRows) & 1);
+    float* sc = sc2 + par * QT * kRows;
+    unsigned* cand = cand2 + par * QT * kWords;
+    unsigned long long group[kPerWarp];
+#pragma unroll
+    for (int j = 0; j < kPerWarp; ++j) {
+      const int qq = warp + kWarps * j;
+      group[j] = qq < QT && q0 + qq < nq
+                     ? group_slot(slots, q0 + qq, split, splits, topk, lane)
+                     : ~0ull;
+    }
     const int64_t row = t0 + tid;
-    const bool live = row < row_end && row < num_valid &&
-                      (mask == nullptr || mask[row] != 0.f);
+    const uint4 cw0 = next_cw;
+    const float nrm = next_nrm;
+    const bool live = next_in && next_keep != 0.f;
+    fetch(row + kRows, next_cw, next_nrm, next_keep, next_in);
     float acc[QT];
 #pragma unroll
     for (int qq = 0; qq < QT; ++qq) acc[qq] = 0.f;
     if (live) {
       const uint8_t* rc = codes + row * cols;
-      for (int b = 0; b < cols; b += 4) {
-        const uint32_t w = code_word(rc, b, cols, vec);
-        if (PACKED) {
+      for (int b = 0; b < cols; b += 16) {
+        const uint4 cw = b == 0 ? cw0 : code_block(rc, b, cols, vec);
+        const uint32_t w[4] = {cw.x, cw.y, cw.z, cw.w};
 #pragma unroll
-          for (int t = 0; t < 8; ++t) {  // nibble t is subspace 2b + t
-            const int j = 2 * b + t;
-            if (j < m) {
-              add_lookup<QT>(acc, ls + j * ksub + ((w >> (4 * t)) & 15u), mk);
-            }
-          }
-        } else {
+        for (int t = 0; t < 4; ++t) {
+          constexpr int kPerWord = PACKED ? 8 : 4;
 #pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const int j = b + t;
+          for (int u = 0; u < kPerWord; ++u) {
+            const int j = PACKED ? 2 * b + 8 * t + u : b + 4 * t + u;
             if (j < m) {
-              add_lookup<QT>(acc, ls + j * ksub + ((w >> (8 * t)) & 255u), mk);
+              const unsigned c = PACKED ? (w[t] >> (4 * u)) & 15u : (w[t] >> (8 * u)) & 255u;
+              const LT* e = ls + (j * ksub + c) * GW;
+#pragma unroll
+              for (int g = 0; g < G; ++g) lut_add<GW>(acc + GW * g, e + g * mk * GW);
             }
           }
         }
       }
     }
-    const float nrm = live ? norms[row] : 0.f;
     const float inv = 1.0f / sqrtf(fmaxf(nrm, 1e-30f));
 #pragma unroll
     for (int qq = 0; qq < QT; ++qq) {
@@ -199,50 +308,35 @@ __global__ void __launch_bounds__(kThreads)
       } else if (metric == kCosine) {
         s = s * inv;
       }
-      sc[qq * kRows + tid] = live ? s : -CUDART_INF_F;
+      float bs_q;  // a float compare; select_tile applies the exact rule
+      int bi_q;
+      unrank(bar[qq], bs_q, bi_q);
+      const bool pass = live && s >= bs_q;
+      if (pass) sc[qq * kRows + tid] = s;
+      const unsigned vote = __ballot_sync(kFull, pass);
+      if (lane == 0) cand[qq * kWords + warp] = vote;
     }
     __syncthreads();
 
-    for (int qq = warp; qq < QT; qq += kWarps) {
-      if (q0 + qq >= nq) break;
-      float* lsq = list_s(qq);
-      int* liq = list_i(qq);
-      float* bsq = bs + qq * kBuf;
-      int* biq = bi + qq * kBuf;
-      int cnt = bc[qq];
-      float ts = lsq[k - 1];  // the list's k-th entry, refreshed per flush
-      int ti = liq[k - 1];
-      for (int b = 0; b < kRows / 32; ++b) {
-        const float s = sc[qq * kRows + 32 * b + lane];
-        const int idx = static_cast<int>(t0 + 32 * b + lane);
-        bool pass = s > -CUDART_INF_F && better(s, idx, ts, ti);
-        unsigned vote = __ballot_sync(kFull, pass);
-        if (vote == 0) continue;  // most chunks: one vote
-        if (cnt + __popc(vote) > kBuf) {
-          flush_buffer(lsq, liq, k, bsq, biq, cnt, lane);
-          cnt = 0;
-          ts = lsq[k - 1];
-          ti = liq[k - 1];
-          pass = s > -CUDART_INF_F && better(s, idx, ts, ti);
-          vote = __ballot_sync(kFull, pass);
-        }
-        if (pass) {
-          const int at = cnt + __popc(vote & ((1u << lane) - 1u));
-          bsq[at] = s;
-          biq[at] = idx;
-        }
-        cnt += __popc(vote);
-      }
-      __syncwarp();
-      if (lane == 0) bc[qq] = cnt;
+#pragma unroll
+    for (int j = 0; j < kPerWarp; ++j) {
+      const int qq = warp + kWarps * j;
+      if (qq >= QT || q0 + qq >= nq) break;  // the same in every lane
+      select_tile(sc + qq * kRows, [&](int w) { return cand[qq * kWords + w]; }, kWords,
+                  [&](int b) { return static_cast<int>(t0 + b); }, list_s(qq),
+                  list_i(qq), k, bs + qq * kBuf, bi + qq * kBuf, bc + qq,
+                  bar + qq, group[j],
+                  slots == nullptr ? nullptr : slots + (q0 + qq) * splits + split,
+                  place, lane);
     }
-    __syncthreads();  // the score tile is rewritten by the next tile
   }
 
-  for (int qq = warp; qq < QT; qq += kWarps) {  // the buffers' last entries
+  for (int j = 0; warp + kWarps * j < QT; ++j) {  // the buffers' last entries
+    // (its own warp's queries: no barrier needed)
+    const int qq = warp + kWarps * j;
     if (q0 + qq < nq && bc[qq] > 0) {
-      flush_buffer(list_s(qq), list_i(qq), k, bs + qq * kBuf,
-                   bi + qq * kBuf, bc[qq], lane);
+      flush_buffer(list_s(qq), list_i(qq), k, bs + qq * kBuf, bi + qq * kBuf,
+                   bc[qq], lane);
     }
   }
   if (GLOBAL) return;
@@ -293,13 +387,8 @@ const void* pick(int qt, int packed4, int lut_dtype, int global) {
   return nullptr;
 }
 
-// smem_k: the length of the lists kept in shared memory, 0 when they live
-// in device memory.
-size_t scan_smem_bytes(int qt, int lut_dtype, int mk, int smem_k) {
-  const size_t lsz = lut_dtype == kLutF32 ? 4 : 2;
-  return static_cast<size_t>(qt) *
-         (static_cast<size_t>(smem_k) * 8 + kBuf * 8 + 4 + kRows * 4 +
-          static_cast<size_t>(mk) * lsz);
+size_t smem_for(int qt, int lut_dtype, int mk, int smem_k) {
+  return scan_smem_bytes(qt, lut_dtype == kLutF32 ? 4 : 2, mk, smem_k);
 }
 
 cudaError_t prepare(const void* fn, size_t smem) {
@@ -315,37 +404,40 @@ extern "C" {
 // Launch the scan and the merge on `stream`; returns the cudaError_t of the
 // launches (0 on success). `lut` is [nq, m*ksub] f32 (lut_dtype 0) or bf16
 // (1); `codes` [n, cols] u8; `mask` may be null. With list_len 0 the lists
-// stay in shared memory (k <= 1024): the caller allocates part_* as
-// [nq, splits, k] and tmp_* is unused. Otherwise each split's list has
-// list_len entries in part_*, and part_* and tmp_* are as large as every
-// level of the merge tree needs (ops/select.py::merge_scratch). out_* are
+// stay in shared memory (k <= 1024) and part_* is [nq, splits, k];
+// otherwise each split's list has list_len entries in part_*. With `tree`
+// (always for lists in device memory) part_* and tmp_* are as large as
+// every level of the merge tree needs (ops/select.py::merge_scratch) and
+// the tree folds the lists; else merge_kernel does and tmp_* is unused.
+// slots is [nq, splits] zeros (the group bars, select.cuh). out_* are
 // [nq, k].
 int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
                  int cols, int packed4, const float* norms, const float* mask,
                  int64_t nq, int64_t n, int m, int ksub, int64_t num_valid,
                  int k, int metric, int qt, int splits, int64_t rows_per_split,
-                 int list_len, float* part_s, int* part_i, float* tmp_s,
-                 int* tmp_i, float* out_s, int* out_i, void* stream) {
+                 int list_len, int tree, float* part_s, int* part_i,
+                 unsigned long long* slots, float* tmp_s, int* tmp_i,
+                 float* out_s, int* out_i, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int lists_global = list_len > 0;
   const void* fn = pick(qt, packed4, lut_dtype, lists_global);
   int kl = lists_global ? list_len : k;
-  const size_t smem =
-      scan_smem_bytes(qt, lut_dtype, m * ksub, lists_global ? 0 : k);
+  const size_t smem = smem_for(qt, lut_dtype, m * ksub, lists_global ? 0 : k);
   cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return err;
-  int vec = cols % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
+  int vec = cols % 16 == 0 && at % 16 == 0 ? 16 : (cols % 4 == 0 && at % 4 == 0 ? 4 : 0);
   void* args[] = {&lut,  &codes, &cols, &norms,     &mask, &nq,
                   &n,    &m,     &ksub, &num_valid, &kl,   &metric,
-                  &rows_per_split, &vec, &part_s, &part_i};
+                  &rows_per_split, &vec, &k, &part_s, &part_i, &slots};
   const dim3 grid(static_cast<unsigned>((nq + qt - 1) / qt),
                   static_cast<unsigned>(splits));
   err = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, st);
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (lists_global) {
-    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, list_len, k,
+  if (lists_global || tree) {
+    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, kl, k,
                       nullptr, 0, out_s, out_i, st);
   }
   merge_kernel<<<static_cast<unsigned>(nq), kMergeThreads, merge_smem_bytes(k),
@@ -359,7 +451,7 @@ int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
 int mvt_adc_topk_occupancy(int lut_dtype, int packed4, int qt, int m,
                            int ksub, int smem_k, int* blocks_per_sm) {
   const void* fn = pick(qt, packed4, lut_dtype, smem_k == 0);
-  const size_t smem = scan_smem_bytes(qt, lut_dtype, m * ksub, smem_k);
+  const size_t smem = smem_for(qt, lut_dtype, m * ksub, smem_k);
   const cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,

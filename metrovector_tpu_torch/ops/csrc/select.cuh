@@ -1,10 +1,30 @@
 // Top-k selection pieces shared by the kernels of this directory: the
-// ranking rule, a buffered merge into a sorted list of any length (the
-// list in shared memory, or in global memory when k is too large for it),
-// the merge of per-split partial lists in shared memory (k <= 1024), and a
-// merge tree in global memory for lists of any length. Everything ranks by
-// (score descending, key ascending); slots that stay -inf carry index -1
-// in the final output.
+// ranking rule and its 64-bit rank key, a buffered merge into a sorted list
+// of any length (the list in shared memory, or in global memory when k is
+// too large for it), the merge of per-split partial lists in shared memory
+// (k <= 1024), and a merge tree in global memory for lists of any length.
+// Everything ranks by (score descending, key ascending); slots that stay
+// -inf carry index -1 in the final output.
+//
+// What bounds a scan's selection is how many candidates reach a list: a
+// split that warms its own list from empty admits about k (1 + ln(rows / k))
+// rows, and S splits that run at once admit S times that. So the splits of
+// a query share a bar, a 64-bit rank key (rank_key) that a row must beat to
+// be a candidate. A row that does not beat it has k better rows in some
+// lists and cannot be in the top k, so pruning it leaves the answer bit for
+// bit the same; the race between splits changes only how much is pruned.
+//
+// * K4 (sparse_kernel.cu): kth_key[q], which each split raises with
+//   atomicMax to its list's k-th entry once the list holds k rows.
+// * K1 and K2 (select_tile): a group bar. The splits fall in groups of
+//   G = bar_group(S, k) = min(S, 32, k); split s publishes to slot [q, s]
+//   the key of its list's r-th entry, r = ceil(k / G), once the list holds
+//   r rows. The G splits of a group then hold G r >= k distinct rows at or
+//   above the least of their slots, and that least key is the bar. When all
+//   splits run at once, each list's k-th entry is about the k-th best of
+//   the t rows it has seen, so the best of those (kth_key) is not much
+//   better than a split's own; the least r-th entry of G lists is about the
+//   k-th best of G t rows.
 
 #pragma once
 
@@ -22,6 +42,61 @@ constexpr int kSentinel = 0x7fffffff;
 // (s, i) ranks before (t, j): score descending, then key ascending.
 __device__ __forceinline__ bool better(float s, int i, float t, int j) {
   return s > t || (s == t && i < j);
+}
+
+// (s, row) as one 64-bit key that orders as better(): score first (-0 ranks
+// as +0), then the lower row. 0 ranks below every key and stands for
+// (-inf, kSentinel); NaN never gets a key (callers test s > -inf first,
+// which NaN fails).
+__device__ __forceinline__ unsigned long long rank_key(float s, int row) {
+  unsigned u = __float_as_uint(s + 0.0f);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) |
+         (0xffffffffu - static_cast<unsigned>(row));
+}
+
+__device__ __forceinline__ void unrank(unsigned long long key, float& s,
+                                       int& row) {
+  if (key == 0) {
+    s = -CUDART_INF_F;
+    row = kSentinel;
+    return;
+  }
+  const unsigned u = static_cast<unsigned>(key >> 32);
+  s = __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+  row = static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
+}
+
+// The key of a sorted list's entry (s, i) for a bar: 0 while the list holds
+// fewer rows than that entry's place (the slot is still -inf).
+__device__ __forceinline__ unsigned long long kth_rank(float s, int i) {
+  return s > -CUDART_INF_F ? rank_key(s, i) : 0ull;
+}
+
+// The group bar (header): splits per group, the first split of split s's
+// group, and the list place (r - 1) a split publishes.
+__host__ __device__ __forceinline__ int bar_group(int splits, int k) {
+  const int g = splits < 32 ? splits : 32;
+  return g < k ? g : k;
+}
+__host__ __device__ __forceinline__ int bar_base(int split, int splits, int k) {
+  const int g = bar_group(splits, k);
+  const int b = split / g * g;
+  return b + g <= splits ? b : splits - g;
+}
+__host__ __device__ __forceinline__ int bar_place(int splits, int k) {
+  const int g = bar_group(splits, k);
+  return (k + g - 1) / g - 1;
+}
+
+// Lane `lane`'s part of the group bar of query gq for split `split`: the
+// slot of the group's lane-th split, ~0 past the group (keys never reach
+// ~0). slots is [nq, splits], null for no group bar.
+__device__ __forceinline__ unsigned long long group_slot(
+    const unsigned long long* slots, int64_t gq, int split, int splits, int k,
+    int lane) {
+  if (slots == nullptr || lane >= bar_group(splits, k)) return ~0ull;
+  return __ldcg(slots + gq * splits + bar_base(split, splits, k) + lane);
 }
 
 // A buffer of kBuf candidates that beat a list's k-th entry, merged into
@@ -80,7 +155,10 @@ __device__ void warp_sort_buffer(float* bs, int* bi, int lane) {
 // Entry r of the sorted buffer lands at (list entries better than it) + r;
 // list entry j moves up by the number of buffer entries better than it,
 // 32 entries at a time from the end, so each is read before its slot is
-// overwritten. Keys must be unique between list and buffer.
+// overwritten. Only the list's finite entries [0, fill) are searched or
+// moved: the rest is (-inf, kSentinel), which no candidate ranks below and
+// which stays in every slot the merge leaves. Keys must be unique between
+// list and buffer.
 __device__ void flush_buffer(float* ls, int* li, int k, float* bs, int* bi,
                              int cnt, int lane) {
   __syncwarp();
@@ -89,6 +167,15 @@ __device__ void flush_buffer(float* ls, int* li, int k, float* bs, int* bi,
     bi[r] = kSentinel;
   }
   warp_sort_buffer(bs, bi, lane);
+  int fill = ls[k - 1] > -CUDART_INF_F ? k : 0;  // a full list: one load
+  for (int hi = k; fill < hi;) {  // the same in every lane
+    const int mid = (fill + hi) >> 1;
+    if (ls[mid] > -CUDART_INF_F) {
+      fill = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
   float v[2];
   int w[2], dest[2];
 #pragma unroll
@@ -96,7 +183,7 @@ __device__ void flush_buffer(float* ls, int* li, int k, float* bs, int* bi,
     const int r = lane + 32 * h;
     v[h] = bs[r];
     w[h] = bi[r];
-    int lo = 0, hi = k;
+    int lo = 0, hi = fill;
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
       if (better(ls[mid], li[mid], v[h], w[h])) {
@@ -108,15 +195,15 @@ __device__ void flush_buffer(float* ls, int* li, int k, float* bs, int* bi,
     dest[h] = lo + r;
   }
   const int first = __shfl_sync(kFull, dest[0], 0);  // nothing above moves
-  for (int base = ((k - 1) / 32) * 32; base >= 0 && base + 31 >= first;
+  for (int base = fill > 0 ? ((fill - 1) / 32) * 32 : -32; base >= 0 && base + 31 >= first;
        base -= 32) {
     const int j = base + lane;
     float s = 0.f;
     int id = 0, nj = k;
-    if (j < k && j >= first) {
+    if (j < fill && j >= first) {
       s = ls[j];
       id = li[j];
-      int lo = 0, hi = kBuf;
+      int lo = 0, hi = cnt;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
         if (better(bs[mid], bi[mid], s, id)) {
@@ -258,32 +345,70 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
-// Offer one score per lane (key `idx`) to a query's sorted list (ls, li)
-// of length k through its buffer (bs, bi) of kBuf entries: the lanes whose
-// score beats the list's cached k-th entry (ts, ti) append to the buffer,
-// and a buffer that would overflow is merged into the list first
-// (flush_buffer), which refreshes (ts, ti). `cnt` is the buffer's fill.
-// Called by the whole warp that owns the list; most calls cost one vote.
-__device__ __forceinline__ void offer(float s, int idx, float* ls, int* li,
-                                      int k, float* bs, int* bi, int& cnt,
-                                      float& ts, int& ti, int lane) {
-  bool pass = s > -CUDART_INF_F && better(s, idx, ts, ti);
-  unsigned vote = __ballot_sync(kFull, pass);
-  if (vote == 0) return;
-  if (cnt + __popc(vote) > kBuf) {
-    flush_buffer(ls, li, k, bs, bi, cnt, lane);
-    cnt = 0;
-    ts = ls[k - 1];
-    ti = li[k - 1];
-    pass = s > -CUDART_INF_F && better(s, idx, ts, ti);
-    vote = __ballot_sync(kFull, pass);
+// One warp's selection for one query of a scan block after a tile of rows
+// was scored. The scoring threads have written the score of every row that
+// beat the query's bar to sc (indexed by its bit) and set its bit in
+// word_of(0 .. nwords - 1) (nwords <= 32; bit b of the words is sc[b] and
+// row row_of(b)). The bar is the larger of *bar and the group bar, the least
+// of the lanes' `group` (group_slot, loaded by the caller ahead of time).
+// Rows that still beat it go to the query's buffer (bs, bi; fill *bc); a
+// buffer that would overflow is merged into the sorted list (ls, li) of
+// length k first (flush_buffer), after which the list's last entry raises
+// the bar and the list's entry at `place` goes to *slot (when slot is not
+// null and place < k) for the other splits' group bars. The bar goes back
+// to *bar for the next tile's scoring threads. Called by the whole warp;
+// a tile without candidates costs it one load and one vote.
+template <typename WordOf, typename RowOf>
+__device__ __forceinline__ void select_tile(
+    const float* sc, WordOf word_of, int nwords, RowOf row_of,
+    float* ls, int* li, int k, float* bs, int* bi, int* bc,
+    unsigned long long* bar, unsigned long long group,
+    unsigned long long* slot, int place, int lane) {
+  const unsigned word = lane < nwords ? word_of(lane) : 0u;
+  unsigned todo = __ballot_sync(kFull, word != 0);
+  if (todo != 0) {  // else the bar stays as it is until rows reach it
+    unsigned long long bk = *bar;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long h = __shfl_xor_sync(kFull, group, o);
+      group = h < group ? h : group;
+    }
+    if (group != ~0ull && group > bk) bk = group;
+    int cnt = *bc;
+    do {
+      const int wd = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const unsigned bits = __shfl_sync(kFull, word, wd);
+      const int idx = row_of(32 * wd + lane);
+      const float s = (bits >> lane) & 1u ? sc[32 * wd + lane] : -CUDART_INF_F;
+      bool pass = s > -CUDART_INF_F && rank_key(s, idx) > bk;
+      unsigned vote = __ballot_sync(kFull, pass);
+      if (vote == 0) continue;
+      if (cnt + __popc(vote) > kBuf) {
+        flush_buffer(ls, li, k, bs, bi, cnt, lane);
+        cnt = 0;
+        const unsigned long long own = kth_rank(ls[k - 1], li[k - 1]);
+        if (own > bk) bk = own;
+        if (slot != nullptr && place < k && lane == 0) {
+          const unsigned long long mine = kth_rank(ls[place], li[place]);
+          if (mine != 0) __stcg(slot, mine);
+        }
+        pass = s > -CUDART_INF_F && rank_key(s, idx) > bk;
+        vote = __ballot_sync(kFull, pass);
+      }
+      if (pass) {
+        const int at = cnt + __popc(vote & ((1u << lane) - 1u));
+        bs[at] = s;
+        bi[at] = idx;
+      }
+      cnt += __popc(vote);
+    } while (todo != 0);
+    __syncwarp();
+    if (lane == 0) {
+      *bc = cnt;
+      *bar = bk;
+    }
   }
-  if (pass) {
-    const int at = cnt + __popc(vote & ((1u << lane) - 1u));
-    bs[at] = s;
-    bi[at] = idx;
-  }
-  cnt += __popc(vote);
 }
 
 // Entries of the sorted list (s, i)[0, len) that rank before (t, j) or tie

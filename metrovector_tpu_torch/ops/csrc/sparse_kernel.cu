@@ -434,28 +434,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // ell_topk
 
-// (s, row) as one 64-bit key that orders as select.cuh's better(): score
-// first (-0 ranks as +0), then the lower row. 0 ranks below every key and
-// stands for (-inf, kSentinel); NaN never gets a key.
-__device__ __forceinline__ unsigned long long rank_key(float s, int row) {
-  unsigned u = __float_as_uint(s + 0.0f);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(u) << 32) |
-         (0xffffffffu - static_cast<unsigned>(row));
-}
-
-__device__ __forceinline__ void unrank(unsigned long long key, float& s,
-                                       int& row) {
-  if (key == 0) {
-    s = -CUDART_INF_F;
-    row = kSentinel;
-    return;
-  }
-  const unsigned u = static_cast<unsigned>(key >> 32);
-  s = __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-  row = static_cast<int>(0xffffffffu - static_cast<unsigned>(key));
-}
-
 // ell_topk keeps a block's lists in shared memory up to this length: a
 // lane inserts in place, in O(k), which beats the buffered lists in device
 // memory for short lists only (at k = 10 by about a quarter at batch 256,

@@ -8,6 +8,9 @@ beyond that they live in the ``[Q, S, L]`` scratch with
 ``L = min(k, rows per split)`` (a split cannot fill more), and the number of
 splits S is cut until the scratch stays under :data:`SCRATCH_BYTES` or S is
 1. The merge tree then folds the S lists pairwise into the top k.
+
+The splits of a query share a group bar (``select.cuh``): each publishes a
+rank key to its slot of a zeroed ``[Q, S]`` int64 tensor (:func:`bar_slots`).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 MAX_SPLITS = 512
 SCRATCH_BYTES = 1 << 30  # per call, for the [Q, S, L] lists (f32 + i32)
+TREE_SPLITS = 64  # shared-memory lists past this many splits (and k) merge by tree
 
 
 def row_splits(n: int, row_tile: int, want: int, nq: int, k: int,
@@ -33,6 +37,20 @@ def row_splits(n: int, row_tile: int, want: int, nq: int, k: int,
         if lists_in_smem or s == 1 or nq * s * length * 8 <= SCRATCH_BYTES:
             return s, rows_per_split, length
         splits = -(-splits // 2)
+
+
+def merge_by_tree(splits: int, k: int, lists_in_smem: bool) -> bool:
+    """Whether the split lists fold through the merge tree: always when
+    they live in device memory, and for lists of more than 32 in shared
+    memory past :data:`TREE_SPLITS` splits, where one block or warp per
+    query folding the lists one by one takes longer than the tree's
+    ``log2 S`` launches."""
+    return not lists_in_smem or (splits > TREE_SPLITS and k > 32)
+
+
+def bar_slots(nq: int, splits: int, device) -> torch.Tensor:
+    """The zeroed ``[nq, splits]`` int64 slots of the group bars."""
+    return torch.zeros((nq, splits), dtype=torch.int64, device=device)
 
 
 def merge_scratch(lists: int, length: int, k: int) -> tuple[int, int]:

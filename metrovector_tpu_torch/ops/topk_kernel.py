@@ -9,8 +9,8 @@ went through the kernel.
 
 Like the TPU kernel it takes any ``1 ≤ k ≤ N`` and any D: above k = 256 the
 per-split lists move from shared memory into device memory and a merge
-tree folds them (:mod:`.select`), and a query tile too wide for shared
-memory is staged 64 dims at a time. The Mosaic/VMEM tuning knobs of the TPU
+tree folds them (:mod:`.select`); queries and corpus are staged 16 dims at
+a time, so any D takes the same kernel. The Mosaic/VMEM tuning knobs of the TPU
 kernel (``block_rows``, ``query_tile``, ``merge``, ``vmem_retry``) have no
 counterpart here.
 """
@@ -29,12 +29,15 @@ from .distances import exact_topk
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may opt into (sm_90)
 # Shape constants of csrc/topk_kernel.cu
 SMEM_K = 256  # lists in shared memory up to this k
-_QUERY_TILE = 32
-_ROW_TILE = 128
-_DIM_CHUNK = 64
-_WARPS = 8
+# Block tiles (queries, rows) by TileId; a chunk of 16 dims of the tile's
+# queries and rows is staged at once. The default build has 32 x 256 only,
+# the faster tile at every measured batch (tools/scan_kernel_sweep.py, which
+# builds both with -DMVT_K1_ALL_TILES; PERF.md).
+TILE_32x256, TILE_64x128 = 0, 1
+_TILES = {TILE_32x256: (32, 256), TILE_64x128: (64, 128)}
+_TILE = TILE_32x256
+_CHUNK = 16
 _BUFFER = 64
-_WIDE_DIM = 512  # 32 queries x 512 dims x 4 B = 64 KB
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _METRICS = (
@@ -62,38 +65,16 @@ def fused_topk_reference(
                       valid_mask=valid_mask, query_inv_norms=inv_q)
 
 
-def _shared_bytes(d: int, k: int, wide: bool) -> int:
-    """Dynamic shared memory of one scan block: the query tile (``wide``:
-    one 64-dim chunk of it), the staged corpus chunk, one score row per
-    warp, and the candidate lists (above :data:`SMEM_K`, their buffers)."""
-    lists = _QUERY_TILE * (_BUFFER if k > SMEM_K else k)
-    floats = (_QUERY_TILE * (_DIM_CHUNK if wide else d)
-              + _ROW_TILE * (_DIM_CHUNK + 1) + _WARPS * _ROW_TILE + lists)
-    return 4 * floats + 4 * lists
-
-
-def _wide(d: int) -> bool:
-    """Stage queries chunk by chunk when the whole query tile would take
-    more than 64 KB of shared memory, so that at least two scan blocks
-    share an SM."""
-    return d > _WIDE_DIM
-
-
-def _splits(lib, nq: int, n: int, d: int, k: int, dtype_code: int,
-            wide: bool, device: torch.device) -> tuple[int, int, int]:
-    """Row splits S, rows per split and list length: as many scan blocks
-    as fit on the card at once (one full wave), but at least one split;
-    above :data:`SMEM_K` fewer if the lists would pass the scratch bound."""
-    from ._build import raise_for
-
-    big = k > SMEM_K
-    per_sm = ctypes.c_int(0)
-    raise_for(lib, lib.mvt_fused_topk_occupancy(
-        dtype_code, d, min(k, SMEM_K), int(wide), int(big),
-        ctypes.byref(per_sm)), "fused_topk")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, sms * max(1, per_sm.value) // -(-nq // _QUERY_TILE))
-    return select.row_splits(n, _ROW_TILE, want, nq, k, lists_in_smem=not big)
+def _shared_bytes(k: int, tile: int = _TILE) -> int:
+    """Dynamic shared memory of one scan block: two chunks of the queries
+    and of the corpus (f32 in shared memory whatever the corpus dtype), the
+    8 warps' 32 votes, and per query the bar, the score row, the buffer and
+    its fill, and the list (none above :data:`SMEM_K`: it lives in device
+    memory)."""
+    qb, rb = _TILES[tile]
+    chunks = 2 * _CHUNK * (qb + rb) * 4
+    lists = 0 if k > SMEM_K else k
+    return chunks + 4 * 256 + qb * (8 + 4 * rb + 8 * _BUFFER + 4 + 8 * lists)
 
 
 def _check(queries, db, db_norms, k, valid_mask) -> None:
@@ -155,37 +136,62 @@ def fused_topk(
     if queries.device.type != "cuda":
         raise ValueError(f"fused_topk runs on CUDA or CPU, not {queries.device}")
     _check(queries, db, db_norms, k, valid_mask)
-    from ._build import load, raise_for
+    from ._build import load
 
     lib = load()
-    nq, d = queries.shape
+    nq = queries.shape[0]
     n = db.shape[0]
     dev = queries.device
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
-    code = _DTYPE_CODES[db.dtype]
-    wide = _wide(d)
     with torch.cuda.device(dev):
-        splits, rows_per_split, length = _splits(lib, nq, n, d, k, code, wide,
-                                                 dev)
-        part_s, part_i, tmp_s, tmp_i = select.scratch(
-            nq, splits, length, k, dev, tree=k > SMEM_K)
-        err = lib.mvt_fused_topk(
-            queries.data_ptr(), db.data_ptr(), code,
-            db_norms.data_ptr(),
-            None if valid_mask is None else valid_mask.data_ptr(),
-            nq, n, d, max(0, min(int(num_valid), n)), k, int(metric),
-            splits, rows_per_split, length, int(wide),
-            part_s.data_ptr(), part_i.data_ptr(),
-            tmp_s.data_ptr(), tmp_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    raise_for(lib, err, "fused_topk")
+        _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
+                _TILE, out_s, out_i)
     fused_topk.launches += 1
     return out_s, out_i
+
+
+def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
+            tile, out_s, out_i, splits=None) -> None:
+    """One launch of the scan and the merge for checked inputs with block
+    tile ``tile`` (a tile the library was built with) into
+    ``out_s``/``out_i``. ``splits`` (default: one wave, as many scan blocks
+    as fit on the card at once) sets the row splits; above :data:`SMEM_K`
+    fewer if the lists would pass the scratch bound."""
+    from ._build import raise_for
+
+    nq, d = queries.shape
+    n = db.shape[0]
+    dev = queries.device
+    code = _DTYPE_CODES[db.dtype]
+    big = k > SMEM_K
+    if splits is None:
+        per_sm = ctypes.c_int(0)
+        raise_for(lib, lib.mvt_fused_topk_occupancy(
+            code, tile, min(k, SMEM_K), int(big), ctypes.byref(per_sm)),
+            "fused_topk")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = max(1, sms * max(1, per_sm.value) // -(-nq // _TILES[tile][0]))
+    splits, rows_per_split, length = select.row_splits(
+        n, _TILES[tile][1], splits, nq, k, lists_in_smem=not big)
+    tree = select.merge_by_tree(splits, k, not big)
+    part_s, part_i, tmp_s, tmp_i = select.scratch(nq, splits, length, k, dev,
+                                                  tree=tree)
+    slots = select.bar_slots(nq, splits, dev)
+    err = lib.mvt_fused_topk(
+        queries.data_ptr(), db.data_ptr(), code, db_norms.data_ptr(),
+        None if valid_mask is None else valid_mask.data_ptr(),
+        nq, n, d, max(0, min(int(num_valid), n)), k, int(metric), tile,
+        splits, rows_per_split, length, int(tree),
+        part_s.data_ptr(), part_i.data_ptr(),
+        slots.data_ptr(),
+        tmp_s.data_ptr(), tmp_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_for(lib, err, "fused_topk")
 
 
 fused_topk.launches = 0

@@ -228,18 +228,23 @@ def test_kernel_input_checks_raise(name):
 
 
 def test_query_tile_fits_shared_memory():
-    """Only tiles whose block fits in shared memory are offered; the tile
-    grows with the batch up to the largest with 3 resident blocks per SM.
-    The occupancies are an H100's for 4-bit m=32 and 8-bit m=16 codes with
-    an f32 LUT at k=400."""
-    assert adc_kernel._fitting_tiles(512, 400, True) == [1, 2, 4, 8, 16, 32]
+    """Only tiles whose block fits in shared memory are offered (with its
+    two score tiles, 32 queries of 4-bit m=32 codes and k=400 lists no
+    longer do); the tile grows with the batch up to the largest with 3
+    resident blocks per SM. The occupancies are an H100's for 4-bit m=32
+    and 8-bit m=16 codes with an f32 LUT at k=400, as the launch-shape
+    sweep read them (it skips QT = 1)."""
+    assert adc_kernel._fitting_tiles(512, 400, True) == [1, 2, 4, 8, 16]
+    assert adc_kernel._fitting_tiles(512, 400, True, lists_in_smem=False) == [
+        1, 2, 4, 8, 16, 32]
     assert adc_kernel._fitting_tiles(4096, 400, True) == [1, 2, 4, 8]
     assert adc_kernel._fitting_tiles(4096, 1024, True) == [1, 2, 4, 8]
-    for qt, mk, k in ((32, 512, 400), (8, 4096, 1024)):
+    for qt, mk, k in ((16, 512, 400), (8, 4096, 1024)):
         assert adc_kernel._shared_bytes(qt, mk, k, True) <= adc_kernel.SMEM_LIMIT
-    pq4 = {1: 5, 2: 5, 4: 6, 8: 4, 16: 2, 32: 1}
-    pq8 = {1: 5, 2: 5, 4: 2, 8: 1}
-    assert adc_kernel._query_tile(1, pq4) == 1
+    pq4 = {2: 5, 4: 4, 8: 3, 16: 1}
+    pq8 = {2: 5, 4: 2, 8: 1}
+    assert adc_kernel._query_tile(1, pq4) == 2
+    assert adc_kernel._query_tile(1, {1: 5, **pq4}) == 1
     assert adc_kernel._query_tile(5, pq4) == 8
     assert adc_kernel._query_tile(256, pq4) == 8
     assert adc_kernel._query_tile(256, pq8) == 2

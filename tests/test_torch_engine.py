@@ -127,6 +127,25 @@ def test_search_above_k_256_matches_reference(tmp_path, k):
         np.testing.assert_array_equal(a.indices[r], b.indices[r])
 
 
+@pytest.mark.parametrize("k", [1, 10, 100, N])
+@pytest.mark.parametrize("metric", [DistanceMetric.L2, DistanceMetric.INNER_PRODUCT])
+def test_duplicated_rows_tie_like_reference(tmp_path, metric, k):
+    """Every row has twins (40 distinct integer rows, repeated), so equal
+    scores decide the order everywhere: both engines rank ties by the lower
+    row, at k up to N."""
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 4, (40, D)).astype(np.float32)
+    x = base[rng.integers(0, 40, N)]
+    q = rng.integers(0, 4, (7, D)).astype(np.float32)
+    b = Builder()
+    b.add_vector_space("v", dim=D, metric=metric, dtype=DataType.FLOAT32)
+    b.add_vectors("v", x)
+    path = tmp_path / "twins.mvt"
+    b.build().save(path)
+    port, ref = _engines(path)
+    _assert_same(port.search(q, k=k), ref.search(q, k=k))
+
+
 @pytest.mark.parametrize("metric", [DistanceMetric.L2, DistanceMetric.INNER_PRODUCT])
 def test_wide_corpus_matches_reference(tmp_path, metric):
     """D = 1536 (text-embedding-3-small's width), past the old 1024. Values

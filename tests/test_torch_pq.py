@@ -174,6 +174,32 @@ def test_full_rerank_matches_reference_on_duplicate_rows(metric, k):
     assert not np.array_equal(a.indices, lowest_row_first)
 
 
+@pytest.mark.parametrize("k", [1, 10, 100, 300])
+@pytest.mark.parametrize("packed4", [False, True], ids=["u8", "packed4"])
+def test_adc_ties_on_duplicated_codes_match_reference(packed4, k):
+    """Every code row has twins (30 distinct rows, repeated), so ADC scores
+    tie across the corpus and the lower row decides, at k up to N = 300,
+    without a re-rank: the ADC scan's own order, as the JAX index gives it."""
+    data, rng = _clusters(7, n=300)
+    books = np.rint(jax_pq.train_pq(data, m=4, ksub=16, iters=3, seed=7))
+    codes = rng.integers(0, 16, (30, 4)).astype(np.uint8)[rng.integers(0, 30, len(data))]
+    recon = jax_pq.reconstruct_pq(codes, books).astype(np.float64)
+    ref = dataclasses.replace(
+        jax_pq.PQIndex.build(data, DistanceMetric.L2, codebooks=books, pack4=packed4),
+        codes=jnp.asarray(jax_pq.pack_codes4(codes) if packed4 else codes),
+        recon_norms=jnp.asarray((recon ** 2).sum(1).astype(np.float32)))
+    port = PQIndex.from_state(_state(ref), device="cpu")
+    q = (data[rng.integers(0, 300, 5)] + rng.integers(-9, 10, (5, 16))).astype(np.float32)
+    a = port.search(q, k=k, rerank=0)
+    b = ref.search(q, k=k, rerank=0, backend="xla")
+    _same(a, b, DistanceMetric.L2, q, recon, None)
+    first_twin = {c.tobytes(): r for r, c in reversed(list(enumerate(codes)))}
+    if k == 1:  # the lowest of the tied twins
+        assert all(r == first_twin[codes[r].tobytes()] for r in a.indices[:, 0])
+    else:
+        assert len(np.unique(a.scores)) < a.scores.size  # ties were decided
+
+
 @pytest.mark.parametrize("rerank", [1025, 1500, 2999])
 @pytest.mark.parametrize("metric", [DistanceMetric.L2, DistanceMetric.INNER_PRODUCT])
 def test_rerank_above_1024_matches_reference(metric, rerank):

@@ -156,18 +156,27 @@ def test_kernel_input_checks_raise(name):
         topk_kernel._check(q, x, nrm, k, None)
 
 
-@pytest.mark.parametrize("k, d, wide", [
-    (10, 128, False), (256, 128, False), (257, 128, False), (2000, 128, False),
-    (10, 512, False), (10, 1024, True), (300, 1536, True), (10, 3072, True),
+@pytest.mark.parametrize("k, d", [
+    (10, 128), (256, 128), (257, 128), (2000, 128),
+    (10, 512), (10, 1024), (300, 1536), (10, 3072),
 ])
-def test_kernel_takes_any_k_and_dim(k, d, wide):
-    """The checks take every 1 <= k <= N and any D; a query tile wider than
-    512 dims is staged chunk by chunk, and either way a scan block fits."""
+def test_kernel_takes_any_k_and_dim(k, d):
+    """The checks take every 1 <= k <= N and any D (queries and corpus are
+    staged 16 dims at a time, so D sets no shared memory); a scan block of
+    the default 32 x 256 tile, and of the sweep's 64 x 128 one, fits. At
+    k <= 100 a 32 x 256 block, and at k = 10 a 64 x 128 one, leave room
+    for two blocks on an SM."""
     n = 2000
     topk_kernel._check(torch.zeros((2, d)), torch.zeros((n, d)), torch.zeros(n),
                        k, None)
-    assert topk_kernel._wide(d) == wide
-    assert topk_kernel._shared_bytes(d, k, wide) <= topk_kernel.SMEM_LIMIT
+    assert topk_kernel._TILE == topk_kernel.TILE_32x256
+    two_blocks = (233_472 - 2 * 1024) // 2
+    for tile in topk_kernel._TILES:
+        assert topk_kernel._shared_bytes(k, tile) <= topk_kernel.SMEM_LIMIT
+    if k <= 100:
+        assert topk_kernel._shared_bytes(k, topk_kernel.TILE_32x256) <= two_blocks
+    if k <= 10:
+        assert topk_kernel._shared_bytes(k, topk_kernel.TILE_64x128) <= two_blocks
 
 
 def test_other_device_raises():

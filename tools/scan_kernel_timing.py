@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Time the scan-and-select kernels of one checkout of the port on one
+NVIDIA GPU, on inputs made on the card from fixed seeds.
+
+    python3 tools/scan_kernel_timing.py [--root DIR] [--define FLAG ...]
+                                        [--profile] [--kernels k1,k2,k4]
+                                        [--out FILE]
+
+``--root`` names the checkout whose ``metrovector_tpu_torch`` is imported
+and built (default: this one), so that two commits can be timed in one
+call on one card, each in a process of its own: ``chip_smoke.py`` times the
+parent commit's tree this way beside this one's. ``--define`` appends a
+``-D`` flag to the kernels' build (a variant builds beside the default one:
+the flags are part of the build directory's hash).
+
+Points (the kernels-line points of ``chip_smoke.py``):
+
+* ``fused_topk`` (K1) over 1M x 128 integer-valued f32 rows, L2: batch
+  256, 128 and 32 at k=10, batch 32 at k=100; beside it one ``torch.mm`` of
+  the batch-256 product in full f32 (TF32 off), a yardstick for the scan
+  alone (it selects nothing);
+* ``fused_adc_topk`` (K2) at k=400, L2, f32 LUT, over 1M random codes:
+  4-bit m=32 (nibble-packed) and 8-bit m=16, batches 256 and 32;
+* ``ell_topk`` (K4) at ``sparse1m`` shape (1M rows x 48 entries over
+  30,522 terms, queries of 256 nonzeros), k=10, batches 256 and 32.
+
+CUDA-event times over back-to-back calls on distinct inputs after one
+warm-up call. ``--profile`` adds device time by kernel name
+(``torch.profiler``). The last line of the output is one JSON object.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+N, D = 1_000_000, 128
+K1_POINTS = ((256, 10), (128, 10), (32, 10), (32, 100))
+K2_POINTS = (("pq4", 32, 16, True), ("pq8", 16, 256, False))
+K2_K, K2_BATCHES = 400, (256, 32)
+SP_DIM, SP_NNZ, SP_QNNZ = 30_522, 48, 256
+ITERS = 10
+
+
+def _by_kernel(prof, calls: int) -> dict:
+    return {ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            .split("(")[0].split("<")[0]: ev.device_time_total / 1e3 / calls
+            for ev in prof.key_averages() if ev.device_time_total > 0}
+
+
+def measure(profile: bool, kernels: set[str]) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops import _build
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk
+    from metrovector_tpu_torch.ops.sparse_kernel import ell_topk
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+    from metrovector_tpu_torch.utils.timing import cuda_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    dev = torch.device("cuda", 0)
+    l2, ip = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    out = {"k1": {}, "k2": {}, "k4": {}, "by_kernel": {}}
+
+    def timed(name, fn, inputs):
+        fn(inputs[0])
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, inputs, dev)
+        if profile:
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for x in inputs:
+                    fn(x)
+                torch.cuda.synchronize()
+            out["by_kernel"][name] = _by_kernel(prof, len(inputs))
+        return ms
+
+    db = torch.randint(0, 256, (N, D), generator=g, device=dev).float()
+    norms = (db * db).sum(1)
+    for nq, k in K1_POINTS if "k1" in kernels else ():
+        qs = [torch.randint(0, 256, (nq, D), generator=g, device=dev).float()
+              for _ in range(ITERS)]
+        ms = timed(f"k1 {nq} {k}", lambda q, k=k: fused_topk(q, db, norms, N, k, l2), qs)
+        out["k1"][f"{nq},{k}"] = ms
+        print(f"  K1 batch={nq} k={k}: {ms:.4f} ms", flush=True)
+        if (nq, k) == (256, 10):
+            db_t = db.T
+            torch.mm(qs[0], db_t)
+            out["k1_mm_ms"] = cuda_ms(lambda q: torch.mm(q, db_t), qs, dev)
+            print(f"  torch.mm [{nq},{D}] x [{D},{N}] f32: {out['k1_mm_ms']:.4f} ms",
+                  flush=True)
+    del db, norms
+    torch.cuda.empty_cache()
+
+    for name, m, ksub, packed in K2_POINTS if "k2" in kernels else ():
+        books = torch.randn((m, ksub, D // m), generator=g, device=dev)
+        codes = torch.randint(0, ksub, (N, m), generator=g, device=dev,
+                              dtype=torch.uint8)
+        recon = torch.cat([books[j][codes[:, j].long()] for j in range(m)], 1)
+        rnorms = (recon.double() ** 2).sum(1).float()
+        del recon
+        stored = (codes[:, 0::2] | (codes[:, 1::2] << 4)).contiguous() if packed else codes
+        for nq in K2_BATCHES:
+            qs = [torch.randn((nq, D), generator=g, device=dev) for _ in range(ITERS)]
+            ms = timed(f"k2 {name} {nq}", lambda q: fused_adc_topk(
+                q, stored, books, rnorms, N, K2_K, l2, None, True, packed), qs)
+            out["k2"][f"{name},{nq}"] = ms
+            print(f"  K2 {name} batch={nq} k={K2_K}: {ms:.4f} ms", flush=True)
+        del books, codes, stored, rnorms
+        torch.cuda.empty_cache()
+
+    if "k4" not in kernels:
+        return out
+    n_pad = -(-N // 8192) * 8192
+    cols = torch.zeros((n_pad, SP_NNZ), dtype=torch.int32, device=dev)
+    vals = torch.zeros((n_pad, SP_NNZ), device=dev)
+    cols[:N] = torch.randint(0, SP_DIM, (N, SP_NNZ), generator=g, device=dev,
+                             dtype=torch.int32)
+    vals[:N] = torch.randn((N, SP_NNZ), generator=g, device=dev).abs()
+    snorms = (vals * vals).sum(1)
+    for nq in (256, 32):
+        qts = []
+        for _ in range(6):
+            q = torch.zeros((nq, SP_DIM), device=dev)
+            q.scatter_(1, torch.randint(0, SP_DIM, (nq, SP_QNNZ), generator=g, device=dev),
+                       torch.randn((nq, SP_QNNZ), generator=g, device=dev).abs())
+            qts.append(q.T.contiguous())
+        ms = timed(f"k4 {nq}", lambda qt: ell_topk(
+            qt, cols, vals, None, None, None, snorms, N, 10, ip), qts)
+        out["k4"][str(nq)] = ms
+        print(f"  K4 ell_topk batch={nq} k=10: {ms:.4f} ms", flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--define", action="append", default=[])
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--kernels", default="k1,k2,k4",
+                    help="which of k1, k2, k4 to time (comma-separated)")
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    from metrovector_tpu_torch.ops import _build
+
+    if not _build.CSRC.is_relative_to(root):
+        print(f"metrovector_tpu_torch came from {_build.CSRC}, not {root}",
+              file=sys.stderr)
+        return 1
+    _build.NVCC_FLAGS.extend(args.define)
+    result = {"root": root, "defines": args.define, **measure(args.profile, set(args.kernels.split(",")))}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
