@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--parent DIR]
 
 With ``--parent DIR`` (another checkout of the port, such as the parent
-commit unpacked by ``git archive``) it also times that checkout's K1, K2
-and K4 beside this one's, one process each (``tools/scan_kernel_timing.py``).
+commit unpacked by ``git archive``) it also times that checkout's K1-K4
+and its ``search()`` p50 on this run's dense and PQ files beside this
+one's, one process each (``tools/scan_kernel_timing.py``).
 
 Phases, one line each; any failure exits non-zero:
 
@@ -17,7 +18,9 @@ Phases, one line each; any failure exits non-zero:
    then over 200,003 integer rows with twins across splits (f32/f16/bf16,
    D in {128, 100, 1536}, batches 1, 33, 37, 255, k in {10, 100, 256,
    257}, num_valid ending inside a split, a mask that empties whole
-   splits), each case run twice and identical to the plain version;
+   splits), each case run twice and identical to the plain version; and an
+   f16 space at precision "default" as the engine holds it (bf16 rows, f32
+   queries that bf16 cannot hold), within the band;
 3. main path at full size: ``Builder`` writes a 1M x 128 integer-valued
    f32 L2 space, ``Reader.open`` -> ``SearchEngine(device="cuda")`` ->
    ``search`` at k=10 (batches 32-256) and k=100, recall against a float64
@@ -34,7 +37,10 @@ Phases, one line each; any failure exits non-zero:
    num_valid and masks as in phase 2), bit-identical on float data too and
    run twice on integer data;
 7. gather and rescore kernels vs plain: ``gather_rows`` bit for bit over
-   dtypes and clamped indices, ``rescore_candidates`` in both tie modes;
+   dtypes, int32 and int64 indices, clamped indices, odd and unaligned
+   rows; ``rescore_candidates`` in both tie modes over metrics, then under
+   every split plan of ``rescore_plan`` at batches 1, 32, 256 and 600 (twins
+   across splits, a split of -1 only), identical twice on integer data;
 8. the PQ path at full size: a 1M x 128 clustered corpus, PQ trained and
    encoded on the card, ``Builder.set_pq_index`` -> ``Reader.open`` ->
    ``PQIndex.from_space(device="cuda")`` -> ``search(k=10, rerank=400)``
@@ -257,6 +263,9 @@ def phase_kernel_vs_plain(torch, dev) -> tuple[float, int]:
                             metric))
                         cases += 1
     cases += _k1_split_cases(torch, dev, rng)
+    c1_cases, c1_err = _f16_default_cases(torch, dev, rng)
+    cases += c1_cases
+    max_err = max(max_err, c1_err)
     empty = torch.empty((0, d), device=dev)  # an empty corpus launches nothing
     s_e, i_e = fused_topk(torch.ones((3, d), device=dev), empty,
                           torch.empty(0, device=dev), 0, 5, DistanceMetric.L2)
@@ -266,6 +275,36 @@ def phase_kernel_vs_plain(torch, dev) -> tuple[float, int]:
     say(f"phase 2 kernel vs plain: ok ({cases} cases, max |score diff| "
         f"{max_err:.3g})")
     return max_err, cases
+
+
+def _f16_default_cases(torch, dev, rng) -> tuple[int, float]:
+    """An f16 space at precision "default" as the engine holds it: bf16 rows
+    on the card and f32 queries from prepare_queries that bf16 cannot hold
+    (the reference rounds queries through bf16 only for f32 spaces). K1 on
+    them against its plain version, within phase 2's band, over the three
+    metrics at k 10 and 100. Returns (cases, max |score diff|)."""
+    from metrovector_tpu_torch import DataType, DistanceMetric
+    from metrovector_tpu_torch.engine import DeviceSpace
+
+    n, d = 3001, 128
+    x_f16 = rng.standard_normal((n, d)).astype(np.float16)
+    db = torch.from_numpy(x_f16).to(dev).to(torch.bfloat16)
+    x = db.float().cpu().numpy()
+    norms = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    q_raw = rng.standard_normal((37, d)).astype(np.float32)
+    cases, err = 0, 0.0
+    for metric in (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+                   DistanceMetric.COSINE):
+        sp = DeviceSpace(db, torch.from_numpy(norms).to(dev), n, d, metric,
+                         dtype=DataType.FLOAT16, precision="default")
+        q = sp.prepare_queries(q_raw).qdev.cpu().numpy()
+        if np.array_equal(q, torch.from_numpy(q).bfloat16().float().numpy()):
+            raise AssertionError("f16 'default' queries were rounded through bf16")
+        for k in (10, 100):
+            err = max(err, _one_case(torch, dev, "normal", q, db, x, norms, n,
+                                     None, k, metric))
+            cases += 1
+    return cases, err
 
 
 SPLIT_N = 200_003  # rows of the split cases: long splits at every batch
@@ -340,7 +379,7 @@ def _oracle_topk(q, x64, norms64, k):
     return out
 
 
-def phase_main_path(torch, dev, card):
+def phase_main_path(torch, dev, card, keep=None):
     from metrovector_tpu_torch import Builder, DistanceMetric, Reader, SearchEngine
     from metrovector_tpu_torch.ops.topk_kernel import (
         fused_topk, fused_topk_reference,
@@ -350,7 +389,7 @@ def phase_main_path(torch, dev, card):
     rng = np.random.default_rng(SEED)
     x = rng.integers(0, 256, (N_MAIN, D_MAIN)).astype(np.float32)
     tmp = tempfile.TemporaryDirectory()
-    path = os.path.join(tmp.name, "sift1m_like.mvt")
+    path = os.path.join(keep or tmp.name, "sift1m_like.mvt")
     t0 = time.perf_counter()
     b = Builder()
     b.add_vector_space("sift", dim=D_MAIN, metric=DistanceMetric.L2)
@@ -716,9 +755,10 @@ def phase_gather_vs_plain(torch, dev) -> tuple[float, float]:
     for name, bits in _BITS.items():
         dt = getattr(torch, name)
         bdt = getattr(torch, bits)
-        for d in (128, 13):
-            src = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32) * 100)
-            db = src.to(dt).to(dev)
+        for d, offset in ((128, 0), (13, 0), (13, 1)):
+            src = torch.from_numpy(rng.standard_normal((n + offset, d)).astype(
+                np.float32) * 100)
+            db = src.to(dt).to(dev)[offset:]  # offset 1: an unaligned start
             for idx_dt in (torch.int32, torch.int64):
                 idx = torch.cat([torch.from_numpy(rng.integers(0, n, 5000)),
                                  torch.tensor([-1, -7, n, n + 5, 2**30])]).to(idx_dt).to(dev)
@@ -727,7 +767,8 @@ def phase_gather_vs_plain(torch, dev) -> tuple[float, float]:
                 want = db[idx.long().clamp(0, n - 1)]
                 if not (torch.equal(got.view(bdt), ref.view(bdt))
                         and torch.equal(got.view(bdt), want.view(bdt))):
-                    raise AssertionError(f"gather_rows differs from db[idx] ({name}, D={d})")
+                    raise AssertionError(f"gather_rows differs from db[idx] "
+                                         f"({name}, D={d}, offset {offset})")
                 gather_err = max(gather_err, float(
                     (got.double() - want.double()).abs().max()))
                 gathers += 1
@@ -773,11 +814,66 @@ def phase_gather_vs_plain(torch, dev) -> tuple[float, float]:
                         got, ref, exact, tol, scores,
                         f"rescore {kind} {metric.name} Q={nq} R={r} k={k} tie={tie}"))
                     cases += 1
+    split_cases, plans = _rescore_split_cases(torch, dev, rng)
     torch.cuda.synchronize()
     say(f"phase 7 gather and rescore kernels vs plain: ok ({gathers} gathers "
         f"bit-identical, max |diff| {gather_err:.3g}; {cases} rescore cases, "
-        f"max |score diff| {max_err:.3g})")
+        f"max |score diff| {max_err:.3g}; {split_cases} split-plan cases "
+        f"identical twice, plans (merge, warp selection) {sorted(plans)})")
     return gather_err, max_err
+
+
+def _rescore_split_cases(torch, dev, rng) -> tuple[int, set]:
+    """rescore_candidates under every split plan rescore_plan can choose
+    (one split or several; lists folded by the last block or by the merge
+    tree; warp selection or a sort of the split): batches 1, 32, 256 and
+    600, R from 37 to 300,000, k 10 and 100, R = k = 8192. Integer rows
+    with a twin each; every query's first 8 candidates are twins of its
+    last 8 (so they fall in the first and the last split), one split holds
+    only -1, and candidates repeat. Both tie modes, each case run twice and
+    identical to the plain version. Returns (cases, plans seen)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.gather_kernel import (
+        MERGE_BLOCK, MERGE_NONE, MERGE_TREE, WARP_LIST, rescore_candidates,
+        rescore_candidates_reference, rescore_plan,
+    )
+
+    n, d = 30_000, D_MAIN
+    base = rng.integers(0, 256, (n // 2, d)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([base, base])).to(dev)  # twins i, i + n/2
+    norms = (x.double() ** 2).sum(1).float()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {1: ((37, 10), (400, 10), (4097, 100), (20_000, 10), (300_000, 10)),
+              32: ((400, 10), (400, 100), (4097, 10), (20_000, 10), (8192, 8192)),
+              256: ((400, 10), (400, 100), (4097, 10), (4097, 100)),
+              600: ((400, 10), (400, 100))}
+    cases, plans = 0, set()
+    for nq, runs in shapes.items():
+        q = torch.from_numpy(rng.integers(0, 256, (nq, d)).astype(np.float32)).to(dev)
+        for r, k in runs:
+            plan = rescore_plan(nq, r, k, d, sms)
+            cand = rng.integers(0, n, (nq, r)).astype(np.int32)
+            twins = rng.integers(0, n // 2, (nq, 8))
+            cand[:, :8] = twins + n // 2
+            cand[:, -8:] = twins
+            if plan.splits > 2:
+                cand[:, plan.split_len:2 * plan.split_len] = -1
+            cand_d = torch.from_numpy(cand).to(dev)
+            for tie in ("position", "row"):
+                metric = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT)[cases % 2]
+                args = (q, x, norms, cand_d, k, metric, tie)
+                _twice_identical(torch, rescore_candidates, args,
+                                 rescore_candidates_reference(*args),
+                                 f"rescore split case Q={nq} R={r} k={k} {metric.name} "
+                                 f"tie={tie} {plan}")
+                cases += 1
+            plans.add((plan.merge, plan.list_len <= WARP_LIST))
+    # The last block folds only k <= WARP_LIST, so only by warp selection.
+    want = {(m, w) for m in (MERGE_NONE, MERGE_TREE) for w in (True, False)}
+    want.add((MERGE_BLOCK, True))
+    if plans != want:
+        raise AssertionError(f"split plans not all driven: {sorted(want - plans)}")
+    return cases, plans
 
 
 PQ_CONFIGS = (  # benchmarks/suite.py's sift1m-pq4 and sift1m-pq: (name, m, ksub, packed4)
@@ -843,7 +939,73 @@ def _same_candidates(torch, got, ref, lut, codes, rnorms, m, ksub, what):
     return False
 
 
-def phase_pq_path(torch, dev, card):
+def _pq_host_split(torch, dev, idx, packed, qs, host) -> dict:
+    """PQIndex.search's steps one at a time (its code, unchanged, repeated
+    here with a synchronize after each): host query prep and upload,
+    fused_adc_topk (with its LUT), rescore_candidates, the two readbacks
+    and the finalize (distances, sentinels, ids), each a host-clock median
+    in ms over the batches; beside them the device ms of adc_lut, K2 and K3
+    (device_ms) and the host µs of one K2 and one K3 wrapper call (the
+    enqueue alone)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.engine import ids_for_rows
+    from metrovector_tpu_torch.ops.adc_kernel import adc_lut, fused_adc_topk
+    from metrovector_tpu_torch.ops.distances import distances_np
+    from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
+    from metrovector_tpu_torch.utils.timing import device_ms
+
+    L2 = DistanceMetric.L2
+    steps = {k: [] for k in ("prep", "k2", "k3", "readback", "finalize")}
+
+    def k2(q):
+        return fused_adc_topk(q, idx.codes, idx._books, idx.recon_norms,
+                              idx.num_vectors, RERANK, L2, idx.valid, True, packed)
+
+    def k3(p):
+        return rescore_candidates(p[0], idx.db, idx.db_norms, p[1], K_PQ, L2,
+                                  tie="position")
+
+    for qh in host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = np.ascontiguousarray(qh, np.float32)
+        qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
+        qdev = torch.from_numpy(q).to(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s, i = k2(qdev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        s, i = k3((qdev, i))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        t4 = time.perf_counter()
+        dist = distances_np(s, L2, qnorms)
+        dist = np.where(i >= 0, dist, np.inf)
+        ids_for_rows(idx.host_ids, i)
+        t5 = time.perf_counter()
+        for key, a, b in (("prep", t0, t1), ("k2", t1, t2), ("k3", t2, t3),
+                          ("readback", t3, t4), ("finalize", t4, t5)):
+            steps[key].append((b - a) * 1e3)
+    out = {key: float(np.median(v)) for key, v in steps.items()}
+    lut = lambda q: adc_lut(q, idx._books, True)  # noqa: E731
+    lut(qs[0])
+    out["lut_device"] = device_ms(lut, qs, dev)
+    out["k2_device"] = device_ms(k2, qs, dev)
+    pairs = [(q, k2(q)[1]) for q in qs]
+    out["k3_device"] = device_ms(k3, pairs, dev)
+    for key, fn, inputs in (("k2_host_us", k2, qs), ("k3_host_us", k3, pairs)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in inputs:
+            fn(x)
+        out[key] = (time.perf_counter() - t0) / len(inputs) * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def phase_pq_path(torch, dev, card, keep=None):
     """The PQ path end to end at full size (module docstring, phase 8)."""
     from metrovector_tpu_torch import Builder, DistanceMetric, Reader
     from metrovector_tpu_torch.index.pq import (
@@ -857,7 +1019,7 @@ def phase_pq_path(torch, dev, card):
         rescore_candidates_reference,
     )
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk
-    from metrovector_tpu_torch.utils.timing import cuda_ms, sync_time
+    from metrovector_tpu_torch.utils.timing import cuda_ms, device_ms, sync_time
 
     L2 = DistanceMetric.L2
     rng = np.random.default_rng(SEED)
@@ -880,7 +1042,7 @@ def phase_pq_path(torch, dev, card):
             codes = encode_pq(x, books, device=dev)
             t_train = time.perf_counter() - t0
             stored = pack_codes4(codes) if packed else codes
-            path = os.path.join(tmp.name, f"{name}.mvt")
+            path = os.path.join(keep or tmp.name, f"{name}.mvt")
             t0 = time.perf_counter()
             b = Builder()
             b.add_vector_space("sift", dim=D_MAIN, metric=L2)
@@ -968,7 +1130,7 @@ def phase_pq_path(torch, dev, card):
 
                 cands = [k2(q)[1] for q in qs]
                 pairs = list(zip(qs, cands))
-                flat = [c.reshape(-1) for c in cands]
+                flat = [c.reshape(-1).clamp(min=0) for c in cands]  # rows to fetch
 
                 def k3(p):
                     return rescore_candidates(p[0], idx.db, idx.db_norms, p[1],
@@ -991,36 +1153,54 @@ def phase_pq_path(torch, dev, card):
                     return fused_topk(q, idx.db, idx.db_norms, idx.num_vectors,
                                       K_PQ, L2)
 
+                # K2 is longer than its launch: events around the calls.
+                # K3 and the gather are shorter: device_ms times the device
+                # alone (the host has queued every call before the first
+                # event), and the per-call time is kept beside it.
                 row = {}
-                for key, kern, plain, inputs in (
-                        ("k2", k2, k2_plain, qs), ("k3", k3, k3_plain, pairs),
-                        ("gather", gat, gat_plain, flat)):
+                for key, kern, plain, inputs, timer in (
+                        ("k2", k2, k2_plain, qs, cuda_ms),
+                        ("k3", k3, k3_plain, pairs, device_ms),
+                        ("gather", gat, gat_plain, flat, device_ms)):
                     kern(inputs[0])
                     plain(inputs[0])
                     few = inputs[:5]
-                    p1 = cuda_ms(plain, few, dev)
-                    a1 = cuda_ms(kern, inputs, dev)
-                    a2 = cuda_ms(kern, inputs, dev)
-                    p2 = cuda_ms(plain, few, dev)
+                    p1 = timer(plain, few, dev)
+                    a1 = timer(kern, inputs, dev)
+                    a2 = timer(kern, inputs, dev)
+                    p2 = timer(plain, few, dev)
                     row[key] = ((a1 + a2) / 2, (p1 + p2) / 2)
-                long_flat = [f.long() for f in flat]
-                gat_library(long_flat[0])
-                row["gather_library"] = cuda_ms(gat_library, long_flat, dev)
+                    if timer is device_ms:
+                        row[key + "_call"] = cuda_ms(kern, inputs, dev)
+                gat_library(flat[0])  # index_select on the same int32 indices
+                row["gather_library"] = device_ms(gat_library, flat, dev)
                 k1(qs[0])
                 row["k1"] = cuda_ms(k1, qs, dev)
                 host = [q.cpu().numpy() for q in qs]
+                idx.search(host[0], k=K_PQ, rerank=RERANK)
                 row["e2e"] = float(np.median([
                     sync_time(idx.search, q, k=K_PQ, rerank=RERANK, device=dev)[0]
                     for q in host])) * 1e3
                 times[(name, bsz)] = row
+                row["split"] = _pq_host_split(torch, dev, idx, packed, qs, host)
                 say(f"  timing {name} batch={bsz}: K2 {row['k2'][0]:.4f} ms "
-                    f"(plain {row['k2'][1]:.4f}) | K3 rescore {row['k3'][0]:.4f} ms "
-                    f"(plain {row['k3'][1]:.4f}) | gather {bsz * RERANK} rows "
-                    f"{row['gather'][0]:.4f} ms (plain {row['gather'][1]:.4f}, "
-                    f"index_select {row['gather_library']:.4f}) | "
+                    f"(plain {row['k2'][1]:.4f}) | K3 rescore device {row['k3'][0]:.4f} ms, "
+                    f"per call {row['k3_call']:.4f} (plain {row['k3'][1]:.4f}) | gather "
+                    f"{bsz * RERANK} rows device {row['gather'][0]:.4f} ms, per call "
+                    f"{row['gather_call']:.4f} (plain {row['gather'][1]:.4f}, "
+                    f"index_select on the same int32 indices {row['gather_library']:.4f}) | "
                     f"search() p50 {row['e2e']:.4f} ms = "
                     f"{bsz / row['e2e'] * 1e3:.0f} QPS | K1 exact search "
                     f"{row['k1']:.4f} ms | {card}")
+                sp = row["split"]
+                say(f"  search() step by step, {name} batch={bsz} (host ms, synchronized "
+                    f"after each): prep + upload {sp['prep']:.4f} | K2 {sp['k2']:.4f} "
+                    f"(device {sp['k2_device']:.4f}, of it adc_lut {sp['lut_device']:.4f}; "
+                    f"wrapper {sp['k2_host_us']:.1f} us) | K3 {sp['k3']:.4f} (device "
+                    f"{sp['k3_device']:.4f}; wrapper {sp['k3_host_us']:.1f} us) | two "
+                    f"readbacks {sp['readback']:.4f} | finalize {sp['finalize']:.4f} | "
+                    f"sum {sum(sp[k] for k in ('prep', 'k2', 'k3', 'readback', 'finalize')):.4f}"
+                    f" vs p50 {row['e2e']:.4f} | {card}")
             if packed:
                 kept = (idx, x64, norms64, queries)
             else:
@@ -1721,26 +1901,51 @@ def lookup_figures(torch, lookups: int, card: str) -> None:
         f"bf16 LUT {lookups / 64 / per_ms:.4f} ms | {card}")
 
 
-def time_parent(parent: str, card: str) -> None:
-    """K1, K2 and K4 of another checkout (the parent commit, unpacked by
-    the caller) at the kernels-line points, in a process of its own
+def time_parent(parent: str, files: str, card: str) -> None:
+    """K1-K4 of another checkout (the parent commit, unpacked by the caller)
+    at the kernels-line points, and its search() p50 on this run's dense
+    and PQ files (in ``files``), each in a process of its own
     (tools/scan_kernel_timing.py), beside this one's in the same process
-    layout."""
+    layout: parent, this tree, this tree, parent with the kernels, then
+    three more pairs of search() alone in alternating order; the p50s'
+    medians and spreads (lowest, highest) close the comparison."""
     here = os.path.dirname(os.path.abspath(__file__))
     tool = os.path.join(here, "tools", "scan_kernel_timing.py")
     t0 = time.perf_counter()
-    for root in (os.path.abspath(parent), here):
-        run = subprocess.run([sys.executable, tool, "--root", root],
+    parent = os.path.abspath(parent)
+    p50 = {parent: {}, here: {}}
+    order = [(parent, True), (here, True), (here, True), (parent, True),
+             (parent, False), (here, False), (here, False), (parent, False),
+             (parent, False), (here, False)]
+    for root, kernels in order:
+        run = subprocess.run([sys.executable, tool, "--root", root, "--files", files]
+                             + ([] if kernels else ["--kernels", "none"]),
                              capture_output=True, text=True, timeout=600)
         if run.returncode != 0:
             raise RuntimeError(f"timing {root} failed: {run.stderr[-2000:]}")
         got = json.loads(run.stdout.strip().splitlines()[-1])
+        for point, ms in got["e2e"].items():
+            p50[root].setdefault(point, []).append(ms)
+        if not kernels:
+            continue
         say(f"  {'parent' if root != here else 'this tree'} ({root}): K1 " + ", ".join(
             f"batch={p.split(',')[0]} k={p.split(',')[1]} {v:.4f} ms"
             for p, v in got["k1"].items())
             + " | K2 k=400 " + ", ".join(f"{p} {v:.4f} ms" for p, v in got["k2"].items())
+            + " | K3 " + ", ".join(
+                f"{p} device {v['device_ms']:.4f} ms, per call {v['call_ms']:.4f}, host "
+                f"{v['host_us']:.1f} us" + (f", index_select {v['index_select_ms']:.4f}"
+                                            if "index_select_ms" in v else "")
+                for p, v in got["k3"].items())
             + " | K4 ell_topk k=10 " + ", ".join(
-                f"batch={p} {v:.4f} ms" for p, v in got["k4"].items()) + f" | {card}")
+                f"batch={p} {v:.4f} ms" for p, v in got["k4"].items())
+            + " | search() p50 " + ", ".join(
+                f"{p} {v:.4f} ms" for p, v in got["e2e"].items()) + f" | {card}")
+    for point in p50[here]:
+        a, b = (np.array(p50[r][point]) for r in (parent, here))
+        say(f"  search() p50 {point}, {len(a)} processes each: parent median "
+            f"{np.median(a):.4f} ms ({a.min():.4f}-{a.max():.4f}), this tree "
+            f"{np.median(b):.4f} ({b.min():.4f}-{b.max():.4f}) | {card}")
     say(f"  timing both checkouts took {time.perf_counter() - t0:.1f} s")
 
 
@@ -1756,8 +1961,11 @@ def main() -> int:
     card_name, card = phase_device(torch)
     dev = torch.device("cuda", 0)
     phase_build()
+    # With --parent, the dense and PQ files stay for the parent's search().
+    keep = tempfile.TemporaryDirectory() if parent is not None else None
+    keep_dir = keep.name if keep is not None else None
     max_err, _ = phase_kernel_vs_plain(torch, dev)
-    engine, tmp, launches, times = phase_main_path(torch, dev, card)
+    engine, tmp, launches, times = phase_main_path(torch, dev, card, keep_dir)
     try:
         phase_filters_ids(torch, engine)
         phase_serving(engine)
@@ -1765,7 +1973,7 @@ def main() -> int:
         tmp.cleanup()
     adc_err, _ = phase_adc_vs_plain(torch, dev)
     gather_err, rescore_err = phase_gather_vs_plain(torch, dev)
-    pq_launches, pq_times, pq4 = phase_pq_path(torch, dev, card)
+    pq_launches, pq_times, pq4 = phase_pq_path(torch, dev, card, keep_dir)
     phase_any_k(torch, dev, card, engine, pq4)
     del engine, pq4
     torch.cuda.empty_cache()
@@ -1784,7 +1992,7 @@ def main() -> int:
     lookup_figures(torch, q * n * 32, card)
     rows = q * RERANK
     k3_bound = bound(2 * rows * d, 4 * rows * d + 4 * rows + 4 * q * d + 8 * q * K_PQ)
-    g_bound = bound(0, 2 * 4 * rows * d + 8 * rows)
+    g_bound = bound(0, 2 * 4 * rows * d + 4 * rows)  # int32 indices, as K2 gives
     # K4 does the products of the queries' nonzeros only: its operations
     # are 2 x those multiply-adds, counted on the timed batch; its bytes the
     # ELL arrays, qt, the norms and the outputs, each once.
@@ -1808,7 +2016,10 @@ def main() -> int:
         f"({d32[1]}); shares ell_topk {t32[0] / r32['ell_topk']:.1%}, ell_dots "
         f"{d32[0] / r32['ell_dots']:.1%}")
     if parent is not None:
-        time_parent(parent, card)
+        try:
+            time_parent(parent, keep_dir, card)
+        finally:
+            keep.cleanup()
     say(json.dumps({"kernels": [
         {"name": "fused_topk", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches,

@@ -9,7 +9,8 @@ CUDA raises: nothing falls back to the CPU.
 
 This slice covers f32 spaces at ``precision="highest"`` (exact f32) and
 ``"default"`` (bf16 on the device), and f16 spaces kept f16 on the device
-(f16 ⊂ f32, so results equal the reference's f32 upcast). Other dtypes and
+(f16 ⊂ f32, so results equal the reference's f32 upcast), or bf16 at
+``"default"`` with f32 queries, as the reference keeps them. Other dtypes and
 precisions raise :class:`NotImplementedError` naming the ROADMAP item that
 brings them.
 """
@@ -370,7 +371,10 @@ class DeviceSpace:
 
     def prepare_queries(self, queries) -> PreparedQueries:
         """Validate, pre-normalize (cosine), pad to ``padded_dim`` and upload
-        as f32; for ``"default"`` round through bf16 as the corpus was."""
+        as f32. An f32 space at ``"default"`` rounds them through bf16 as
+        its corpus was; an f16 space there (bf16 on the device too) keeps
+        them f32, as the reference does: it keys the rounding on the
+        space's dtype, not on the device block's."""
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -385,7 +389,7 @@ class DeviceSpace:
             q = np.pad(q, ((0, 0), (0, self.padded_dim - self.dim)))
         qdev = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32))
         qdev = qdev.to(self.device)
-        if self.data.dtype == torch.bfloat16:
+        if self.dtype == DataType.FLOAT32 and self.precision == "default":
             qdev = qdev.to(torch.bfloat16).float()
         return PreparedQueries(qdev=qdev, sq_norms=qnorms)
 

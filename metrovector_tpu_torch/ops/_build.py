@@ -125,14 +125,16 @@ def load() -> ctypes.CDLL:
             lib.mvt_adc_topk_occupancy.argtypes = [i32, i32, i32, i32, i32,
                                                    i32, p]
             lib.mvt_adc_topk_occupancy.restype = i32
-            lib.mvt_gather_rows.argtypes = [p, i64, i64, p, i64, p, p]
+            lib.mvt_gather_rows.argtypes = [p, i64, i64, p, i32, i64, p, p]
             lib.mvt_gather_rows.restype = i32
             lib.mvt_rescore.argtypes = [
                 p, p, i32, p, p,          # q, db, db_dtype, norms, cand
                 i64, i64, i32, i32, i32,  # nq, n, d, r, k
                 i32, i32,                 # metric, tie_rows
-                p, p, p, p, p, p,         # part_s/i, tmp_s/i, out_s/i
-                p,                        # stream
+                i32, i32, i32, i32,       # splits, split_len, list_len, merge
+                i32, i32, i64,            # sort_len, room, smem
+                p, p, p, p, p,            # part_s/i, tmp_s/i, arrivals
+                p, p, p,                  # out_s/i, stream
             ]
             lib.mvt_rescore.restype = i32
             lib.mvt_query_postings.argtypes = [

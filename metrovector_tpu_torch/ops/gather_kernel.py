@@ -10,21 +10,26 @@ raises; a CPU tensor goes to the plain version. ``gather_rows.launches`` and
 
 The TPU kernel's strip fetch, its ``N % 8`` rule and ``auto_select``'s
 routing region were Mosaic limits and have no counterpart here. The rescore
-takes any number R of candidates: above 4096 it sorts chunks of 4096 and a
-merge tree folds them (:mod:`.select`).
+takes any number R of candidates: :func:`rescore_plan` splits a query's
+candidates over enough blocks to fill the card, and the splits' lists are
+folded by the block that finishes a query last (k ≤ :data:`WARP_LIST`, at
+most :data:`MERGE_ENTRIES` list entries), else by the merge tree of
+:mod:`.select`.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from ..format.constants import DistanceMetric
 
-from . import select
+from . import _build, select
 from .distances import full_f32_matmul
 from .topk_kernel import SMEM_LIMIT
 
-CHUNK = 4096  # candidates one block sorts in shared memory (csrc kChunk)
 TIES = ("position", "row")
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _GATHER_DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.int8,
@@ -32,6 +37,27 @@ _GATHER_DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.int8,
 _METRICS = (
     DistanceMetric.L2, DistanceMetric.INNER_PRODUCT, DistanceMetric.COSINE
 )
+
+# The rescore's split plan (csrc/gather_kernel.cu: kWarps, kWarpList, and
+# the candidates a block of 128 threads scores in one pass).
+WARPS, WARP_LIST, PASS = 4, 32, 32
+BLOCKS_PER_SM = 4  # blocks the plan aims to give every SM
+MAX_SPLITS = 64  # splits of one query that the last block folds
+SPLIT_MAX = 4096  # candidates of one split (its sort in shared memory)
+MERGE_ENTRIES = 4096  # list entries the last block folds in shared memory
+MERGE_NONE, MERGE_BLOCK, MERGE_TREE = 0, 1, 2
+
+_lib = None
+_sms: dict[int, int] = {}
+_arrivals: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _kernels():
+    """The kernels' library, resolved once (built at first use)."""
+    global _lib
+    if _lib is None:
+        _lib = _build.load()
+    return _lib
 
 
 def gather_rows_reference(db: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -60,21 +86,18 @@ def gather_rows(db: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_rows does not take {db.dtype}")
     if not db.is_contiguous():
         raise ValueError("db must be contiguous")
-    from ._build import load, raise_for
-
-    lib = load()
     out = torch.empty((idx.shape[0], db.shape[1]), dtype=db.dtype,
                       device=db.device)
     if out.numel() == 0:
         return out
-    idx64 = idx.to(torch.int64).contiguous()
+    lib = _kernels()
+    idx = idx.contiguous()
     with torch.cuda.device(db.device):
         err = lib.mvt_gather_rows(
             db.data_ptr(), db.shape[0], db.shape[1] * db.element_size(),
-            idx64.data_ptr(), idx64.shape[0], out.data_ptr(),
-            torch.cuda.current_stream(db.device).cuda_stream,
-        )
-    raise_for(lib, err, "gather_rows")
+            idx.data_ptr(), idx.element_size(), idx.shape[0], out.data_ptr(),
+            torch.cuda.current_stream(db.device).cuda_stream)
+    _build.raise_for(lib, err, "gather_rows")
     gather_rows.launches += 1
     return out
 
@@ -121,14 +144,71 @@ def rescore_candidates_reference(
     return top_s, torch.where(torch.isneginf(top_s), -1, top_i).to(torch.int32)
 
 
-def _rescore_smem(d: int, r: int) -> int:
-    """Dynamic shared memory of one rescore block: the query and the sort
-    of one chunk, padded to a power of two."""
-    p = 1 << (min(r, CHUNK) - 1).bit_length()
-    return 4 * (-(-d // 4) * 4 + 2 * p)
+@dataclasses.dataclass(frozen=True)
+class RescorePlan:
+    """How :func:`rescore_candidates` lays out one launch: ``splits``
+    blocks a query of ``split_len`` candidates each (the last may be
+    shorter), each keeping a sorted list of ``list_len`` = min(k,
+    split_len); ``merge`` says who folds the lists (none: one split; block:
+    the block that finishes the query last, by warp selection, for k ≤
+    :data:`WARP_LIST`; tree: the merge tree);
+    ``sort_len`` and ``room`` are the entries of the split's scores and of
+    the lists in shared memory, ``smem`` the block's dynamic shared memory
+    in bytes; ``part`` and ``tmp`` are the scratch entries per query (f32
+    score + i32 key each)."""
+
+    splits: int
+    split_len: int
+    list_len: int
+    merge: int
+    sort_len: int
+    room: int
+    smem: int
+    part: int
+    tmp: int
 
 
-def _check_rescore(queries, db, db_norms, cand_idx, k) -> None:
+@functools.lru_cache(maxsize=256)
+def rescore_plan(nq: int, r: int, k: int, d: int, sms: int) -> RescorePlan:
+    """The split plan of a rescore of ``nq`` queries' ``r`` candidates at
+    dimension ``d`` for the top ``k`` on a card of ``sms`` SMs: enough
+    splits that the ``nq * splits`` blocks give every SM
+    :data:`BLOCKS_PER_SM`, but no more splits than scoring passes over
+    the candidates (:data:`PASS` a pass), none longer than
+    :data:`SPLIT_MAX`, and at most :data:`MAX_SPLITS` unless the length
+    forces more. Lists of at most
+    :data:`WARP_LIST` are selected by warps; longer ones sort the split, so
+    the sort runs over a power of two. The last block folds the lists where
+    k ≤ :data:`WARP_LIST` and they hold at most :data:`MERGE_ENTRIES`
+    entries; the merge tree folds the rest."""
+    want = -(-BLOCKS_PER_SM * sms // max(nq, 1))
+    splits = max(1, min(want, MAX_SPLITS, -(-r // PASS)), -(-r // SPLIT_MAX))
+    split_len = -(-r // splits)
+    splits = -(-r // split_len)
+    m = min(k, split_len)
+    if splits == 1:
+        merge = MERGE_NONE
+    elif k <= WARP_LIST and splits <= MAX_SPLITS and splits * m <= MERGE_ENTRIES:
+        merge = MERGE_BLOCK
+    else:
+        merge = MERGE_TREE
+    warp_select = m <= WARP_LIST
+    sort_len = split_len if warp_select else 1 << (split_len - 1).bit_length()
+    room = ((WARPS * WARP_LIST if warp_select else 0)
+            + (splits * m if merge == MERGE_BLOCK else 0))
+    if merge == MERGE_TREE:
+        part, tmp = select.merge_scratch(splits, m, k)
+    else:
+        part, tmp = (0 if merge == MERGE_NONE else splits * m), 0
+    smem = 4 * (-(-d // 4) * 4 + split_len + 2 * sort_len + 2 * room)
+    return RescorePlan(splits, split_len, m, merge, sort_len, room, smem,
+                       part, tmp)
+
+
+def _check_rescore(queries, db, db_norms, cand_idx, k,
+                   sms: int = 132) -> RescorePlan:
+    """Raise on what the kernel does not take; else its plan on a card of
+    ``sms`` SMs."""
     dev = queries.device
     for name, t in (("db", db), ("db_norms", db_norms), ("cand_idx", cand_idx)):
         if t.device != dev:
@@ -143,14 +223,15 @@ def _check_rescore(queries, db, db_norms, cand_idx, k) -> None:
     n = db.shape[0]
     if db.shape[1] != d:
         raise ValueError(f"queries have D={d}, db has D={db.shape[1]}")
-    r = cand_idx.shape[1]
-    if _rescore_smem(d, r) > SMEM_LIMIT:
+    plan = rescore_plan(nq, cand_idx.shape[1], k, d, sms)
+    if plan.smem > SMEM_LIMIT:
         raise ValueError(
-            f"D={d} needs {_rescore_smem(d, r)} bytes of shared memory beside "
-            f"the sort, above the {SMEM_LIMIT} a block may use"
+            f"D={d} needs {plan.smem} bytes of shared memory beside the "
+            f"split's candidates, above the {SMEM_LIMIT} a block may use"
         )
-    if -(-r // CHUNK) >= 2**16:
-        raise ValueError(f"R={r} candidates: more chunks than a grid holds")
+    if nq * plan.splits >= 2**31:
+        raise ValueError(f"{nq} queries x {plan.splits} splits: more blocks "
+                         "than a grid holds")
     if n >= 2**31:
         raise ValueError(f"N={n} rows: the kernel's row indices are int32")
     if db_norms.dtype != torch.float32 or tuple(db_norms.shape) != (n,):
@@ -158,6 +239,27 @@ def _check_rescore(queries, db, db_norms, cand_idx, k) -> None:
     for name, t in (("queries", queries), ("db", db), ("db_norms", db_norms)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return plan
+
+
+def _arrivals_for(device: torch.device, stream: int, nq: int) -> torch.Tensor:
+    """The per-query arrival counters of the last-block merge on one
+    stream: zero before every launch, which leaves them zero again (launches
+    on one stream run one after another). Grown, zeroed, when a batch is
+    larger than any before."""
+    key = (device.index, stream)
+    have = _arrivals.get(key)
+    if have is None or have.numel() < nq:
+        have = torch.zeros(max(nq, 256), dtype=torch.int32, device=device)
+        _arrivals[key] = have
+    return have
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
 
 
 def rescore_candidates(
@@ -191,32 +293,41 @@ def rescore_candidates(
                                             k, metric, tie)
     if queries.device.type != "cuda":
         raise ValueError(f"rescore_candidates runs on CUDA or CPU, not {queries.device}")
-    _check_rescore(queries, db, db_norms, cand_idx, k)
-    from ._build import load, raise_for
-
-    lib = load()
-    nq, d = queries.shape
     dev = queries.device
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    nq, d = queries.shape
+    plan = _check_rescore(queries, db, db_norms, cand_idx, k, _sm_count(dev))
+    # The outputs [2, nq, k] in one allocation, the scratch in another
+    # (none at one split): the split lists [2, nq * part], then the merge
+    # tree's room [2, nq * tmp]. The results pin only their own bytes.
+    out_n = nq * k
+    out = torch.empty(2 * out_n, dtype=torch.int32, device=dev)
+    out_s = out[:out_n].view(torch.float32).view(nq, k)
+    out_i = out[out_n:].view(nq, k)
     if nq == 0:
         return out_s, out_i
+    lib = _kernels()
     cand = cand_idx.to(torch.int32).contiguous()
-    chunks = -(-r // CHUNK)
+    part_s = part_i = tmp_s = tmp_i = 0
+    if plan.merge != MERGE_NONE:
+        scratch = torch.empty(2 * nq * (plan.part + plan.tmp),
+                              dtype=torch.int32, device=dev)
+        part_s = scratch.data_ptr()
+        part_i = part_s + 4 * nq * plan.part
+        tmp_s = part_i + 4 * nq * plan.part
+        tmp_i = tmp_s + 4 * nq * plan.tmp
     with torch.cuda.device(dev):
-        part_s, part_i, tmp_s, tmp_i = select.scratch(
-            nq if chunks > 1 else 0, chunks, min(k, CHUNK), k, dev,
-            tree=chunks > 1)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        arrivals = (_arrivals_for(dev, stream, nq).data_ptr()
+                    if plan.merge == MERGE_BLOCK else 0)
         err = lib.mvt_rescore(
             queries.data_ptr(), db.data_ptr(), _DTYPE_CODES[db.dtype],
             db_norms.data_ptr(), cand.data_ptr(), nq, db.shape[0], d, r, k,
-            int(metric), int(tie == "row"),
-            part_s.data_ptr(), part_i.data_ptr(),
-            tmp_s.data_ptr(), tmp_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(metric), int(tie == "row"), plan.splits, plan.split_len,
+            plan.list_len, plan.merge, plan.sort_len, plan.room, plan.smem,
+            part_s, part_i, tmp_s, tmp_i, arrivals, out.data_ptr(),
+            out.data_ptr() + 4 * out_n, stream,
         )
-    raise_for(lib, err, "rescore_candidates")
+    _build.raise_for(lib, err, "rescore_candidates")
     rescore_candidates.launches += 1
     return out_s, out_i
 

@@ -71,6 +71,32 @@ def test_search_matches_reference_engine(tmp_path, metric, storage):
         _assert_same(a, b)
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_f16_default_float_queries_match_reference(tmp_path, metric):
+    """An f16 space at ``"default"`` is bf16 on the device, but its queries
+    stay f32, as the reference's are: only FLOAT32 spaces round their
+    queries through bf16. N(0, 1) queries, which bf16 cannot hold, over an
+    N(0, 1) f16 corpus: L2/IP identical to the reference; cosine identical
+    in indices and within 1e-6 in score."""
+    rng = np.random.default_rng(11)
+    x, q = make_data(rng, "normal", 600, 32, 6)
+    assert not torch.equal(torch.from_numpy(q).bfloat16().float(),
+                           torch.from_numpy(q))  # bf16 cannot hold them
+    b = Builder()
+    b.add_vector_space("v", dim=32, metric=metric, dtype=DataType.FLOAT16)
+    b.add_vectors("v", x)
+    path = tmp_path / "f16.mvt"
+    b.build().save(path)
+    port, ref = _engines(path, "default")
+    assert port.space.data.dtype == torch.bfloat16
+    a, b = port.search(q, k=10), ref.search(q, k=10)
+    np.testing.assert_array_equal(a.indices, b.indices)
+    if metric == DistanceMetric.COSINE:
+        np.testing.assert_allclose(a.scores, b.scores, rtol=0, atol=1e-6)
+    else:
+        _assert_same(a, b)
+
+
 def test_search_radius_matches_reference(tmp_path):
     path, x, q = _file(tmp_path)
     port, ref = _engines(path)

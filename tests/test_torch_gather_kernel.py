@@ -16,12 +16,15 @@ from metrovector_tpu import DistanceMetric
 from metrovector_tpu.index.pq import _rerank_impl
 from metrovector_tpu.ops.distances import rescore_topk as jax_rescore_topk
 from metrovector_tpu.ops.gather_kernel import gather_rows as jax_gather_rows
+from metrovector_tpu_torch.ops import gather_kernel
 from metrovector_tpu_torch.ops.distances import rescore_topk
 from metrovector_tpu_torch.ops.gather_kernel import (
     gather_rows,
     gather_rows_reference,
     rescore_candidates,
 )
+from metrovector_tpu_torch.ops.select import merge_scratch
+from metrovector_tpu_torch.ops.topk_kernel import SMEM_LIMIT
 
 from _torch_parity import METRICS, assert_topk_match, exact_scores, sq_norms, tolerance
 
@@ -184,3 +187,110 @@ def test_rescore_kernel_checks_raise():
                 (q, x, torch.zeros(11))):
         with pytest.raises(ValueError):
             gather_kernel._check_rescore(*bad, torch.zeros((2, 4), dtype=torch.int32), 2)
+
+
+def _emulate_plan(scores, keys, plan, k):
+    """The kernel's selection on the host: each split's best list_len by
+    (score descending, key ascending, position), then the splits' lists
+    merged stably in split order, the first k kept."""
+    r = scores.shape[0]
+    lists = []
+    for s in range(plan.splits):
+        pos = np.arange(s * plan.split_len, min(r, (s + 1) * plan.split_len))
+        order = np.lexsort((pos, keys[pos], -scores[pos]))[:plan.list_len]
+        lists.append(pos[order])
+    merged = np.concatenate(lists)
+    order = np.lexsort((np.arange(len(merged)), keys[merged], -scores[merged]))
+    return merged[order][:k]
+
+
+@pytest.mark.parametrize("r", [1, 37, 400, 4096, 4097, 20_000])
+@pytest.mark.parametrize("nq", [1, 32, 256, 4097])
+def test_rescore_plan_covers_every_candidate_once(nq, r):
+    """Every candidate falls in exactly one split; the splits' lists hold
+    at least k entries; no more splits than scoring passes over R, and no
+    split longer than SPLIT_MAX; the batch's blocks fill the
+    card where the candidates allow; the last-block merge is planned only
+    for k <= WARP_LIST and stays within its bounds, and the merge tree's
+    scratch is what select.merge_scratch says; and the block's shared
+    memory fits at D = 128 and D = 3072."""
+    sms = 132
+    for k in sorted({1, min(10, r), min(300, r), r}):
+        for d in (128, 3072):
+            plan = gather_kernel.rescore_plan(nq, r, k, d, sms)
+            starts = np.arange(plan.splits) * plan.split_len
+            covered = np.concatenate([np.arange(a, min(r, a + plan.split_len))
+                                      for a in starts])
+            np.testing.assert_array_equal(covered, np.arange(r))
+            assert (plan.splits - 1) * plan.split_len < r
+            assert plan.split_len <= gather_kernel.SPLIT_MAX
+            assert plan.splits <= -(-r // gather_kernel.PASS)  # no split below half a pass
+            assert plan.list_len == min(k, plan.split_len)
+            assert plan.splits * plan.list_len >= k
+            want = gather_kernel.BLOCKS_PER_SM * sms
+            fill = min(want, nq * -(-r // gather_kernel.PASS),
+                       nq * gather_kernel.MAX_SPLITS)
+            assert nq * plan.splits >= min(fill, want) or plan.splits == -(
+                -r // gather_kernel.PASS)
+            if plan.splits == 1:
+                assert plan.merge == gather_kernel.MERGE_NONE and plan.part == 0
+            elif plan.merge == gather_kernel.MERGE_BLOCK:
+                assert k <= gather_kernel.WARP_LIST  # the fold is a warp selection
+                assert plan.splits <= gather_kernel.MAX_SPLITS
+                assert plan.part == plan.splits * plan.list_len <= gather_kernel.MERGE_ENTRIES
+                assert plan.room >= plan.part + gather_kernel.WARPS * gather_kernel.WARP_LIST
+            else:
+                assert (plan.part, plan.tmp) == merge_scratch(
+                    plan.splits, plan.list_len, k)
+            if plan.list_len <= gather_kernel.WARP_LIST:
+                assert plan.sort_len == plan.split_len
+                assert plan.room >= gather_kernel.WARPS * gather_kernel.WARP_LIST
+            else:
+                assert plan.sort_len >= plan.split_len
+                assert plan.sort_len & (plan.sort_len - 1) == 0
+            assert plan.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("nq", [1, 32, 256])
+@pytest.mark.parametrize("r, k", [(400, 10), (4097, 100), (20_000, 10)])
+def test_rescore_plan_selection_matches_one_sort(nq, r, k):
+    """The plan's split-then-merge selection, emulated on the host, picks
+    what one stable sort of all candidates picks, with many exact ties
+    (scores from 5 values, keys from 50 rows)."""
+    rng = np.random.default_rng(r + nq)
+    scores = rng.integers(0, 5, r).astype(np.float64)
+    keys = rng.integers(0, 50, r)
+    plan = gather_kernel.rescore_plan(nq, r, k, 128, 132)
+    want = np.lexsort((np.arange(r), keys, -scores))[:k]
+    np.testing.assert_array_equal(_emulate_plan(scores, keys, plan, k), want)
+
+
+@pytest.mark.parametrize("tie", ["position", "row"])
+@pytest.mark.parametrize("nq, r", [(1, 400), (32, 400), (256, 400), (32, 4097)])
+def test_rescore_twins_across_splits_match_reference(nq, r, tie):
+    """Twin rows placed in different splits of the plan (the first and the
+    last split hold copies of the same rows), and one split whose
+    candidates are all -1, held against ``_rerank_impl`` (ties by
+    position) and ``rescore_topk`` (ties by row)."""
+    rng = np.random.default_rng(9)
+    n, d, k = 600, 16, 10
+    x = rng.integers(0, 8, (n, d)).astype(np.float32)
+    x[300:] = x[:300]  # row i + 300 is row i's twin
+    q = rng.integers(0, 8, (nq, d)).astype(np.float32)
+    plan = gather_kernel.rescore_plan(nq, r, k, d, 132)
+    cand = rng.integers(0, n, (nq, r)).astype(np.int32)
+    twins = rng.integers(0, 300, (nq, 8))
+    cand[:, :8] = twins + 300  # the twin with the higher row comes first
+    cand[:, -8:] = twins
+    if plan.splits > 2:
+        cand[:, plan.split_len:2 * plan.split_len] = -1  # the second split: empty
+    norms = sq_norms(x)
+    got = rescore_candidates(torch.from_numpy(q), torch.from_numpy(x),
+                             torch.from_numpy(norms), torch.from_numpy(cand), k,
+                             DistanceMetric.L2, tie=tie)
+    if tie == "position":
+        want = _rerank_impl(q, x, norms, cand, k, DistanceMetric.L2, False)
+    else:
+        want = jax_rescore_topk(q, x, norms, cand, k, DistanceMetric.L2)
+    assert_topk_match(tuple(t.numpy() for t in got),
+                      tuple(np.asarray(a) for a in want), exact=True)

@@ -1,7 +1,7 @@
 """The port's PQ path against the JAX package on the CPU: k-means and PQ
 training from the same seeds, encoding and the code helpers, a JAX
 ``PQIndex`` carried across by ``from_state`` and searched by both (the JAX
-one on its XLA backend), the file round trip and the code-only open, and
+one on its XLA backend, and on its Pallas backend with a bf16 LUT), the file round trip and the code-only open, and
 the error cases of ``tests/test_pq.py``.
 
 Tolerance. Parity searches use integer-valued rows, queries and codebooks,
@@ -134,6 +134,28 @@ def test_from_state_search_matches_reference(metric, packed4, rerank):
     assert not np.isin(a.indices, [5, 77, *victims]).any()
     if metric != DistanceMetric.COSINE:
         _same(a, b, metric, q, data, None)
+
+
+@pytest.mark.parametrize("rerank", [0, 40])
+@pytest.mark.parametrize("packed4", [False, True], ids=["u8", "packed4"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_bf16_lut_matches_pallas_reference(metric, packed4, rerank):
+    """``exact_lut=False`` (a bf16 LUT), held against the reference's
+    ``backend="pallas"`` (the fused ADC kernel, interpreted on the CPU; its
+    ``"xla"`` backend disagrees with it for cosine). On the integer data of
+    ``_ref_index`` every bf16 LUT entry is an integer, so L2/IP sums are
+    exact: identical results. Cosine (unit queries) is held to the f32 band
+    against float64 scores of the rows it ranks: the reconstructions
+    without a re-rank, the original rows with one."""
+    ref, data, q, _ = _ref_index(metric, packed4)
+    port = PQIndex.from_state(_state(ref), device="cpu")
+    a = port.search(q, k=10, rerank=rerank, exact_lut=False)
+    b = ref.search(q, k=10, rerank=rerank, exact_lut=False, backend="pallas")
+    codes = np.asarray(ref.codes)
+    scores_on = data if rerank else pq.reconstruct_pq(
+        pq.unpack_codes4(codes, 4) if packed4 else codes, ref.codebooks)
+    _same(a, b, metric, q, scores_on,
+          np.isin(np.arange(len(data)), [5, 77], invert=True))
 
 
 @pytest.mark.parametrize("metric", METRICS)

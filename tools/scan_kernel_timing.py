@@ -3,8 +3,8 @@
 NVIDIA GPU, on inputs made on the card from fixed seeds.
 
     python3 tools/scan_kernel_timing.py [--root DIR] [--define FLAG ...]
-                                        [--profile] [--kernels k1,k2,k4]
-                                        [--out FILE]
+                                        [--profile] [--kernels k1,k2,k3,k4]
+                                        [--files DIR] [--out FILE]
 
 ``--root`` names the checkout whose ``metrovector_tpu_torch`` is imported
 and built (default: this one), so that two commits can be timed in one
@@ -22,10 +22,21 @@ Points (the kernels-line points of ``chip_smoke.py``):
 * ``fused_adc_topk`` (K2) at k=400, L2, f32 LUT, over 1M random codes:
   4-bit m=32 (nibble-packed) and 8-bit m=16, batches 256 and 32;
 * ``ell_topk`` (K4) at ``sparse1m`` shape (1M rows x 48 entries over
-  30,522 terms, queries of 256 nonzeros), k=10, batches 256 and 32.
+  30,522 terms, queries of 256 nonzeros), k=10, batches 256 and 32;
+* ``rescore_candidates`` (K3) over the K1 corpus, R=400, k=10, L2, batches
+  256 and 32, with int32 candidate rows as K2 hands them (a few -1), and
+  ``gather_rows`` of those candidates (102,400 and 12,800 int32 indices,
+  and the same as int64) beside ``torch.index_select`` on the same
+  indices. K3 is shorter
+  than its launch on the host, so each point records its device time
+  (``device_ms``: the device sleeps first, so the host has queued every
+  call before the first event), its per-call time (``cuda_ms``, which
+  times the host where the host is slower) and the host microseconds per
+  wrapper call.
 
 CUDA-event times over back-to-back calls on distinct inputs after one
-warm-up call. ``--profile`` adds device time by kernel name
+warm-up call. ``--files DIR`` also times ``search()`` p50 on the dense and
+PQ files that ``chip_smoke.py --parent`` leaves there (:func:`search_p50`). ``--profile`` adds device time by kernel name
 (``torch.profiler``). The last line of the output is one JSON object.
 Imports nothing of JAX.
 """
@@ -36,6 +47,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,6 +55,7 @@ N, D = 1_000_000, 128
 K1_POINTS = ((256, 10), (128, 10), (32, 10), (32, 100))
 K2_POINTS = (("pq4", 32, 16, True), ("pq8", 16, 256, False))
 K2_K, K2_BATCHES = 400, (256, 32)
+K3_R, K3_K, K3_BATCHES = 400, 10, (256, 32)
 SP_DIM, SP_NNZ, SP_QNNZ = 30_522, 48, 256
 ITERS = 10
 
@@ -60,9 +73,10 @@ def measure(profile: bool, kernels: set[str]) -> dict:
     from metrovector_tpu_torch import DistanceMetric
     from metrovector_tpu_torch.ops import _build
     from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk
+    from metrovector_tpu_torch.ops.gather_kernel import gather_rows, rescore_candidates
     from metrovector_tpu_torch.ops.sparse_kernel import ell_topk
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk
-    from metrovector_tpu_torch.utils.timing import cuda_ms
+    from metrovector_tpu_torch.utils.timing import cuda_ms, device_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load()
@@ -70,7 +84,7 @@ def measure(profile: bool, kernels: set[str]) -> dict:
     l2, ip = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    out = {"k1": {}, "k2": {}, "k4": {}, "by_kernel": {}}
+    out = {"k1": {}, "k2": {}, "k3": {}, "k4": {}, "by_kernel": {}}
 
     def timed(name, fn, inputs):
         fn(inputs[0])
@@ -83,6 +97,27 @@ def measure(profile: bool, kernels: set[str]) -> dict:
                 torch.cuda.synchronize()
             out["by_kernel"][name] = _by_kernel(prof, len(inputs))
         return ms
+
+    def k3_point(name, fn, inputs):
+        fn(inputs[0])
+        torch.cuda.synchronize()
+        row = {"device_ms": device_ms(fn, inputs, dev),
+               "call_ms": cuda_ms(fn, inputs, dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            for x in inputs:
+                fn(x)
+        row["host_us"] = (time.perf_counter() - t0) / (10 * len(inputs)) * 1e6
+        torch.cuda.synchronize()
+        row["device_ms_again"] = device_ms(fn, inputs, dev)
+        if profile:
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for x in inputs:
+                    fn(x)
+                torch.cuda.synchronize()
+            out["by_kernel"][name] = _by_kernel(prof, len(inputs))
+        return row
 
     db = torch.randint(0, 256, (N, D), generator=g, device=dev).float()
     norms = (db * db).sum(1)
@@ -97,6 +132,29 @@ def measure(profile: bool, kernels: set[str]) -> dict:
             torch.mm(qs[0], db_t)
             out["k1_mm_ms"] = cuda_ms(lambda q: torch.mm(q, db_t), qs, dev)
             print(f"  torch.mm [{nq},{D}] x [{D},{N}] f32: {out['k1_mm_ms']:.4f} ms",
+                  flush=True)
+    for nq in K3_BATCHES if "k3" in kernels else ():
+        cands = []
+        for _ in range(2 * ITERS):
+            c = torch.randint(0, N, (nq, K3_R), generator=g, device=dev,
+                              dtype=torch.int32)
+            c[::5, -7:] = -1  # a few queries with fewer valid rows than R
+            qd = torch.randint(0, 256, (nq, D), generator=g, device=dev).float()
+            cands.append((qd, c))
+        flat = [c.reshape(-1).clamp(min=0) for _, c in cands]  # rows to fetch
+        for key, fn, inputs in (
+                (f"rescore,{nq}", lambda p: rescore_candidates(
+                    p[0], db, norms, p[1], K3_K, l2), cands),
+                (f"gather,{nq * K3_R}", lambda i: gather_rows(db, i), flat),
+                (f"gather_int64,{nq * K3_R}", lambda i: gather_rows(db, i),
+                 [i.long() for i in flat])):
+            row = k3_point(key, fn, inputs)
+            if key.startswith("gather"):
+                sel = lambda i: torch.index_select(db, 0, i)  # noqa: E731
+                sel(inputs[0])
+                row["index_select_ms"] = device_ms(sel, inputs, dev)
+            out["k3"][key] = row
+            print(f"  K3 {key}: " + ", ".join(f"{a} {b:.4f}" for a, b in row.items()),
                   flush=True)
     del db, norms
     torch.cuda.empty_cache()
@@ -141,13 +199,62 @@ def measure(profile: bool, kernels: set[str]) -> dict:
     return out
 
 
+def search_p50(files: str) -> dict:
+    """search() p50 in ms, k=10, at batches 32 and 256, over the files that
+    chip_smoke.py wrote to ``files``: the dense 1M x 128 space
+    (``sift1m_like.mvt``, integer queries) and the PQ spaces
+    (``sift1m-pq4.mvt``, ``sift1m-pq.mvt``, rerank 400, queries that are
+    noisy copies of corpus rows, rounded), queries from fixed seeds."""
+    import numpy as np
+    import torch
+
+    from metrovector_tpu_torch import Reader, SearchEngine
+    from metrovector_tpu_torch.index.pq import PQIndex
+    from metrovector_tpu_torch.utils.timing import sync_time
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name in ("sift1m_like", "sift1m-pq4", "sift1m-pq"):
+        path = os.path.join(files, name + ".mvt")
+        if not os.path.exists(path):
+            continue
+        space = Reader.open(path).vector_space("sift")
+        rng = np.random.default_rng(11)
+        if name == "sift1m_like":
+            index = SearchEngine(space, device="cuda")
+            search = index.search
+            make = lambda nq: rng.integers(0, 256, (nq, D)).astype(np.float32)  # noqa: E731
+        else:
+            index = PQIndex.from_space(space, device="cuda")
+            search = lambda q: index.search(q, k=10, rerank=400)  # noqa: E731
+            x = index.db
+
+            def make(nq):
+                rows = torch.from_numpy(rng.integers(0, x.shape[0], nq)).to(dev)
+                base = x[rows].cpu().numpy()
+                return np.clip(np.rint(base + rng.normal(0, 8, base.shape)), 0,
+                               255).astype(np.float32)
+        for nq in (32, 256):
+            qs = [make(nq) for _ in range(20)]
+            search(qs[0])
+            out[f"{name},{nq}"] = float(np.median(
+                [sync_time(search, q, device=dev)[0] for q in qs])) * 1e3
+            print(f"  {name} batch={nq} search() p50 {out[f'{name},{nq}']:.4f} ms",
+                  flush=True)
+        del index, search
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--kernels", default="k1,k2,k4",
-                    help="which of k1, k2, k4 to time (comma-separated)")
+    ap.add_argument("--kernels", default="k1,k2,k3,k4",
+                    help="which of k1, k2, k3, k4 to time (comma-separated)")
+    ap.add_argument("--files", help="a directory of chip_smoke.py's files: "
+                    "also time search() p50 on them")
     ap.add_argument("--out")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -164,7 +271,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     _build.NVCC_FLAGS.extend(args.define)
-    result = {"root": root, "defines": args.define, **measure(args.profile, set(args.kernels.split(",")))}
+    result = {"root": root, "defines": args.define,
+              **measure(args.profile, set(args.kernels.split(",")))}
+    result["e2e"] = search_p50(args.files) if args.files else {}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
