@@ -75,7 +75,24 @@ Phases, one line each; any failure exits non-zero:
    of ``ell_topk``, its plain version, the postings build apart,
    ``ell_dots`` against ``torch.sparse.mm``, ``search`` end to end, the
    dense-query worst case (batch 32, every query fully dense), and the COO
-   formulation once.
+   formulation once;
+12. the IVF-PQ path at full width: ``fused_adc_topk``'s bucket-bias variant
+   (``group_bias`` + ``group_ids``) against its plain version on 200,003
+   rows (twins across splits, tombstoned and unbucketed rows, a filter,
+   tied and unprobed buckets, bf16-rounded biases, 1,500 and 40,000
+   buckets, k up to 1100), identical; a 20k-row ``IVFIndex`` whose full probe is exact
+   search; then ``benchmarks/suite.py``'s ``sift1m-ivfpq`` (8-bit m=16) and
+   ``sift1m-ivfpq4`` (4-bit m=32, packed): the 1M x 128 clustered corpus of
+   seed 7, ``train_ivfpq`` on the card (C = 1024, 4 iterations),
+   ``Builder.set_ivf_index`` + ``set_pq_index(residual=True)`` ->
+   ``Reader.open`` -> ``IVFPQIndex.from_space(device="cuda")`` ->
+   ``search(k=10, nprobe=16)`` in both modes at batches 8, 32 and 256 and
+   rerank 100 and 400 (one variant launch a scan, none a probe, one rescore
+   a search), recall@10 against a float64 oracle on the card (>= 0.99 at
+   rerank 400), the variant at the main path's inputs against its plain
+   version and timed with it at batch 256, fetch 400, its bound from the
+   probed (query, row) pairs of this run, and ``search()`` p50 of both
+   modes at batches 8 to 256 (the crossover of the modes).
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
@@ -1886,11 +1903,338 @@ def phase_sparse_path(torch, dev, card):
     return launches, times
 
 
+IVFPQ_CONFIGS = (  # benchmarks/suite.py's sift1m-ivfpq (:690) and sift1m-ivfpq4 (:769)
+    ("sift1m-ivfpq", 16, 256, False), ("sift1m-ivfpq4", 32, 16, True),
+)
+IVF_CLUSTERS, IVF_NPROBE, IVF_ITERS = 1024, 16, 4
+IVF_RERANKS = (100, 400)
+IVF_BATCHES = (8, 32, 256)
+IVF_CROSSOVER_BATCHES = (1, 4, 8, 16, 32, 64, 128, 256)
+
+
+def _group_bias_case(rng, nq, groups, kind):
+    """A bucket bias [nq, groups]: 16 probed buckets a query, two of them
+    tied, −1e30 on the rest; integer biases above 256 in magnitude (a bf16
+    LUT rounds them) or floats."""
+    bias = np.full((nq, groups), -1e30, np.float32)
+    for r in range(nq):
+        probed = rng.choice(groups, 16, replace=False)
+        if kind == "integer":
+            vals = rng.integers(-3000, 3000, 16).astype(np.float32)
+        else:
+            vals = (rng.standard_normal(16) * 1000).astype(np.float32)
+        vals[1] = vals[0]  # split buckets share a centroid: a tie
+        bias[r, probed] = vals
+    return bias
+
+
+def _group_cases(torch, dev, rng) -> int:
+    """K2's bucket-bias variant (group_bias + group_ids) against its plain
+    version on the card: 200,003 rows of codes with twins across splits,
+    4-bit m=32 and 8-bit m=16 codes, f32 and bf16 LUTs, integer and float
+    codebooks, 1,500 and 40,000 buckets (bucket ids with tombstoned rows at
+    -1 and live rows at -1), 16 probed buckets a query with a tie, batches
+    1, 33 and 256, k in {10, 400, 1100} (lists in shared and in device
+    memory), the tombstones' mask or that mask times a filter, and
+    num_valid inside a split, in turn:
+    identical to the plain version on float data too (both add the bias
+    after the m lookups), and run twice on integer data. Returns the cases
+    run and the largest |score difference| seen (0 when all are
+    identical)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        fused_adc_topk, fused_adc_topk_reference,
+    )
+
+    n, cases, max_err = SPLIT_N, 0, 0.0
+    metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+               DistanceMetric.COSINE)
+    mask = np.ones(n, np.float32)
+    mask[40_000:120_000:3] = 0
+    masks = (torch.from_numpy(mask).to(dev),
+             torch.from_numpy(mask * (rng.random(n) < 0.5)).to(dev))  # a filter too
+    for kind in ("integer", "normal"):
+        for packed, m, ksub in ((True, 32, 16), (False, 16, 256)):
+            if kind == "integer":
+                books = rng.integers(0, 8, (m, ksub, 4)).astype(np.float32)
+                q_host = rng.integers(0, 8, (256, m * 4)).astype(np.float32)
+            else:
+                books = rng.standard_normal((m, ksub, 4)).astype(np.float32)
+                q_host = rng.standard_normal((256, m * 4)).astype(np.float32)
+            codes = rng.integers(0, ksub, (3000, m)).astype(np.uint8)[
+                rng.integers(0, 3000, n)]
+            recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], 1)
+            rn = torch.from_numpy((recon.astype(np.float64) ** 2).sum(1).astype(
+                np.float32)).to(dev)
+            codes_d = torch.from_numpy(pack_codes4(codes) if packed else codes).to(dev)
+            books_d = torch.from_numpy(books).to(dev)
+            for groups in (1500, 40_000):
+                gids = rng.integers(0, groups, n).astype(np.int32)
+                gids[mask == 0] = -1   # tombstoned rows
+                gids[7:200_003:9973] = -1  # live rows in no bucket
+                gids_d = torch.from_numpy(gids).to(dev)
+                for exact_lut in (True, False):
+                    for nq, k in ((1, 10), (33, 400), (256, 400), (33, 1100)):
+                        metric = metrics[cases % 3]
+                        q = q_host[:nq]
+                        if metric == DistanceMetric.COSINE:
+                            q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+                        num_valid = n - 70_001 if cases % 2 else n
+                        vm = masks[(cases // 2) % 2]
+                        bias = torch.from_numpy(_group_bias_case(rng, nq, groups, kind)).to(dev)
+                        args = (torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(dev),
+                                codes_d, books_d, rn, num_valid, k, metric, vm,
+                                exact_lut, packed, bias, gids_d)
+                        what = (f"fused_adc_topk[group_bias] {kind} m={m} ksub={ksub} "
+                                f"G={groups} {'f32' if exact_lut else 'bf16'} LUT Q={nq} "
+                                f"k={k} {metric.name} num_valid={num_valid} "
+                                f"filtered={(cases // 2) % 2 == 1}")
+                        ref = fused_adc_topk_reference(*args)
+                        got = fused_adc_topk(*args)
+                        max_err = max(max_err, _max_diff(torch, got, ref))
+                        if kind == "integer":
+                            _twice_identical(torch, fused_adc_topk, args, ref, what)
+                        else:
+                            _identical(torch, got, ref, what)
+                        cases += 1
+    return cases, max_err
+
+
+def _max_diff(torch, got, ref) -> float:
+    """The largest |score difference| of two results over slots both fill."""
+    both = torch.isfinite(got[0]) & torch.isfinite(ref[0])
+    return float((got[0] - ref[0]).abs()[both].max()) if bool(both.any()) else 0.0
+
+
+def _ivf_exact_on_card(torch, dev) -> int:
+    """A small IVFIndex on the card: with nprobe == num_buckets its search
+    is exact search (recall@10 1.0 against a float64 oracle, ties counted
+    right); returns the number of buckets."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.ivf import IVFIndex
+
+    rng = np.random.default_rng(SEED + 12)
+    x = _clustered_u8_corpus(rng, 20_000, D_MAIN, ncenters=64)
+    norms = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    idx = IVFIndex.build(x, norms, DistanceMetric.L2, num_clusters=32, iters=4,
+                         device="cuda")
+    q = _pq_queries(rng, x, 64)
+    res = idx.search(q, k=K_PQ, nprobe=idx.num_buckets)
+    x64 = torch.from_numpy(x).to(dev, torch.float64)
+    rec = _recall_on_card(torch, x64, (x64 * x64).sum(1), q, res.indices, K_PQ)
+    if rec != 1.0:
+        raise AssertionError(f"IVFIndex full probe recall@10 {rec} != 1")
+    return idx.num_buckets
+
+
+def phase_ivfpq_path(torch, dev, card):
+    """The IVF-PQ path end to end at full width (module docstring, phase
+    12). Returns (the variant's max |diff| against plain, its launches on
+    the main path, the timed cell's numbers)."""
+    from metrovector_tpu_torch import Builder, DistanceMetric, Reader
+    from metrovector_tpu_torch.index.ivfpq import IVFPQIndex, train_ivfpq
+    from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        _group_words, _occupancy, _query_tile, fused_adc_topk,
+        fused_adc_topk_reference,
+    )
+    from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+    from metrovector_tpu_torch.utils.timing import cuda_ms, sync_time
+
+    L2 = DistanceMetric.L2
+    t0 = time.perf_counter()
+    cases, max_err = _group_cases(torch, dev, np.random.default_rng(SEED + 11))
+    say(f"  fused_adc_topk[group_bias] vs plain: {cases} cases identical, max "
+        f"|score diff| {max_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+    buckets_small = _ivf_exact_on_card(torch, dev)
+    say(f"  IVFIndex 20,000 x 128, nprobe = num_buckets = {buckets_small}: "
+        "recall@10 1.0000, exact search")
+
+    rng = np.random.default_rng(SEED)  # the suite's corpus: seed 7
+    x = _clustered_u8_corpus(rng, N_MAIN, D_MAIN)
+    x64 = torch.from_numpy(x).to(dev, torch.float64)
+    norms64 = (x64 * x64).sum(1)
+    queries = {bsz: _pq_queries(rng, x, bsz) for bsz in IVF_BATCHES}
+    counts = {"fused_adc_topk[group_bias]": 0, "rescore_candidates": 0}
+    cell, recalls, p50 = None, {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        for name, m, ksub, packed in IVFPQ_CONFIGS:
+            t0 = time.perf_counter()
+            cents, assign, books, codes = train_ivfpq(
+                x, IVF_CLUSTERS, m=m, ksub=ksub, iters=IVF_ITERS, device=dev)
+            t_train = time.perf_counter() - t0
+            stored = pack_codes4(codes) if packed else codes
+            path = os.path.join(tmp.name, f"{name}.mvt")
+            t0 = time.perf_counter()
+            b = Builder()
+            b.add_vector_space("sift", dim=D_MAIN, metric=L2)
+            b.add_vectors("sift", x)
+            b.set_ivf_index("sift", cents, assign, nprobe=IVF_NPROBE)
+            b.set_pq_index("sift", books, stored, residual=True, packed4=packed)
+            b.build().save(path)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            idx = IVFPQIndex.from_space(Reader.open(path).vector_space("sift"),
+                                        device="cuda")
+            torch.cuda.synchronize()
+            t_open = time.perf_counter() - t0
+            if not (idx.packed4 == packed and np.array_equal(idx.centroids, cents)
+                    and np.array_equal(idx.codebooks, books)
+                    and np.array_equal(idx.codes_row.cpu().numpy(), stored)):
+                raise AssertionError(f"{name}: from_space did not reuse the file's index")
+            say(f"  {name}: train_ivfpq (C={IVF_CLUSTERS}, m={m}, ksub={ksub}, "
+                f"iters {IVF_ITERS}) on the card {t_train:.1f} s; file written "
+                f"{t_save:.1f} s; Reader.open + IVFPQIndex.from_space {t_open:.2f} s; "
+                f"{idx.num_buckets} buckets of {idx.bucket_rows} rows")
+
+            # The main path: every count at 0, the searches, counts read.
+            # "scan" is one launch of the bucket variant, "probe" plain
+            # PyTorch; each re-rank one launch of the rescore kernel.
+            for fn in (fused_adc_topk, rescore_candidates, fused_topk):
+                fn.launches = 0
+            fused_adc_topk.group_launches = 0
+            results = {}
+            for bsz, q in queries.items():
+                for mode in ("scan", "probe"):
+                    for rr in IVF_RERANKS:
+                        before = (fused_adc_topk.launches, fused_adc_topk.group_launches,
+                                  rescore_candidates.launches)
+                        res = idx.search(q, k=K_PQ, nprobe=IVF_NPROBE, rerank=rr,
+                                         mode=mode)
+                        scan = int(mode == "scan")
+                        if (fused_adc_topk.launches, fused_adc_topk.group_launches,
+                                rescore_candidates.launches) != (
+                                before[0] + scan, before[1] + scan, before[2] + 1):
+                            raise AssertionError(f"{name} {mode}: not one launch of "
+                                                 "each kernel of its route")
+                        results[(bsz, mode, rr)] = res
+            counts["fused_adc_topk[group_bias]"] += fused_adc_topk.group_launches
+            counts["rescore_candidates"] += rescore_candidates.launches
+            if fused_topk.launches or fused_adc_topk.launches != fused_adc_topk.group_launches:
+                raise AssertionError(f"{name}: the IVF-PQ path ran another kernel")
+
+            for (bsz, mode, rr), res in results.items():
+                rec = _recall_on_card(torch, x64, norms64, queries[bsz], res.indices, K_PQ)
+                recalls[(name, bsz, mode, rr)] = rec
+                if rr == 400 and rec < 0.99:
+                    raise AssertionError(f"{name} {mode} batch {bsz}: recall@10 "
+                                         f"{rec} < 0.99 at rerank 400")
+            say(f"  {name} recall@10 against the float64 oracle on the card: " + ", ".join(
+                f"batch {b} {md} rerank {r} {recalls[(name, b, md, r)]:.4f}"
+                for b in IVF_BATCHES for md in ("scan", "probe") for r in IVF_RERANKS))
+
+            # The variant at the main path's inputs, held against its plain
+            # version, and timed at batch 256, fetch 400 (the search's bf16 LUT).
+            qd = torch.from_numpy(queries[256]).to(dev)
+            bias, _ = idx._scan_bias(qd, IVF_NPROBE)
+            gargs = (idx.codes_row, idx._books, idx.rnorms_row, idx.num_vectors,
+                     400, L2, idx.row_valid, False, packed, bias, idx.row_bucket)
+            got = fused_adc_topk(qd, *gargs)
+            ref = fused_adc_topk_reference(qd, *gargs)
+            _identical(torch, got, ref, f"{name}: the variant at the main path's inputs")
+            max_err = max(max_err, _max_diff(torch, got, ref))
+            fill_live = torch.bincount(idx.row_bucket[idx.row_bucket >= 0].long(),
+                                       minlength=idx.num_buckets).double()
+            pairs = int(((bias > -1e28).double() @ fill_live).sum())
+            iters = 20
+            qs = [torch.from_numpy(_pq_queries(rng, x, 256)).to(dev) for _ in range(iters)]
+            biases = [idx._scan_bias(q, IVF_NPROBE)[0] for q in qs]
+            pairs_in = list(zip(qs, biases))
+
+            def k2(p):
+                return fused_adc_topk(p[0], *gargs[:-2], p[1], idx.row_bucket)
+
+            def k2_plain(p):
+                return fused_adc_topk_reference(p[0], *gargs[:-2], p[1], idx.row_bucket)
+
+            def k2_scan(p):  # the plain scan of every live row, same LUT type
+                return fused_adc_topk(p[0], *gargs[:-2])
+
+            dead = torch.full_like(biases[0], -1e30)
+
+            def k2_dead(p):  # no bucket probed: the pass over the rows alone
+                return fused_adc_topk(p[0], *gargs[:-2], dead, idx.row_bucket)
+
+            for fn in (k2, k2_plain, k2_scan, k2_dead):
+                fn(pairs_in[0])
+            p1 = cuda_ms(k2_plain, pairs_in[:3], dev)
+            a1 = cuda_ms(k2, pairs_in, dev)
+            a2 = cuda_ms(k2, pairs_in, dev)
+            p2 = cuda_ms(k2_plain, pairs_in[:3], dev)
+            t_scan = cuda_ms(k2_scan, pairs_in, dev)
+            t_dead = cuda_ms(k2_dead, pairs_in, dev)
+            # Rows a query tile scores (some query of the tile probes their
+            # bucket) and warps of 32 rows with at least one of them: a warp
+            # runs the lookups if any of its rows is live.
+            occ = dict(_occupancy(dev.index, 1, int(packed), m, ksub, 400, True,
+                                  _group_words(idx.num_buckets)))
+            qt = _query_tile(256, occ)
+            tiles = (bias > -1e28).view(-1, qt, idx.num_buckets).any(1)
+            rb = idx.row_bucket.long()
+            live = tiles[:, rb.clamp(min=0)] & (rb >= 0)[None, :]
+            n32 = live.shape[1] // 32 * 32
+            row_share = float(live.float().mean())
+            warp_share = float(live[:, :n32].reshape(live.shape[0], -1, 32).any(2)
+                               .float().mean())
+            del live
+            cols = idx.codes_row.shape[1]
+            nbytes = (idx.num_vectors * (cols + 12) + 256 * m * ksub * 2
+                      + 256 * idx.num_buckets * 4 + 256 * 400 * 8)
+            k2b = bound(2 * m * pairs, nbytes)
+            row = {"ms": (a1 + a2) / 2, "plain_ms": (p1 + p2) / 2, "bound": k2b,
+                   "pairs": pairs, "buckets": idx.num_buckets}
+            say(f"  timing {name} fused_adc_topk[group_bias] batch=256 fetch=400 bf16 LUT: "
+                f"{row['ms']:.4f} ms ({a1:.4f}, {a2:.4f}; plain {row['plain_ms']:.4f}) | "
+                f"{pairs} probed (query, row) pairs, {pairs / (256 * idx.num_vectors):.2%} "
+                f"of all | bound {k2b[0]:.4f} ms ({k2b[1]}), share {k2b[0] / row['ms']:.1%} | "
+                f"the same call with no bucket probed {t_dead:.4f} ms; the scan of every "
+                f"row without the bias {t_scan:.4f} ms | query tile {qt}: a tile scores "
+                f"{row_share:.1%} of the rows, and {warp_share:.1%} of the warps of 32 "
+                f"rows hold one of them | {card}")
+            if cell is None or packed:
+                cell = row  # the kernels line reports sift1m-ivfpq4
+
+            # search() p50 and QPS in both modes: the batches of the issue
+            # at both reranks, and more batches at rerank 400 for the
+            # crossover of the two modes.
+            points = sorted({(b, rr) for b in IVF_BATCHES for rr in IVF_RERANKS}
+                            | {(b, 400) for b in IVF_CROSSOVER_BATCHES})
+            for bsz, rr in points:
+                host = [_pq_queries(rng, x, bsz) for _ in range(15)]
+                for mode in ("scan", "probe"):
+                    kw = dict(k=K_PQ, nprobe=IVF_NPROBE, rerank=rr, mode=mode)
+                    idx.search(host[0], **kw)
+                    ms = float(np.median([sync_time(idx.search, q, device=dev, **kw)[0]
+                                          for q in host])) * 1e3
+                    p50[(name, bsz, rr, mode)] = ms
+                s_ms, p_ms = p50[(name, bsz, rr, "scan")], p50[(name, bsz, rr, "probe")]
+                say(f"  {name} search() p50 batch={bsz} rerank={rr}: scan {s_ms:.4f} ms "
+                    f"({bsz / s_ms * 1e3:.0f} QPS), probe {p_ms:.4f} ms "
+                    f"({bsz / p_ms * 1e3:.0f} QPS) | {card}")
+            faster = [b for b in IVF_CROSSOVER_BATCHES
+                      if p50[(name, b, 400, "scan")] < p50[(name, b, 400, "probe")]]
+            say(f"  {name} crossover (rerank 400): scan faster at batches {faster} of "
+                f"{list(IVF_CROSSOVER_BATCHES)}; SCAN_CROSSOVER_BATCH stays "
+                f"{IVFPQIndex.SCAN_CROSSOVER_BATCH} | {card}")
+            del idx
+            torch.cuda.empty_cache()
+    finally:
+        tmp.cleanup()
+    say(f"phase 12 IVF-PQ path: ok (recall@10 at rerank 400 "
+        + ", ".join(f"{n} {md} batch {b} {r:.4f}" for (n, b, md, rr), r in recalls.items()
+                    if rr == 400 and b == 256)
+        + f"; launches {counts})")
+    return max_err, counts["fused_adc_topk[group_bias]"], cell
+
+
 def lookup_figures(torch, lookups: int, card: str) -> None:
     """K2's shared-memory lookups at the timed point (sift1m-pq4, batch
     256), one wavefront (128 bytes) a clock an SM at the 1,980 MHz boost
     clock: at 4 bytes a query-lookup, one wavefront per 32; in the
-    query-interleaved 8-byte entries of adc_kernel.cu, a warp's load takes
+    query-interleaved 8-byte entries of adc_scan.cuh, a warp's load takes
     two wavefronts (measured on an H100, PERF.md) and serves 64
     query-lookups of an f32 LUT (2 queries an entry), 128 of a bf16 one."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1979,6 +2323,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sparse_err, dots_err = phase_sparse_vs_plain(torch, dev)
     sparse_launches, sparse_times = phase_sparse_path(torch, dev, card)
+    group_err, group_launches, ivf_cell = phase_ivfpq_path(torch, dev, card)
 
     # The kernels line: each kernel at the main path's timed point, its
     # bound from this run's shapes (module docstring).
@@ -2058,6 +2403,13 @@ def main() -> int:
          "max_abs_err": max(sparse_times[b]["post_err"] for b in (256, 32)),
          "ms": s_row["postings"], "plain_ms": s_row["postings_plain"],
          "bound_ms": post_bound[0], "bound_by": post_bound[1],
+         "library_ms": None},
+        {"name": "fused_adc_topk[group_bias]", "route": "cuda",
+         "source": CSRC + "adc_group_kernel.cu",
+         "replaces": "metrovector_tpu/ops/adc_kernel.py:248",
+         "launches": group_launches, "max_abs_err": group_err,
+         "ms": ivf_cell["ms"], "plain_ms": ivf_cell["plain_ms"],
+         "bound_ms": ivf_cell["bound"][0], "bound_by": ivf_cell["bound"][1],
          "library_ms": None},
         {"name": "ell_dots", "route": "cuda", "source": CSRC + "sparse_kernel.cu",
          "replaces": "benchmarks/sparse_vmem_proto.py:87",

@@ -4,8 +4,8 @@ Self-contained: the port carries its own copy of every host layer it uses
 (``errors``, ``format``, ``vectors``, ``utils``, the native codec and the
 ``MicroBatcher``) and imports nothing of :mod:`metrovector_tpu`. Both
 packages read and write the same MVT bytes (``tests/test_torch_format.py``).
-Every line of device code is owned here: the dense engine, the PQ index and
-the sparse engine run on a ``torch.device`` and their searches go through
+Every line of device code is owned here: the dense engine, the PQ, IVF and
+IVF-PQ indexes and the sparse engine run on a ``torch.device`` and their searches go through
 hand-written CUDA kernels for Hopper (``ops/csrc``).
 
 Module names mirror the JAX package, so each module's counterpart sits at
@@ -47,6 +47,10 @@ _LAZY = {
     "PreparedQueries": "metrovector_tpu_torch.engine",
     "RadiusResult": "metrovector_tpu_torch.engine",
     "PQIndex": "metrovector_tpu_torch.index.pq",
+    "IVFIndex": "metrovector_tpu_torch.index.ivf",
+    "IVFPQIndex": "metrovector_tpu_torch.index.ivfpq",
+    "train_ivfpq": "metrovector_tpu_torch.index.ivfpq",
+    "bucket_layout": "metrovector_tpu_torch.index.ivf",
     "train_pq": "metrovector_tpu_torch.index.pq",
     "encode_pq": "metrovector_tpu_torch.index.pq",
     "pack_codes4": "metrovector_tpu_torch.index.pq",
@@ -78,6 +82,8 @@ __all__ = [
     "DeviceSpace",
     "DimensionSlice",
     "DistanceMetric",
+    "IVFIndex",
+    "IVFPQIndex",
     "IndexKind",
     "MicroBatcher",
     "MvtError",
@@ -96,6 +102,7 @@ __all__ = [
     "VectorSpace",
     "VectorType",
     "Writer",
+    "bucket_layout",
     "builder_from_reader",
     "compact",
     "encode_pq",
@@ -103,6 +110,7 @@ __all__ = [
     "pack_codes4",
     "reconstruct_pq",
     "rewrite_hints",
+    "train_ivfpq",
     "train_pq",
     "unpack_codes4",
 ]

@@ -1,12 +1,16 @@
-"""Index structures (counterpart of :mod:`metrovector_tpu.index`). This
-slice holds PQ with exact re-rank and the k-means it trains with; IVF,
-IVF-PQ and HNSW come later (ROADMAP A7, A9, A10).
+"""Index structures (counterpart of :mod:`metrovector_tpu.index`): PQ with
+exact re-rank, IVF and IVF-PQ and the k-means they train with; HNSW comes
+later (ROADMAP A10).
 
 The names import lazily, so ``import metrovector_tpu_torch.index`` loads
 no kernel module."""
 
 _LAZY = {
+    "IVFIndex": "metrovector_tpu_torch.index.ivf",
+    "bucket_layout": "metrovector_tpu_torch.index.ivf",
     "train_kmeans": "metrovector_tpu_torch.index.ivf",
+    "IVFPQIndex": "metrovector_tpu_torch.index.ivfpq",
+    "train_ivfpq": "metrovector_tpu_torch.index.ivfpq",
     "PQIndex": "metrovector_tpu_torch.index.pq",
     "encode_pq": "metrovector_tpu_torch.index.pq",
     "pack_codes4": "metrovector_tpu_torch.index.pq",

@@ -1,21 +1,39 @@
-"""k-means on the device: the training half of
-:mod:`metrovector_tpu.index.ivf` (``IVFIndex`` is ROADMAP A7).
+"""IVF (inverted file) on the device: k-means training, the bucket layout
+and the coarse-quantized probe search of :mod:`metrovector_tpu.index.ivf`.
 
-Lloyd's k-means with k-means++ seeding. The assignment step is a blocked
-``argmax 2x·c − ‖c‖²`` matmul in full f32 (no TF32), ties to the first
-centroid; the update step is a segment sum (``index_add_``). The host-side
-seeding is the reference's code, and :func:`train_kmeans` makes the same
-``np.random.Generator`` calls in the same order, so both packages start
-from the same seeds.
+* **Training**: Lloyd's k-means with k-means++ seeding. The assignment step
+  is a blocked ``argmax 2x·c − ‖c‖²`` matmul in full f32 (no TF32), ties to
+  the first centroid; the update step is a segment sum (``index_add_``).
+  The host-side seeding is the reference's code, and :func:`train_kmeans`
+  makes the same ``np.random.Generator`` calls in the same order, so both
+  packages start from the same seeds.
+* **Layout** (:func:`bucket_layout`, host numpy, the reference's code):
+  rows in cluster order, padded into uniform ``[C', bucket_rows, D]``
+  buckets capped at twice the mean fill; an over-full cell splits into
+  buckets that share its centroid.
+* **Search** (:func:`_ivf_search`, plain PyTorch as the reference is plain
+  XLA): coarse scores against every bucket's centroid, the ``nprobe`` best
+  buckets per query (ties to the lowest bucket), then the probed buckets'
+  rows scored and merged into a carried top-k in probe-rank order, with
+  ties among equal scores kept by position as ``lax.top_k`` keeps them.
+
+``IVFIndex.add_rows`` is not ported (ROADMAP A2: the one-snapshot mutation
+contract).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from ..engine import resolve_device
-from ..ops.distances import full_f32_matmul
+from ..errors import IndexOutOfBoundsError, VectorIdNotFoundError
+from ..format.constants import DistanceMetric
+from ..utils.filters import checked_prepared_mask, padded_filter_plane
+
+from ..engine import PreparedFilter, SearchResult, ids_for_rows, resolve_device
+from ..ops.distances import carry_topk_ids, distances_np, full_f32_matmul
 
 
 def _assign(data: torch.Tensor, centroids: torch.Tensor,
@@ -110,3 +128,429 @@ def train_kmeans(
     full = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32)).to(dev)
     assignments = _assign(full, centroids, _sq_norms(centroids))
     return centroids.cpu().numpy(), assignments.to(torch.int32).cpu().numpy()
+
+
+# ----------------------------------------------------------- the index ---
+
+# Elements of one probe step's gathered block ([Q, probes, B, D] rows or
+# [Q, probes, B, m] codes): several probe ranks go in one step while the
+# block stays below this, so peak memory stays bounded whatever nprobe is.
+_STEP_ELEMENTS = 1 << 25
+
+
+def _plan_placements(cells, fill, bucket_rows: int, assign_new):
+    """Plan (bucket, slot) placements for appended rows: tail slots of the
+    target cluster's existing buckets first, new buckets (sharing the
+    cluster's centroid, as in :func:`bucket_layout` splitting) only on
+    overflow. The reference's code (``add_rows`` is not ported yet).
+
+    Returns ``(b_idx [n] i32, s_idx [n] i32, new_cells [list], fill',
+    fills_new)`` where bucket ids ≥ ``len(cells)`` index ``new_cells`` in
+    order and ``fill'``/``fills_new`` are the post-append fills."""
+    cells = np.asarray(cells)
+    fill = np.asarray(fill, np.int64).copy()
+    nb0 = len(cells)
+    by_cluster: dict[int, list[int]] = {}
+    for b, c in enumerate(cells):
+        by_cluster.setdefault(int(c), []).append(b)
+    new_cells: list[int] = []
+    fills_new: list[int] = []
+    open_new: dict[int, int] = {}  # cluster -> open new-bucket index
+    cursor: dict[int, int] = {}  # cluster -> next existing bucket to try
+    n = len(assign_new)
+    b_idx = np.empty(n, np.int32)
+    s_idx = np.empty(n, np.int32)
+    for i, c in enumerate(assign_new):
+        c = int(c)
+        lst = by_cluster.get(c, ())
+        p = cursor.get(c, 0)
+        while p < len(lst) and fill[lst[p]] >= bucket_rows:
+            p += 1
+        cursor[c] = p
+        if p < len(lst):
+            b = lst[p]
+            b_idx[i], s_idx[i] = b, fill[b]
+            fill[b] += 1
+            continue
+        j = open_new.get(c, -1)
+        if j < 0 or fills_new[j] >= bucket_rows:
+            j = len(new_cells)
+            new_cells.append(c)
+            fills_new.append(0)
+            open_new[c] = j
+        b_idx[i], s_idx[i] = nb0 + j, fills_new[j]
+        fills_new[j] += 1
+    return b_idx, s_idx, new_cells, fill, np.asarray(fills_new, np.int64)
+
+
+def bucket_layout(
+    assignments: np.ndarray,
+    keep: np.ndarray,
+    num_clusters: int,
+    cap_factor: float = 2.0,
+) -> tuple[np.ndarray, list[np.ndarray], int]:
+    """Fixed-size bucket layout with cluster splitting (the reference's
+    code): buckets hold at most ``cap_factor ×`` the mean fill (a multiple
+    of 8), and an over-full cell splits into several buckets that share
+    its centroid, so their coarse scores tie. Returns ``(cell_of_bucket
+    [C'] i32, per-bucket row-id arrays, bucket_rows)``. An empty cell keeps
+    one empty bucket, so every centroid stays addressable."""
+    order = np.argsort(assignments, kind="stable")
+    order = order[keep[order]]
+    fill = np.bincount(assignments[order], minlength=num_clusters)
+    n_live = int(fill.sum())
+    mean = max(1, -(-n_live // max(num_clusters, 1)))
+    cap = max(8, -(-int(cap_factor * mean) // 8) * 8)
+    bucket_rows = max(8, -(-min(cap, int(fill.max(initial=1))) // 8) * 8)
+    starts = np.concatenate([[0], np.cumsum(fill)])
+    cells: list[int] = []
+    row_lists: list[np.ndarray] = []
+    for c in range(num_clusters):
+        rows = order[starts[c] : starts[c + 1]]
+        if len(rows) == 0:
+            cells.append(c)
+            row_lists.append(rows)
+            continue
+        for off in range(0, len(rows), bucket_rows):
+            cells.append(c)
+            row_lists.append(rows[off : off + bucket_rows])
+    return np.asarray(cells, np.int32), row_lists, bucket_rows
+
+
+def fill_buckets(row_lists, bucket_rows: int, n: int, payload, norms):
+    """Lay per-row ``payload [N, ...]`` and ``norms [N]`` out in buckets:
+    ``(buckets [C', bucket_rows, ...], ids [C', bucket_rows] i32 with −1
+    padding, bucket norms (0 padding), bucket of each row [N] and slot of
+    each row [N], −1 for a row in no bucket)``."""
+    nb = len(row_lists)
+    buckets = np.zeros((nb, bucket_rows) + payload.shape[1:], payload.dtype)
+    ids = np.full((nb, bucket_rows), -1, np.int32)
+    bnorms = np.zeros((nb, bucket_rows), np.float32)
+    b_of_row = np.full(n, -1, np.int32)
+    s_of_row = np.full(n, -1, np.int32)
+    for b, rows in enumerate(row_lists):
+        buckets[b, : len(rows)] = payload[rows]
+        ids[b, : len(rows)] = rows
+        bnorms[b, : len(rows)] = norms[rows]
+        b_of_row[rows] = b
+        s_of_row[rows] = np.arange(len(rows), dtype=np.int32)
+    return buckets, ids, bnorms, b_of_row, s_of_row
+
+
+def coarse_scores(q: torch.Tensor, centroids: torch.Tensor, metric):
+    """``(cdots, cscores)`` ``[Q, C']``: the queries' dots with every
+    bucket's centroid in full f32, and the metric's score of them (L2
+    ``2 q·c − ‖c‖²``, cosine ``q·c / ‖c‖``, IP ``q·c``)."""
+    with full_f32_matmul():
+        cdots = q @ centroids.T
+    c_norms = (centroids * centroids).sum(1)
+    metric = DistanceMetric(metric)
+    if metric == DistanceMetric.L2:
+        return cdots, 2.0 * cdots - c_norms[None, :]
+    if metric == DistanceMetric.COSINE:
+        return cdots, cdots * (1.0 / torch.sqrt(torch.clamp(c_norms, min=1e-30)))[None, :]
+    return cdots, cdots
+
+
+def probe_order(cscores: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """The ``nprobe`` best buckets per query ``[Q, nprobe]`` (int64), best
+    first, ties to the lowest bucket (``lax.top_k``'s order)."""
+    return torch.sort(-cscores, dim=1, stable=True).indices[:, :nprobe]
+
+
+def probe_steps(nq: int, nprobe: int, per_probe: int) -> list[tuple[int, int]]:
+    """Probe ranks ``[p0, p1)`` taken together in each step: as many as
+    keep ``nq · ranks · per_probe`` gathered elements within
+    :data:`_STEP_ELEMENTS`, at least one. The carried top-k is the same
+    for any grouping: the candidates keep one order throughout (probe rank,
+    then slot), which ``lax.top_k``'s positional ties also follow."""
+    g = max(1, _STEP_ELEMENTS // max(1, nq * per_probe))
+    return [(p0, min(nprobe, p0 + g)) for p0 in range(0, nprobe, g)]
+
+
+def _to(arr, dev, dtype) -> torch.Tensor:
+    """A device tensor from a copy of ``arr`` (which may be a read-only
+    view of the mapped file)."""
+    return torch.from_numpy(np.array(arr, dtype=dtype)).to(dev)
+
+
+@dataclasses.dataclass
+class IVFIndex:
+    """Bucketed inverted-file layout for one space, resident on
+    ``buckets.device``.
+
+    ``buckets``: ``[C', bucket_rows, D]`` bucket-grouped (zero-padded)
+    rows; ``bucket_ids``: ``[C', bucket_rows]`` int32 row ids (−1 padding
+    or tombstone); ``bucket_norms``: ``[C', bucket_rows]`` squared norms;
+    ``centroids``: host ``[C, D]``; ``probe_centroids``: ``[C', D]`` per
+    bucket (duplicated for split cells); ``cells``: host ``[C']`` bucket →
+    cluster; ``fill``: host ``[C']`` rows per bucket; ``row_bucket`` /
+    ``row_slot``: host ``[N]`` placement of each row (−1: none)."""
+
+    centroids: np.ndarray
+    probe_centroids: torch.Tensor
+    cells: np.ndarray
+    buckets: torch.Tensor
+    bucket_ids: torch.Tensor
+    bucket_norms: torch.Tensor
+    fill: np.ndarray
+    metric: DistanceMetric
+    dim: int
+    host_ids: np.ndarray | None = None
+    num_vectors: int = 0
+    row_bucket: np.ndarray | None = None
+    row_slot: np.ndarray | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.buckets.device
+
+    @classmethod
+    def build(
+        cls,
+        vectors: np.ndarray,
+        norms: np.ndarray,
+        metric: DistanceMetric,
+        num_clusters: int,
+        iters: int = 10,
+        seed: int = 0,
+        centroids: np.ndarray | None = None,
+        assignments: np.ndarray | None = None,
+        valid_mask: np.ndarray | None = None,
+        ids: np.ndarray | None = None,
+        device="cuda",
+    ) -> "IVFIndex":
+        """Train (or take precomputed) cluster structure and lay the rows
+        out in uniform buckets on ``device``. ``valid_mask``: True marks a
+        tombstoned row, which goes in no bucket."""
+        dev = resolve_device(device)
+        n, d = vectors.shape
+        host_ids = (np.ascontiguousarray(ids, np.uint64).reshape(-1)
+                    if ids is not None else None)
+        data32 = np.ascontiguousarray(vectors, dtype=np.float32)
+        if centroids is None or assignments is None:
+            centroids, assignments = train_kmeans(data32, num_clusters,
+                                                  iters=iters, seed=seed,
+                                                  device=dev)
+        num_clusters = centroids.shape[0]
+        keep = ~valid_mask if valid_mask is not None else np.ones(n, bool)
+        cells, row_lists, bucket_rows = bucket_layout(assignments, keep,
+                                                      num_clusters)
+        buckets, bids, bnorms, b_of_row, s_of_row = fill_buckets(
+            row_lists, bucket_rows, n, data32, np.asarray(norms, np.float32))
+        return cls(
+            centroids=centroids,
+            probe_centroids=_to(centroids[cells], dev, np.float32),
+            cells=cells,
+            buckets=_to(buckets, dev, np.float32),
+            bucket_ids=_to(bids, dev, np.int32),
+            bucket_norms=_to(bnorms, dev, np.float32),
+            fill=np.asarray([len(r) for r in row_lists]),
+            metric=DistanceMetric(metric),
+            dim=d,
+            host_ids=host_ids,
+            num_vectors=n,
+            row_bucket=b_of_row,
+            row_slot=s_of_row,
+        )
+
+    @classmethod
+    def from_space(
+        cls,
+        space,
+        num_clusters: int | None = None,
+        iters: int = 10,
+        seed: int = 0,
+        device="cuda",
+    ) -> "IVFIndex":
+        """The probe-ready index of a host
+        :class:`~metrovector_tpu_torch.vectors.space.VectorSpace` on
+        ``device``, reusing the centroids and assignments persisted in the
+        file when present (no retraining); otherwise k-means runs on the
+        fly. Tombstoned rows go in no bucket."""
+        stored = space.ivf_arrays()
+        centroids = assignments = None
+        if stored is not None:
+            centroids, assignments = stored
+        if num_clusters is None:
+            num_clusters = int(space.info.index.params.get(
+                "num_clusters", max(1, int(np.sqrt(space.num_vectors)))))
+        vectors = np.asarray(space.to_numpy(), dtype=np.float32)
+        q = space.quantization
+        if q is not None:
+            vectors = (vectors - q.zero_point) * q.scale
+        norms = np.asarray(space.norms()[: space.num_vectors], dtype=np.float32)
+        return cls.build(
+            vectors, norms, space.metric, num_clusters, iters=iters,
+            seed=seed, centroids=centroids, assignments=assignments,
+            valid_mask=space.tombstone_mask(), ids=space.ids(), device=device,
+        )
+
+    @classmethod
+    def from_state(cls, state: dict, device="cuda") -> "IVFIndex":
+        """Build from the host arrays of a reference ``IVFIndex`` (its
+        fields by name: ``centroids``, ``probe_centroids``, ``cells``,
+        ``buckets``, ``bucket_ids``, ``bucket_norms``, ``fill``,
+        ``row_bucket``, ``row_slot`` and the optional ``host_ids``) and its
+        scalars ``metric``, ``dim`` and ``num_vectors``, on ``device``."""
+        dev = resolve_device(device)
+        return cls(
+            centroids=np.array(state["centroids"], np.float32),
+            probe_centroids=_to(state["probe_centroids"], dev, np.float32),
+            cells=np.array(state["cells"], np.int32),
+            buckets=_to(state["buckets"], dev, np.float32),
+            bucket_ids=_to(state["bucket_ids"], dev, np.int32),
+            bucket_norms=_to(state["bucket_norms"], dev, np.float32),
+            fill=np.array(state["fill"]),
+            metric=DistanceMetric(int(state["metric"])),
+            dim=int(state["dim"]),
+            host_ids=state.get("host_ids"),
+            num_vectors=int(state["num_vectors"]),
+            row_bucket=np.array(state["row_bucket"], np.int32),
+            row_slot=np.array(state["row_slot"], np.int32),
+        )
+
+    @property
+    def num_clusters(self) -> int:
+        return int(self.centroids.shape[0])
+
+    @property
+    def num_buckets(self) -> int:
+        return int(self.buckets.shape[0])
+
+    @property
+    def bucket_rows(self) -> int:
+        return int(self.buckets.shape[1])
+
+    # -- online mutation ------------------------------------------------------
+
+    def add_rows(self, vectors, ids=None) -> None:
+        raise NotImplementedError(
+            "IVFIndex.add_rows is not ported yet (ROADMAP A2, Queue A item 5: "
+            "capacity steps and the one-snapshot mutation contract)"
+        )
+
+    def delete_rows(self, rows=None, ids=None) -> None:
+        """Tombstone rows (by position or stable ID): their bucket slots get
+        id −1, so they never surface. Publishes a new ``bucket_ids`` (one
+        reference swap); slots are not reclaimed."""
+        idx = []
+        if rows is not None:
+            idx.extend(int(r) for r in np.atleast_1d(rows))
+        if ids is not None:
+            if self.host_ids is None:
+                idx.extend(int(i) for i in np.atleast_1d(ids))
+            else:
+                lut = {int(v): i for i, v in enumerate(self.host_ids)}
+                for i in np.atleast_1d(ids):
+                    try:
+                        idx.append(lut[int(i)])
+                    except KeyError:
+                        raise VectorIdNotFoundError(int(i)) from None
+        for r in idx:
+            if r < 0 or r >= self.num_vectors:
+                raise IndexOutOfBoundsError(r, self.num_vectors)
+        if not idx:
+            return
+        sel = np.asarray(idx, np.int64)
+        placed = sel[self.row_bucket[sel] >= 0]
+        if placed.size:
+            bids = self.bucket_ids.clone()
+            bi = torch.from_numpy(self.row_bucket[placed].astype(np.int64))
+            si = torch.from_numpy(self.row_slot[placed].astype(np.int64))
+            bids[bi.to(self.device), si.to(self.device)] = -1
+            self.bucket_ids = bids
+        self.row_bucket = self.row_bucket.copy()
+        self.row_slot = self.row_slot.copy()
+        self.row_bucket[sel] = -1
+        self.row_slot[sel] = -1
+
+    def prepare_filter(self, filter_mask) -> PreparedFilter:
+        """Upload a ``[num_vectors]`` boolean/int row predicate once for
+        many :meth:`search` calls; indexed by original row position (bucket
+        row ids)."""
+        full = padded_filter_plane(filter_mask, self.num_vectors,
+                                   self.num_vectors)
+        return PreparedFilter(mask=torch.from_numpy(full).to(self.device),
+                              num_valid=self.num_vectors)
+
+    def _filter_device(self, filter_mask):
+        """A raw array or PreparedFilter → the ``[num_vectors]`` device
+        plane the probe gathers at each candidate's row id."""
+        if filter_mask is None:
+            return None
+        if isinstance(filter_mask, PreparedFilter):
+            return checked_prepared_mask(filter_mask, self.num_vectors)
+        return self.prepare_filter(filter_mask).mask
+
+    def search(self, queries: np.ndarray, k: int = 10, nprobe: int = 8,
+               filter_mask=None) -> SearchResult:
+        """Approximate top-k: probe the ``nprobe`` best-scoring buckets per
+        query (split cells count one bucket each); ``nprobe ==
+        num_buckets`` is exact search. ``filter_mask``: ``[num_vectors]``
+        predicate or a :meth:`prepare_filter` result, applied inside the
+        probe."""
+        q = np.asarray(queries, np.float32)
+        if q.ndim == 1:
+            q = q[None]
+        qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
+        qn = q
+        if self.metric == DistanceMetric.COSINE:
+            qn = q / np.maximum(np.sqrt(qnorms)[:, None], 1e-30)
+        nprobe = min(nprobe, self.num_buckets)
+        s, i = _ivf_search(
+            torch.from_numpy(np.ascontiguousarray(qn)).to(self.device),
+            self.probe_centroids, self.buckets, self.bucket_ids,
+            self.bucket_norms, k=min(k, self.bucket_rows * nprobe),
+            nprobe=nprobe, metric=self.metric,
+            row_filter=self._filter_device(filter_mask),
+        )
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        bad_fill = np.inf if self.metric == DistanceMetric.L2 else -np.inf
+        dist = np.where(i >= 0, distances_np(s, self.metric, qnorms), bad_fill)
+        if s.shape[1] < k:
+            pad = ((0, 0), (0, k - s.shape[1]))
+            i = np.pad(i, pad, constant_values=-1)
+            s = np.pad(s, pad, constant_values=-np.inf)
+            dist = np.pad(dist, pad, constant_values=bad_fill)
+        return SearchResult(indices=i, scores=s, distances=dist,
+                            metric=self.metric,
+                            ids=ids_for_rows(self.host_ids, i))
+
+
+def _ivf_search(q, centroids, buckets, bucket_ids, bucket_norms, k: int,
+                nprobe: int, metric, row_filter=None):
+    """The IVF probe in plain PyTorch (the reference's ``lax.scan`` over
+    probe ranks): coarse scores, the ``nprobe`` best buckets, then the
+    probed buckets' rows scored in full f32 and merged into a carried
+    top-k, a few probe ranks a step (:func:`probe_steps`). ``row_filter``:
+    optional ``[N]`` plane (0 ⇒ excluded) gathered at each candidate's row
+    id. Returns ``(scores [Q, k] f32, rows [Q, k] int32)``; a slot whose
+    score is not finite carries −1."""
+    metric = DistanceMetric(metric)
+    nq = q.shape[0]
+    _, cscores = coarse_scores(q, centroids, metric)
+    probes = probe_order(cscores, nprobe)
+    bsize, d = buckets.shape[1], buckets.shape[2]
+    best = (torch.empty((nq, 0), dtype=torch.float32, device=q.device),
+            torch.empty((nq, 0), dtype=torch.int64, device=q.device))
+    for p0, p1 in probe_steps(nq, nprobe, bsize * d):
+        cols = probes[:, p0:p1]  # [Q, g] buckets, in probe-rank order
+        with full_f32_matmul():
+            dots = torch.bmm(buckets[cols].reshape(nq, -1, d), q[:, :, None])[:, :, 0]
+        gi = bucket_ids[cols].reshape(nq, -1).long()
+        gn = bucket_norms[cols].reshape(nq, -1)
+        if metric == DistanceMetric.L2:
+            scores = 2.0 * dots - gn
+        elif metric == DistanceMetric.COSINE:
+            scores = dots * (1.0 / torch.sqrt(torch.clamp(gn, min=1e-30)))
+        else:
+            scores = dots
+        live = gi >= 0
+        if row_filter is not None:
+            live &= row_filter[gi.clamp(min=0)] != 0
+        scores = torch.where(live, scores, torch.tensor(float("-inf"), device=q.device))
+        best = carry_topk_ids(best, scores, gi, k)
+    s, idx = best
+    idx = torch.where(torch.isfinite(s), idx, -1)
+    return s, idx.to(torch.int32)

@@ -36,7 +36,7 @@ from ..ops.adc_kernel import fused_adc_topk
 from ..ops.distances import distances_np, full_f32_matmul
 from ..ops.gather_kernel import rescore_candidates
 from ..utils.transfer import put_chunked
-from .ivf import train_kmeans
+from .ivf import _to, train_kmeans
 
 # ------------------------------------------------------------- training ---
 
@@ -132,12 +132,6 @@ def reconstruct_pq(codes: np.ndarray, codebooks: np.ndarray) -> np.ndarray:
 def _sq_norms64(x: np.ndarray) -> np.ndarray:
     x64 = np.asarray(x, np.float64)
     return np.einsum("ij,ij->i", x64, x64).astype(np.float32)
-
-
-def _to(arr, dev, dtype) -> torch.Tensor:
-    """A device tensor from a copy of ``arr`` (which may be a read-only
-    view of the mapped file)."""
-    return torch.from_numpy(np.array(arr, dtype=dtype)).to(dev)
 
 
 # -------------------------------------------------------------- the index ---

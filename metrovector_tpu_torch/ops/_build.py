@@ -114,6 +114,7 @@ def load() -> ctypes.CDLL:
             lib.mvt_adc_topk.argtypes = [
                 p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
                 p, p,                     # norms, mask
+                p, p, i32,                # group bias, group ids, groups
                 i64, i64, i32, i32, i64,  # nq, n, m, ksub, num_valid
                 i32, i32, i32, i32, i64,  # k, metric, qt, splits, rows_per_split
                 i32, i32,                 # list_len (0: lists in shared memory), tree
@@ -123,7 +124,7 @@ def load() -> ctypes.CDLL:
             ]
             lib.mvt_adc_topk.restype = i32
             lib.mvt_adc_topk_occupancy.argtypes = [i32, i32, i32, i32, i32,
-                                                   i32, p]
+                                                   i32, i32, p]
             lib.mvt_adc_topk_occupancy.restype = i32
             lib.mvt_gather_rows.argtypes = [p, i64, i64, p, i32, i64, p, p]
             lib.mvt_gather_rows.restype = i32

@@ -1,21 +1,35 @@
 """PQ asymmetric-distance scan + top-k: the wrapper of the Hopper kernel
-``csrc/adc_kernel.cu`` and its plain PyTorch version.
+``csrc/adc_scan.cuh`` (built as ``csrc/adc_kernel.cu`` and, for the IVF
+bucket bias, ``csrc/adc_group_kernel.cu``) and its plain PyTorch version.
 
 Replaces ``metrovector_tpu/ops/adc_kernel.py::fused_adc_topk`` for uint8
 codes ``[N, m]`` and nibble-packed codes ``[N, ⌈m/2⌉]`` (``packed4``), with
 an f32 (``exact_lut``) or bf16 lookup table. A CUDA tensor goes to the
 kernel or the call raises; a CPU tensor goes to
 :func:`fused_adc_topk_reference`. ``fused_adc_topk.launches`` counts kernel
-launches (scan and merge of one call count once).
+launches (scan and merge of one call count once), and
+``fused_adc_topk.group_launches`` those of them with a bucket bias.
 
 The per-query table ``LUT[q, j·ksub + c] = q_j · C[j, c]`` is a small
 einsum outside the kernel, as in the JAX package, in full f32 and then
 rounded to bf16 unless ``exact_lut``. Both versions add the m looked-up
-entries of a row in ascending j in f32, so they agree bit for bit. The int8
-LUT and the IVF ``group_bias``/``group_rows``/``group_ids`` variants, and
-the Mosaic knobs (``block_rows``, ``query_tile``, ``vmem_retry``), are not
-ported. Any ``1 ≤ k ≤ N``: above k = 1024 the per-split lists live in
-device memory and a merge tree folds them (:mod:`.select`).
+entries of a row in ascending j in f32, so they agree bit for bit.
+
+The IVF bucket bias (``group_bias [Q, G]`` f32 with ``group_ids [N]``
+int32, the form IVF-PQ's scan calls): a row of bucket ``g = group_ids[row]``
+adds ``group_bias[q, g]`` after its m lookups, and the bias rides the LUT's
+type as in the reference, which concatenates it onto the LUT before the
+cast (with a bf16 LUT it is rounded to bf16, to nearest even). A row whose
+bias is at most −1e28 (an unprobed bucket: the reference passes −1e30), or
+whose dots with the bias are at most −1e28, scores exactly −inf; a
+``group_ids`` outside ``[0, G)`` (−1: a tombstoned row) adds no bias. The
+first rule is the reference's second one except where a row's LUT sum
+alone exceeds about 1e21 in magnitude. Not ported: the implicit
+bucket-major map ``group_rows`` (no package code or test calls it), the
+int8 LUT (ROADMAP B2), and the Mosaic knobs (``block_rows``,
+``query_tile``, ``vmem_retry``). Any ``1 ≤ k ≤ N``: above k = 1024 the
+per-split lists live in device memory and a merge tree folds them
+(:mod:`.select`).
 """
 
 from __future__ import annotations
@@ -32,7 +46,7 @@ from .distances import carry_topk, empty_topk, finish_topk, full_f32_matmul, mas
 from .topk_kernel import SMEM_LIMIT
 
 SMEM_K = 1024  # lists in shared memory up to this k
-# Shape constants of csrc/adc_kernel.cu
+# Shape constants of csrc/adc_scan.cuh
 _QUERY_TILES = (1, 2, 4, 8, 16, 32)
 _ROW_TILE = 256
 _BUFFER = 64
@@ -61,6 +75,19 @@ def adc_lut(queries: torch.Tensor, codebooks: torch.Tensor,
     return lut.contiguous() if exact_lut else lut.to(torch.bfloat16)
 
 
+def lut_bias(group_bias: torch.Tensor, exact_lut: bool) -> torch.Tensor:
+    """The bucket bias as the kernel adds it: f32, rounded through bf16
+    (to nearest even) unless ``exact_lut``, as the reference casts it with
+    the LUT it rides."""
+    gb = group_bias.float()
+    return gb.contiguous() if exact_lut else gb.to(torch.bfloat16).float()
+
+
+# A bias (or a row's dots with it) at or below this marks an unprobed
+# bucket: the row scores exactly -inf.
+DEAD_BIAS = -1e28
+
+
 def unpack_nibbles(packed: torch.Tensor, m: int) -> torch.Tensor:
     """Nibble-packed ``[N, ⌈m/2⌉]`` → ``[N, m]`` uint8 (even subspaces in
     the low nibble), on the tensor's device."""
@@ -79,6 +106,8 @@ def fused_adc_topk_reference(
     valid_mask: torch.Tensor | None = None,
     exact_lut: bool = False,
     packed4: bool = False,
+    group_bias: torch.Tensor | None = None,
+    group_ids: torch.Tensor | None = None,
     block_rows: int = 65536,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`fused_adc_topk` (same results): the torch
@@ -88,6 +117,8 @@ def fused_adc_topk_reference(
     m, ksub, _ = codebooks.shape
     lut = adc_lut(queries, codebooks, exact_lut).float()
     nq, n = lut.shape[0], codes.shape[0]
+    gb = None if group_bias is None else lut_bias(group_bias, exact_lut)
+    neg_inf = torch.tensor(float("-inf"), device=lut.device)
     best = empty_topk(nq, lut.device)
     for start in range(0, n, block_rows):
         stop = min(n, start + block_rows)
@@ -99,6 +130,13 @@ def fused_adc_topk_reference(
                           device=lut.device)
         for j in range(m):  # ascending j, in f32, as the kernel adds
             acc = acc + lut[:, j * ksub + blk[:, j]]
+        keep = None
+        if gb is not None:  # the bias after the m lookups, then the clamp
+            gid = group_ids[start:stop].long()
+            inb = (gid >= 0) & (gid < gb.shape[1])
+            b = gb[:, gid.clamp(0, max(gb.shape[1] - 1, 0))]
+            acc = torch.where(inb[None, :], acc + b, acc)
+            keep = ~(inb[None, :] & ~(b > DEAD_BIAS)) & (acc > DEAD_BIAS)
         nrm = recon_norms[start:stop][None, :]
         if metric == DistanceMetric.L2:
             s = 2.0 * acc - nrm
@@ -106,29 +144,32 @@ def fused_adc_topk_reference(
             s = acc * (1.0 / torch.sqrt(torch.clamp(nrm, min=1e-30)))
         else:
             s = acc
+        if keep is not None:
+            s = torch.where(keep, s, neg_inf)
         vm = None if valid_mask is None else valid_mask[start:stop]
         best = carry_topk(best, mask_scores(s, start, num_valid, vm), start, k)
     return finish_topk(best, k)
 
 
 def _shared_bytes(qt: int, mk: int, k: int, exact_lut: bool,
-                  lists_in_smem: bool = True) -> int:
+                  lists_in_smem: bool = True, gw: int = 0) -> int:
     """Dynamic shared memory of one scan block: the LUT of ``qt`` queries
     (rounded up to 16 bytes), then per query the bar, two score rows and
     two sets of candidate words, the buffer and its fill, and the list (none above
     :data:`SMEM_K` or without ``lists_in_smem``: it lives in device
-    memory)."""
+    memory); with a bucket bias of ``gw`` 32-bit words of bucket bits, each
+    query's probed buckets and their union."""
     lut = -(-qt * mk * (4 if exact_lut else 2) // 16) * 16
     lists = k if lists_in_smem and k <= SMEM_K else 0
     return lut + qt * (8 + 2 * (4 * _ROW_TILE + _ROW_TILE // 8) + 8 * _BUFFER + 4
-                       + 8 * lists)
+                       + 8 * lists + 4 * gw) + 4 * gw
 
 
 def _fitting_tiles(mk: int, k: int, exact_lut: bool,
-                   lists_in_smem: bool = True) -> list[int]:
+                   lists_in_smem: bool = True, gw: int = 0) -> list[int]:
     """The query tiles whose scan block fits in shared memory."""
     return [t for t in _QUERY_TILES
-            if _shared_bytes(t, mk, k, exact_lut, lists_in_smem) <= SMEM_LIMIT]
+            if _shared_bytes(t, mk, k, exact_lut, lists_in_smem, gw) <= SMEM_LIMIT]
 
 
 def _query_tile(nq: int, occupancy: dict[int, int]) -> int:
@@ -143,24 +184,27 @@ def _query_tile(nq: int, occupancy: dict[int, int]) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
-               ksub: int, k: int, lists_in_smem: bool) -> tuple[tuple[int, int], ...]:
+               ksub: int, k: int, lists_in_smem: bool,
+               gw: int = 0) -> tuple[tuple[int, int], ...]:
     """(tile, scan blocks per SM) for each tile that fits, from the
-    runtime's occupancy calculator on the current device."""
+    runtime's occupancy calculator on the current device; ``gw`` > 0: the
+    bucket-bias variant with that many words of bucket bits."""
     from ._build import load, raise_for
 
     lib = load()
     smem_k = k if lists_in_smem and k <= SMEM_K else 0
     out = []
-    for qt in _fitting_tiles(m * ksub, k, lut_code == 0, lists_in_smem):
+    for qt in _fitting_tiles(m * ksub, k, lut_code == 0, lists_in_smem, gw):
         per_sm = ctypes.c_int(0)
         raise_for(lib, lib.mvt_adc_topk_occupancy(
-            lut_code, packed4, qt, m, ksub, smem_k, ctypes.byref(per_sm)),
+            lut_code, packed4, qt, m, ksub, smem_k, gw, ctypes.byref(per_sm)),
             "fused_adc_topk")
         out.append((qt, per_sm.value))
     return tuple(out)
 
 
-def _check_shapes(queries, codes, codebooks, packed4) -> None:
+def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
+                  group_ids=None) -> None:
     if codebooks.dim() != 3:
         raise ValueError("codebooks must be [m, ksub, dsub]")
     m, ksub, dsub = codebooks.shape
@@ -180,16 +224,29 @@ def _check_shapes(queries, codes, codebooks, packed4) -> None:
             )
     elif cols != m:
         raise ValueError(f"codes [N, {cols}] vs codebooks m={m}")
+    if (group_bias is None) != (group_ids is None):
+        raise ValueError("group_bias and group_ids come together")
+    if group_bias is not None:
+        if (group_bias.dim() != 2 or group_bias.shape[0] != queries.shape[0]
+                or group_bias.shape[1] < 1):
+            raise ValueError(
+                f"group_bias must be [Q={queries.shape[0]}, G >= 1], got "
+                f"{tuple(group_bias.shape)}"
+            )
+        if tuple(group_ids.shape) != (codes.shape[0],):
+            raise ValueError(f"group_ids must be [N={codes.shape[0]}]")
 
 
 def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
-                exact_lut) -> None:
+                exact_lut, group_bias=None, group_ids=None) -> None:
     dev = queries.device
     named = [("codes", codes), ("codebooks", codebooks),
              ("recon_norms", recon_norms)]
     if valid_mask is not None:
         named.append(("valid_mask", valid_mask))
-    for name, t in named:
+    grouped = [] if group_bias is None else [("group_bias", group_bias),
+                                             ("group_ids", group_ids)]
+    for name, t in named + grouped:
         if t.device != dev:
             raise ValueError(
                 f"{name} is on {t.device}, queries on {dev}: one device only"
@@ -204,18 +261,29 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
     if k < 1 or (n and k > n):  # an empty corpus leaves every slot unfilled
         raise ValueError(f"k={k} is outside the kernel's limit 1 <= k <= N={n}")
     m, ksub, _ = codebooks.shape
-    need = _shared_bytes(1, m * ksub, k, exact_lut, lists_in_smem=False)
+    gw = 0 if group_bias is None else _group_words(group_bias.shape[1])
+    need = _shared_bytes(1, m * ksub, k, exact_lut, lists_in_smem=False, gw=gw)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"m*ksub={m * ksub} with k={k} needs {need} bytes of shared "
-            f"memory for one query, above the {SMEM_LIMIT} a block may use"
+            f"m*ksub={m * ksub} with k={k}"
+            + (f" and {group_bias.shape[1]} buckets" if gw else "")
+            + f" needs {need} bytes of shared memory for one query, above "
+            f"the {SMEM_LIMIT} a block may use"
         )
     for name, t in named[2:]:
         if t.dtype != torch.float32 or tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be a [{n}] float32 tensor")
-    for name, t in [("queries", queries)] + named:
+    if grouped:
+        if group_bias.dtype != torch.float32 or group_ids.dtype != torch.int32:
+            raise ValueError("group_bias must be float32 and group_ids int32")
+    for name, t in [("queries", queries)] + named + grouped:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _group_words(groups: int) -> int:
+    """32-bit words of one query's bucket bits."""
+    return -(-groups // 32)
 
 
 def fused_adc_topk(
@@ -229,26 +297,30 @@ def fused_adc_topk(
     valid_mask: torch.Tensor | None = None,
     exact_lut: bool = False,
     packed4: bool = False,
+    group_bias: torch.Tensor | None = None,
+    group_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ADC top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
     over PQ ``codes`` (uint8 ``[N, m]``, or ``[N, ⌈m/2⌉]`` with
     ``packed4``) with ``codebooks [m, ksub, dsub]`` f32 and reconstruction
     norms ``recon_norms [N]`` f32; rows ≥ ``num_valid`` and rows where
-    ``valid_mask [N]`` (f32) is 0 never enter. Returns ``(scores [Q, k]
-    f32, indices [Q, k] int32)`` by (score descending, row ascending);
-    unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``."""
+    ``valid_mask [N]`` (f32) is 0 never enter. ``group_bias [Q, G]`` f32
+    with ``group_ids [N]`` int32: the IVF bucket bias (module docstring).
+    Returns ``(scores [Q, k] f32, indices [Q, k] int32)`` by (score
+    descending, row ascending); unfilled slots hold (−inf, −1). On CUDA
+    ``1 ≤ k ≤ N``."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
-    _check_shapes(queries, codes, codebooks, packed4)
+    _check_shapes(queries, codes, codebooks, packed4, group_bias, group_ids)
     if queries.device.type == "cpu":
         return fused_adc_topk_reference(queries, codes, codebooks, recon_norms,
                                         num_valid, k, metric, valid_mask,
-                                        exact_lut, packed4)
+                                        exact_lut, packed4, group_bias, group_ids)
     if queries.device.type != "cuda":
         raise ValueError(f"fused_adc_topk runs on CUDA or CPU, not {queries.device}")
     _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
-                exact_lut)
+                exact_lut, group_bias, group_ids)
     from ._build import load
 
     lib = load()
@@ -261,23 +333,31 @@ def fused_adc_topk(
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
     lut = adc_lut(queries, codebooks, exact_lut)
+    group = None
+    if group_bias is not None:
+        group = (lut_bias(group_bias, exact_lut), group_ids)
+    gw = 0 if group is None else _group_words(group_bias.shape[1])
     with torch.cuda.device(dev):
         occupancy = dict(_occupancy(dev.index, int(not exact_lut), int(packed4),
-                                    m, ksub, min(k, SMEM_K + 1), True))
+                                    m, ksub, min(k, SMEM_K + 1), True, gw))
         qt = _query_tile(nq, occupancy)
         _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
-                packed4, m, ksub, qt, k <= SMEM_K, occupancy[qt], out_s, out_i)
+                packed4, m, ksub, qt, k <= SMEM_K, occupancy[qt], out_s, out_i,
+                group=group)
     fused_adc_topk.launches += 1
+    if group is not None:
+        fused_adc_topk.group_launches += 1
     return out_s, out_i
 
 
 def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
             packed4, m, ksub, qt, lists_in_smem, blocks_per_sm, out_s, out_i,
-            splits=None) -> None:
+            splits=None, group=None) -> None:
     """One launch of the scan and the merge for checked inputs and a LUT
     ``[Q, m·ksub]`` (f32 or bf16) with query tile ``qt``, the lists in
     shared memory or not, into ``out_s``/``out_i``; ``splits`` (default: one
-    wave of ``blocks_per_sm`` blocks on every SM) sets the row splits."""
+    wave of ``blocks_per_sm`` blocks on every SM) sets the row splits;
+    ``group``: ``(bias [Q, G] f32 as the kernel adds it, ids [N] int32)``."""
     from ._build import raise_for
 
     nq = lut.shape[0]
@@ -292,10 +372,14 @@ def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
     part_s, part_i, tmp_s, tmp_i = select.scratch(nq, splits, length, k, dev,
                                                   tree=tree)
     slots = select.bar_slots(nq, splits, dev)
+    gbias, gids = group if group is not None else (None, None)
     err = lib.mvt_adc_topk(
         lut.data_ptr(), int(lut.dtype != torch.float32), codes.data_ptr(), cols,
         int(packed4), recon_norms.data_ptr(),
         None if valid_mask is None else valid_mask.data_ptr(),
+        None if gbias is None else gbias.data_ptr(),
+        None if gids is None else gids.data_ptr(),
+        0 if gbias is None else gbias.shape[1],
         nq, n, m, ksub, max(0, min(int(num_valid), n)), k, int(metric),
         qt, splits, rows_per_split, 0 if lists_in_smem else length, int(tree),
         part_s.data_ptr(), part_i.data_ptr(),
@@ -308,3 +392,4 @@ def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
 
 
 fused_adc_topk.launches = 0
+fused_adc_topk.group_launches = 0

@@ -1,394 +1,24 @@
-// PQ asymmetric-distance (ADC) scan with a fused top-k, for Hopper (sm_90a).
-//
-// Replaces the Pallas kernel metrovector_tpu/ops/adc_kernel.py::
-// fused_adc_topk (body `_make_adc_kernel`). It computes what that kernel
-// computes, for uint8 codes [N, m] or nibble-packed codes [N, ceil(m/2)]
-// (even subspaces in the low nibble) and an f32 or bf16 lookup table
-// LUT[q, j*ksub + c] = q_j . C[j, c] built outside the kernel:
-//
-//   s(q, x)     = sum over j = 0..m-1, in that order, in f32, of
-//                 LUT[q, j*ksub + code_j(x)]
-//   score(q, x) = L2:     2 s - |x^|^2
-//                 cosine: s * 1/sqrt(max(|x^|^2, 1e-30))   (q pre-normalized)
-//                 IP:     s
-//   rows >= num_valid and rows with mask == 0 score exactly -inf;
-//   per query the k best (score descending, row ascending), best first;
-//   slots that stay -inf carry row -1.
-//
-// The TPU kernel multiplies one-hot code matrices by the LUT on the MXU,
-// because a TPU has no fast gather. Hopper does: the LUT of a tile of QT
-// queries sits in shared memory and a row's sum is m lookups per query.
-// What bounds the scan is shared memory: an SM serves one 4-byte load of a
-// warp a clock, one 8-byte load in two and one 16-byte load in two to four
-// (a half-warp or quarter-warp a pass; measured on an H100, PERF.md), so
-// with ksub = 16 a warp's lookups of 32 rows for one f32 query cost a clock
-// however they are laid out: at pq4, batch 256, 8.19 G lookups take at
-// least 0.98 ms. Next comes the selection at k = 400: the warm-up of each
-// split's list and the buffer flushes. The design:
-//
-// * Grid (ceil(Q/QT), S). A block stages the LUT of its QT queries once,
-//   query-interleaved in 8-byte entries: [QT/GW][m*ksub][GW], GW = 2
-//   queries of an f32 LUT or 4 of a bf16 one. One 8-byte load fetches one
-//   code's entries for GW queries, and a half-warp's 16 lanes read 16
-//   distinct entries (ksub = 16) in one pass: a clock for 32 lookups of an
-//   f32 LUT, as before, with half the load instructions, and half a clock
-//   for a bf16 LUT. (16-byte entries of 4 f32 queries cost more: a
-//   quarter-warp's 8 lanes often hit two entries of one bank group.) Each
-//   query still adds its m entries in ascending j in f32, so the sums are
-//   the plain version's bit for bit.
-// * A tile is 256 rows, one per thread. The thread reads its row's codes
-//   16 bytes at a time (one load for pq4 and pq8 rows), the first 16 bytes,
-//   the norm and the mask value a tile ahead; it decodes each code once for
-//   all QT queries and scores the row.
-// * Selection (select.cuh): each query's bar in shared memory is the
-//   larger of its list's k-th entry and the group bar, which the splits of
-//   the query share through slots [Q, S]. The scoring threads test their
-//   own row against the bar's score and vote; only rows that pass are
-//   written to the score tile, with one candidate bit each. Then one warp
-//   per query walks the set bits, appends rows that beat the bar by the
-//   exact rank rule to a 64-entry buffer, merges a full buffer into the
-//   sorted list at once and publishes the list's entry for the group bar.
-//   Past the warm-up most tiles cost a query one load and one vote.
-// * QT is one of {1, 2, 4, 8, 16, 32}: the wrapper picks it and where the
-//   lists live (shared memory up to k = 1024) from the occupancy the
-//   runtime reports (PERF.md has the sweep). In device memory each split's
-//   list (L = min(k, rows per split) entries) sits in the [Q, S, L]
-//   scratch; only the buffers stay in shared memory.
-// * Pass 2 merges the S partial lists: merge_kernel (select.cuh), one block
-//   per query, or the merge tree of select.cuh past 64 splits (and for
-//   lists in device memory), where one block folding the lists one by one
-//   took longer than the tree's log2(S) launches.
-//
-// Codes must be < ksub (as PQ encoding makes them); the wrapper checks
-// shapes, dtypes and limits.
+// The ADC scan's plain variant and its C entry points (the kernel and its
+// design: adc_scan.cuh). The IVF bucket-bias variant is instantiated in
+// adc_group_kernel.cu and reached through mvt_adc_pick_group.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "adc_scan.cuh"
 
-#include "select.cuh"
+// adc_group_kernel.cu: the bucket-bias scan kernel for these parameters.
+extern "C" const void* mvt_adc_pick_group(int qt, int packed4, int lut_dtype,
+                                          int global);
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kThreads;     // rows per tile, one per thread
-constexpr int kWords = kRows / 32;  // candidate words per query and tile
-
-enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
-enum LutType { kLutF32 = 0, kLutBF16 = 1 };
-
-// Add the GW entries at p (one code, GW consecutive queries) to a[0..GW),
-// from one shared-memory load.
-template <int GW>
-__device__ __forceinline__ void lut_add(float* a, const float* p) {
-  if constexpr (GW == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    a[0] += v.x;
-    a[1] += v.y;
-    a[2] += v.z;
-    a[3] += v.w;
-  } else if constexpr (GW == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    a[0] += v.x;
-    a[1] += v.y;
-  } else {
-    a[0] += *p;
-  }
-}
-
-__device__ __forceinline__ float bf_lo(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf_hi(unsigned u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-template <int GW>
-__device__ __forceinline__ void lut_add(float* a, const __nv_bfloat16* p) {
-  if constexpr (GW == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    a[0] += bf_lo(u.x);
-    a[1] += bf_hi(u.x);
-    a[2] += bf_lo(u.y);
-    a[3] += bf_hi(u.y);
-  } else if constexpr (GW == 2) {
-    const unsigned u = *reinterpret_cast<const unsigned*>(p);
-    a[0] += bf_lo(u);
-    a[1] += bf_hi(u);
-  } else {
-    a[0] += __bfloat162float(*p);
-  }
-}
-
-// Bytes b..b+15 of a row's codes as four little-endian words; bytes past
-// `cols` read as 0. vec 16: cols % 16 == 0 and 16-byte aligned codes (one
-// load); vec 4: cols % 4 == 0 and 4-byte aligned; else byte by byte.
-__device__ __forceinline__ uint4 code_block(const uint8_t* rc, int b, int cols,
-                                            int vec) {
-  if (vec == 16) return *reinterpret_cast<const uint4*>(rc + b);
-  uint32_t w[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int o = b + 4 * t;
-    w[t] = 0;
-    if (vec == 4) {
-      if (o < cols) w[t] = *reinterpret_cast<const uint32_t*>(rc + o);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (o + u < cols) w[t] |= static_cast<uint32_t>(rc[o + u]) << (8 * u);
-      }
-    }
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// Shared memory of one scan block (bytes): the LUT, then per query the
-// bar, two score tiles and two sets of candidate words (tiles alternate),
-// the buffer and its fill, and the lists when they live in shared memory
-// (smem_k entries, else 0).
-__host__ __device__ constexpr size_t lut_bytes(int qt, int lsz, int mk) {
-  return (static_cast<size_t>(qt) * mk * lsz + 15) / 16 * 16;
-}
-__host__ __device__ constexpr size_t scan_smem_bytes(int qt, int lsz, int mk,
-                                                     int smem_k) {
-  return lut_bytes(qt, lsz, mk) +
-         static_cast<size_t>(qt) * (8 + 2 * (4 * kRows + 4 * kWords) + 8 * kBuf + 4 +
-                                    8 * static_cast<size_t>(smem_k));
-}
-
-template <int QT, bool PACKED, typename LT, bool GLOBAL>
-__global__ void __launch_bounds__(kThreads)
-    adc_scan_kernel(const void* lut_raw, const uint8_t* __restrict__ codes,
-                    int cols, const float* __restrict__ norms,
-                    const float* __restrict__ mask, int64_t nq, int64_t n,
-                    int m, int ksub, int64_t num_valid, int k, int metric,
-                    int64_t rows_per_split, int vec, int topk,
-                    float* __restrict__ part_s, int* __restrict__ part_i,
-                    unsigned long long* __restrict__ slots) {
-  // GLOBAL: k is the length of each split's list, which lives in part_*
-  // ([nq, splits, k]) instead of shared memory; topk is the k asked for.
-  // slots ([nq, splits]) holds the group bars' keys (select.cuh).
-  // Queries per LUT load: 8-byte entries, which a half-warp's 16 lanes
-  // read in one pass when their codes differ (ksub = 16).
-  constexpr int kEntry = 8 / static_cast<int>(sizeof(LT));
-  constexpr int GW = QT < kEntry ? QT : kEntry;
-  constexpr int G = QT / GW;
-  constexpr int kPerWarp = (QT + kWarps - 1) / kWarps;  // queries a warp selects for
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int mk = m * ksub;
-  const int ks = GLOBAL ? 0 : k;
-  LT* ls = reinterpret_cast<LT*>(smem_raw);  // [G][mk][GW] the LUT
-  auto* bar = reinterpret_cast<unsigned long long*>(
-      smem_raw + lut_bytes(QT, sizeof(LT), mk));      // [QT] rank keys
-  float* sc2 = reinterpret_cast<float*>(bar + QT);    // [2][QT][kRows] scores
-  unsigned* cand2 = reinterpret_cast<unsigned*>(sc2 + 2 * QT * kRows);  // [2][QT][kWords]
-  float* bs = reinterpret_cast<float*>(cand2 + 2 * QT * kWords);  // [QT][kBuf] buffer
-  int* bi = reinterpret_cast<int*>(bs + QT * kBuf);          // [QT][kBuf]
-  int* bc = bi + QT * kBuf;                                  // [QT] buffer fill
-  float* cs = reinterpret_cast<float*>(bc + QT);             // [QT][k] lists
-  int* ci = reinterpret_cast<int*>(cs + QT * ks);
-
-  const LT* lut = static_cast<const LT*>(lut_raw);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * QT;
-  const int split = blockIdx.y;
-  const int splits = gridDim.y;
-  const int64_t row_begin = split * rows_per_split;
-  const int64_t row_end =
-      row_begin + rows_per_split < n ? row_begin + rows_per_split : n;
-
-  // The tile's LUT rows are contiguous in global memory; queries past the
-  // batch repeat its last entry (their results are never written).
-  const int64_t lut_end = nq * mk;
-  for (int e = tid; e < QT * mk; e += kThreads) {
-    const int qq = e / mk;
-    const int c = e - qq * mk;
-    const int64_t g = (q0 + qq) * mk + c;
-    ls[((qq / GW) * mk + c) * GW + qq % GW] = lut[g < lut_end ? g : lut_end - 1];
-  }
-  // Query qq's list: in shared memory, or its split's list in part_*.
-  auto list_s = [&](int qq) {
-    return GLOBAL ? part_s + ((q0 + qq) * splits + split) * k : cs + qq * k;
-  };
-  auto list_i = [&](int qq) {
-    return GLOBAL ? part_i + ((q0 + qq) * splits + split) * k : ci + qq * k;
-  };
-  if (GLOBAL) {
-    for (int64_t e = tid; e < static_cast<int64_t>(QT) * k; e += kThreads) {
-      const int qq = static_cast<int>(e / k);
-      if (q0 + qq < nq) {
-        list_s(qq)[e % k] = -CUDART_INF_F;
-        list_i(qq)[e % k] = kSentinel;
-      }
-    }
-  } else {
-    for (int e = tid; e < QT * k; e += kThreads) {
-      cs[e] = -CUDART_INF_F;
-      ci[e] = kSentinel;
-    }
-  }
-  for (int e = tid; e < QT; e += kThreads) {
-    bc[e] = 0;
-    bar[e] = 0;
-  }
-  __syncthreads();
-
-  // A thread's row of the next tile is loaded a tile ahead: its first 16
-  // bytes of codes, its norm and its mask value.
-  auto fetch = [&](int64_t row, uint4& cw, float& nrm, float& keep, bool& in) {
-    in = row < row_end && row < num_valid;
-    cw = in ? code_block(codes + row * cols, 0, cols, vec) : make_uint4(0, 0, 0, 0);
-    nrm = in ? norms[row] : 0.f;
-    keep = in && mask != nullptr ? mask[row] : 1.f;
-  };
-  uint4 next_cw;
-  float next_nrm, next_keep;
-  bool next_in;
-  fetch(row_begin + tid, next_cw, next_nrm, next_keep, next_in);
-
-  // Warp w selects for queries w, w + 8, ...; at the top of each tile its
-  // lanes load those queries' group slots, so that the loads are in flight
-  // during the scan.
-  const int place = bar_place(splits, topk);
-  for (int64_t t0 = row_begin; t0 < row_end; t0 += kRows) {
-    // Tiles alternate between two score tiles and sets of words: a warp
-    // still selecting for tile t reads one while the others score tile t + 1
-    // into the other, and the one barrier a tile keeps them a tile apart.
-    // (The bars may be read while a selecting lane raises them: a stale bar
-    // only lets more rows through.)
-    const int par = static_cast<int>(((t0 - row_begin) / kRows) & 1);
-    float* sc = sc2 + par * QT * kRows;
-    unsigned* cand = cand2 + par * QT * kWords;
-    unsigned long long group[kPerWarp];
-#pragma unroll
-    for (int j = 0; j < kPerWarp; ++j) {
-      const int qq = warp + kWarps * j;
-      group[j] = qq < QT && q0 + qq < nq
-                     ? group_slot(slots, q0 + qq, split, splits, topk, lane)
-                     : ~0ull;
-    }
-    const int64_t row = t0 + tid;
-    const uint4 cw0 = next_cw;
-    const float nrm = next_nrm;
-    const bool live = next_in && next_keep != 0.f;
-    fetch(row + kRows, next_cw, next_nrm, next_keep, next_in);
-    float acc[QT];
-#pragma unroll
-    for (int qq = 0; qq < QT; ++qq) acc[qq] = 0.f;
-    if (live) {
-      const uint8_t* rc = codes + row * cols;
-      for (int b = 0; b < cols; b += 16) {
-        const uint4 cw = b == 0 ? cw0 : code_block(rc, b, cols, vec);
-        const uint32_t w[4] = {cw.x, cw.y, cw.z, cw.w};
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          constexpr int kPerWord = PACKED ? 8 : 4;
-#pragma unroll
-          for (int u = 0; u < kPerWord; ++u) {
-            const int j = PACKED ? 2 * b + 8 * t + u : b + 4 * t + u;
-            if (j < m) {
-              const unsigned c = PACKED ? (w[t] >> (4 * u)) & 15u : (w[t] >> (8 * u)) & 255u;
-              const LT* e = ls + (j * ksub + c) * GW;
-#pragma unroll
-              for (int g = 0; g < G; ++g) lut_add<GW>(acc + GW * g, e + g * mk * GW);
-            }
-          }
-        }
-      }
-    }
-    const float inv = 1.0f / sqrtf(fmaxf(nrm, 1e-30f));
-#pragma unroll
-    for (int qq = 0; qq < QT; ++qq) {
-      float s = acc[qq];
-      if (metric == kL2) {
-        s = 2.0f * s - nrm;
-      } else if (metric == kCosine) {
-        s = s * inv;
-      }
-      float bs_q;  // a float compare; select_tile applies the exact rule
-      int bi_q;
-      unrank(bar[qq], bs_q, bi_q);
-      const bool pass = live && s >= bs_q;
-      if (pass) sc[qq * kRows + tid] = s;
-      const unsigned vote = __ballot_sync(kFull, pass);
-      if (lane == 0) cand[qq * kWords + warp] = vote;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < kPerWarp; ++j) {
-      const int qq = warp + kWarps * j;
-      if (qq >= QT || q0 + qq >= nq) break;  // the same in every lane
-      select_tile(sc + qq * kRows, [&](int w) { return cand[qq * kWords + w]; }, kWords,
-                  [&](int b) { return static_cast<int>(t0 + b); }, list_s(qq),
-                  list_i(qq), k, bs + qq * kBuf, bi + qq * kBuf, bc + qq,
-                  bar + qq, group[j],
-                  slots == nullptr ? nullptr : slots + (q0 + qq) * splits + split,
-                  place, lane);
-    }
-  }
-
-  for (int j = 0; warp + kWarps * j < QT; ++j) {  // the buffers' last entries
-    // (its own warp's queries: no barrier needed)
-    const int qq = warp + kWarps * j;
-    if (q0 + qq < nq && bc[qq] > 0) {
-      flush_buffer(list_s(qq), list_i(qq), k, bs + qq * kBuf, bi + qq * kBuf,
-                   bc[qq], lane);
-    }
-  }
-  if (GLOBAL) return;
-  __syncthreads();
-
-  for (int e = tid; e < QT * k; e += kThreads) {
-    const int qq = e / k;
-    const int64_t gq = q0 + qq;
-    if (gq < nq) {
-      const int64_t o = (gq * splits + split) * k + e % k;
-      part_s[o] = cs[e];
-      part_i[o] = ci[e];
-    }
-  }
-}
-
-template <bool PACKED, typename LT, bool GLOBAL>
-const void* pick_qt(int qt) {
-  switch (qt) {
-    case 1:
-      return reinterpret_cast<const void*>(adc_scan_kernel<1, PACKED, LT, GLOBAL>);
-    case 2:
-      return reinterpret_cast<const void*>(adc_scan_kernel<2, PACKED, LT, GLOBAL>);
-    case 4:
-      return reinterpret_cast<const void*>(adc_scan_kernel<4, PACKED, LT, GLOBAL>);
-    case 8:
-      return reinterpret_cast<const void*>(adc_scan_kernel<8, PACKED, LT, GLOBAL>);
-    case 16:
-      return reinterpret_cast<const void*>(adc_scan_kernel<16, PACKED, LT, GLOBAL>);
-    case 32:
-      return reinterpret_cast<const void*>(adc_scan_kernel<32, PACKED, LT, GLOBAL>);
-    default:
-      return nullptr;
-  }
-}
-
-template <typename LT>
-const void* pick_lt(int qt, int packed4, int global) {
-  if (global) {
-    return packed4 ? pick_qt<true, LT, true>(qt) : pick_qt<false, LT, true>(qt);
-  }
-  return packed4 ? pick_qt<true, LT, false>(qt) : pick_qt<false, LT, false>(qt);
-}
-
-const void* pick(int qt, int packed4, int lut_dtype, int global) {
-  if (lut_dtype == kLutF32) return pick_lt<float>(qt, packed4, global);
-  if (lut_dtype == kLutBF16) return pick_lt<__nv_bfloat16>(qt, packed4, global);
+const void* pick(int qt, int packed4, int lut_dtype, int global, int group) {
+  if (group) return mvt_adc_pick_group(qt, packed4, lut_dtype, global);
+  if (lut_dtype == kLutF32) return pick_lt<float, false>(qt, packed4, global);
+  if (lut_dtype == kLutBF16) return pick_lt<__nv_bfloat16, false>(qt, packed4, global);
   return nullptr;
 }
 
-size_t smem_for(int qt, int lut_dtype, int mk, int smem_k) {
-  return scan_smem_bytes(qt, lut_dtype == kLutF32 ? 4 : 2, mk, smem_k);
+size_t smem_for(int qt, int lut_dtype, int mk, int smem_k, int gw) {
+  return scan_smem_bytes(qt, lut_dtype == kLutF32 ? 4 : 2, mk, smem_k, gw);
 }
 
 cudaError_t prepare(const void* fn, size_t smem) {
@@ -410,9 +40,11 @@ extern "C" {
 // every level of the merge tree needs (ops/select.py::merge_scratch) and
 // the tree folds the lists; else merge_kernel does and tmp_* is unused.
 // slots is [nq, splits] zeros (the group bars, select.cuh). out_* are
-// [nq, k].
+// [nq, k]. With gbias non-null (the IVF variant) gbias is [nq, ngroups]
+// f32 and gids [n] int32; both null otherwise.
 int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
                  int cols, int packed4, const float* norms, const float* mask,
+                 const float* gbias, const int* gids, int ngroups,
                  int64_t nq, int64_t n, int m, int ksub, int64_t num_valid,
                  int k, int metric, int qt, int splits, int64_t rows_per_split,
                  int list_len, int tree, float* part_s, int* part_i,
@@ -420,16 +52,20 @@ int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
                  float* out_s, int* out_i, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int lists_global = list_len > 0;
-  const void* fn = pick(qt, packed4, lut_dtype, lists_global);
+  const int group = gbias != nullptr;
+  if (group && (gids == nullptr || ngroups < 1)) return cudaErrorInvalidValue;
+  const void* fn = pick(qt, packed4, lut_dtype, lists_global, group);
   int kl = lists_global ? list_len : k;
-  const size_t smem = smem_for(qt, lut_dtype, m * ksub, lists_global ? 0 : k);
+  const int gw = group ? (ngroups + 31) / 32 : 0;
+  const size_t smem = smem_for(qt, lut_dtype, m * ksub, lists_global ? 0 : k, gw);
   cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return err;
   const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
   int vec = cols % 16 == 0 && at % 16 == 0 ? 16 : (cols % 4 == 0 && at % 4 == 0 ? 4 : 0);
-  void* args[] = {&lut,  &codes, &cols, &norms,     &mask, &nq,
-                  &n,    &m,     &ksub, &num_valid, &kl,   &metric,
-                  &rows_per_split, &vec, &k, &part_s, &part_i, &slots};
+  void* args[] = {&lut,  &codes, &cols,  &norms,     &mask, &gbias,
+                  &gids, &ngroups, &nq,  &n,         &m,    &ksub,
+                  &num_valid, &kl, &metric, &rows_per_split, &vec, &k,
+                  &part_s, &part_i, &slots};
   const dim3 grid(static_cast<unsigned>((nq + qt - 1) / qt),
                   static_cast<unsigned>(splits));
   err = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, st);
@@ -446,12 +82,13 @@ int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
 }
 
 // Scan blocks that fit on one SM at once for this variant with lists of
-// smem_k entries in shared memory (0: in device memory), written to
+// smem_k entries in shared memory (0: in device memory) and, for gw > 0,
+// the IVF variant with gw words of bucket bits a query, written to
 // *blocks_per_sm; returns the cudaError_t.
 int mvt_adc_topk_occupancy(int lut_dtype, int packed4, int qt, int m,
-                           int ksub, int smem_k, int* blocks_per_sm) {
-  const void* fn = pick(qt, packed4, lut_dtype, smem_k == 0);
-  const size_t smem = smem_for(qt, lut_dtype, m * ksub, smem_k);
+                           int ksub, int smem_k, int gw, int* blocks_per_sm) {
+  const void* fn = pick(qt, packed4, lut_dtype, smem_k == 0, gw > 0);
+  const size_t smem = smem_for(qt, lut_dtype, m * ksub, smem_k, gw);
   const cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,

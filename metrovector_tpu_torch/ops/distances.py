@@ -161,11 +161,19 @@ def carry_topk(best, s: torch.Tensor, start: int, k: int):
     candidates (earlier rows) come first and each part is in ascending row
     order among equal scores, so one stable sort on −score orders by
     (score descending, row ascending)."""
-    best_s, best_i = best
     nq = s.shape[0]
     idx = torch.arange(start, start + s.shape[1], device=s.device).expand(nq, -1)
+    return carry_topk_ids(best, s, idx, k)
+
+
+def carry_topk_ids(best, s: torch.Tensor, ids: torch.Tensor, k: int):
+    """:func:`carry_topk` with explicit ids ``ids [Q, B]`` (int64) for the
+    block's columns, in any order: among equal scores the carried
+    candidates come first, then the block's in column order, as
+    ``lax.top_k`` over ``[carried, block]`` keeps them by position."""
+    best_s, best_i = best
     cand_s = torch.cat([best_s, s], dim=1)
-    cand_i = torch.cat([best_i, idx], dim=1)
+    cand_i = torch.cat([best_i, ids], dim=1)
     order = torch.sort(-cand_s, dim=1, stable=True).indices[:, :k]
     return torch.gather(cand_s, 1, order), torch.gather(cand_i, 1, order)
 

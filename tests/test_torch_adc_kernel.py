@@ -10,6 +10,14 @@ LUT each engine's sum of m entries errs by at most
 (m−1)·2⁻²⁴·Σ_j max_c|LUT[q,j,c]|, so two engines differ by at most twice
 that; L2 doubles the sum; cosine scales it by 1/‖x̂‖; and the epilogue adds
 a rounding of the score itself. Indices must agree outside near-ties.
+
+The IVF bucket-bias variant (``group_bias`` + ``group_ids``) is held to
+the Pallas kernel's in interpret mode: identical on integer data (biases
+are integers, also once rounded to bf16); on float data within the band
+above plus the bias' share of the sum's rounding (4·m·2⁻²⁴·|bias|, doubled
+for L2, scaled by 1/‖x̂‖ for cosine) and, with a bf16 LUT, 2⁻⁸ of the
+largest score (a bf16 rounding of entries that f32 data does not make
+exact).
 """
 
 import numpy as np
@@ -257,3 +265,161 @@ def test_other_device_raises():
         fused_adc_topk(q, torch.zeros((10, 4), dtype=torch.uint8, device="meta"),
                        torch.zeros((4, 16, 2), device="meta"),
                        torch.zeros(10, device="meta"), 10, 3, DistanceMetric.L2)
+
+
+# ------------------------------------------- the IVF bucket-bias variant ---
+
+G = 7
+
+
+def _group_inputs(kind, m, ksub, seed=9):
+    """Bucket ids (some −1: tombstoned rows, masked; some −1 on live rows,
+    which add no bias) and a per-query bias: three probed buckets of
+    integer bias above 256 in magnitude (bf16 rounds them), two of them
+    tied (split buckets share a centroid), −1e30 on the rest."""
+    books, codes, recon, rnorms, q, mask = _pq_inputs(kind, m, ksub, seed)
+    rng = np.random.default_rng(seed + 1)
+    gids = rng.integers(0, G, N).astype(np.int32)
+    gids[mask == 0] = -1  # tombstoned
+    gids[:5] = -1  # live rows in no bucket
+    mask[:5] = 1.0
+    bias = np.full((NQ, G), -1e30, np.float32)
+    for r in range(NQ):
+        probed = rng.choice(G, 3, replace=False)
+        vals = rng.integers(-3000, 3000, 2).astype(np.float32)
+        bias[r, probed] = [vals[0], vals[0], vals[1]]  # a tied pair
+    return books, codes, recon, rnorms, q, mask, gids, bias
+
+
+def _group_scores64(q, recon, metric, gids, bias, live):
+    """float64 scores with the bias, −inf for unprobed buckets and dead
+    rows (queries as given)."""
+    q64, x64 = np.asarray(q, np.float64), np.asarray(recon, np.float64)
+    dots = q64 @ x64.T
+    inb = gids >= 0
+    b = np.where(inb[None, :], bias[:, np.maximum(gids, 0)].astype(np.float64), 0.0)
+    dots = dots + b
+    norms = (x64 ** 2).sum(1)[None, :]
+    metric = DistanceMetric(metric)
+    if metric == DistanceMetric.L2:
+        s = 2 * dots - norms
+    elif metric == DistanceMetric.COSINE:
+        s = dots / np.sqrt(np.maximum(norms, 1e-30))
+    else:
+        s = dots
+    dead = inb[None, :] & (b <= -1e28)
+    return np.where(dead | ~live[None, :], -np.inf, s)
+
+
+GROUP_CASES = [  # (kind, m, ksub, packed4, exact_lut, k)
+    ("integer", 4, 16, False, True, 10),
+    ("integer", 4, 16, True, False, 12),
+    ("integer", 5, 16, True, True, 40),
+    ("integer", 4, 32, False, False, 300),
+    ("normal", 4, 16, True, True, 10),
+]
+
+
+@pytest.mark.parametrize("case", GROUP_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("metric", METRICS)
+def test_group_bias_matches_pallas_interpret(metric, case):
+    """The plain version's bucket bias against the JAX kernel's
+    ``group_bias`` + ``group_ids`` (interpret mode): unprobed buckets never
+    surface, tombstoned rows (id −1, mask 0) never do, live rows of id −1
+    take no bias, tied buckets tie, and a bf16 LUT rounds the bias."""
+    kind, m, ksub, packed4, exact_lut, k = case
+    books, codes, recon, rnorms, q, mask, gids, bias = _group_inputs(kind, m, ksub)
+    if metric == DistanceMetric.COSINE:
+        q = unit_rows(q)
+    stored = pack_codes4(codes) if packed4 else codes
+    before = fused_adc_topk.launches, fused_adc_topk.group_launches
+    s, i = fused_adc_topk(
+        torch.from_numpy(q), torch.from_numpy(stored), torch.from_numpy(books),
+        torch.from_numpy(rnorms), N, k, metric, torch.from_numpy(mask),
+        exact_lut=exact_lut, packed4=packed4, group_bias=torch.from_numpy(bias),
+        group_ids=torch.from_numpy(gids))
+    assert (fused_adc_topk.launches, fused_adc_topk.group_launches) == before
+    want = jax_fused_adc_topk(q, stored, books, rnorms, np.int32(N), k, metric,
+                              valid_mask=mask, exact_lut=exact_lut, block_rows=128,
+                              interpret=True, packed4=packed4, group_bias=bias,
+                              group_ids=gids)
+    live = mask != 0
+    s64 = _group_scores64(q, recon, metric, gids, bias, live)
+    probed_rows = np.isfinite(s64)
+    got_i = i.numpy()
+    assert probed_rows[np.arange(NQ)[:, None], np.maximum(got_i, 0)][got_i >= 0].all()
+    exact = kind == "integer" and metric != DistanceMetric.COSINE
+    tol = None
+    if not exact:
+        finite_b = np.where(bias > -1e28, np.abs(bias), 0).max(1)
+        tol = _band(q, books, recon, metric) + 4 * m * 2.0**-24 * finite_b * (
+            2 if metric == DistanceMetric.L2 else 1) / (
+            np.sqrt(max(rnorms.min(), 1e-30)) if metric == DistanceMetric.COSINE else 1)
+        if not exact_lut:  # bf16 rounding of LUT and bias: compare in the band
+            tol = tol + 2.0**-8 * np.abs(s64[np.isfinite(s64)]).max()
+    assert_topk_match((s.numpy(), got_i), tuple(np.asarray(a) for a in want),
+                      exact=exact, tol=tol, scores64=s64)
+
+
+def test_group_bias_is_rounded_with_a_bf16_lut():
+    """On integer data the bf16 variant's scores are the f32 variant's with
+    each bias rounded to bf16 (8 significant bits, to nearest even): 2049 →
+    2048, 2060 → 2064."""
+    books, codes, recon, rnorms, q, mask, gids, _ = _group_inputs("integer", 4, 16)
+    books = np.zeros_like(books)  # LUT of zeros: the IP score is the bias
+    bias = np.full((NQ, G), -1e30, np.float32)
+    bias[:, 1], bias[:, 2] = 2049.0, 2060.0
+    out = {}
+    for exact_lut in (True, False):
+        s, i = fused_adc_topk(
+            torch.from_numpy(q), torch.from_numpy(codes), torch.from_numpy(books),
+            torch.zeros(N), N, N, DistanceMetric.INNER_PRODUCT,
+            torch.from_numpy(mask), exact_lut=exact_lut,
+            group_bias=torch.from_numpy(bias), group_ids=torch.from_numpy(gids))
+        want = jax_fused_adc_topk(q, codes, books, np.zeros(N, np.float32),
+                                  np.int32(N), N, DistanceMetric.INNER_PRODUCT,
+                                  valid_mask=mask, exact_lut=exact_lut,
+                                  block_rows=128, interpret=True,
+                                  group_bias=bias, group_ids=gids)
+        assert_topk_match((s.numpy(), i.numpy()), tuple(np.asarray(a) for a in want),
+                          exact=True)
+        out[exact_lut] = s.numpy()
+    # (the live rows in no bucket score 0: no bias)
+    assert set(np.unique(out[True][np.isfinite(out[True])])) == {0.0, 2049.0, 2060.0}
+    assert set(np.unique(out[False][np.isfinite(out[False])])) == {0.0, 2048.0, 2064.0}
+
+
+@pytest.mark.parametrize("name", ["bias_without_ids", "bias_rows", "bias_empty",
+                                  "ids_length"])
+def test_group_shape_checks_raise(name):
+    q, codes, books = torch.zeros((2, 8)), torch.zeros((10, 4), dtype=torch.uint8), \
+        torch.zeros((4, 16, 2))
+    bias, ids = torch.zeros((2, 3)), torch.zeros(10, dtype=torch.int32)
+    if name == "bias_without_ids":
+        ids = None
+    elif name == "bias_rows":
+        bias = torch.zeros((3, 3))
+    elif name == "bias_empty":
+        bias = torch.zeros((2, 0))
+    elif name == "ids_length":
+        ids = torch.zeros(9, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fused_adc_topk(q, codes, books, torch.zeros(10), 10, 3, DistanceMetric.L2,
+                       group_bias=bias, group_ids=ids)
+
+
+def test_group_kernel_checks_and_shared_memory():
+    """The CUDA-side checks of the bucket variant (dtypes), and its shared
+    memory: one bit per (query, bucket) and their union."""
+    q, codes, books = torch.zeros((2, 8)), torch.zeros((10, 4), dtype=torch.uint8), \
+        torch.zeros((4, 16, 2))
+    with pytest.raises(ValueError, match="int32"):
+        adc_kernel._check_cuda(q, codes, books, torch.zeros(10), 3, None, True,
+                               torch.zeros((2, 3)), torch.zeros(10, dtype=torch.int64))
+    adc_kernel._check_cuda(q, codes, books, torch.zeros(10), 3, None, True,
+                           torch.zeros((2, 3)), torch.zeros(10, dtype=torch.int32))
+    assert adc_kernel._group_words(1) == 1 and adc_kernel._group_words(1500) == 47
+    base = adc_kernel._shared_bytes(8, 512, 400, True)
+    assert adc_kernel._shared_bytes(8, 512, 400, True, gw=47) == base + 9 * 47 * 4
+    # sift1m-ivfpq4's shapes keep the tiles the plain scan has
+    assert adc_kernel._fitting_tiles(512, 400, True, gw=64) == [1, 2, 4, 8, 16]

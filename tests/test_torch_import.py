@@ -1,5 +1,5 @@
 """The port stands alone: ``import metrovector_tpu_torch`` and a dense, a
-PQ and a sparse search on its CPU path load no module of the JAX package
+PQ, an IVF-PQ (both modes) and a sparse search on its CPU path load no module of the JAX package
 (``metrovector_tpu`` or ``metrovector_tpu.*``), no JAX, no ``ml_dtypes`` and
 no Triton. Checked in a fresh interpreter, because the pytest process
 imported JAX at start; once as installed and once with ``ml_dtypes`` made
@@ -43,11 +43,16 @@ idx = mvt.PQIndex.from_space(reader.vector_space("v"), m=2, ksub=4, iters=2,
 pq_top = idx.search(np.ones((1, 8), np.float32), k=3, rerank=4).indices
 sp_top = mvt.SparseSearchEngine(reader.vector_space("s"), device="cpu").search(
     np.ones((1, 8), np.float32), k=3).indices
+ivfpq = mvt.IVFPQIndex.from_space(reader.vector_space("v"), num_clusters=2, m=2,
+                                  ksub=4, iters=2, device="cpu")
+ivfpq_top = [ivfpq.search(np.ones((1, 8), np.float32), k=3, nprobe=2, rerank=8,
+                          mode=mode).indices.tolist() for mode in ("scan", "probe")]
 print(json.dumps({{
     "loaded": sorted(m for m in sys.modules if sys.modules[m] is not None),
     "top": res.indices.tolist(),
     "pq_top": pq_top.tolist(),
     "sp_top": sp_top.tolist(),
+    "ivfpq_top": ivfpq_top,
 }}))
 """
 
@@ -69,6 +74,7 @@ def test_port_imports_no_jax(block_ml_dtypes):
     assert got["top"] == [[0, 1, 2]]
     assert got["pq_top"] == [[0, 1, 2]]
     assert got["sp_top"] == [[7, 6, 5]]
+    assert got["ivfpq_top"] == [[[0, 1, 2]], [[0, 1, 2]]]
     loaded = set(got["loaded"])
     jax_package = {m for m in loaded
                    if m == "metrovector_tpu" or m.startswith("metrovector_tpu.")}
@@ -86,6 +92,7 @@ def test_port_sources_import_no_jax():
     sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     scanned = {str(p.relative_to(REPO)) for p in sources}
     assert {"metrovector_tpu_torch/index/pq.py", "metrovector_tpu_torch/sparse.py",
+            "metrovector_tpu_torch/index/ivf.py", "metrovector_tpu_torch/index/ivfpq.py",
             "metrovector_tpu_torch/ops/sparse_kernel.py",
             "metrovector_tpu_torch/format/constants.py", "chip_smoke.py"} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources
