@@ -76,23 +76,31 @@ Phases, one line each; any failure exits non-zero:
    ``ell_dots`` against ``torch.sparse.mm``, ``search`` end to end, the
    dense-query worst case (batch 32, every query fully dense), and the COO
    formulation once;
-12. the IVF-PQ path at full width: ``fused_adc_topk``'s bucket-bias variant
-   (``group_bias`` + ``group_ids``) against its plain version on 200,003
-   rows (twins across splits, tombstoned and unbucketed rows, a filter,
-   tied and unprobed buckets, bf16-rounded biases, 1,500 and 40,000
-   buckets, k up to 1100), identical; a 20k-row ``IVFIndex`` whose full probe is exact
-   search; then ``benchmarks/suite.py``'s ``sift1m-ivfpq`` (8-bit m=16) and
-   ``sift1m-ivfpq4`` (4-bit m=32, packed): the 1M x 128 clustered corpus of
+12. the IVF-PQ path at full width: ``fused_adc_topk``'s bucket-bias form
+   (``group_bias`` + ``group_ids``, grouped on the card and run by the
+   bucket kernel) against its plain version on 200,003 rows (twins across
+   splits, tombstoned and unbucketed rows, a filter, tied and unprobed
+   buckets, bf16-rounded biases, 1,500 and 40,000 buckets, k up to 1100),
+   and the bucket kernel over a bucket layout (``buckets=``: shuffled
+   buckets, tombstoned slots, twins in other buckets, a fetch above the
+   probed rows, k up to 3000), identical; a 20k-row ``IVFIndex`` whose
+   full probe is exact search; then ``benchmarks/suite.py``'s
+   ``sift1m-ivfpq`` (8-bit m=16) and ``sift1m-ivfpq4`` (4-bit m=32,
+   packed): the 1M x 128 clustered corpus of
    seed 7, ``train_ivfpq`` on the card (C = 1024, 4 iterations),
    ``Builder.set_ivf_index`` + ``set_pq_index(residual=True)`` ->
    ``Reader.open`` -> ``IVFPQIndex.from_space(device="cuda")`` ->
    ``search(k=10, nprobe=16)`` in both modes at batches 8, 32 and 256 and
    rerank 100 and 400 (one variant launch a scan, none a probe, one rescore
    a search), recall@10 against a float64 oracle on the card (>= 0.99 at
-   rerank 400), the variant at the main path's inputs against its plain
-   version and timed with it at batch 256, fetch 400, its bound from the
-   probed (query, row) pairs of this run, and ``search()`` p50 of both
-   modes at batches 8 to 256 (the crossover of the modes).
+   rerank 400), at batches 1, 8 and 256 the bucket kernel at the main
+   path's inputs against its plain version (fetch 400), ``_masked_scan``
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   synchronization), the kernel's device time beside its plain version's
+   and both bounds (every row's bytes; the probed work of this run), the
+   scan of every row and the call with no bucket probed at 256, the scan's
+   ``search()`` step by step, and ``search()`` p50 of both modes at batches
+   1 to 256 (the crossover of the modes).
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
@@ -1910,6 +1918,7 @@ IVF_CLUSTERS, IVF_NPROBE, IVF_ITERS = 1024, 16, 4
 IVF_RERANKS = (100, 400)
 IVF_BATCHES = (8, 32, 256)
 IVF_CROSSOVER_BATCHES = (1, 4, 8, 16, 32, 64, 128, 256)
+IVF_KERNEL_BATCHES = (1, 8, 256)
 
 
 def _group_bias_case(rng, nq, groups, kind):
@@ -2001,6 +2010,108 @@ def _group_cases(torch, dev, rng) -> int:
     return cases, max_err
 
 
+def _host_buckets(rng, ids, groups, bsize, payload, norms, dead):
+    """The rows of each group laid out as an IVF index lays its buckets out
+    ([G, B] slots, each bucket's rows first in a shuffled order, −1
+    padding past its fill, tombstoned rows' slots −1 inside it): (codes,
+    ids, norms, fill) on the host."""
+    codes = np.zeros((groups, bsize) + payload.shape[1:], payload.dtype)
+    bid = np.full((groups, bsize), -1, np.int32)
+    bn = np.zeros((groups, bsize), np.float32)
+    fill = np.zeros(groups, np.int32)
+    order = np.argsort(ids, kind="stable")
+    starts = np.searchsorted(ids[order], np.arange(groups + 1))
+    for g in range(groups):
+        rows = order[starts[g]:starts[g + 1]].copy()
+        rng.shuffle(rows)
+        codes[g, :len(rows)] = payload[rows]
+        bid[g, :len(rows)] = np.where(dead[rows], -1, rows)
+        bn[g, :len(rows)] = norms[rows]
+        fill[g] = len(rows)
+    return codes, bid, bn, fill
+
+
+def _bucket_cases(torch, dev, rng) -> tuple[int, float]:
+    """The bucket kernel over a bucket layout (``fused_adc_topk(...,
+    buckets=)``, IVF-PQ's scan) against the plain version over the same
+    rows in row order, on the card: 200,003 rows in 1,500 buckets of up to
+    260 slots, shuffled inside each bucket, with tombstoned slots (id −1
+    inside the fill) and duplicate rows planted in other buckets (the tie
+    goes to the lower row); 4-bit m=32 and 8-bit m=16 codes, f32 and bf16
+    LUTs, the three metrics; 16 probed buckets a query with a tie at the
+    cut, and one probed bucket with a fetch above its rows; batches 1, 8,
+    33 and 256, k in {10, 400, 1100, 3000} (lists in shared and in device
+    memory); the tombstones' mask, or times a filter, and num_valid inside
+    the rows: identical, twice on integer data. Returns (cases, largest
+    |score difference|)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        fused_adc_topk, fused_adc_topk_reference,
+    )
+
+    n, groups, bsize, cases, max_err = SPLIT_N, 1500, 260, 0, 0.0
+    metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT, DistanceMetric.COSINE)
+    for kind in ("integer", "normal"):
+        for packed, m, ksub in ((True, 32, 16), (False, 16, 256)):
+            books = (rng.integers(0, 8, (m, ksub, 4)) if kind == "integer"
+                     else rng.standard_normal((m, ksub, 4))).astype(np.float32)
+            codes = rng.integers(0, ksub, (n, m)).astype(np.uint8)
+            gids = rng.integers(0, groups, n).astype(np.int32)
+            codes[n // 2:n // 2 + 1000] = codes[:1000]  # twins in other buckets
+            gids[n // 2:n // 2 + 1000] = (gids[:1000] + 7) % groups
+            recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], 1)
+            rn = (recon.astype(np.float64) ** 2).sum(1).astype(np.float32)
+            dead = rng.random(n) < 0.05
+            mask = (~dead).astype(np.float32)
+            filt = mask * (rng.random(n) < 0.5)
+            stored = pack_codes4(codes) if packed else codes
+            bl = _host_buckets(rng, gids, groups, bsize, stored, rn, dead)
+            layout = tuple(torch.from_numpy(a).to(dev) for a in bl)
+            codes_d, books_d, rn_d, gids_d = (torch.from_numpy(a).to(dev)
+                                              for a in (stored, books, rn, gids))
+            for exact_lut in (True, False):
+                for nq, k, probes in ((1, 10, 16), (8, 400, 16), (33, 400, 16),
+                                      (256, 400, 16), (33, 1100, 16), (8, 3000, 16),
+                                      (1, 400, 1)):
+                    metric = metrics[cases % 3]
+                    q = (rng.integers(0, 8, (nq, m * 4)) if kind == "integer"
+                         else rng.standard_normal((nq, m * 4))).astype(np.float32)
+                    if metric == DistanceMetric.COSINE:
+                        q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+                    bias = np.full((nq, groups), -1e30, np.float32)
+                    for r in range(nq):
+                        probed = rng.choice(groups, probes, replace=False)
+                        vals = (rng.integers(-3000, 3000, probes) if kind == "integer"
+                                else rng.standard_normal(probes) * 1000).astype(np.float32)
+                        vals[1:2] = vals[0]  # tied buckets at the cut
+                        bias[r, probed] = vals
+                    num_valid = n - n // 3 if cases % 2 else n
+                    vm = torch.from_numpy(filt if (cases // 2) % 2 else mask).to(dev)
+                    args = (torch.from_numpy(q).to(dev), codes_d, books_d, rn_d, num_valid,
+                            k, metric, vm, exact_lut, packed,
+                            torch.from_numpy(bias).to(dev), gids_d)
+                    ref = fused_adc_topk_reference(*args)
+
+                    def run(*a):
+                        return fused_adc_topk(*a, buckets=layout)
+
+                    got = run(*args)
+                    what = (f"fused_adc_topk[buckets] {kind} m={m} ksub={ksub} "
+                            f"{'f32' if exact_lut else 'bf16'} LUT Q={nq} k={k} "
+                            f"{probes} probed {metric.name} num_valid={num_valid}")
+                    max_err = max(max_err, _max_diff(torch, got, ref))
+                    if kind == "integer":
+                        _twice_identical(torch, run, args, ref, what)
+                    else:
+                        _identical(torch, got, ref, what)
+                    if probes == 1 and not bool((got[1][:, -1] == -1).all()):
+                        raise AssertionError(f"{what}: a fetch above the probed rows "
+                                             "filled every slot")
+                    cases += 1
+    return cases, max_err
+
+
 def _max_diff(torch, got, ref) -> float:
     """The largest |score difference| of two results over slots both fill."""
     both = torch.isfinite(got[0]) & torch.isfinite(ref[0])
@@ -2028,6 +2139,89 @@ def _ivf_exact_on_card(torch, dev) -> int:
     return idx.num_buckets
 
 
+def _ivfpq_host_split(torch, dev, idx, host) -> dict:
+    """IVFPQIndex.search's scan steps at rerank 400 one at a time (its code,
+    unchanged, repeated here with a synchronize after each): the query
+    upload, coarse_scores, the sort that finds the nprobe-th score, the
+    bias, adc_lut, K2 (its wrapper computes its own LUT), K3 with the b0
+    shift, the readbacks and the finalize, each a host-clock median in ms
+    over the batches; beside them the device ms of adc_lut, K2 and K3
+    (device_ms) and the host µs of one K2 and one K3 wrapper call (the
+    enqueue alone)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.engine import ids_for_rows
+    from metrovector_tpu_torch.index.ivf import coarse_scores
+    from metrovector_tpu_torch.ops.adc_kernel import adc_lut, fused_adc_topk
+    from metrovector_tpu_torch.ops.distances import distances_np
+    from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
+    from metrovector_tpu_torch.utils.timing import device_ms
+
+    L2, fetch = DistanceMetric.L2, RERANK
+    steps = {k: [] for k in ("upload", "coarse", "sort", "bias", "lut", "k2", "k3",
+                             "readback", "finalize")}
+    bk = (idx.buckets, idx.bucket_ids, idx.bucket_norms, idx.bucket_fill)
+
+    def k2(p):
+        return fused_adc_topk(p[0], idx.codes_row, idx._books, idx.rnorms_row,
+                              idx.num_vectors, fetch, L2, valid_mask=idx.row_valid,
+                              packed4=idx.packed4, group_bias=p[1],
+                              group_ids=idx.row_bucket, buckets=bk)
+
+    def k3(p):
+        return rescore_candidates(p[0], idx.db, idx.db_norms, p[1], K_PQ, L2,
+                                  tie="position")
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for qh in host:
+        t = [sync()]
+        q = np.ascontiguousarray(qh, np.float32)
+        qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
+        qdev = torch.from_numpy(q).to(dev)
+        t.append(sync())
+        cdots, cscores = coarse_scores(qdev, idx.probe_centroids, L2)
+        t.append(sync())
+        kth = torch.sort(cscores, dim=1, descending=True).values[:, IVF_NPROBE - 1:IVF_NPROBE]
+        t.append(sync())
+        sel = cscores >= kth
+        b0 = torch.where(sel, cdots, float("-inf")).amax(dim=1, keepdim=True)
+        bias = torch.where(sel, cdots - b0, -1e30)
+        t.append(sync())
+        adc_lut(qdev, idx._books, False)
+        t.append(sync())
+        s, i = k2((qdev, bias))
+        t.append(sync())
+        s = s + 2.0 * b0
+        s, i = k3((qdev, i))
+        t.append(sync())
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        t.append(time.perf_counter())
+        dist = np.where(i >= 0, distances_np(s, L2, qnorms), np.inf)
+        ids_for_rows(idx.host_ids, i)
+        t.append(time.perf_counter())
+        for key, a, b in zip(steps, t, t[1:]):
+            steps[key].append((b - a) * 1e3)
+    out = {key: float(np.median(v)) for key, v in steps.items()}
+    qs = [torch.from_numpy(np.ascontiguousarray(h, np.float32)).to(dev) for h in host]
+    pins = [(q, idx._scan_bias(q, IVF_NPROBE)[0]) for q in qs]
+    lut = lambda q: adc_lut(q, idx._books, False)  # noqa: E731
+    lut(qs[0])
+    out["lut_device"] = device_ms(lut, qs, dev)
+    out["k2_device"] = device_ms(k2, pins, dev)
+    cands = [(q, k2(p)[1]) for q, p in zip(qs, pins)]
+    out["k3_device"] = device_ms(k3, cands, dev)
+    for key, fn, inputs in (("k2_host_us", k2, pins), ("k3_host_us", k3, cands)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in inputs:
+            fn(x)
+        out[key] = (time.perf_counter() - t0) / len(inputs) * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def phase_ivfpq_path(torch, dev, card):
     """The IVF-PQ path end to end at full width (module docstring, phase
     12). Returns (the variant's max |diff| against plain, its launches on
@@ -2035,19 +2229,22 @@ def phase_ivfpq_path(torch, dev, card):
     from metrovector_tpu_torch import Builder, DistanceMetric, Reader
     from metrovector_tpu_torch.index.ivfpq import IVFPQIndex, train_ivfpq
     from metrovector_tpu_torch.index.pq import pack_codes4
-    from metrovector_tpu_torch.ops.adc_kernel import (
-        _group_words, _occupancy, _query_tile, fused_adc_topk,
-        fused_adc_topk_reference,
-    )
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk, fused_adc_topk_reference
     from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk
-    from metrovector_tpu_torch.utils.timing import cuda_ms, sync_time
+    from metrovector_tpu_torch.utils.timing import cuda_ms, device_ms, sync_time
 
     L2 = DistanceMetric.L2
     t0 = time.perf_counter()
     cases, max_err = _group_cases(torch, dev, np.random.default_rng(SEED + 11))
-    say(f"  fused_adc_topk[group_bias] vs plain: {cases} cases identical, max "
-        f"|score diff| {max_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+    say(f"  fused_adc_topk[group_bias] in row order (grouped on the card, then the "
+        f"bucket kernel) vs plain: {cases} cases identical, max |score diff| "
+        f"{max_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    bcases, berr = _bucket_cases(torch, dev, np.random.default_rng(SEED + 13))
+    max_err = max(max_err, berr)
+    say(f"  fused_adc_topk[group_bias] over a bucket layout vs plain: {bcases} cases "
+        f"identical, max |score diff| {berr:.3g} ({time.perf_counter() - t0:.1f} s)")
     buckets_small = _ivf_exact_on_card(torch, dev)
     say(f"  IVFIndex 20,000 x 128, nprobe = num_buckets = {buckets_small}: "
         "recall@10 1.0000, exact search")
@@ -2126,76 +2323,99 @@ def phase_ivfpq_path(torch, dev, card):
                 f"batch {b} {md} rerank {r} {recalls[(name, b, md, r)]:.4f}"
                 for b in IVF_BATCHES for md in ("scan", "probe") for r in IVF_RERANKS))
 
-            # The variant at the main path's inputs, held against its plain
-            # version, and timed at batch 256, fetch 400 (the search's bf16 LUT).
-            qd = torch.from_numpy(queries[256]).to(dev)
-            bias, _ = idx._scan_bias(qd, IVF_NPROBE)
-            gargs = (idx.codes_row, idx._books, idx.rnorms_row, idx.num_vectors,
-                     400, L2, idx.row_valid, False, packed, bias, idx.row_bucket)
-            got = fused_adc_topk(qd, *gargs)
-            ref = fused_adc_topk_reference(qd, *gargs)
-            _identical(torch, got, ref, f"{name}: the variant at the main path's inputs")
-            max_err = max(max_err, _max_diff(torch, got, ref))
+            # The bucket kernel at the main path's inputs (batches 1, 8 and
+            # 256, fetch 400, the search's bf16 LUT) against its plain version
+            # over the rows in row order; the scan itself with no host
+            # synchronization; the kernel's time beside both bounds.
+            bk = (idx.buckets, idx.bucket_ids, idx.bucket_norms, idx.bucket_fill)
             fill_live = torch.bincount(idx.row_bucket[idx.row_bucket >= 0].long(),
                                        minlength=idx.num_buckets).double()
-            pairs = int(((bias > -1e28).double() @ fill_live).sum())
-            iters = 20
-            qs = [torch.from_numpy(_pq_queries(rng, x, 256)).to(dev) for _ in range(iters)]
-            biases = [idx._scan_bias(q, IVF_NPROBE)[0] for q in qs]
-            pairs_in = list(zip(qs, biases))
-
-            def k2(p):
-                return fused_adc_topk(p[0], *gargs[:-2], p[1], idx.row_bucket)
-
-            def k2_plain(p):
-                return fused_adc_topk_reference(p[0], *gargs[:-2], p[1], idx.row_bucket)
-
-            def k2_scan(p):  # the plain scan of every live row, same LUT type
-                return fused_adc_topk(p[0], *gargs[:-2])
-
-            dead = torch.full_like(biases[0], -1e30)
-
-            def k2_dead(p):  # no bucket probed: the pass over the rows alone
-                return fused_adc_topk(p[0], *gargs[:-2], dead, idx.row_bucket)
-
-            for fn in (k2, k2_plain, k2_scan, k2_dead):
-                fn(pairs_in[0])
-            p1 = cuda_ms(k2_plain, pairs_in[:3], dev)
-            a1 = cuda_ms(k2, pairs_in, dev)
-            a2 = cuda_ms(k2, pairs_in, dev)
-            p2 = cuda_ms(k2_plain, pairs_in[:3], dev)
-            t_scan = cuda_ms(k2_scan, pairs_in, dev)
-            t_dead = cuda_ms(k2_dead, pairs_in, dev)
-            # Rows a query tile scores (some query of the tile probes their
-            # bucket) and warps of 32 rows with at least one of them: a warp
-            # runs the lookups if any of its rows is live.
-            occ = dict(_occupancy(dev.index, 1, int(packed), m, ksub, 400, True,
-                                  _group_words(idx.num_buckets)))
-            qt = _query_tile(256, occ)
-            tiles = (bias > -1e28).view(-1, qt, idx.num_buckets).any(1)
-            rb = idx.row_bucket.long()
-            live = tiles[:, rb.clamp(min=0)] & (rb >= 0)[None, :]
-            n32 = live.shape[1] // 32 * 32
-            row_share = float(live.float().mean())
-            warp_share = float(live[:, :n32].reshape(live.shape[0], -1, 32).any(2)
-                               .float().mean())
-            del live
             cols = idx.codes_row.shape[1]
-            nbytes = (idx.num_vectors * (cols + 12) + 256 * m * ksub * 2
-                      + 256 * idx.num_buckets * 4 + 256 * 400 * 8)
-            k2b = bound(2 * m * pairs, nbytes)
-            row = {"ms": (a1 + a2) / 2, "plain_ms": (p1 + p2) / 2, "bound": k2b,
-                   "pairs": pairs, "buckets": idx.num_buckets}
-            say(f"  timing {name} fused_adc_topk[group_bias] batch=256 fetch=400 bf16 LUT: "
-                f"{row['ms']:.4f} ms ({a1:.4f}, {a2:.4f}; plain {row['plain_ms']:.4f}) | "
-                f"{pairs} probed (query, row) pairs, {pairs / (256 * idx.num_vectors):.2%} "
-                f"of all | bound {k2b[0]:.4f} ms ({k2b[1]}), share {k2b[0] / row['ms']:.1%} | "
-                f"the same call with no bucket probed {t_dead:.4f} ms; the scan of every "
-                f"row without the bias {t_scan:.4f} ms | query tile {qt}: a tile scores "
-                f"{row_share:.1%} of the rows, and {warp_share:.1%} of the warps of 32 "
-                f"rows hold one of them | {card}")
-            if cell is None or packed:
-                cell = row  # the kernels line reports sift1m-ivfpq4
+            for bsz in IVF_KERNEL_BATCHES:
+                qd = torch.from_numpy(_pq_queries(rng, x, bsz)).to(dev)
+                bias, _ = idx._scan_bias(qd, IVF_NPROBE)
+                gargs = (idx.codes_row, idx._books, idx.rnorms_row, idx.num_vectors,
+                         400, L2, idx.row_valid, False, packed)
+                got = fused_adc_topk(qd, *gargs, bias, idx.row_bucket, buckets=bk)
+                ref = fused_adc_topk_reference(qd, *gargs, bias, idx.row_bucket)
+                _identical(torch, got, ref, f"{name} batch {bsz}: the bucket kernel at "
+                           "the main path's inputs")
+                max_err = max(max_err, _max_diff(torch, got, ref))
+                idx._masked_scan(qd, 400, IVF_NPROBE)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")  # a host sync raises
+                try:
+                    _, i_scan = idx._masked_scan(qd, 400, IVF_NPROBE)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                if not torch.equal(i_scan, ref[1]):
+                    raise AssertionError(f"{name} batch {bsz}: _masked_scan's indices "
+                                         "differ from the plain version's")
+                # 20 calls: their host time (under 0.7 ms each) stays inside
+                # device_ms's sleep of about 25 ms, so the device never waits.
+                qs = [torch.from_numpy(_pq_queries(rng, x, bsz)).to(dev)
+                      for _ in range(20)]
+                pins = [(q, idx._scan_bias(q, IVF_NPROBE)[0]) for q in qs]
+
+                def k2(p):
+                    return fused_adc_topk(p[0], *gargs, p[1], idx.row_bucket, buckets=bk)
+
+                def k2_plain(p):
+                    return fused_adc_topk_reference(p[0], *gargs, p[1], idx.row_bucket)
+
+                for fn in (k2, k2_plain):
+                    fn(pins[0])
+                p1 = cuda_ms(k2_plain, pins[:3], dev)
+                a1 = device_ms(k2, pins, dev)
+                a2 = device_ms(k2, pins, dev)
+                p2 = cuda_ms(k2_plain, pins[:3], dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for p in pins:
+                    k2(p)
+                host_us = (time.perf_counter() - t0) / len(pins) * 1e6
+                torch.cuda.synchronize()
+                # Bounds from this run's bias: every row's bytes, and
+                # the probed work: 2·m adds per probed (query, row) pair, the
+                # codes, id, norm and mask of each row of the buckets some
+                # query probes, once; both with the LUT, the bias, the outputs.
+                probed = bias > -1e28
+                pairs = int((probed.double() @ fill_live).sum())
+                union_rows = int(fill_live[probed.any(0)].sum())
+                tail = bsz * m * ksub * 2 + bsz * idx.num_buckets * 4 + bsz * 400 * 8
+                b_rows = bound(2 * m * pairs, idx.num_vectors * (cols + 12) + tail)
+                b_probed = bound(2 * m * pairs, union_rows * (cols + 12) + tail)
+                row = {"ms": (a1 + a2) / 2, "plain_ms": (p1 + p2) / 2, "bound": b_probed,
+                       "bound_rows": b_rows, "pairs": pairs, "host_us": host_us}
+                say(f"  timing {name} bucket kernel batch={bsz} fetch=400 bf16 LUT: "
+                    f"{row['ms']:.4f} ms on the device ({a1:.4f}, {a2:.4f}; wrapper "
+                    f"{host_us:.1f} us on the host; plain {row['plain_ms']:.4f}) | "
+                    f"{pairs} probed (query, row) pairs, {union_rows} rows in the "
+                    f"probed buckets' union | bound of the probed work "
+                    f"{b_probed[0]:.4f} ms ({b_probed[1]}), share "
+                    f"{b_probed[0] / row['ms']:.1%}; bound of every row {b_rows[0]:.4f} "
+                    f"ms ({b_rows[1]}), share {b_rows[0] / row['ms']:.1%} | {card}")
+                if bsz == 256 and (cell is None or packed):
+                    cell = row  # the kernels line reports sift1m-ivfpq4
+                if bsz == 256:
+                    dead = torch.full_like(bias, -1e30)
+                    t_scan = cuda_ms(lambda p: fused_adc_topk(p[0], *gargs), pins, dev)
+                    t_dead = device_ms(lambda p: fused_adc_topk(
+                        p[0], *gargs, dead, idx.row_bucket, buckets=bk), pins, dev)
+                    say(f"  {name} batch 256: the scan of every row without the bias "
+                        f"{t_scan:.4f} ms; the bucket kernel with no bucket probed "
+                        f"{t_dead:.4f} ms | {card}")
+            for bsz in IVF_KERNEL_BATCHES:
+                host = [_pq_queries(rng, x, bsz) for _ in range(15)]
+                split = _ivfpq_host_split(torch, dev, idx, host)
+                say(f"  search() step by step, {name} scan batch={bsz} rerank=400 (host "
+                    "ms, synchronized after each step; medians of 15): "
+                    + ", ".join(f"{k_} {v:.4f}" for k_, v in split.items()
+                                if not k_.endswith(("_us", "_device")))
+                    + f"; device ms: adc_lut {split['lut_device']:.4f}, K2 "
+                    f"{split['k2_device']:.4f}, K3 {split['k3_device']:.4f}; wrapper "
+                    f"host us: K2 {split['k2_host_us']:.1f}, K3 {split['k3_host_us']:.1f} "
+                    f"| {card}")
 
             # search() p50 and QPS in both modes: the batches of the issue
             # at both reranks, and more batches at rerank 400 for the
@@ -2405,12 +2625,13 @@ def main() -> int:
          "bound_ms": post_bound[0], "bound_by": post_bound[1],
          "library_ms": None},
         {"name": "fused_adc_topk[group_bias]", "route": "cuda",
-         "source": CSRC + "adc_group_kernel.cu",
+         "source": CSRC + "adc_bucket_kernel.cu",
          "replaces": "metrovector_tpu/ops/adc_kernel.py:248",
          "launches": group_launches, "max_abs_err": group_err,
          "ms": ivf_cell["ms"], "plain_ms": ivf_cell["plain_ms"],
          "bound_ms": ivf_cell["bound"][0], "bound_by": ivf_cell["bound"][1],
-         "library_ms": None},
+         "bound_all_rows_ms": ivf_cell["bound_rows"][0],
+         "bound_all_rows_by": ivf_cell["bound_rows"][1], "library_ms": None},
         {"name": "ell_dots", "route": "cuda", "source": CSRC + "sparse_kernel.cu",
          "replaces": "benchmarks/sparse_vmem_proto.py:87",
          "launches": sparse_launches["ell_dots"], "max_abs_err": dots_err,

@@ -11,11 +11,13 @@ product-quantized residuals, the counterpart of
   :attr:`IVFPQIndex.SCAN_CROSSOVER_BATCH`):
 
   - ``"scan"`` (:meth:`IVFPQIndex._masked_scan`): one launch of the ADC
-    kernel over the codes in original row order with the bucket bias
-    (``group_bias`` + ``group_ids``, :func:`~..ops.adc_kernel.fused_adc_topk`):
-    ``q·c`` on the probed buckets, shifted by the per-query maximum for
-    L2/IP and restored after the kernel, −1e30 elsewhere. Buckets whose
-    coarse score ties the nprobe-th are all probed.
+    kernel with the bucket bias (``group_bias`` + ``group_ids``,
+    :func:`~..ops.adc_kernel.fused_adc_topk`): ``q·c`` on the probed
+    buckets, shifted by the per-query maximum for L2/IP and restored after
+    the kernel, −1e30 elsewhere. Buckets whose coarse score ties the
+    nprobe-th are all probed. On CUDA the kernel reads only the probed
+    buckets, from the bucket layout (``buckets=``); on the CPU the plain
+    version scans the codes in original row order.
   - ``"probe"`` (:func:`_ivfpq_search`): plain PyTorch, as the reference is
     plain XLA: exactly ``nprobe`` buckets (ties to the lowest), their codes
     gathered and looked up in an f32 LUT, merged into a carried top-k in
@@ -162,7 +164,8 @@ class IVFPQIndex:
     ``codes_row`` ``[N, m]``, ``rnorms_row`` ``[N]``, ``row_bucket`` ``[N]``
     int32 (−1: tombstoned) and ``row_valid`` ``[N]`` f32. Host:
     ``centroids`` ``[C, D]``, ``cells`` ``[C']`` bucket → cluster,
-    ``codebooks`` ``[m, ksub, dsub]``, ``fill``, and each row's
+    ``codebooks`` ``[m, ksub, dsub]``, ``fill`` (and on the device
+    ``bucket_fill``, int32, which the scan's kernel reads), and each row's
     ``row_bucket_host`` / ``row_slot_host``. ``db`` / ``db_norms``: the
     original rows, for re-ranking."""
 
@@ -190,10 +193,12 @@ class IVFPQIndex:
     row_bucket_host: np.ndarray | None = None
     row_slot_host: np.ndarray | None = None
     packed4: bool = False
+    bucket_fill: torch.Tensor | None = dataclasses.field(default=None, init=False)
 
     def __post_init__(self):
         self.codebooks = np.array(self.codebooks, np.float32)
         self._books = torch.from_numpy(self.codebooks).to(self.device)
+        self.bucket_fill = _to(self.fill, self.device, np.int32)
 
     @property
     def device(self) -> torch.device:
@@ -408,6 +413,7 @@ class IVFPQIndex:
         self.row_slot_host = s_of_row
         self.cells = cells
         self.fill = np.asarray([len(r) for r in row_lists])
+        self.bucket_fill = _to(self.fill, dev, np.int32)
         self.probe_centroids = _to(self.centroids[cells], dev, np.float32)
         self.buckets = _to(bcodes, dev, np.uint8)
         self.bucket_ids = _to(bids, dev, np.int32)
@@ -509,17 +515,18 @@ class IVFPQIndex:
         if self.metric == DistanceMetric.COSINE:
             b0, shifted = None, cdots
         else:
-            neg_inf = torch.tensor(float("-inf"), device=qdev.device)
-            b0 = torch.where(sel, cdots, neg_inf).amax(dim=1, keepdim=True)
+            b0 = torch.where(sel, cdots, float("-inf")).amax(dim=1, keepdim=True)
             shifted = cdots - b0
-        return torch.where(sel, shifted, torch.tensor(-1e30, device=qdev.device)), b0
+        return torch.where(sel, shifted, -1e30), b0
 
     def _masked_scan(self, qdev, fetch: int, nprobe: int,
                      exact_lut: bool = False, row_filter=None):
-        """The scan mode: ADC over the codes in original row order with the
-        bucket bias of :meth:`_scan_bias`, one launch of the ADC kernel's
-        bucket variant; for L2/IP ``mult·b0`` is added back to the scores
-        (mult 2 for L2, 1 for IP)."""
+        """The scan mode: ADC with the bucket bias of :meth:`_scan_bias`,
+        one launch of the ADC kernel's bucket form, which reads the probed
+        buckets from the bucket layout (the plain version scans the rows in
+        original order; the same answer); for L2/IP ``mult·b0`` is added
+        back to the scores (mult 2 for L2, 1 for IP). No host
+        synchronization."""
         bias, b0 = self._scan_bias(qdev, nprobe)
         eff_valid = self.row_valid
         if row_filter is not None:
@@ -530,6 +537,7 @@ class IVFPQIndex:
             self.num_vectors, min(fetch, n), self.metric, valid_mask=eff_valid,
             exact_lut=exact_lut, packed4=self.packed4, group_bias=bias,
             group_ids=self.row_bucket,
+            buckets=(self.buckets, self.bucket_ids, self.bucket_norms, self.bucket_fill),
         )
         if fetch > n:  # more slots than rows: the rest stay unfilled
             pad = fetch - n
@@ -577,8 +585,8 @@ class IVFPQIndex:
         residual codes (split cells count one bucket each); ``rerank=R``
         rescores the top-R survivors exactly against the original rows.
 
-        ``mode``: ``"probe"`` walks the probed buckets, ``"scan"`` runs the
-        ADC kernel over every row with the bucket bias, ``"auto"`` takes
+        ``mode``: ``"probe"`` walks the probed buckets in plain PyTorch,
+        ``"scan"`` runs the ADC kernel with the bucket bias, ``"auto"`` takes
         the scan from ``SCAN_CROSSOVER_BATCH`` queries. ``exact_lut``: the
         scan's LUT (and bias) in f32, else bf16; the probe mode's LUT is
         f32. ``filter_mask``: ``[num_vectors]`` predicate or a
@@ -588,8 +596,8 @@ class IVFPQIndex:
         tensors' device decides; the kernel has no tile knob).
 
         On a CUDA device the scan is one launch of the ADC kernel's bucket
-        variant, the probe plain PyTorch, and a re-rank one launch of the
-        rescore kernel."""
+        form over the probed buckets, the probe plain PyTorch, and a
+        re-rank one launch of the rescore kernel."""
         q = np.ascontiguousarray(queries, np.float32)
         if q.ndim == 1:
             q = q[None]

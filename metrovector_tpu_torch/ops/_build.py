@@ -114,7 +114,6 @@ def load() -> ctypes.CDLL:
             lib.mvt_adc_topk.argtypes = [
                 p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
                 p, p,                     # norms, mask
-                p, p, i32,                # group bias, group ids, groups
                 i64, i64, i32, i32, i64,  # nq, n, m, ksub, num_valid
                 i32, i32, i32, i32, i64,  # k, metric, qt, splits, rows_per_split
                 i32, i32,                 # list_len (0: lists in shared memory), tree
@@ -124,8 +123,23 @@ def load() -> ctypes.CDLL:
             ]
             lib.mvt_adc_topk.restype = i32
             lib.mvt_adc_topk_occupancy.argtypes = [i32, i32, i32, i32, i32,
-                                                   i32, i32, p]
+                                                   i32, p]
             lib.mvt_adc_topk_occupancy.restype = i32
+            lib.mvt_adc_bucket_topk.argtypes = [
+                p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
+                p, p, p, i64, p, i32,     # norms, ids, starts, stride, counts, nb
+                p, p, i32,                # mask, bias, groups
+                i64, i32, i32, i64,       # nq, m, ksub, num_valid
+                i32, i32, i32, i32,       # k, metric, qt, splits
+                i32, i32,                 # lists in device memory, tree
+                p, p, p,                  # part_s/i, slots
+                p, p, p, p,               # tmp_s/i, out_s/i
+                p,                        # stream
+            ]
+            lib.mvt_adc_bucket_topk.restype = i32
+            lib.mvt_adc_bucket_occupancy.argtypes = [i32, i32, i32, i32, i32,
+                                                     i32, i32, p]
+            lib.mvt_adc_bucket_occupancy.restype = i32
             lib.mvt_gather_rows.argtypes = [p, i64, i64, p, i32, i64, p, p]
             lib.mvt_gather_rows.restype = i32
             lib.mvt_rescore.argtypes = [

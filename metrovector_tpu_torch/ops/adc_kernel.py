@@ -1,6 +1,7 @@
-"""PQ asymmetric-distance scan + top-k: the wrapper of the Hopper kernel
-``csrc/adc_scan.cuh`` (built as ``csrc/adc_kernel.cu`` and, for the IVF
-bucket bias, ``csrc/adc_group_kernel.cu``) and its plain PyTorch version.
+"""PQ asymmetric-distance scan + top-k: the wrapper of the Hopper kernels
+``csrc/adc_scan.cuh`` (built as ``csrc/adc_kernel.cu``) and, for the IVF
+bucket bias, ``csrc/adc_bucket_kernel.cu``, and their plain PyTorch
+version.
 
 Replaces ``metrovector_tpu/ops/adc_kernel.py::fused_adc_topk`` for uint8
 codes ``[N, m]`` and nibble-packed codes ``[N, ⌈m/2⌉]`` (``packed4``), with
@@ -24,7 +25,12 @@ bias is at most −1e28 (an unprobed bucket: the reference passes −1e30), or
 whose dots with the bias are at most −1e28, scores exactly −inf; a
 ``group_ids`` outside ``[0, G)`` (−1: a tombstoned row) adds no bias. The
 first rule is the reference's second one except where a row's LUT sum
-alone exceeds about 1e21 in magnitude. Not ported: the implicit
+alone exceeds about 1e21 in magnitude. On CUDA the bucket bias runs the
+bucket kernel, which scores only the buckets that some query of a tile
+probes: over ``buckets``, the caller's bucket layout of the same rows (the
+IVF-PQ index keeps one), or else over the rows grouped by ``group_ids`` on
+the device (:func:`_group_layout`). :func:`ivf_scan_plan` is the plain form
+of the kernel's schedule. Not ported: the implicit
 bucket-major map ``group_rows`` (no package code or test calls it), the
 int8 LUT (ROADMAP B2), and the Mosaic knobs (``block_rows``,
 ``query_tile``, ``vmem_retry``). Any ``1 ≤ k ≤ N``: above k = 1024 the
@@ -37,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..format.constants import DistanceMetric
@@ -157,12 +164,14 @@ def _shared_bytes(qt: int, mk: int, k: int, exact_lut: bool,
     (rounded up to 16 bytes), then per query the bar, two score rows and
     two sets of candidate words, the buffer and its fill, and the list (none above
     :data:`SMEM_K` or without ``lists_in_smem``: it lives in device
-    memory); with a bucket bias of ``gw`` 32-bit words of bucket bits, each
-    query's probed buckets and their union."""
+    memory); ``gw`` > 0: the bucket kernel's, which adds the two tiles' row
+    ids and, for ``gw`` 32-bit words of buckets, the union's bits and the
+    chunk prefix (``gw + 1`` entries)."""
     lut = -(-qt * mk * (4 if exact_lut else 2) // 16) * 16
     lists = k if lists_in_smem and k <= SMEM_K else 0
-    return lut + qt * (8 + 2 * (4 * _ROW_TILE + _ROW_TILE // 8) + 8 * _BUFFER + 4
-                       + 8 * lists + 4 * gw) + 4 * gw
+    base = lut + qt * (8 + 2 * (4 * _ROW_TILE + _ROW_TILE // 8) + 8 * _BUFFER + 4
+                       + 8 * lists)
+    return base + (2 * 4 * _ROW_TILE + 8 * gw + 4 if gw else 0)
 
 
 def _fitting_tiles(mk: int, k: int, exact_lut: bool,
@@ -184,27 +193,34 @@ def _query_tile(nq: int, occupancy: dict[int, int]) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
-               ksub: int, k: int, lists_in_smem: bool,
-               gw: int = 0) -> tuple[tuple[int, int], ...]:
-    """(tile, scan blocks per SM) for each tile that fits, from the
+               ksub: int, k: int, lists_in_smem: bool, gw: int = 0,
+               tiles: tuple[int, ...] = _QUERY_TILES) -> tuple[tuple[int, int], ...]:
+    """(tile, scan blocks per SM) for each of ``tiles`` that fits, from the
     runtime's occupancy calculator on the current device; ``gw`` > 0: the
-    bucket-bias variant with that many words of bucket bits."""
+    bucket kernel with that many words of bucket bits (built for
+    :data:`BUCKET_QT` alone unless ``-DMVT_K2B_ALL_TILES``)."""
     from ._build import load, raise_for
 
     lib = load()
     smem_k = k if lists_in_smem and k <= SMEM_K else 0
     out = []
     for qt in _fitting_tiles(m * ksub, k, lut_code == 0, lists_in_smem, gw):
+        if qt not in tiles:
+            continue
         per_sm = ctypes.c_int(0)
-        raise_for(lib, lib.mvt_adc_topk_occupancy(
-            lut_code, packed4, qt, m, ksub, smem_k, gw, ctypes.byref(per_sm)),
-            "fused_adc_topk")
+        if gw:
+            err = lib.mvt_adc_bucket_occupancy(lut_code, packed4, qt, m, ksub, smem_k,
+                                               gw, ctypes.byref(per_sm))
+        else:
+            err = lib.mvt_adc_topk_occupancy(lut_code, packed4, qt, m, ksub, smem_k,
+                                             ctypes.byref(per_sm))
+        raise_for(lib, err, "fused_adc_topk")
         out.append((qt, per_sm.value))
     return tuple(out)
 
 
 def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
-                  group_ids=None) -> None:
+                  group_ids=None, buckets=None) -> None:
     if codebooks.dim() != 3:
         raise ValueError("codebooks must be [m, ksub, dsub]")
     m, ksub, dsub = codebooks.shape
@@ -226,6 +242,8 @@ def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
         raise ValueError(f"codes [N, {cols}] vs codebooks m={m}")
     if (group_bias is None) != (group_ids is None):
         raise ValueError("group_bias and group_ids come together")
+    if buckets is not None and group_bias is None:
+        raise ValueError("buckets lay out the rows of a group_bias call")
     if group_bias is not None:
         if (group_bias.dim() != 2 or group_bias.shape[0] != queries.shape[0]
                 or group_bias.shape[1] < 1):
@@ -235,10 +253,22 @@ def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
             )
         if tuple(group_ids.shape) != (codes.shape[0],):
             raise ValueError(f"group_ids must be [N={codes.shape[0]}]")
+    if buckets is not None:
+        bcodes, bids, bnorms, bfill = buckets
+        g = group_bias.shape[1]
+        if bcodes.dim() != 3 or bcodes.shape[0] != g or bcodes.shape[2] != cols:
+            raise ValueError(
+                f"bucket codes must be [G={g}, B, {cols}], got {tuple(bcodes.shape)}"
+            )
+        slots = tuple(bcodes.shape[:2])
+        if tuple(bids.shape) != slots or tuple(bnorms.shape) != slots:
+            raise ValueError(f"bucket ids and norms must be {list(slots)}")
+        if tuple(bfill.shape) != (g,):
+            raise ValueError(f"bucket fill must be [G={g}]")
 
 
 def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
-                exact_lut, group_bias=None, group_ids=None) -> None:
+                exact_lut, group_bias=None, group_ids=None, buckets=None) -> None:
     dev = queries.device
     named = [("codes", codes), ("codebooks", codebooks),
              ("recon_norms", recon_norms)]
@@ -246,6 +276,9 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
         named.append(("valid_mask", valid_mask))
     grouped = [] if group_bias is None else [("group_bias", group_bias),
                                              ("group_ids", group_ids)]
+    if buckets is not None:
+        grouped += list(zip(("bucket codes", "bucket ids", "bucket norms",
+                             "bucket fill"), buckets))
     for name, t in named + grouped:
         if t.device != dev:
             raise ValueError(
@@ -261,7 +294,9 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
     if k < 1 or (n and k > n):  # an empty corpus leaves every slot unfilled
         raise ValueError(f"k={k} is outside the kernel's limit 1 <= k <= N={n}")
     m, ksub, _ = codebooks.shape
-    gw = 0 if group_bias is None else _group_words(group_bias.shape[1])
+    gw = 0  # the bucket kernel's buckets: the layout's, or G and the rows in none
+    if group_bias is not None:
+        gw = _group_words(group_bias.shape[1] + (buckets is None))
     need = _shared_bytes(1, m * ksub, k, exact_lut, lists_in_smem=False, gw=gw)
     if need > SMEM_LIMIT:
         raise ValueError(
@@ -273,9 +308,14 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
     for name, t in named[2:]:
         if t.dtype != torch.float32 or tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be a [{n}] float32 tensor")
-    if grouped:
+    if group_bias is not None:
         if group_bias.dtype != torch.float32 or group_ids.dtype != torch.int32:
             raise ValueError("group_bias must be float32 and group_ids int32")
+    if buckets is not None:
+        want = (torch.uint8, torch.int32, torch.float32, torch.int32)
+        if tuple(t.dtype for t in buckets) != want:
+            raise ValueError("bucket codes, ids, norms and fill must be uint8, "
+                             "int32, float32 and int32")
     for name, t in [("queries", queries)] + named + grouped:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -284,6 +324,62 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
 def _group_words(groups: int) -> int:
     """32-bit words of one query's bucket bits."""
     return -(-groups // 32)
+
+
+# The bucket kernel's chunk (a warp's slots of one bucket), its query tile,
+# the most splits it takes and the splits past which the merge tree folds
+# their lists. On an H100 a query tile of 1, one wave of blocks up to 128
+# splits and the tree past 8 splits were the fastest or within 7 % of it
+# at batches 1 to 256 (PERF.md has the sweep).
+CHUNK = 32
+BUCKET_QT = 1
+BUCKET_MAX_SPLITS = 128
+BUCKET_TREE_SPLITS = 8
+
+
+def bucket_splits(nq: int, qt: int, resident: int, k: int, lists_in_smem: bool) -> int:
+    """Row splits of a bucket-kernel launch: enough blocks to fill the card
+    once (``resident`` blocks at a time), at most
+    :data:`BUCKET_MAX_SPLITS` (a query probes a few percent of the rows:
+    past that a split holds under a tile of them); with lists in device
+    memory, fewer while their scratch passes :data:`.select.SCRATCH_BYTES`.
+    Any count gives the same answer."""
+    fill = max(1, resident // -(-nq // qt))
+    s = max(1, min(fill, BUCKET_MAX_SPLITS))
+    while not lists_in_smem and s > 1 and nq * s * k * 8 > select.SCRATCH_BYTES:
+        s = -(-s // 2)
+    return s
+
+
+def bucket_merge_by_tree(splits: int, k: int, lists_in_smem: bool) -> bool:
+    """Whether the merge tree folds the bucket kernel's split lists: as
+    :func:`.select.merge_by_tree`, and past :data:`BUCKET_TREE_SPLITS`
+    splits at any k, where one block a query folding the lists one by one
+    takes longer than the tree's ``log2 S`` launches."""
+    return select.merge_by_tree(splits, k, lists_in_smem) or splits > BUCKET_TREE_SPLITS
+
+
+def ivf_scan_plan(probed, counts, qt: int, splits: int) -> list[list[list[tuple]]]:
+    """The bucket kernel's schedule in plain Python
+    (``csrc/adc_bucket_kernel.cu``). ``probed [Q, nb]`` bool: query q scans
+    bucket b (the row-order form's last bucket, rows in no bucket, for
+    every query); ``counts [nb]``: each bucket's slots. For each tile of
+    ``qt`` queries and each of its ``splits``, the chunks the split scores,
+    in order, as ``(bucket, first slot, slots)``: the tile's list is every
+    bucket some query of the tile probes, in ascending order, cut into
+    chunks of :data:`CHUNK` slots; split s takes chunks ``[s·c, (s+1)·c)``
+    of it with ``c = ceil(chunks / splits)``, and its warps score them 8 at
+    a time."""
+    probed = np.asarray(probed, bool)
+    counts = np.asarray(counts, np.int64)
+    plan = []
+    for q0 in range(0, probed.shape[0], qt):
+        chunks = [(int(b), j, int(min(CHUNK, counts[b] - j)))
+                  for b in np.flatnonzero(probed[q0:q0 + qt].any(0))
+                  for j in range(0, int(counts[b]), CHUNK)]
+        per = -(-len(chunks) // splits)
+        plan.append([chunks[s * per:(s + 1) * per] for s in range(splits)])
+    return plan
 
 
 def fused_adc_topk(
@@ -299,6 +395,7 @@ def fused_adc_topk(
     packed4: bool = False,
     group_bias: torch.Tensor | None = None,
     group_ids: torch.Tensor | None = None,
+    buckets: tuple[torch.Tensor, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ADC top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
     over PQ ``codes`` (uint8 ``[N, m]``, or ``[N, ⌈m/2⌉]`` with
@@ -306,13 +403,19 @@ def fused_adc_topk(
     norms ``recon_norms [N]`` f32; rows ≥ ``num_valid`` and rows where
     ``valid_mask [N]`` (f32) is 0 never enter. ``group_bias [Q, G]`` f32
     with ``group_ids [N]`` int32: the IVF bucket bias (module docstring).
-    Returns ``(scores [Q, k] f32, indices [Q, k] int32)`` by (score
-    descending, row ascending); unfilled slots hold (−inf, −1). On CUDA
-    ``1 ≤ k ≤ N``."""
+    ``buckets``: ``(codes [G, B, cols] uint8, ids [G, B] int32, norms
+    [G, B] f32, fill [G] int32)``, the same rows by bucket: bucket g's
+    first ``fill[g]`` slots hold the codes, norms and row ids of its rows
+    (−1: no row), and every row that can enter (below ``num_valid``, mask
+    not 0) sits in the bucket ``group_ids`` names. On CUDA the kernel then
+    reads the rows from it (the plain version needs no layout); without
+    it the rows are grouped on the device each call. Returns ``(scores
+    [Q, k] f32, indices [Q, k] int32)`` by (score descending, row
+    ascending); unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
-    _check_shapes(queries, codes, codebooks, packed4, group_bias, group_ids)
+    _check_shapes(queries, codes, codebooks, packed4, group_bias, group_ids, buckets)
     if queries.device.type == "cpu":
         return fused_adc_topk_reference(queries, codes, codebooks, recon_norms,
                                         num_valid, k, metric, valid_mask,
@@ -320,7 +423,7 @@ def fused_adc_topk(
     if queries.device.type != "cuda":
         raise ValueError(f"fused_adc_topk runs on CUDA or CPU, not {queries.device}")
     _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
-                exact_lut, group_bias, group_ids)
+                exact_lut, group_bias, group_ids, buckets)
     from ._build import load
 
     lib = load()
@@ -333,31 +436,61 @@ def fused_adc_topk(
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
     lut = adc_lut(queries, codebooks, exact_lut)
-    group = None
-    if group_bias is not None:
-        group = (lut_bias(group_bias, exact_lut), group_ids)
-    gw = 0 if group is None else _group_words(group_bias.shape[1])
+    lut_code = int(not exact_lut)
     with torch.cuda.device(dev):
-        occupancy = dict(_occupancy(dev.index, int(not exact_lut), int(packed4),
-                                    m, ksub, min(k, SMEM_K + 1), True, gw))
-        qt = _query_tile(nq, occupancy)
-        _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
-                packed4, m, ksub, qt, k <= SMEM_K, occupancy[qt], out_s, out_i,
-                group=group)
+        if group_bias is None:
+            occupancy = dict(_occupancy(dev.index, lut_code, int(packed4), m, ksub,
+                                        min(k, SMEM_K + 1), True))
+            qt = _query_tile(nq, occupancy)
+            _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
+                    packed4, m, ksub, qt, k <= SMEM_K, occupancy[qt], out_s, out_i)
+        else:
+            layout = (_group_layout(codes, recon_norms, group_ids, group_bias.shape[1])
+                      if buckets is None else _bucket_layout(buckets))
+            per_sm = dict(_occupancy(dev.index, lut_code, int(packed4), m, ksub,
+                                     min(k, SMEM_K + 1), True,
+                                     _group_words(layout[-1].shape[0]),
+                                     (BUCKET_QT,)))[BUCKET_QT]
+            _launch_buckets(lib, lut, lut_bias(group_bias, exact_lut), layout,
+                            valid_mask, min(int(num_valid), n), k, metric, packed4,
+                            m, ksub, BUCKET_QT, k <= SMEM_K, per_sm, out_s, out_i)
+            fused_adc_topk.group_launches += 1
     fused_adc_topk.launches += 1
-    if group is not None:
-        fused_adc_topk.group_launches += 1
     return out_s, out_i
+
+
+def _group_layout(codes, recon_norms, group_ids, groups: int):
+    """The row-order form's rows grouped by bucket on the device, as the
+    bucket kernel reads a layout (:func:`_launch_buckets`): bucket g's rows
+    in ascending row order, then the rows whose ``group_ids`` lies outside
+    ``[0, G)`` as bucket G, which takes no bias and every query scans. No
+    host synchronization."""
+    key = group_ids.long()
+    key = torch.where((key >= 0) & (key < groups), key, groups)
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(groups + 1, dtype=torch.int64, device=key.device)
+    counts.index_add_(0, key, torch.ones_like(key))
+    starts = torch.cumsum(counts, 0) - counts
+    return (codes[order], order.to(torch.int32), recon_norms[order], starts, 0,
+            counts.to(torch.int32))
+
+
+def _bucket_layout(buckets):
+    """A caller's ``[G, B, ...]`` bucket layout as the kernel reads it:
+    ``(codes [G·B, cols], ids, norms, None, B, fill)``, bucket g's slots
+    starting at g·B."""
+    bcodes, bids, bnorms, bfill = buckets
+    return (bcodes.reshape(-1, bcodes.shape[2]), bids.reshape(-1), bnorms.reshape(-1),
+            None, bcodes.shape[1], bfill)
 
 
 def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
             packed4, m, ksub, qt, lists_in_smem, blocks_per_sm, out_s, out_i,
-            splits=None, group=None) -> None:
+            splits=None) -> None:
     """One launch of the scan and the merge for checked inputs and a LUT
     ``[Q, m·ksub]`` (f32 or bf16) with query tile ``qt``, the lists in
     shared memory or not, into ``out_s``/``out_i``; ``splits`` (default: one
-    wave of ``blocks_per_sm`` blocks on every SM) sets the row splits;
-    ``group``: ``(bias [Q, G] f32 as the kernel adds it, ids [N] int32)``."""
+    wave of ``blocks_per_sm`` blocks on every SM) sets the row splits."""
     from ._build import raise_for
 
     nq = lut.shape[0]
@@ -372,20 +505,52 @@ def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
     part_s, part_i, tmp_s, tmp_i = select.scratch(nq, splits, length, k, dev,
                                                   tree=tree)
     slots = select.bar_slots(nq, splits, dev)
-    gbias, gids = group if group is not None else (None, None)
     err = lib.mvt_adc_topk(
         lut.data_ptr(), int(lut.dtype != torch.float32), codes.data_ptr(), cols,
         int(packed4), recon_norms.data_ptr(),
         None if valid_mask is None else valid_mask.data_ptr(),
-        None if gbias is None else gbias.data_ptr(),
-        None if gids is None else gids.data_ptr(),
-        0 if gbias is None else gbias.shape[1],
         nq, n, m, ksub, max(0, min(int(num_valid), n)), k, int(metric),
         qt, splits, rows_per_split, 0 if lists_in_smem else length, int(tree),
         part_s.data_ptr(), part_i.data_ptr(),
         slots.data_ptr(),
         tmp_s.data_ptr(), tmp_i.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_for(lib, err, "fused_adc_topk")
+
+
+def _launch_buckets(lib, lut, gbias, layout, valid_mask, num_valid, k, metric,
+                    packed4, m, ksub, qt, lists_in_smem, blocks_per_sm, out_s,
+                    out_i, splits=None, tree=None) -> None:
+    """One launch of the bucket kernel and the merge: ``gbias [Q, G]`` as
+    the kernel adds it, ``layout`` as :func:`_group_layout` or
+    :func:`_bucket_layout` give it; ``splits`` (default
+    :func:`bucket_splits`) sets the row splits and ``tree`` (default
+    :func:`bucket_merge_by_tree`) whether the merge tree folds them; the
+    rest as :func:`_launch`."""
+    from ._build import raise_for
+
+    bcodes, ids, norms, starts, stride, counts = layout
+    nq = lut.shape[0]
+    dev = lut.device
+    if splits is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = bucket_splits(nq, qt, sms * max(1, blocks_per_sm), k, lists_in_smem)
+    if tree is None:
+        tree = bucket_merge_by_tree(splits, k, lists_in_smem)
+    tree = tree or not lists_in_smem
+    part_s, part_i, tmp_s, tmp_i = select.scratch(nq, splits, k, k, dev, tree=tree)
+    slots = select.bar_slots(nq, splits, dev)
+    err = lib.mvt_adc_bucket_topk(
+        lut.data_ptr(), int(lut.dtype != torch.float32), bcodes.data_ptr(),
+        bcodes.shape[1], int(packed4), norms.data_ptr(), ids.data_ptr(),
+        None if starts is None else starts.data_ptr(), stride, counts.data_ptr(),
+        counts.shape[0], None if valid_mask is None else valid_mask.data_ptr(),
+        gbias.data_ptr(), gbias.shape[1], nq, m, ksub, max(0, int(num_valid)), k,
+        int(metric), qt, splits, int(not lists_in_smem), int(tree),
+        part_s.data_ptr(), part_i.data_ptr(), slots.data_ptr(),
+        tmp_s.data_ptr(), tmp_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_for(lib, err, "fused_adc_topk")

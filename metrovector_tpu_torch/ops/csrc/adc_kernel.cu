@@ -1,24 +1,18 @@
-// The ADC scan's plain variant and its C entry points (the kernel and its
-// design: adc_scan.cuh). The IVF bucket-bias variant is instantiated in
-// adc_group_kernel.cu and reached through mvt_adc_pick_group.
+// The ADC scan's C entry points (the kernel and its design: adc_scan.cuh).
+// The IVF bucket-bias variant has its own: adc_bucket_kernel.cu.
 
 #include "adc_scan.cuh"
 
-// adc_group_kernel.cu: the bucket-bias scan kernel for these parameters.
-extern "C" const void* mvt_adc_pick_group(int qt, int packed4, int lut_dtype,
-                                          int global);
-
 namespace {
 
-const void* pick(int qt, int packed4, int lut_dtype, int global, int group) {
-  if (group) return mvt_adc_pick_group(qt, packed4, lut_dtype, global);
-  if (lut_dtype == kLutF32) return pick_lt<float, false>(qt, packed4, global);
-  if (lut_dtype == kLutBF16) return pick_lt<__nv_bfloat16, false>(qt, packed4, global);
+const void* pick(int qt, int packed4, int lut_dtype, int global) {
+  if (lut_dtype == kLutF32) return pick_lt<float>(qt, packed4, global);
+  if (lut_dtype == kLutBF16) return pick_lt<__nv_bfloat16>(qt, packed4, global);
   return nullptr;
 }
 
-size_t smem_for(int qt, int lut_dtype, int mk, int smem_k, int gw) {
-  return scan_smem_bytes(qt, lut_dtype == kLutF32 ? 4 : 2, mk, smem_k, gw);
+size_t smem_for(int qt, int lut_dtype, int mk, int smem_k) {
+  return scan_smem_bytes(qt, lut_dtype == kLutF32 ? 4 : 2, mk, smem_k);
 }
 
 cudaError_t prepare(const void* fn, size_t smem) {
@@ -40,11 +34,9 @@ extern "C" {
 // every level of the merge tree needs (ops/select.py::merge_scratch) and
 // the tree folds the lists; else merge_kernel does and tmp_* is unused.
 // slots is [nq, splits] zeros (the group bars, select.cuh). out_* are
-// [nq, k]. With gbias non-null (the IVF variant) gbias is [nq, ngroups]
-// f32 and gids [n] int32; both null otherwise.
+// [nq, k].
 int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
                  int cols, int packed4, const float* norms, const float* mask,
-                 const float* gbias, const int* gids, int ngroups,
                  int64_t nq, int64_t n, int m, int ksub, int64_t num_valid,
                  int k, int metric, int qt, int splits, int64_t rows_per_split,
                  int list_len, int tree, float* part_s, int* part_i,
@@ -52,43 +44,33 @@ int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
                  float* out_s, int* out_i, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int lists_global = list_len > 0;
-  const int group = gbias != nullptr;
-  if (group && (gids == nullptr || ngroups < 1)) return cudaErrorInvalidValue;
-  const void* fn = pick(qt, packed4, lut_dtype, lists_global, group);
+  const void* fn = pick(qt, packed4, lut_dtype, lists_global);
   int kl = lists_global ? list_len : k;
-  const int gw = group ? (ngroups + 31) / 32 : 0;
-  const size_t smem = smem_for(qt, lut_dtype, m * ksub, lists_global ? 0 : k, gw);
+  const size_t smem = smem_for(qt, lut_dtype, m * ksub, lists_global ? 0 : k);
   cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return err;
   const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
   int vec = cols % 16 == 0 && at % 16 == 0 ? 16 : (cols % 4 == 0 && at % 4 == 0 ? 4 : 0);
-  void* args[] = {&lut,  &codes, &cols,  &norms,     &mask, &gbias,
-                  &gids, &ngroups, &nq,  &n,         &m,    &ksub,
-                  &num_valid, &kl, &metric, &rows_per_split, &vec, &k,
-                  &part_s, &part_i, &slots};
+  void* args[] = {&lut,       &codes, &cols,   &norms,          &mask, &nq,
+                  &n,         &m,     &ksub,   &num_valid,      &kl,   &metric,
+                  &rows_per_split, &vec, &k, &part_s, &part_i, &slots};
   const dim3 grid(static_cast<unsigned>((nq + qt - 1) / qt),
                   static_cast<unsigned>(splits));
   err = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, st);
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (lists_global || tree) {
-    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, kl, k,
-                      nullptr, 0, out_s, out_i, st);
-  }
-  merge_kernel<<<static_cast<unsigned>(nq), kMergeThreads, merge_smem_bytes(k),
-                 st>>>(part_s, part_i, nq, k, splits, out_s, out_i);
-  return cudaGetLastError();
+  return merge_splits(part_s, part_i, tmp_s, tmp_i, nq, splits, kl, k,
+                      lists_global || tree, out_s, out_i, st);
 }
 
 // Scan blocks that fit on one SM at once for this variant with lists of
-// smem_k entries in shared memory (0: in device memory) and, for gw > 0,
-// the IVF variant with gw words of bucket bits a query, written to
+// smem_k entries in shared memory (0: in device memory), written to
 // *blocks_per_sm; returns the cudaError_t.
 int mvt_adc_topk_occupancy(int lut_dtype, int packed4, int qt, int m,
-                           int ksub, int smem_k, int gw, int* blocks_per_sm) {
-  const void* fn = pick(qt, packed4, lut_dtype, smem_k == 0, gw > 0);
-  const size_t smem = smem_for(qt, lut_dtype, m * ksub, smem_k, gw);
+                           int ksub, int smem_k, int* blocks_per_sm) {
+  const void* fn = pick(qt, packed4, lut_dtype, smem_k == 0);
+  const size_t smem = smem_for(qt, lut_dtype, m * ksub, smem_k);
   const cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,

@@ -1,9 +1,10 @@
 #pragma once
 
 // PQ asymmetric-distance (ADC) scan with a fused top-k, for Hopper (sm_90a):
-// the kernel template, shared by adc_kernel.cu (the plain variant and the
-// C entry points) and adc_group_kernel.cu (the IVF bucket-bias variant),
-// two translation units that nvcc compiles in parallel.
+// the kernel template and the pieces it shares with the IVF bucket-bias
+// kernel. adc_kernel.cu instantiates it and holds its C entry points;
+// adc_bucket_kernel.cu, a translation unit of its own that nvcc compiles in
+// parallel, holds the bucket kernel.
 //
 // Replaces the Pallas kernel metrovector_tpu/ops/adc_kernel.py::
 // fused_adc_topk (body `_make_adc_kernel`). It computes what that kernel
@@ -20,31 +21,9 @@
 //   per query the k best (score descending, row ascending), best first;
 //   slots that stay -inf carry row -1.
 //
-// The IVF variant (GROUP; IVF-PQ's scan, metrovector_tpu/index/ivfpq.py::
-// _masked_scan) adds a per-(query, bucket) bias: with g = group_ids[x] in
-// [0, G) and b = group_bias[q, g] (f32, already rounded as the LUT is),
-//
-//   s(q, x) = (sum over j of the lookups, as above) + b   -- the bias is
-//             added AFTER the m lookups, one f32 add, as the plain version
-//             and the probe mode (q.c + q.r^) add it;
-//   b <= -1e28 (an unprobed bucket) or s <= -1e28: the row scores -inf;
-//   g outside [0, G) (-1: a tombstoned row) adds no bias (the -1e28 test
-//   on s still applies).
-//
-// The TPU kernel adds the bias as G extra one-hot columns of its matmul.
-// Here a row's bucket id rides with its norm and mask in the tile-ahead
-// fetch, and the block keeps, in shared memory, one bit per (query of the
-// tile, bucket) for "b > -1e28" and their union over the tile's queries. A
-// row no query of the tile probes skips its m lookups, as a masked row
-// does; a probed row reads its bias from device memory (the [Q, G] table
-// stays in L2) only for the queries that probe its bucket. The variant's
-// bound is the bytes of the codes, ids, norms and masks it must read; the
-// lookups of the probed (query, row) pairs are a few percent of a full
-// scan's. What the skip saves is small (PERF.md section 6): the rows are in
-// their original order, so nearly every warp of 32 rows holds one that the
-// tile probes and runs the lookup loop, and the pass over the tiles costs
-// as much again. Compacting a tile's probed rows into full warps is the
-// next design (ROADMAP B2).
+// The IVF bucket-bias variant (IVF-PQ's scan) is a kernel of its own,
+// adc_bucket_kernel.cu: it walks only the probed buckets of the index's
+// bucket layout and reuses this file's pieces.
 //
 // The TPU kernel multiplies one-hot code matrices by the LUT on the MXU,
 // because a TPU has no fast gather. Hopper does: the LUT of a tile of QT
@@ -177,29 +156,51 @@ __device__ __forceinline__ uint4 code_block(const uint8_t* rc, int b, int cols,
 // Shared memory of one scan block (bytes): the LUT, then per query the
 // bar, two score tiles and two sets of candidate words (tiles alternate),
 // the buffer and its fill, and the lists when they live in shared memory
-// (smem_k entries, else 0); in the IVF variant then the bucket bits, gw
-// words per query and gw for their union.
+// (smem_k entries, else 0).
 __host__ __device__ constexpr size_t lut_bytes(int qt, int lsz, int mk) {
   return (static_cast<size_t>(qt) * mk * lsz + 15) / 16 * 16;
 }
 __host__ __device__ constexpr size_t scan_smem_bytes(int qt, int lsz, int mk,
-                                                     int smem_k, int gw) {
+                                                     int smem_k) {
   return lut_bytes(qt, lsz, mk) +
          static_cast<size_t>(qt) * (8 + 2 * (4 * kRows + 4 * kWords) + 8 * kBuf + 4 +
-                                    8 * static_cast<size_t>(smem_k) +
-                                    4 * static_cast<size_t>(gw)) +
-         4 * static_cast<size_t>(gw);
+                                    8 * static_cast<size_t>(smem_k));
 }
 
-constexpr float kDeadBias = -1e28f;  // at or below: an unprobed bucket
+// Stage the LUT of queries q0 .. q0 + QT - 1 in shared memory,
+// query-interleaved: ls[G][mk][GW]. Queries past the batch repeat its last
+// entry (their results are never written). Called by the whole block.
+template <int QT, int GW, typename LT>
+__device__ __forceinline__ void stage_lut(LT* ls, const LT* lut, int64_t q0,
+                                          int64_t nq, int mk) {
+  const int64_t lut_end = nq * mk;
+  for (int e = threadIdx.x; e < QT * mk; e += kThreads) {
+    const int qq = e / mk;
+    const int c = e - qq * mk;
+    const int64_t g = (q0 + qq) * mk + c;
+    ls[((qq / GW) * mk + c) * GW + qq % GW] = lut[g < lut_end ? g : lut_end - 1];
+  }
+}
 
-template <int QT, bool PACKED, typename LT, bool GLOBAL, bool GROUP>
+// Merge a launch's split lists into out_* (the scan kernels' pass 2).
+inline cudaError_t merge_splits(float* part_s, int* part_i, float* tmp_s,
+                                int* tmp_i, int64_t nq, int splits, int kl,
+                                int k, bool tree, float* out_s, int* out_i,
+                                cudaStream_t st) {
+  if (tree) {
+    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, kl, k, nullptr,
+                      0, out_s, out_i, st);
+  }
+  merge_kernel<<<static_cast<unsigned>(nq), kMergeThreads, merge_smem_bytes(k),
+                 st>>>(part_s, part_i, nq, k, splits, out_s, out_i);
+  return cudaGetLastError();
+}
+
+template <int QT, bool PACKED, typename LT, bool GLOBAL>
 __global__ void __launch_bounds__(kThreads)
     adc_scan_kernel(const void* lut_raw, const uint8_t* __restrict__ codes,
                     int cols, const float* __restrict__ norms,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ gbias, const int* __restrict__ gids,
-                    int ngroups, int64_t nq, int64_t n,
+                    const float* __restrict__ mask, int64_t nq, int64_t n,
                     int m, int ksub, int64_t num_valid, int k, int metric,
                     int64_t rows_per_split, int vec, int topk,
                     float* __restrict__ part_s, int* __restrict__ part_i,
@@ -226,11 +227,6 @@ __global__ void __launch_bounds__(kThreads)
   int* bc = bi + QT * kBuf;                                  // [QT] buffer fill
   float* cs = reinterpret_cast<float*>(bc + QT);             // [QT][k] lists
   int* ci = reinterpret_cast<int*>(cs + QT * ks);
-  // GROUP: bit g of query qq's words: bucket g is probed (bias > -1e28);
-  // the union over the tile's queries.
-  const int gw = GROUP ? (ngroups + 31) / 32 : 0;
-  unsigned* qbits = reinterpret_cast<unsigned*>(ci + QT * ks);  // [QT][gw]
-  unsigned* ubits = qbits + QT * gw;                            // [gw]
 
   const LT* lut = static_cast<const LT*>(lut_raw);
   const int tid = threadIdx.x;
@@ -243,31 +239,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t row_end =
       row_begin + rows_per_split < n ? row_begin + rows_per_split : n;
 
-  // The tile's LUT rows are contiguous in global memory; queries past the
-  // batch repeat its last entry (their results are never written).
-  const int64_t lut_end = nq * mk;
-  for (int e = tid; e < QT * mk; e += kThreads) {
-    const int qq = e / mk;
-    const int c = e - qq * mk;
-    const int64_t g = (q0 + qq) * mk + c;
-    ls[((qq / GW) * mk + c) * GW + qq % GW] = lut[g < lut_end ? g : lut_end - 1];
-  }
-  if constexpr (GROUP) {  // a warp a word: 32 buckets' biases, one vote
-    for (int e = warp; e < QT * gw; e += kWarps) {
-      const int qq = e / gw;
-      const int g = (e - qq * gw) * 32 + lane;
-      const bool probed = q0 + qq < nq && g < ngroups &&
-                          gbias[(q0 + qq) * ngroups + g] > kDeadBias;
-      const unsigned word = __ballot_sync(kFull, probed);
-      if (lane == 0) qbits[e] = word;
-    }
-    __syncthreads();
-    for (int w = tid; w < gw; w += kThreads) {
-      unsigned u = 0;
-      for (int qq = 0; qq < QT; ++qq) u |= qbits[qq * gw + w];
-      ubits[w] = u;
-    }
-  }
+  stage_lut<QT, GW>(ls, lut, q0, nq, mk);
   // Query qq's list: in shared memory, or its split's list in part_*.
   auto list_s = [&](int qq) {
     return GLOBAL ? part_s + ((q0 + qq) * splits + split) * k : cs + qq * k;
@@ -296,31 +268,17 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // A thread's row of the next tile is loaded a tile ahead: its first 16
-  // bytes of codes, its norm, its mask value and (GROUP) its bucket. A row
-  // in a bucket no query of the tile probes is not in: it is never scored.
-  auto fetch = [&](int64_t row, uint4& cw, float& nrm, float& keep, int& gid,
-                   bool& in) {
+  // bytes of codes, its norm and its mask value.
+  auto fetch = [&](int64_t row, uint4& cw, float& nrm, float& keep, bool& in) {
     in = row < row_end && row < num_valid;
-    gid = -1;
-    if constexpr (GROUP) {
-      if (in) {
-        gid = gids[row];
-        if (gid < 0 || gid >= ngroups) {
-          gid = -1;  // no bias
-        } else if (!((ubits[gid >> 5] >> (gid & 31)) & 1u)) {
-          in = false;
-        }
-      }
-    }
     cw = in ? code_block(codes + row * cols, 0, cols, vec) : make_uint4(0, 0, 0, 0);
     nrm = in ? norms[row] : 0.f;
     keep = in && mask != nullptr ? mask[row] : 1.f;
   };
   uint4 next_cw;
   float next_nrm, next_keep;
-  int next_gid;
   bool next_in;
-  fetch(row_begin + tid, next_cw, next_nrm, next_keep, next_gid, next_in);
+  fetch(row_begin + tid, next_cw, next_nrm, next_keep, next_in);
 
   // Warp w selects for queries w, w + 8, ...; at the top of each tile its
   // lanes load those queries' group slots, so that the loads are in flight
@@ -347,8 +305,7 @@ __global__ void __launch_bounds__(kThreads)
     const uint4 cw0 = next_cw;
     const float nrm = next_nrm;
     const bool live = next_in && next_keep != 0.f;
-    const int gid = next_gid;
-    fetch(row + kRows, next_cw, next_nrm, next_keep, next_gid, next_in);
+    fetch(row + kRows, next_cw, next_nrm, next_keep, next_in);
     float acc[QT];
 #pragma unroll
     for (int qq = 0; qq < QT; ++qq) acc[qq] = 0.f;
@@ -377,24 +334,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int qq = 0; qq < QT; ++qq) {
       float s = acc[qq];
-      bool ok = true;
-      if constexpr (GROUP) {
-        if (live && gid >= 0) {
-          ok = (qbits[qq * gw + (gid >> 5)] >> (gid & 31)) & 1u;
-          if (ok) s += gbias[(q0 + qq) * ngroups + gid];  // after the lookups
-        }
-        ok = ok && s > kDeadBias;
-      }
       if (metric == kL2) {
         s = 2.0f * s - nrm;
       } else if (metric == kCosine) {
         s = s * inv;
       }
-      if (!ok) s = -CUDART_INF_F;
       float bs_q;  // a float compare; select_tile applies the exact rule
       int bi_q;
       unrank(bar[qq], bs_q, bi_q);
-      const bool pass = live && ok && s >= bs_q;
+      const bool pass = live && s >= bs_q;
       if (pass) sc[qq * kRows + tid] = s;
       const unsigned vote = __ballot_sync(kFull, pass);
       if (lane == 0) cand[qq * kWords + warp] = vote;
@@ -436,32 +384,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool PACKED, typename LT, bool GLOBAL, bool GROUP>
+template <bool PACKED, typename LT, bool GLOBAL>
 const void* pick_qt(int qt) {
   switch (qt) {
     case 1:
-      return reinterpret_cast<const void*>(adc_scan_kernel<1, PACKED, LT, GLOBAL, GROUP>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<1, PACKED, LT, GLOBAL>);
     case 2:
-      return reinterpret_cast<const void*>(adc_scan_kernel<2, PACKED, LT, GLOBAL, GROUP>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<2, PACKED, LT, GLOBAL>);
     case 4:
-      return reinterpret_cast<const void*>(adc_scan_kernel<4, PACKED, LT, GLOBAL, GROUP>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<4, PACKED, LT, GLOBAL>);
     case 8:
-      return reinterpret_cast<const void*>(adc_scan_kernel<8, PACKED, LT, GLOBAL, GROUP>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<8, PACKED, LT, GLOBAL>);
     case 16:
-      return reinterpret_cast<const void*>(adc_scan_kernel<16, PACKED, LT, GLOBAL, GROUP>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<16, PACKED, LT, GLOBAL>);
     case 32:
-      return reinterpret_cast<const void*>(adc_scan_kernel<32, PACKED, LT, GLOBAL, GROUP>);
+      return reinterpret_cast<const void*>(adc_scan_kernel<32, PACKED, LT, GLOBAL>);
     default:
       return nullptr;
   }
 }
 
-template <typename LT, bool GROUP>
+template <typename LT>
 const void* pick_lt(int qt, int packed4, int global) {
   if (global) {
-    return packed4 ? pick_qt<true, LT, true, GROUP>(qt) : pick_qt<false, LT, true, GROUP>(qt);
+    return packed4 ? pick_qt<true, LT, true>(qt) : pick_qt<false, LT, true>(qt);
   }
-  return packed4 ? pick_qt<true, LT, false, GROUP>(qt) : pick_qt<false, LT, false, GROUP>(qt);
+  return packed4 ? pick_qt<true, LT, false>(qt) : pick_qt<false, LT, false>(qt);
 }
 
 }  // namespace

@@ -410,7 +410,8 @@ def test_group_shape_checks_raise(name):
 
 def test_group_kernel_checks_and_shared_memory():
     """The CUDA-side checks of the bucket variant (dtypes), and its shared
-    memory: one bit per (query, bucket) and their union."""
+    memory: the two tiles' row ids, then per 32 buckets a word of the
+    union's bits and an entry of the chunk prefix (one more at the end)."""
     q, codes, books = torch.zeros((2, 8)), torch.zeros((10, 4), dtype=torch.uint8), \
         torch.zeros((4, 16, 2))
     with pytest.raises(ValueError, match="int32"):
@@ -420,6 +421,7 @@ def test_group_kernel_checks_and_shared_memory():
                            torch.zeros((2, 3)), torch.zeros(10, dtype=torch.int32))
     assert adc_kernel._group_words(1) == 1 and adc_kernel._group_words(1500) == 47
     base = adc_kernel._shared_bytes(8, 512, 400, True)
-    assert adc_kernel._shared_bytes(8, 512, 400, True, gw=47) == base + 9 * 47 * 4
+    assert adc_kernel._shared_bytes(8, 512, 400, True, gw=47) == (
+        base + 2 * 4 * 256 + 2 * 47 * 4 + 4)
     # sift1m-ivfpq4's shapes keep the tiles the plain scan has
     assert adc_kernel._fitting_tiles(512, 400, True, gw=64) == [1, 2, 4, 8, 16]

@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Time K2's IVF bucket-bias variant against the plain scan at every query
-tile, on one NVIDIA GPU.
+"""Time K2's IVF bucket kernel at every query tile, beside the scan of every
+row and the call with no bucket probed, on one NVIDIA GPU.
 
     python3 tools/adc_group_sweep.py [--out build/adc_group_sweep.json]
 
-Builds the port's kernels from this checkout and prints, with the card's
+Builds the port's kernels from this checkout, the bucket kernel at every
+query tile (``-DMVT_K2B_ALL_TILES``; the default build has the tile of 1
+alone), and prints, with the card's
 name and power limit, for ``sift1m-ivfpq4``'s and ``sift1m-ivfpq``'s shapes
-(1M rows of random 4-bit m=32 packed or 8-bit m=16 codes, 1,163 buckets, a
-batch of 256 queries each probing 16 random buckets), with f32 and bf16
-LUTs at k = 10 and 400: ``fused_adc_topk`` through ``adc_kernel._launch``
-at every query tile that fits, with the bucket bias and without it (the
-scan of every row), and the default call with no bucket probed (the pass
-over the rows alone). Times are CUDA events over back-to-back calls after a
-warm-up. Imports nothing of JAX.
+(1M rows of random 4-bit m=32 packed or 8-bit m=16 codes in 1,163 buckets
+of a [1163, B] bucket layout, each query probing 16 random buckets) at
+batches 1, 8, 32 and 256, k = 400, f32 and bf16 LUTs: the bucket kernel
+(``fused_adc_topk`` with ``buckets=``, through ``adc_kernel._launch_buckets``)
+at every query tile that fits, and with a bf16 LUT its default tile at 1 to
+256 splits, each merged by ``merge_kernel`` and by the merge tree (the
+default marked), and the default call at
+k = 10 (what the k = 400 selection costs); the plain scan of every row
+without the bias; and the default call with no bucket probed (the fixed
+cost of a launch). Times are device times
+(``device_ms``: the device waits until the host has queued every call)
+over distinct inputs after a warm-up. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,16 +33,34 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-N, G, Q, NPROBE, ITERS = 1_000_000, 1163, 256, 16, 10
+N, G, NPROBE, K, ITERS = 1_000_000, 1163, 16, 400, 10
+BATCHES = (1, 8, 32, 256)
+SPLITS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
-def sweep(torch, lib, dev, cuda_ms) -> list[dict]:
+def _layout(torch, ak, stored, rn, gids, dev):
+    """The rows in a [G, B] bucket layout on the device, as an IVF index
+    holds them: (codes, ids, norms, fill)."""
+    codes, ids, norms, starts, _, counts = ak._group_layout(stored, rn, gids, G)
+    counts = counts[:G].long()
+    bsize = int(counts.max())
+    slot = torch.arange(N, device=dev) - starts[:G].repeat_interleave(counts)
+    bucket = torch.arange(G, device=dev).repeat_interleave(counts)
+    bc = torch.zeros((G, bsize, stored.shape[1]), dtype=torch.uint8, device=dev)
+    bi = torch.full((G, bsize), -1, dtype=torch.int32, device=dev)
+    bn = torch.zeros((G, bsize), device=dev)
+    bc[bucket, slot], bi[bucket, slot], bn[bucket, slot] = codes, ids, norms
+    return bc, bi, bn, counts.to(torch.int32).contiguous()
+
+
+def sweep(torch, lib, dev, device_ms) -> list[dict]:
     from metrovector_tpu_torch import DistanceMetric
     from metrovector_tpu_torch.ops import adc_kernel as ak
 
     l2 = DistanceMetric.L2
     g = torch.Generator(device=dev)
     g.manual_seed(7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for name, m, ksub, packed in (("ivfpq4", 32, 16, True), ("ivfpq", 16, 256, False)):
         codes = torch.randint(0, ksub, (N, m), generator=g, device=dev, dtype=torch.uint8)
@@ -44,52 +69,87 @@ def sweep(torch, lib, dev, cuda_ms) -> list[dict]:
         rn = torch.rand(N, generator=g, device=dev) * 1000
         gids = torch.randint(0, G, (N,), generator=g, device=dev, dtype=torch.int32)
         valid = torch.ones(N, device=dev)
-        q = torch.randint(0, 8, (Q, m * 4), generator=g, device=dev).float()
-        bias = torch.full((Q, G), -1e30, device=dev)
-        for r in range(Q):
-            probed = torch.randperm(G, generator=g, device=dev)[:NPROBE]
-            bias[r, probed] = -torch.rand(NPROBE, generator=g, device=dev) * 100
-        for exact in (False, True):
-            lut = ak.adc_lut(q, books, exact)
-            group = (ak.lut_bias(bias, exact), gids)
-            for k in (10, 400):
-                occ_group = dict(ak._occupancy(dev.index, int(not exact), int(packed), m,
-                                               ksub, min(k, ak.SMEM_K + 1), True,
-                                               ak._group_words(G)))
-                occ_scan = dict(ak._occupancy(dev.index, int(not exact), int(packed), m,
-                                              ksub, min(k, ak.SMEM_K + 1), True))
-                for qt in sorted(occ_group):
+        buckets = _layout(torch, ak, stored, rn, gids, dev)
+        layout = ak._bucket_layout(buckets)
+        gw = ak._group_words(G)
+        for nq in BATCHES:
+            qs, biases = [], []
+            for _ in range(ITERS):
+                qs.append(torch.randint(0, 8, (nq, m * 4), generator=g, device=dev).float())
+                bias = torch.full((nq, G), -1e30, device=dev)
+                for r in range(nq):
+                    probed = torch.randperm(G, generator=g, device=dev)[:NPROBE]
+                    bias[r, probed] = -torch.rand(NPROBE, generator=g, device=dev) * 100
+                biases.append(bias)
+            for exact in (False, True):
+                luts = [ak.adc_lut(q, books, exact) for q in qs]
+                gbs = [ak.lut_bias(b, exact) for b in biases]
+                occ = dict(ak._occupancy(dev.index, int(not exact), int(packed), m, ksub,
+                                         K, True, gw))
+                default_qt = ak.BUCKET_QT
+                default_splits = ak.bucket_splits(nq, default_qt, sms * occ[default_qt],
+                                                  K, True)
+                default_tree = ak.bucket_merge_by_tree(default_splits, K, True)
+                points = [(qt, s_, ak.bucket_merge_by_tree(s_, K, True)) for qt, s_ in (
+                    (qt, ak.bucket_splits(nq, qt, sms * max(1, occ[qt]), K, True))
+                    for qt in sorted(occ))]
+                if not exact:  # the default tile at other split counts, both merges
+                    points += [(default_qt, s_, t_) for s_ in SPLITS for t_ in (False, True)
+                               if (s_, t_) != (default_splits, default_tree)]
+                for qt, splits, tree in points:
 
-                    def run(tile_lut, grouped=True):
-                        out = (torch.empty((Q, k), device=dev),
-                               torch.empty((Q, k), dtype=torch.int32, device=dev))
-                        per_sm = occ_group[qt] if grouped else occ_scan.get(qt, 1)
-                        ak._launch(lib, tile_lut, stored, rn, valid, N, k, l2, packed, m,
-                                   ksub, qt, k <= ak.SMEM_K, per_sm, *out,
-                                   group=group if grouped else None)
+                    def run(i, qt=qt, splits=splits, tree=tree):
+                        out = (torch.empty((nq, K), device=dev),
+                               torch.empty((nq, K), dtype=torch.int32, device=dev))
+                        ak._launch_buckets(lib, luts[i], gbs[i], layout, valid, N, K, l2,
+                                           packed, m, ksub, qt, True, occ[qt], *out,
+                                           splits=splits, tree=tree)
                         return out
 
-                    run(lut)
-                    run(lut, False)
-                    row = {"config": name, "lut": "f32" if exact else "bf16", "k": k,
-                           "qt": qt, "blocks_per_sm": occ_group[qt],
-                           "default_qt": ak._query_tile(Q, occ_group),
-                           "group_ms": cuda_ms(run, [lut] * ITERS, dev),
-                           "scan_ms": cuda_ms(lambda x: run(x, False), [lut] * ITERS, dev)}
+                    run(0)
+                    row = {"config": name, "lut": "f32" if exact else "bf16", "k": K,
+                           "batch": nq, "qt": qt, "blocks_per_sm": occ[qt],
+                           "splits": splits, "tree": tree,
+                           "default": (qt, splits, tree) == (default_qt, default_splits,
+                                                             default_tree),
+                           "bucket_ms": device_ms(run, range(ITERS), dev)}
                     rows.append(row)
-                    print(f"  {name} {row['lut']} LUT k={k} QT={qt} ({row['blocks_per_sm']}/SM, "
-                          f"default {row['default_qt']}): bucket variant {row['group_ms']:.4f} "
-                          f"ms, scan of every row {row['scan_ms']:.4f}", flush=True)
-        dead = torch.full((Q, G), -1e30, device=dev)
+                    print(f"  {name} {row['lut']} LUT batch={nq} QT={qt} ({occ[qt]}/SM, "
+                          f"{splits} splits, {'tree' if tree else 'merge_kernel'}"
+                          f"{', default' if row['default'] else ''}): "
+                          f"bucket kernel {row['bucket_ms']:.4f} ms", flush=True)
 
-        def none_probed(x):
-            return ak.fused_adc_topk(x, stored, books, rn, N, 400, l2, valid, False,
-                                     packed, dead, gids)
+                if not exact:  # the selection's share: the default call at k = 10
+                    def k10(i):
+                        return ak.fused_adc_topk(qs[i], stored, books, rn, N, 10, l2, valid,
+                                                 exact, packed, biases[i], gids,
+                                                 buckets=buckets)
 
-        none_probed(q)
-        ms = cuda_ms(none_probed, [q] * ITERS, dev)
-        rows.append({"config": name, "lut": "bf16", "k": 400, "none_probed_ms": ms})
-        print(f"  {name} bf16 LUT k=400, no bucket probed: {ms:.4f} ms", flush=True)
+                    k10(0)
+                    rows.append({"config": name, "lut": "bf16", "k": 10, "batch": nq,
+                                 "default_ms": device_ms(k10, range(ITERS), dev)})
+                    print(f"  {name} bf16 LUT batch={nq} k=10, default tile and splits: "
+                          f"{rows[-1]['default_ms']:.4f} ms", flush=True)
+
+                def scan(i):  # the plain scan of every row, no bias
+                    return ak.fused_adc_topk(qs[i], stored, books, rn, N, K, l2, valid,
+                                             exact, packed)
+
+                dead = torch.full((nq, G), -1e30, device=dev)
+
+                def none_probed(i):
+                    return ak.fused_adc_topk(qs[i], stored, books, rn, N, K, l2, valid,
+                                             exact, packed, dead, gids, buckets=buckets)
+
+                scan(0)
+                none_probed(0)
+                row = {"config": name, "lut": "f32" if exact else "bf16", "k": K,
+                       "batch": nq, "scan_ms": device_ms(scan, range(ITERS), dev),
+                       "none_probed_ms": device_ms(none_probed, range(ITERS), dev)}
+                rows.append(row)
+                print(f"  {name} {row['lut']} LUT batch={nq}: scan of every row "
+                      f"{row['scan_ms']:.4f} ms; bucket kernel with no bucket probed "
+                      f"{row['none_probed_ms']:.4f} ms", flush=True)
     return rows
 
 
@@ -103,14 +163,16 @@ def main() -> int:
         print("no CUDA card", file=sys.stderr)
         return 1
     from metrovector_tpu_torch.ops import _build
-    from metrovector_tpu_torch.utils.timing import cuda_ms
+    from metrovector_tpu_torch.utils.timing import device_ms
+
+    _build.NVCC_FLAGS.append("-DMVT_K2B_ALL_TILES")  # every query tile
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     lib = _build.load()
-    result = {"card": card, "rows": sweep(torch, lib, torch.device("cuda", 0), cuda_ms)}
+    result = {"card": card, "rows": sweep(torch, lib, torch.device("cuda", 0), device_ms)}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
