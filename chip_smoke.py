@@ -100,12 +100,31 @@ Phases, one line each; any failure exits non-zero:
    and both bounds (every row's bytes; the probed work of this run), the
    scan of every row and the call with no bucket probed at 256, the scan's
    ``search()`` step by step, and ``search()`` p50 of both modes at batches
-   1 to 256 (the crossover of the modes).
+   1 to 256 (the crossover of the modes);
+13. the dense engine's precision ladder: (a) ``fused_topk(precision=
+   "high")`` (the bf16x3 tensor-core kernel) against its plain version over
+   the three metrics, batches 1, 33 and 255, k in {10, 100, 257} and D in
+   {100, 128, 960, 1536}: 200,003 integer rows with twins across splits,
+   num_valid and masks as in phase 2 (identical, twice), and N(0, 1) rows
+   (within the band); (b) the certificate: the scan's error against its
+   raw bound (rows in [0, 1), where nothing cancels, and N(0, 1) rows; the
+   ratio printed), and the planted near-tie and 40-copies corpora, where
+   ``high_verified`` must fall back and equal ``highest``; (c)
+   ``benchmarks/suite.py``'s gist1m (1M x 960 N(0, 1) f32 of seed 3,
+   cosine, ``pad_dims=False``): ``Builder`` -> ``Reader.open`` ->
+   ``SearchEngine(device="cuda", precision="high_verified")``, k = 10,
+   margin 8, at batches 64 and 256, and the phase 3 corpus at batches 32 and
+   256 (identical to ``highest``): the launch counts, recall@10 against a
+   float64 oracle on the card (1.000 gated for ``high_verified``,
+   ``high`` and ``highest`` reported), ``verify_stats``, the measured error
+   against the certificate's raw bound, and CUDA-event times of the
+   variant, its plain version, K1 ``highest``, K3's re-score at R = 18 and
+   ``search()`` p50 at each precision.
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
-operations, and 3.35 TB/s); the last line is ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+operations, 989 TFLOP/s dense bf16 for the bf16x3 variant, and 3.35 TB/s);
+the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -2450,6 +2469,492 @@ def phase_ivfpq_path(torch, dev, card):
     return max_err, counts["fused_adc_topk[group_bias]"], cell
 
 
+# -- phase 13: the dense engine's precision ladder ---------------------------
+
+N_GIST, D_GIST, GIST_SEED = 1_000_000, 960, 3  # benchmarks/suite.py:304-410
+HIGH_K, HIGH_MARGIN = 10, 8
+HIGH_SOURCE = CSRC + "topk_high_kernel.cu"
+# Dense bf16 tensor-core rate of the H100 SXM data sheet at 700 W.
+BF16_FLOPS = 989e12
+
+
+def high_bound(nq: int, n: int, d: int, k: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of the bf16x3 variant: its three products, 2 Q N
+    D operations each, at the dense bf16 rate, or its bytes (the f32 corpus,
+    norms and queries read once, the top k written once)."""
+    t_ops = 6 * nq * n * d / BF16_FLOPS * 1e3
+    t_bytes = (4 * (n * d + n + nq * d) + 8 * nq * k) / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _acc_band(q, xmax: float, metric, d: int) -> np.ndarray:
+    """Per-query bound on |kernel - plain| at "high" on float data: the
+    same exact products, summed on the tensor cores and by three f32
+    matmuls (engine.high_sum_bounds, in units of S <= |q| |x|); L2 doubles
+    the dot and rounds 2 dot - |x|^2 on both sides; cosine rounds the 1/|x|
+    factor."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.engine import high_sum_bounds
+
+    c = sum(high_sum_bounds(d))
+    if metric == DistanceMetric.COSINE:
+        return np.full(q.shape[0], c + 2.0**-22)
+    qn = np.linalg.norm(q.astype(np.float64), axis=1)
+    if metric == DistanceMetric.L2:
+        return 2 * c * qn * xmax + 2.0**-23 * (2 * qn * xmax + xmax * xmax)
+    return c * qn * xmax
+
+
+def _bf16x3_scores64(torch, q, x, norms, metric):
+    """The near-tie oracle: ``score(r, rows)``, the float64 scores on the
+    card of query ``r`` against ``rows`` from the exact bf16x3 products
+    that both the kernel and its plain version sum in f32."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.distances import bf16x3_dots
+
+    def score(r, rows):
+        idx = torch.as_tensor(rows, dtype=torch.long, device=x.device)
+        dots = bf16x3_dots(q[r : r + 1], x[idx], torch.float64)[0]
+        n64 = norms[idx].double()
+        if metric == DistanceMetric.L2:
+            dots = 2.0 * dots - n64
+        elif metric == DistanceMetric.COSINE:
+            dots = dots / torch.sqrt(torch.clamp(n64, min=1e-30))
+        return dots.cpu().numpy()
+
+    return score
+
+
+def _compare_high(got, ref, tol, s64, what) -> float:
+    """The variant (got) against its plain version (ref) on float data:
+    unfilled slots equal, scores within ``tol`` per query, and rows that
+    differ only at near-ties (their f64 bf16x3 scores, ``s64(r, rows)``
+    (_bf16x3_scores64), within ``tol`` of the k-th). Returns the largest
+    score difference."""
+    s_k, i_k = (t.cpu().numpy() for t in got)
+    s_r, i_r = (t.cpu().numpy() for t in ref)
+    if not np.array_equal(i_k == -1, i_r == -1):
+        raise AssertionError(f"{what}: unfilled slots differ")
+    fin = i_r >= 0
+    with np.errstate(invalid="ignore"):
+        diff = np.where(fin, np.abs(s_k - s_r), 0.0)
+    if (diff > tol[:, None]).any():
+        raise AssertionError(f"{what}: score difference {diff.max()} above {tol.min()}")
+    for r in range(i_k.shape[0]):
+        odd = sorted(set(i_k[r][i_k[r] >= 0]) ^ set(i_r[r][i_r[r] >= 0]))
+        if odd:
+            near = np.abs(s64(r, odd) - s_r[r][fin[r]][-1]) <= tol[r]
+            if not near.all():
+                raise AssertionError(f"{what}: query {r} differs outside the tie band")
+    return float(diff.max())
+
+
+def _high_cases(torch, dev, rng) -> tuple[int, float]:
+    """Phase 13 (a): fused_topk(precision="high") against its plain version
+    on the card over the three metrics, batches 1, 33 and 255, k in {10,
+    100, 257} and D in {100, 128, 960, 1536}. First 200,003 integer rows in
+    [0, 16) with twins across splits (num_valid ending inside a split, a
+    mask that empties whole splits): L2 and IP identical to the plain
+    version and twice identical; cosine (normalized queries) twice
+    identical and within the band. Then 20,011 N(0, 1) rows with a mask and
+    num_valid below N, within the band (_acc_band). Returns (cases, max
+    |score diff| on float data)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_reference
+
+    metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT, DistanceMetric.COSINE)
+
+    def high(*args):
+        return fused_topk(*args, precision="high")
+
+    def plain(*args):
+        return fused_topk_reference(*args, precision="high")
+
+    def unit(q):
+        return (q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+                ).astype(np.float32)
+
+    cases, max_err = 0, 0.0
+    mask = np.ones(SPLIT_N, np.float32)
+    mask[40_000:120_000] = 0
+    mask_d = torch.from_numpy(mask).to(dev)
+    for d in (100, 128, 960, 1536):
+        x = torch.from_numpy(_twin_rows(rng, SPLIT_N, d, 16)).to(dev)
+        norms = (x.double() ** 2).sum(1).float()
+        xmax = float(norms.max().sqrt())
+        q_int = rng.integers(0, 16, (255, d)).astype(np.float32)
+        for metric in metrics:
+            cosine = metric == DistanceMetric.COSINE
+            q_all = unit(q_int) if cosine else q_int
+            s64 = (_bf16x3_scores64(torch, torch.from_numpy(q_all).to(dev), x, norms,
+                                    metric) if cosine else None)
+            for nq in (1, 33, 255):
+                q = torch.from_numpy(np.ascontiguousarray(q_all[:nq])).to(dev)
+                for k in (10, 100, 257):
+                    variant = (cases + cases // 4) % 4
+                    num_valid = SPLIT_N - 70_001 if variant & 1 else SPLIT_N
+                    args = (q, x, norms, num_valid, k, metric,
+                            mask_d if variant & 2 else None)
+                    what = (f"fused_topk[high] integer D={d} Q={nq} k={k} {metric.name} "
+                            f"num_valid={num_valid} mask={bool(variant & 2)}")
+                    if cosine:
+                        got = high(*args)
+                        _identical(torch, high(*args), got, what + " (run twice)")
+                        _compare_high(got, plain(*args),
+                                      _acc_band(q_all[:nq], xmax, metric, d),
+                                      s64, what)
+                    else:
+                        _twice_identical(torch, high, args, plain(*args), what)
+                    cases += 1
+        del x, norms
+        torch.cuda.empty_cache()
+    n = 20_011
+    for d in (100, 128, 960, 1536):
+        x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        norms = (x.double() ** 2).sum(1).float()
+        xmax = float(norms.max().sqrt())
+        q_f = rng.standard_normal((255, d)).astype(np.float32)
+        vm = torch.from_numpy((rng.random(n) > 0.2).astype(np.float32)).to(dev)
+        for metric in metrics:
+            q_all = unit(q_f) if metric == DistanceMetric.COSINE else q_f
+            q_d = torch.from_numpy(q_all).to(dev)
+            s64 = _bf16x3_scores64(torch, q_d, x, norms, metric)
+            for nq in (1, 33, 255):
+                for k in (10, 100, 257):
+                    variant = cases % 4
+                    args = (q_d[:nq].contiguous(), x, norms,
+                            n - 77 if variant & 1 else n, k, metric,
+                            vm if variant & 2 else None)
+                    max_err = max(max_err, _compare_high(
+                        high(*args), plain(*args),
+                        _acc_band(q_all[:nq], xmax, metric, d), s64,
+                        f"fused_topk[high] normal D={d} Q={nq} k={k} {metric.name} "
+                        f"variant {variant}"))
+                    cases += 1
+        del x, norms
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def _scan_ratio(torch, q, x, norms, s_h, i_h, metric, d) -> float:
+    """The largest |"high" score - f64 score| over the fetched rows, as a
+    share of the scan's raw bound (engine.high_dot_bounds: the split and
+    the tensor cores' sums, in units of S = sum |q_d x_d|); cosine adds the
+    roundings of 1/|x| and of the product, 2^-22 |s|."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.engine import high_dot_bounds
+
+    scan = high_dot_bounds(d)[0]
+    rows = x[i_h.long().clamp(min=0)].double()  # [Q, k, D]
+    q64 = q.double()[:, None, :]
+    dot = (rows * q64).sum(-1)
+    s_abs = (rows.abs() * q64.abs()).sum(-1)
+    if metric == DistanceMetric.COSINE:
+        inv = 1.0 / torch.sqrt(norms[i_h.long()].double())
+        s64 = dot * inv
+        lim = scan * s_abs * inv + 2.0**-22 * s64.abs()
+    else:
+        s64, lim = dot, scan * s_abs
+    ok = i_h >= 0
+    return float(((s_h.double() - s64).abs() / lim)[ok].max())
+
+
+def _certificate_cases(torch, dev, rng) -> list[str]:
+    """Phase 13 (b), the certificate on the card: the scan's measured error
+    against its raw bound on data where nothing cancels (rows and queries
+    in [0, 1), inner product, D in {100, 960, 1536}) and on N(0, 1) rows;
+    then through Builder -> Reader.open -> SearchEngine(device="cuda"), the
+    planted near-tie corpus of tests/test_verified_high.py and a corpus of
+    40 copies of one row, where high_verified must equal highest bit for
+    rank by falling back. Returns the lines to print."""
+    from metrovector_tpu_torch import Builder, DistanceMetric, Reader, SearchEngine
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+
+    lines = []
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0.0
+    for d in (100, 960, 1536):
+        for kind in ("positive", "normal"):
+            if kind == "positive":
+                x = torch.rand((100_000, d), generator=gen, device=dev)
+                q = torch.rand((64, d), generator=gen, device=dev)
+                metric = DistanceMetric.INNER_PRODUCT
+            else:
+                x = torch.randn((100_000, d), generator=gen, device=dev)
+                q = torch.randn((64, d), generator=gen, device=dev)
+                q = q / q.norm(dim=1, keepdim=True)
+                metric = DistanceMetric.COSINE
+            norms = (x.double() ** 2).sum(1).float()
+            s_h, i_h = fused_topk(q, x, norms, x.shape[0], HIGH_K + HIGH_MARGIN,
+                                  metric, precision="high")
+            ratio = _scan_ratio(torch, q, x, norms, s_h, i_h, metric, d)
+            worst = max(worst, ratio)
+            lines.append(f"{kind} D={d} {metric.name} {ratio:.4f}")
+            del x
+    if worst >= 1.0:
+        raise AssertionError(f"the scan's error passed its bound: {lines}")
+    with tempfile.TemporaryDirectory() as tmp:
+        base = np.full(32, 100.0, np.float32)
+        near = (base + 0.1 * rng.standard_normal((300, 32))).astype(np.float32)
+        q_near = (base + 0.1 * rng.standard_normal((9, 32))).astype(np.float32)
+        dup = rng.standard_normal((300, 32)).astype(np.float32)
+        copies = rng.choice(300, 40, replace=False)
+        dup[copies] = 3 * dup[copies[0]]
+        q_dup = np.stack([dup[copies[0]] + 1e-3 * rng.standard_normal(32),
+                          dup[copies[0]]]).astype(np.float32)
+        for name, data, q, metric in (
+                ("near-tie", near, q_near, DistanceMetric.L2),
+                ("40 copies", dup, q_dup, DistanceMetric.COSINE)):
+            path = os.path.join(tmp, name.replace(" ", "_") + ".mvt")
+            b = Builder()
+            b.add_vector_space("v", dim=32, metric=metric)
+            b.add_vectors("v", data)
+            b.build().save(path)
+            space = Reader.open(path).vector_space("v")
+            ver = SearchEngine(space, device="cuda", precision="high_verified")
+            got = ver.search(q, k=HIGH_K)
+            want = SearchEngine(space, device="cuda").search(q, k=HIGH_K)
+            if not (np.array_equal(got.indices, want.indices)
+                    and np.array_equal(got.scores, want.scores)):
+                raise AssertionError(f"{name}: high_verified differs from highest")
+            if ver.verify_stats["fallbacks"] == 0:
+                raise AssertionError(f"{name}: the certificate never failed")
+            lines.append(f"{name} corpus: identical to highest, verify_stats "
+                         f"{ver.verify_stats}")
+    return lines
+
+
+def _gist_corpus():
+    """benchmarks/suite.py's gist1m rows: default_rng(3), 1M x 960 N(0, 1)
+    drawn in f64 and cast (in row blocks: the same stream). Returns the rows
+    and the generator, whose stream goes on to the queries."""
+    g = np.random.default_rng(GIST_SEED)
+    x = np.empty((N_GIST, D_GIST), np.float32)
+    for r0 in range(0, N_GIST, 50_000):
+        x[r0 : r0 + 50_000] = g.standard_normal((min(50_000, N_GIST - r0), D_GIST))
+    return x, g
+
+
+def _cosine_recall(torch, x64, inv64, q, rows, k) -> float:
+    """recall@k of ``rows`` against the float64 cosine oracle on the card
+    (a row within the k-th best similarity counts)."""
+    qd = torch.from_numpy(q).to(x64.device, torch.float64)
+    sim = (qd @ x64.T) * inv64[None, :]
+    kth = torch.topk(sim, k, dim=1).values[:, -1:]
+    r = torch.from_numpy(rows.astype(np.int64)).to(x64.device)
+    got = torch.gather(sim, 1, r.clamp(min=0))
+    return float(((got >= kth) & (r >= 0)).sum()) / (q.shape[0] * k)
+
+
+def _time_high_cell(torch, dev, card, engines, name, batches, metric, qgen, exact):
+    """The variant, its plain version, K1 "highest", K3's re-score at R =
+    k + margin and search() p50 at the three precisions, at each batch of
+    one cell. The variant is held against its plain version on every timed
+    input: identical where the data is ``exact`` (small integers), else
+    within the band (_compare_high). Returns ({batch: {...}} of
+    milliseconds, max |score diff|)."""
+    from metrovector_tpu_torch.ops.distances import rescore_topk
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_reference
+    from metrovector_tpu_torch.utils.timing import cuda_ms, device_ms, sync_time
+
+    sp = engines["high_verified"].space
+    kf = HIGH_K + HIGH_MARGIN
+    xmax = float(sp.norms.max().sqrt())
+    out, max_err = {}, 0.0
+    for nq in batches:
+        hosts = [qgen(nq) for _ in range(10)]
+        qs = [sp.prepare_queries(h).qdev for h in hosts]
+
+        def kern(q):
+            return fused_topk(q, sp.data, sp.norms, sp.num_valid, kf, metric,
+                              precision="high")
+
+        def plain(q):
+            return fused_topk_reference(q, sp.data, sp.norms, sp.num_valid, kf,
+                                        metric, precision="high")
+
+        def highest(q):
+            return fused_topk(q, sp.data, sp.norms, sp.num_valid, HIGH_K, metric)
+
+        outs = [kern(q) for q in qs]
+        cands = [o[1] for o in outs]
+        for i, (q, got) in enumerate(zip(qs, outs)):
+            what = f"{name} batch {nq} query set {i}: fused_topk[high] k={kf}"
+            if exact:
+                _identical(torch, got, plain(q), what)
+            else:
+                max_err = max(max_err, _compare_high(
+                    got, plain(q),
+                    _acc_band(q.cpu().numpy(), xmax, metric, sp.dim),
+                    _bf16x3_scores64(torch, q, sp.data, sp.norms, metric), what))
+        del outs
+        highest(qs[0])
+        p1 = cuda_ms(plain, qs[:3], dev)
+        k1 = cuda_ms(kern, qs, dev)
+        k2 = cuda_ms(kern, qs, dev)
+        p2 = cuda_ms(plain, qs[:3], dev)
+        f32 = cuda_ms(highest, qs, dev)
+        pairs = list(zip(qs, cands))
+
+        def rescore(pair):
+            return rescore_topk(pair[0], sp.data, sp.norms, pair[1], HIGH_K, metric)
+
+        rescore(pairs[0])
+        k3 = device_ms(rescore, pairs, dev)
+        p50 = {p: float(np.median([sync_time(e.search, h, k=HIGH_K, device=dev)[0]
+                                   for h in hosts])) * 1e3
+               for p, e in engines.items()}
+        row = {"ms": (k1 + k2) / 2, "runs": (k1, k2), "plain_ms": (p1 + p2) / 2,
+               "highest_ms": f32, "rescore_ms": k3, "p50": p50,
+               "bound": high_bound(nq, sp.num_valid, sp.dim, kf)}
+        out[nq] = row
+        say(f"  {name} batch={nq}: fused_topk[high] k={kf} {row['ms']:.4f} ms (runs "
+            f"{k1:.4f}, {k2:.4f}; bound {row['bound'][0]:.4f} ms by "
+            f"{row['bound'][1]}, {row['bound'][0] / row['ms']:.1%}) | plain "
+            f"{row['plain_ms']:.4f} | K1 highest k={HIGH_K} {f32:.4f} | K3 rescore "
+            f"R={kf} device {k3:.4f} | search() p50 " + ", ".join(
+                f"{p} {v:.4f}" for p, v in p50.items()) + f" ms | {card}")
+    say(f"  (c) {name}: fused_topk[high] held against its plain version on "
+        f"{10 * len(batches)} timed query sets, "
+        + ("identical" if exact else f"max |score diff| {max_err:.3g}"))
+    return out, max_err
+
+
+def phase_high_path(torch, dev, card, sift_path):
+    """Phase 13 (module docstring). Returns the kernels-line figures of
+    fused_topk[high]."""
+    from metrovector_tpu_torch import DistanceMetric, Builder, Reader, SearchEngine
+    from metrovector_tpu_torch.engine import VERIFY_SAFETY, DeviceSpace
+    from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    cases, max_err = _high_cases(torch, dev, rng)
+    say(f"  (a) fused_topk[high] vs plain: {cases} cases identical or within the "
+        f"band, max |score diff| on float data {max_err:.3g} "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    for line in _certificate_cases(torch, dev, rng):
+        say(f"  (b) {line}")
+
+    # (c) GIST1M through the public path, and the phase 3 corpus.
+    cos = DistanceMetric.COSINE
+    t0 = time.perf_counter()
+    x, g = _gist_corpus()
+    t_gen = time.perf_counter() - t0
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        path = os.path.join(tmp.name, "gist1m.mvt")
+        t0 = time.perf_counter()
+        b = Builder()
+        b.add_vector_space("gist", dim=D_GIST, metric=cos, pad_dims=False)
+        b.add_vectors("gist", x)
+        b.build().save(path)
+        del b, x
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ver = SearchEngine(Reader.open(path).vector_space("gist"), device="cuda",
+                           precision="high_verified", verify_margin=HIGH_MARGIN)
+        torch.cuda.synchronize()
+        t_up = time.perf_counter() - t0
+        sp = ver.space
+        say(f"  (c) gist1m {N_GIST}x{D_GIST} f32 cosine: drawn in {t_gen:.1f} s, "
+            f"file written in {t_build:.1f} s, Reader.open + upload {t_up:.2f} s "
+            f"({sp.nbytes / 2**20:.0f} MiB on the card, padded_dim {sp.padded_dim})")
+
+        def twin(p):
+            return SearchEngine(DeviceSpace(
+                sp.data, sp.norms, sp.num_valid, sp.dim, sp.metric, sp.valid_mask,
+                sp.dtype, precision=p, host_ids=sp.host_ids))
+
+        engines = {"highest": twin("highest"), "high": twin("high"),
+                   "high_verified": ver}
+        queries = {nq: g.standard_normal((nq, D_GIST)).astype(np.float32)
+                   for nq in (64, 256)}
+        sift = Reader.open(sift_path).vector_space("sift")
+        sift_v = SearchEngine(sift, device="cuda", precision="high_verified",
+                              verify_margin=HIGH_MARGIN)
+        sift_h = SearchEngine(sift, device="cuda")
+        q_sift = {nq: rng.integers(0, 256, (nq, D_MAIN)).astype(np.float32)
+                  for nq in (32, 256)}
+
+        # The main path, counted: high_verified searches at both cells.
+        fused_topk.launches_high = 0
+        fused_topk.launches = 0
+        rescore_candidates.launches = 0
+        res = {nq: ver.search(q, k=HIGH_K) for nq, q in queries.items()}
+        res_sift = {nq: sift_v.search(q, k=HIGH_K) for nq, q in q_sift.items()}
+        launches = fused_topk.launches_high
+        rescores = rescore_candidates.launches
+        fallbacks = fused_topk.launches
+        if launches != len(res) + len(res_sift) or rescores != launches:
+            raise AssertionError(
+                f"high_verified launched the variant {launches} and K3 {rescores} "
+                f"times for {len(res) + len(res_sift)} searches")
+        say(f"  (c) main path: {len(res) + len(res_sift)} high_verified searches, "
+            f"fused_topk[high] launches {launches}, rescore_candidates "
+            f"{rescores}, highest re-runs {fallbacks}; verify_stats gist1m "
+            f"{ver.verify_stats}, phase 3 corpus {sift_v.verify_stats}")
+        for nq, r in res_sift.items():
+            want = sift_h.search(q_sift[nq], k=HIGH_K)
+            if not (np.array_equal(r.indices, want.indices)
+                    and np.array_equal(r.scores, want.scores)):
+                raise AssertionError(f"phase 3 corpus batch {nq}: high_verified "
+                                     "differs from highest")
+        say("  (c) phase 3 corpus (1M x 128 integer f32, L2) at high_verified: "
+            "identical to highest at batches 32 and 256")
+
+        x64 = sp.data.double()
+        inv64 = 1.0 / torch.sqrt((x64 ** 2).sum(1))
+        recall = {}
+        for nq, q in queries.items():
+            for p, e in engines.items():
+                got = res[nq] if p == "high_verified" else e.search(q, k=HIGH_K)
+                recall[(p, nq)] = _cosine_recall(torch, x64, inv64, q, got.indices, HIGH_K)
+            say(f"  (c) gist1m batch={nq}: recall@10 " + ", ".join(
+                f"{p} {recall[(p, nq)]:.4f}" for p in engines))
+            if recall[("high_verified", nq)] != 1.0:
+                raise AssertionError(f"gist1m high_verified recall@10 at batch {nq}")
+        prep = sp.prepare_queries(queries[256])
+        s_h, i_h = fused_topk(prep.qdev, sp.data, sp.norms, sp.num_valid,
+                              HIGH_K + HIGH_MARGIN, cos, precision="high")
+        ratio = _scan_ratio(torch, prep.qdev, sp.data, sp.norms, s_h, i_h, cos,
+                            D_GIST)
+        raw = float(ver._verify_eps(prep)[0]) / VERIFY_SAFETY
+        s64 = ((x64[i_h.long()] * prep.qdev.double()[:, None, :]).sum(-1)
+               * inv64[i_h.long()])
+        err = float((s_h.double() - s64).abs().max())
+        say(f"  (b) gist1m batch 256: max |high - f64| {err:.3g}, {err / raw:.4f} of "
+            f"the certificate's raw bound {raw:.3g} (eps {2 * raw:.3g}); "
+            f"{ratio:.4f} of the scan's own bound")
+        if ratio >= 1.0:
+            raise AssertionError("gist1m: the scan's error passed its bound")
+        del x64, inv64, s64
+        torch.cuda.empty_cache()
+
+        cell, cell_err = _time_high_cell(
+            torch, dev, card, engines, "gist1m", (64, 256), cos,
+            lambda nq: g.standard_normal((nq, D_GIST)).astype(np.float32), False)
+        max_err = max(max_err, cell_err)
+        sift_engines = {"highest": sift_h, "high_verified": sift_v}
+        _time_high_cell(torch, dev, card, sift_engines, "phase 3 corpus", (32, 256),
+                        DistanceMetric.L2,
+                        lambda nq: rng.integers(0, 256, (nq, D_MAIN)).astype(np.float32),
+                        True)
+        say(f"  (c) verify_stats after timing: gist1m {ver.verify_stats}, phase 3 "
+            f"corpus {sift_v.verify_stats}")
+    finally:
+        tmp.cleanup()
+    say(f"phase 13 precision ladder: ok (fused_topk[high] launches {launches}, "
+        f"recall@10 high_verified 1.0000, high "
+        f"{min(recall[('high', nq)] for nq in queries):.4f}; "
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    top = cell[256]
+    return {"launches": launches, "max_err": max_err, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound": top["bound"]}
+
+
 def lookup_figures(torch, lookups: int, card: str) -> None:
     """K2's shared-memory lookups at the timed point (sift1m-pq4, batch
     256), one wavefront (128 bytes) a clock an SM at the 1,980 MHz boost
@@ -2530,20 +3035,24 @@ def main() -> int:
     keep_dir = keep.name if keep is not None else None
     max_err, _ = phase_kernel_vs_plain(torch, dev)
     engine, tmp, launches, times = phase_main_path(torch, dev, card, keep_dir)
+    # The phase 3 file stays for phase 13.
+    sift_path = os.path.join(keep_dir or tmp.name, "sift1m_like.mvt")
     try:
         phase_filters_ids(torch, engine)
         phase_serving(engine)
+        adc_err, _ = phase_adc_vs_plain(torch, dev)
+        gather_err, rescore_err = phase_gather_vs_plain(torch, dev)
+        pq_launches, pq_times, pq4 = phase_pq_path(torch, dev, card, keep_dir)
+        phase_any_k(torch, dev, card, engine, pq4)
+        del engine, pq4
+        torch.cuda.empty_cache()
+        sparse_err, dots_err = phase_sparse_vs_plain(torch, dev)
+        sparse_launches, sparse_times = phase_sparse_path(torch, dev, card)
+        group_err, group_launches, ivf_cell = phase_ivfpq_path(torch, dev, card)
+        torch.cuda.empty_cache()
+        high = phase_high_path(torch, dev, card, sift_path)
     finally:
         tmp.cleanup()
-    adc_err, _ = phase_adc_vs_plain(torch, dev)
-    gather_err, rescore_err = phase_gather_vs_plain(torch, dev)
-    pq_launches, pq_times, pq4 = phase_pq_path(torch, dev, card, keep_dir)
-    phase_any_k(torch, dev, card, engine, pq4)
-    del engine, pq4
-    torch.cuda.empty_cache()
-    sparse_err, dots_err = phase_sparse_vs_plain(torch, dev)
-    sparse_launches, sparse_times = phase_sparse_path(torch, dev, card)
-    group_err, group_launches, ivf_cell = phase_ivfpq_path(torch, dev, card)
 
     # The kernels line: each kernel at the main path's timed point, its
     # bound from this run's shapes (module docstring).
@@ -2632,6 +3141,11 @@ def main() -> int:
          "bound_ms": ivf_cell["bound"][0], "bound_by": ivf_cell["bound"][1],
          "bound_all_rows_ms": ivf_cell["bound_rows"][0],
          "bound_all_rows_by": ivf_cell["bound_rows"][1], "library_ms": None},
+        {"name": "fused_topk[high]", "route": "cuda", "source": HIGH_SOURCE,
+         "replaces": KERNEL_REPLACES, "launches": high["launches"],
+         "max_abs_err": high["max_err"], "ms": high["ms"],
+         "plain_ms": high["plain_ms"], "bound_ms": high["bound"][0],
+         "bound_by": high["bound"][1], "library_ms": None},
         {"name": "ell_dots", "route": "cuda", "source": CSRC + "sparse_kernel.cu",
          "replaces": "benchmarks/sparse_vmem_proto.py:87",
          "launches": sparse_launches["ell_dots"], "max_abs_err": dots_err,

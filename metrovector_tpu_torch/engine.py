@@ -7,12 +7,15 @@ one launch of the fused distance + top-k kernel
 PyTorch version runs instead. Asking for a CUDA device on a machine without
 CUDA raises: nothing falls back to the CPU.
 
-This slice covers f32 spaces at ``precision="highest"`` (exact f32) and
-``"default"`` (bf16 on the device), and f16 spaces kept f16 on the device
-(f16 ⊂ f32, so results equal the reference's f32 upcast), or bf16 at
-``"default"`` with f32 queries, as the reference keeps them. Other dtypes and
-precisions raise :class:`NotImplementedError` naming the ROADMAP item that
-brings them.
+This slice covers f32 spaces at ``precision="highest"`` (exact f32),
+``"high"`` (the bf16x3 split on the tensor cores), ``"high_verified"``
+(``"high"`` over-fetched, re-scored exactly and certified, else re-run at
+``"highest"``) and ``"default"`` (bf16 on the device), and f16 spaces kept
+f16 on the device (f16 ⊂ f32, so results equal the reference's f32 upcast;
+``"high"`` and ``"high_verified"`` run ``"highest"`` there, as the
+reference does), or bf16 at ``"default"`` with f32 queries, as the
+reference keeps them. Other dtypes raise :class:`NotImplementedError`
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -33,12 +36,33 @@ from .format.reader import Reader
 from .utils.filters import checked_prepared_mask, padded_filter_plane
 from .vectors.space import VectorSpace
 
-from .ops.distances import distances_np
+from .ops.distances import distances_np, rescore_topk
 from .ops.topk_kernel import fused_topk
 from .utils.transfer import put_chunked
 
 PRECISIONS = ("highest", "high", "high_verified", "default")
 _SUPPORTED_DTYPES = (DataType.FLOAT32, DataType.FLOAT16)
+# The certificate of "high_verified" is this multiple of the raw bound that
+# SearchEngine._verify_eps derives.
+VERIFY_SAFETY = 2.0
+
+
+def high_dot_bounds(dim: int) -> tuple[float, float]:
+    """``(scan, rescore)``: bounds on |computed − exact| of one dot product
+    of length ``dim``, in units of ``Σ_d |q_d x_d|`` (≤ ‖q‖‖x‖), for the
+    ``"high"`` scan and for the exact f32 re-score. Derived in
+    :meth:`SearchEngine._verify_eps`."""
+    return (3 + 2.0**-6) * 2.0**-16 + high_sum_bounds(dim)[0], 1.01 * dim * 2.0**-24
+
+
+def high_sum_bounds(dim: int) -> tuple[float, float]:
+    """``(tensor cores, cpu)``: bounds on the error of summing the exact
+    bf16x3 products of one dot of length ``dim``, in units of ``Σ_d |q_d
+    x_d|``, on the kernel's route and on the plain version's (three f32
+    matmuls). Derived in :meth:`SearchEngine._verify_eps`."""
+    steps = -(-dim // 16)
+    return (33 / 32 * (dim + 2 * steps + 1) * 2.0**-23,
+            dim * 2.0**-24 * (1 + 2.0**-6) + 2.0**-23)
 
 
 def resolve_device(device) -> torch.device:
@@ -55,11 +79,6 @@ def _check_supported(dtype: DataType, precision: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(
             f"unknown precision {precision!r}; one of {', '.join(PRECISIONS)}"
-        )
-    if precision in ("high", "high_verified"):
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (ROADMAP A2 precision "
-            "ladder; the 'high_verified' repair leg is B3)"
         )
     if dtype not in _SUPPORTED_DTYPES:
         raise NotImplementedError(
@@ -410,13 +429,27 @@ class SearchEngine:
     """
 
     def __init__(self, space: VectorSpace | DeviceSpace, device="cuda",
-                 precision: str = "highest"):
+                 precision: str = "highest", verify_margin: int = 8):
         """``space``: a host :class:`VectorSpace` (uploaded to ``device`` at
-        ``precision``) or a :class:`DeviceSpace` already resident."""
+        ``precision``) or a :class:`DeviceSpace` already resident.
+
+        ``precision`` (f32 spaces): ``"highest"``, exact f32 dots (FFMA);
+        ``"high"``, the bf16x3 split ``q_hi·x_hi + q_hi·x_lo + q_lo·x_hi`` on
+        the tensor cores, f32-faithful to about 2⁻¹⁶ relative, so sub-ulp
+        near-ties may swap; ``"high_verified"``, the ``"high"`` scan fetches
+        ``k + verify_margin`` candidates, an exact f32 re-score of just those
+        returns the top k, and a certificate (:meth:`_verify_eps`) proves it
+        exact or the batch re-runs at ``"highest"``; ``"default"``, bf16
+        storage. ``verify_stats`` counts certified queries and those that
+        fell back."""
         if not isinstance(space, DeviceSpace):
             space = DeviceSpace.from_space(space, device=device,
                                            precision=precision)
         self.space = space
+        if verify_margin < 1:
+            raise ValueError(f"verify_margin must be >= 1, got {verify_margin}")
+        self.verify_margin = int(verify_margin)
+        self.verify_stats = {"certified": 0, "fallbacks": 0}
 
     @classmethod
     def open(cls, path, space_name: str | None = None, **kw) -> "SearchEngine":
@@ -474,7 +507,7 @@ class SearchEngine:
             )
         prep = sp.prepare_queries(queries)
         if sp.num_valid == 0:  # empty space: all-sentinel results
-            return (None, None, prep, 0)
+            return (None, None, prep, 0, None)
         k_eff = min(k, sp.num_valid)
         eff_mask = sp.valid_mask
         if filter_mask is not None:
@@ -487,16 +520,93 @@ class SearchEngine:
                     padded_filter_plane(filter_mask, sp.num_valid, sp.padded_rows)
                 ).to(sp.device)
             eff_mask = fdev if eff_mask is None else eff_mask * fdev
+        # "high" and "high_verified" split f32 spaces only; f16 runs "highest".
+        f32 = sp.dtype == DataType.FLOAT32
+        high = f32 and sp.precision in ("high", "high_verified")
+        verified = f32 and sp.precision == "high_verified"
+        # high_verified: over-fetch a margin at bf16x3 cost, then re-score
+        # just those candidates exactly (K3); _finalize certifies the result.
+        k_fetch = min(k_eff + self.verify_margin, sp.num_valid) if verified else k_eff
         scores, idx = fused_topk(
-            prep.qdev, sp.data, sp.norms, sp.num_valid, k_eff, sp.metric,
-            valid_mask=eff_mask,
+            prep.qdev, sp.data, sp.norms, sp.num_valid, k_fetch, sp.metric,
+            valid_mask=eff_mask, precision="high" if high else "highest",
         )
-        return (scores, idx, prep, k_eff)
+        vcheck = None
+        if verified:
+            # The k_fetch-th "high" score: every row not fetched lost to it,
+            # so its exact score is at most boundary + eps.
+            boundary = scores[:, -1]
+            scores, idx = rescore_topk(prep.qdev, sp.data, sp.norms, idx,
+                                       k_eff, sp.metric)
+            if k_fetch < sp.num_valid:  # else every valid row was re-scored
+                vcheck = (boundary, self._verify_eps(prep), eff_mask)
+        return (scores, idx, prep, k_eff, vcheck)
+
+    def _verify_eps(self, prep) -> np.ndarray:
+        """Per-query bound on |"high" score − exact f32 score| in the
+        kernel's score space: the slack of ``high_verified``'s certificate.
+        It bounds the port's arithmetic (``ops/csrc/topk_high_kernel.cu``
+        against K3's re-score), not the TPU's. Units: ``S = Σ_d |q_d x_d|
+        ≤ ‖q‖‖x‖`` (Cauchy–Schwarz), values in f32's normal range.
+
+        - *The split.* ``v_hi = bf16(v)`` errs by ≤ 2⁻⁸|v| and ``v_lo =
+          bf16(v − v_hi)`` (the difference is exact) by ≤ 2⁻¹⁶|v|. The
+          dropped ``q_hi·e_x + q_lo·x_lo + q_lo·e_x + e_q·x`` (``e_v = v −
+          v_hi − v_lo``) is ≤ (3 + 2⁻⁶)·2⁻¹⁶·S.
+        - *The tensor cores* (``mma.sync`` m16n8k16, bf16 in, f32 out). The
+          products are exact. An mma need not round to nearest: take the
+          worst case, where the 16 addends and the accumulator are aligned
+          to the largest exponent among them and each is truncated to 24
+          bits there (< 2⁻²³ of the largest magnitude, which is ≤ S), then
+          a partial sum is truncated once more and the result once when it
+          is normalized. A step of m nonzero products thus loses
+          < (m + 2)·2⁻²³·S; over ``n = ceil(D/16)`` steps (zero dims add
+          nothing) < (D + 2n)·2⁻²³·(1 + 2⁻⁸)²·S for ``x_hi·q_hi``. The
+          kernel sums ``x_lo·q_hi + x_hi·q_lo``, whose addends total
+          ≤ 2⁻⁷(1 + 2⁻⁸)²·S, in registers of their own: twice the steps at
+          that scale, which adds 2⁻⁶ of the big sum's bound. It adds the
+          two at the end (one f32 rounding, 2⁻²⁴). Total ≤ (33/32)(D + 2n +
+          1)·2⁻²³·S.
+        - *The CPU route* (three IEEE f32 matmuls, two adds) errs by
+          ≤ D·2⁻²⁴(1 + 2⁻⁶)·S + 2⁻²³·S, inside the same bound
+          (:func:`high_sum_bounds` holds both routes' terms).
+        - *The re-score* (K3: f32 ``fmaf``, round to nearest, any order; or
+          its plain version): ≤ γ_D·S ≤ 1.01·D·2⁻²⁴·S.
+
+        So ``C(D) = (3 + 2⁻⁶)·2⁻¹⁶ + (33/32)(D + 2n + 1)·2⁻²³ + 1.01·D·2⁻²⁴``
+        (:func:`high_dot_bounds`) bounds the two dots' difference. Score
+        space: IP ``C·‖q‖·max‖x‖``; L2 scores are ``2·dot − ‖x‖²`` with the
+        same stored norm on both sides, so ``2·C·‖q‖·max‖x‖`` plus the two
+        f32 roundings of the subtraction, ``2⁻²³(2‖q‖·max‖x‖ + max‖x‖²)``;
+        cosine (unit queries, the same ``1/‖x‖`` factor on both sides) ``C``
+        plus the re-score's query factor ``1/‖q‖`` (its f32 norm of a unit
+        query, off by ≤ (D/2 + 3)·2⁻²⁴) and three roundings: ``C + (D + 12)
+        ·2⁻²⁵``. The result is :data:`VERIFY_SAFETY` times that raw bound,
+        which covers the (1 + 2⁻⁶) factors, stored norms a few ulps off and
+        the model of the tensor cores' adds. ``max‖x‖`` is
+        :meth:`DeviceSpace.norm_bounds`'s (conservative under deletes)."""
+        sp = self.space
+        c = sum(high_dot_bounds(sp.dim))
+        if sp.metric == DistanceMetric.COSINE:
+            raw = np.full(prep.sq_norms.shape, c + (sp.dim + 12) * 2.0**-25)
+        else:
+            qn = np.sqrt(prep.sq_norms.astype(np.float64))
+            xmax = float(np.sqrt(max(sp.norm_bounds()[0], 0.0)))
+            if sp.metric == DistanceMetric.L2:
+                raw = (2 * c * qn * xmax
+                       + 2.0**-23 * (2 * qn * xmax + xmax * xmax))
+            else:
+                raw = c * qn * xmax
+        return (VERIFY_SAFETY * raw).astype(np.float32)
 
     def _finalize(self, pending, k: int) -> SearchResult:
-        """Read back and convert to a user-facing result."""
+        """Read back and convert to a user-facing result. For a
+        ``high_verified`` launch, check the certificate and, where any query
+        fails it (scores within the bf16x3 band across more than
+        ``verify_margin`` rows at the boundary), re-run the batch at
+        ``"highest"`` so the result is exact whatever the data."""
         sp = self.space
-        scores, idx, prep, k_eff = pending
+        scores, idx, prep, k_eff, vcheck = pending
         nq = prep.qdev.shape[0]
         if k_eff == 0:  # empty space
             return SearchResult(
@@ -512,6 +622,21 @@ class SearchEngine:
             )
         scores = scores.cpu().numpy()
         idx = idx.cpu().numpy()
+        if vcheck is not None:
+            # A row not fetched has an exact score ≤ b + eps; if the exact
+            # k-th candidate clears that strictly, the top k is exact.
+            boundary, eps, eff_mask = vcheck
+            b = boundary.cpu().numpy()
+            ok = np.isneginf(b) | (scores[:, k_eff - 1] > b + eps)
+            self.verify_stats["certified"] += int(ok.sum())
+            if not ok.all():
+                self.verify_stats["fallbacks"] += int((~ok).sum())
+                scores, idx = fused_topk(
+                    prep.qdev, sp.data, sp.norms, sp.num_valid, k_eff,
+                    sp.metric, valid_mask=eff_mask,
+                )
+                scores = scores.cpu().numpy()
+                idx = idx.cpu().numpy()
         dist = distances_np(scores, sp.metric, prep.sq_norms)
         if k_eff < k:  # pad out to the requested k with sentinels
             pad = ((0, 0), (0, k - k_eff))

@@ -11,6 +11,7 @@ from .distances import (
     rescore_topk,
     scores_block,
     scores_to_distances,
+    split_bf16x3,
 )
 from .gather_kernel import (
     gather_rows,
@@ -40,4 +41,5 @@ __all__ = [
     "rescore_topk",
     "scores_block",
     "scores_to_distances",
+    "split_bf16x3",
 ]

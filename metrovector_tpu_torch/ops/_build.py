@@ -111,6 +111,18 @@ def load() -> ctypes.CDLL:
             lib.mvt_fused_topk.restype = i32
             lib.mvt_fused_topk_occupancy.argtypes = [i32, i32, i32, i32, p]
             lib.mvt_fused_topk_occupancy.restype = i32
+            lib.mvt_fused_topk_high.argtypes = [
+                p, p, p, p, p,            # q, qsplit, db, norms, mask
+                i64, i64, i64, i64,       # nq, n, d, num_valid
+                i32, i32,                 # k, metric
+                i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
+                p, p, p,                  # part_s/i, slots
+                p, p, p, p,               # tmp_s/i, out_s/i
+                p,                        # stream
+            ]
+            lib.mvt_fused_topk_high.restype = i32
+            lib.mvt_fused_topk_high_occupancy.argtypes = [i32, i32, p]
+            lib.mvt_fused_topk_high_occupancy.restype = i32
             lib.mvt_adc_topk.argtypes = [
                 p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
                 p, p,                     # norms, mask

@@ -40,18 +40,47 @@ def full_f32_matmul():
         torch.set_float32_matmul_precision(prev_prec)
 
 
+def split_bf16x3(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16x3 split of an f32 tensor, as the reference's ``"high"``
+    kernel forms it: ``hi = bf16(t)``, ``lo = bf16(t − f32(hi))``, both
+    rounded to nearest even (subnormals kept). ``t − f32(hi)`` is exact, so
+    ``hi + lo`` carries about 16 significand bits of ``t``."""
+    t = t.float()
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def bf16x3_dots(queries: torch.Tensor, db: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``q_hi·x_hi + q_hi·x_lo + q_lo·x_hi`` over f32 ``queries [Q, D]`` and
+    ``db [N, D]``: three full-precision matmuls of the bf16 halves widened
+    to ``dtype`` (every product exact), summed in the reference's order."""
+    q_hi, q_lo = (h.to(dtype) for h in split_bf16x3(queries))
+    x_hi, x_lo = (h.to(dtype) for h in split_bf16x3(db))
+    with full_f32_matmul():
+        dots = q_hi @ x_hi.T
+        dots += q_hi @ x_lo.T
+        dots += q_lo @ x_hi.T
+    return dots
+
+
 def scores_block(
     queries: torch.Tensor,
     db: torch.Tensor,
     db_norms: torch.Tensor,
     metric: DistanceMetric,
     query_inv_norms: torch.Tensor | None = None,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """Greater-is-better score matrix ``[Q, N]`` for one corpus block.
     ``db`` may be any float dtype; it is widened to f32 (exact for f16 and
-    bf16). ``query_inv_norms``: ``[Q]`` reciprocal query norms (cosine)."""
-    with full_f32_matmul():
-        dots = queries.float() @ db.float().T
+    bf16). ``query_inv_norms``: ``[Q]`` reciprocal query norms (cosine).
+    ``precision="high"``: the dots are :func:`bf16x3_dots` of f32 inputs."""
+    if precision == "high":
+        dots = bf16x3_dots(queries, db)
+    else:
+        with full_f32_matmul():
+            dots = queries.float() @ db.float().T
     metric = DistanceMetric(metric)
     if metric == DistanceMetric.INNER_PRODUCT:
         return dots
@@ -123,12 +152,13 @@ def exact_topk(
     valid_mask: torch.Tensor | None = None,
     block_rows: int = 16384,
     query_inv_norms: torch.Tensor | None = None,
+    precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k in plain PyTorch, the twin of ``exact_topk_xla``: scans
     the corpus in ``block_rows`` blocks with a carried candidate list, so
     ``[Q, N]`` never exists whole. Returns ``(scores [Q, k] f32,
     indices [Q, k] int32)`` best first; slots beyond the unmasked rows hold
-    (−inf, −1).
+    (−inf, −1). ``precision="high"`` scores by :func:`bf16x3_dots`.
 
     Ties go to the lowest index (:func:`carry_topk`). ``torch.topk``
     promises no tie order and is not used."""
@@ -143,7 +173,7 @@ def exact_topk(
     for start in range(0, n, block_rows):
         stop = min(n, start + block_rows)
         s = scores_block(q, db[start:stop], db_norms[start:stop], metric,
-                         query_inv_norms)
+                         query_inv_norms, precision)
         vm = None if valid_mask is None else valid_mask[start:stop]
         best = carry_topk(best, mask_scores(s, start, num_valid, vm), start, k)
     return finish_topk(best, k)

@@ -1,11 +1,14 @@
-"""Fused distance + top-k: the wrapper of the Hopper kernel
-``csrc/topk_kernel.cu`` and its plain PyTorch version.
+"""Fused distance + top-k: the wrappers of the Hopper kernels
+``csrc/topk_kernel.cu`` (precision ``"highest"``: f32 FFMA) and
+``csrc/topk_high_kernel.cu`` (``"high"``: the bf16x3 split on the tensor
+cores), and their plain PyTorch version.
 
 Replaces ``metrovector_tpu/ops/topk_kernel.py::fused_topk``. A CUDA tensor
-goes to the kernel or the call raises; a CPU tensor goes to
-:func:`fused_topk_reference`. ``fused_topk.launches`` counts kernel launches
-(both passes of one call count once), so a run can show that its main path
-went through the kernel.
+goes to a kernel or the call raises; a CPU tensor goes to
+:func:`fused_topk_reference`. ``fused_topk.launches`` counts launches of the
+FFMA kernel and ``fused_topk.launches_high`` those of the bf16x3 kernel
+(the passes of one call count once), so a run can show that its main path
+went through them.
 
 Like the TPU kernel it takes any ``1 ≤ k ≤ N`` and any D: above k = 256 the
 per-split lists move from shared memory into device memory and a merge
@@ -39,6 +42,11 @@ _TILE = TILE_32x256
 _CHUNK = 16
 _BUFFER = 64
 
+# Shape constants of csrc/topk_high_kernel.cu: 64 x 128 block tiles, a ring
+# of 3 chunks, lists in shared memory up to HIGH_SMEM_K.
+HIGH_QB, HIGH_RB, HIGH_STAGES, HIGH_SMEM_K = 64, 128, 3, 128
+_PRECISIONS = ("highest", "high")
+
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _METRICS = (
     DistanceMetric.L2, DistanceMetric.INNER_PRODUCT, DistanceMetric.COSINE
@@ -53,16 +61,21 @@ def fused_topk_reference(
     k: int,
     metric,
     valid_mask: torch.Tensor | None = None,
+    precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`fused_topk` (same signature and results):
     :func:`~.distances.exact_topk` with the kernel's cosine epilogue, which
-    takes queries as already normalized."""
+    takes queries as already normalized. At ``"high"`` the dots are
+    :func:`~.distances.bf16x3_dots`: the kernel's products exactly, summed
+    in another order."""
     metric = DistanceMetric(metric)
+    _check_precision(precision, db)
     inv_q = None
     if metric == DistanceMetric.COSINE:
         inv_q = torch.ones(queries.shape[0], device=queries.device)
     return exact_topk(queries, db, db_norms, int(num_valid), k, metric,
-                      valid_mask=valid_mask, query_inv_norms=inv_q)
+                      valid_mask=valid_mask, query_inv_norms=inv_q,
+                      precision=precision)
 
 
 def _shared_bytes(k: int, tile: int = _TILE) -> int:
@@ -75,6 +88,26 @@ def _shared_bytes(k: int, tile: int = _TILE) -> int:
     chunks = 2 * _CHUNK * (qb + rb) * 4
     lists = 0 if k > SMEM_K else k
     return chunks + 4 * 256 + qb * (8 + 4 * rb + 8 * _BUFFER + 4 + 8 * lists)
+
+
+def _shared_bytes_high(k: int) -> int:
+    """Dynamic shared memory of one bf16x3 scan block: the ring of chunks
+    (f32 rows; the queries' hi and lo words), and per query the bar, the
+    score row, the candidate words, the buffer and its fill, and the list
+    (none above :data:`HIGH_SMEM_K`)."""
+    chunks = HIGH_STAGES * 16 * 4 * (HIGH_QB + HIGH_RB)
+    lists = 0 if k > HIGH_SMEM_K else k
+    return chunks + HIGH_QB * (8 + 4 * HIGH_RB + HIGH_RB // 8 + 8 * _BUFFER
+                               + 4 + 8 * lists)
+
+
+def _check_precision(precision: str, db: torch.Tensor) -> None:
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision {precision!r}: one of {', '.join(_PRECISIONS)}")
+    if precision == "high" and db.dtype != torch.float32:
+        raise ValueError(
+            f"precision='high' splits an f32 corpus into bf16 halves; db is {db.dtype}"
+        )
 
 
 def _check(queries, db, db_norms, k, valid_mask) -> None:
@@ -120,19 +153,26 @@ def fused_topk(
     k: int,
     metric,
     valid_mask: torch.Tensor | None = None,
+    precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
     over ``db [N, D]`` (f32 / f16 / bf16) with squared norms
     ``db_norms [N]`` f32; rows ≥ ``num_valid`` and rows where
     ``valid_mask [N]`` (f32) is 0 never enter. Returns ``(scores [Q, k]
     f32, indices [Q, k] int32)`` by (score descending, index ascending);
-    unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``, any D."""
+    unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``, any D.
+
+    ``precision``: ``"highest"`` (f32 dots, the FFMA kernel) or ``"high"``
+    (an f32 ``db`` only: the reference's in-kernel bf16x3 split,
+    ``q_hi·x_hi + q_hi·x_lo + q_lo·x_hi`` with exact products and f32
+    sums, on the tensor cores)."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
+    _check_precision(precision, db)
     if queries.device.type == "cpu":
         return fused_topk_reference(queries, db, db_norms, num_valid, k,
-                                    metric, valid_mask)
+                                    metric, valid_mask, precision)
     if queries.device.type != "cuda":
         raise ValueError(f"fused_topk runs on CUDA or CPU, not {queries.device}")
     _check(queries, db, db_norms, k, valid_mask)
@@ -147,39 +187,96 @@ def fused_topk(
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
     with torch.cuda.device(dev):
-        _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
-                _TILE, out_s, out_i)
-    fused_topk.launches += 1
+        if precision == "high":
+            _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k,
+                         metric, out_s, out_i)
+            fused_topk.launches_high += 1
+        else:
+            _launch(lib, queries, db, db_norms, valid_mask, num_valid, k,
+                    metric, _TILE, out_s, out_i)
+            fused_topk.launches += 1
     return out_s, out_i
+
+
+def _plan(dev, nq, n, k, smem_k, tile, occupancy, splits=None):
+    """The host plan of one launch: ``(splits, rows_per_split, length,
+    tree, part_s, part_i, tmp_s, tmp_i, slots)`` for a kernel whose blocks
+    take ``tile = (queries, rows)`` and keep lists of up to ``smem_k`` in
+    shared memory. ``occupancy(k_smem, big)`` returns the scan blocks that
+    fit on one SM; ``splits`` (default: one wave, as many scan blocks as
+    fit on the card at once) sets the row splits, fewer above ``smem_k`` if
+    the lists would pass the scratch bound."""
+    big = k > smem_k
+    if splits is None:
+        per_sm = occupancy(min(k, smem_k), int(big))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = max(1, sms * max(1, per_sm) // -(-nq // tile[0]))
+    splits, rows_per_split, length = select.row_splits(
+        n, tile[1], splits, nq, k, lists_in_smem=not big)
+    tree = select.merge_by_tree(splits, k, not big)
+    scratch = select.scratch(nq, splits, length, k, dev, tree=tree)
+    slots = select.bar_slots(nq, splits, dev)
+    return (splits, rows_per_split, length, tree) + tuple(scratch) + (slots,)
+
+
+def _occupancy(lib, entry, what, *args):
+    """``occupancy(k_smem, big)`` for :func:`_plan` through the library's
+    occupancy entry point ``entry`` (leading arguments ``args``)."""
+    from ._build import raise_for
+
+    def per_sm(k_smem, big):
+        out = ctypes.c_int(0)
+        raise_for(lib, entry(*args, k_smem, big, ctypes.byref(out)), what)
+        return out.value
+
+    return per_sm
+
+
+def _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
+                 out_s, out_i) -> None:
+    """One launch of the query split, the bf16x3 scan and the merge for
+    checked inputs into ``out_s``/``out_i``, with one wave of scan blocks
+    (as :func:`_launch`)."""
+    from ._build import raise_for
+
+    nq, d = queries.shape
+    n = db.shape[0]
+    dev = queries.device
+    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _plan(
+        dev, nq, n, k, HIGH_SMEM_K, (HIGH_QB, HIGH_RB),
+        _occupancy(lib, lib.mvt_fused_topk_high_occupancy, "fused_topk[high]"))
+    # The split queries: per query and 16 dims, 16 words of bf16 pairs.
+    qsplit = torch.empty(nq * -(-d // _CHUNK) * 16, dtype=torch.int32,
+                         device=dev)
+    err = lib.mvt_fused_topk_high(
+        queries.data_ptr(), qsplit.data_ptr(), db.data_ptr(),
+        db_norms.data_ptr(),
+        None if valid_mask is None else valid_mask.data_ptr(),
+        nq, n, d, max(0, min(int(num_valid), n)), k, int(metric),
+        splits, rows_per_split, length, int(tree),
+        part_s.data_ptr(), part_i.data_ptr(), slots.data_ptr(),
+        tmp_s.data_ptr(), tmp_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_for(lib, err, "fused_topk[high]")
 
 
 def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
             tile, out_s, out_i, splits=None) -> None:
     """One launch of the scan and the merge for checked inputs with block
     tile ``tile`` (a tile the library was built with) into
-    ``out_s``/``out_i``. ``splits`` (default: one wave, as many scan blocks
-    as fit on the card at once) sets the row splits; above :data:`SMEM_K`
-    fewer if the lists would pass the scratch bound."""
+    ``out_s``/``out_i``. ``splits`` as in :func:`_plan`."""
     from ._build import raise_for
 
     nq, d = queries.shape
     n = db.shape[0]
     dev = queries.device
     code = _DTYPE_CODES[db.dtype]
-    big = k > SMEM_K
-    if splits is None:
-        per_sm = ctypes.c_int(0)
-        raise_for(lib, lib.mvt_fused_topk_occupancy(
-            code, tile, min(k, SMEM_K), int(big), ctypes.byref(per_sm)),
-            "fused_topk")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = max(1, sms * max(1, per_sm.value) // -(-nq // _TILES[tile][0]))
-    splits, rows_per_split, length = select.row_splits(
-        n, _TILES[tile][1], splits, nq, k, lists_in_smem=not big)
-    tree = select.merge_by_tree(splits, k, not big)
-    part_s, part_i, tmp_s, tmp_i = select.scratch(nq, splits, length, k, dev,
-                                                  tree=tree)
-    slots = select.bar_slots(nq, splits, dev)
+    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _plan(
+        dev, nq, n, k, SMEM_K, _TILES[tile],
+        _occupancy(lib, lib.mvt_fused_topk_occupancy, "fused_topk", code, tile),
+        splits)
     err = lib.mvt_fused_topk(
         queries.data_ptr(), db.data_ptr(), code, db_norms.data_ptr(),
         None if valid_mask is None else valid_mask.data_ptr(),
@@ -195,3 +292,4 @@ def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
 
 
 fused_topk.launches = 0
+fused_topk.launches_high = 0

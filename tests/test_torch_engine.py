@@ -219,16 +219,57 @@ def test_from_state_of_reference_device_space(tmp_path, dtype, precision):
 
 
 def test_unported_modes_raise(tmp_path):
+    """int8 spaces and add_rows still raise; "high" and "high_verified" now
+    run, and on an f16 space (which the reference upcasts but keeps as
+    FLOAT16) they run "highest": no over-fetch, no certificate."""
     path, _, _ = _file(tmp_path, dtype=DataType.INT8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SearchEngine.open(path, device="cpu")
-    path, _, _ = _file(tmp_path)
+    path, x, q = _file(tmp_path)
+    want = SearchEngine.open(path, device="cpu").search(q, k=5)
     for precision in ("high", "high_verified"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SearchEngine.open(path, device="cpu", precision=precision)
+        _assert_same(SearchEngine.open(path, device="cpu",
+                                       precision=precision).search(q, k=5), want)
+    path, x, q = _file(tmp_path, dtype=DataType.FLOAT16)
+    highest = SearchEngine.open(path, device="cpu").search(q, k=5)
+    ver = SearchEngine.open(path, device="cpu", precision="high_verified")
+    _assert_same(ver.search(q, k=5), highest)
+    assert ver.verify_stats == {"certified": 0, "fallbacks": 0}
     eng = SearchEngine.open(path, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.space.add_rows(np.zeros((1, D), np.float32))
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_precision_modes(tmp_path, precision):
+    """The mirror of ``tests/test_engine.py::test_precision_modes``: "high"
+    (the bf16x3 split over the f32 corpus, which stays f32 on the device)
+    matches the f32 oracle exactly on well-separated data, and the JAX
+    engine's indices; "default" (bf16 storage, half the memory) keeps a high
+    overlap."""
+    from metrovector_tpu.ops.distances import numpy_oracle
+
+    rng = np.random.default_rng(0)
+    data = rng.standard_normal((400, 64)).astype(np.float32)
+    b = Builder()
+    b.add_vector_space("v", dim=64)
+    b.add_vectors("v", data)
+    path = tmp_path / "p.mvt"
+    b.build().save(path)
+    eng, ref = _engines(path, precision)
+    queries = rng.standard_normal((5, 64)).astype(np.float32)
+    res = eng.search(queries, k=10)
+    _, oi = numpy_oracle(queries, data, 10, DistanceMetric.L2)
+    if precision == "high":
+        np.testing.assert_array_equal(res.indices, oi)
+        np.testing.assert_array_equal(res.indices, ref.search(queries, k=10).indices)
+        assert eng.space.data.dtype == torch.float32
+    else:
+        overlap = np.mean(
+            [len(set(res.indices[r]) & set(oi[r])) / 10 for r in range(5)]
+        )
+        assert overlap >= 0.9
+        assert eng.space.data.element_size() == 2
 
 
 def test_microbatcher_over_port_engine(tmp_path):
