@@ -119,12 +119,35 @@ Phases, one line each; any failure exits non-zero:
    ``high`` and ``highest`` reported), ``verify_stats``, the measured error
    against the certificate's raw bound, and CUDA-event times of the
    variant, its plain version, K1 ``highest``, K3's re-score at R = 18 and
-   ``search()`` p50 at each precision.
+   ``search()`` p50 at each precision;
+14. quantized and bf16 spaces: (a) K1's integer variant
+   (``ops/csrc/topk_int_kernel.cu``) against its plain version on 200,003
+   int8 rows with twins across splits, D in {96, 100, 1536}, the three
+   metrics, int8 with a scale (deferred for IP) and the uint8 offset form
+   with ``bias_row``, batches 1, 33 and 255, k in {10, 100, 257}, num_valid
+   and masks as in phase 2 (identical, twice); the affine int8 load of
+   ``topk_kernel.cu`` within phase 2's band; K2's int8 LUT over pq4 and pq8
+   codes with twins, the three metrics, k in {1, 10, 400} (identical,
+   twice); (b) ``benchmarks/suite.py``'s deep10m (10M x 96 int8 codes of
+   seed 4, IP, quantization scale 0.02): ``Builder`` in chunks ->
+   ``Reader.open`` -> ``SearchEngine(device="cuda")`` -> ``search(k=10)`` at
+   batches 128 and 32, recall@10 1.000 against a float64 oracle of the
+   queries as the engine quantized them, the variant's launch count; (c)
+   sift1m-u8 (1M x 128 uint8 of seed 2, L2, identity quantization, batch
+   256) identical to the plain version, recall against the oracles of the
+   quantized and of the raw queries, and the same codes as a uint8 cosine
+   space through the affine load, within the band; (d) phase 8's
+   ``sift1m-pq4`` index at ``search(k=10, rerank=400, int8_lut=True)``,
+   batches 256 and 32, recall@10 >= 0.99; (e) the phase 3 corpus written as
+   BFLOAT16, identical to the f32 space; (f) CUDA-event times of each new
+   kernel and its plain version, ``torch._int_mm`` of the batch's product
+   as a yardstick for the integer scan, and ``search()`` p50.
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
-operations, 989 TFLOP/s dense bf16 for the bf16x3 variant, and 3.35 TB/s);
-the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+operations, 989 TFLOP/s dense bf16 for the bf16x3 variant, 1,979 TOP/s
+dense int8 for the integer variant, and 3.35 TB/s); the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -157,7 +180,14 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+_T0 = time.perf_counter()
+
+
 def say(*parts) -> None:
+    """Print a line; a phase's closing line also gets the seconds since the
+    script started, so the run's time splits by phase."""
+    if parts and str(parts[0]).startswith("phase "):
+        parts += (f"[{time.perf_counter() - _T0:.1f} s]",)
     print(*parts, flush=True)
 
 
@@ -674,6 +704,9 @@ def phase_adc_vs_plain(torch, dev) -> tuple[float, int]:
                     for nq in (1, 37, 256):
                         qd = torch.from_numpy(np.ascontiguousarray(q_all[:nq])).to(dev)
                         lut64 = adc_lut(qd, books_d, exact_lut).double().cpu().numpy()
+                        # every row's float64 score once; each run masks it
+                        all64 = _adc_scores64(lut64, codes, m, ksub, rnorms, metric,
+                                              np.ones(n, bool))
                         runs = []
                         for k in (1, 10, 400, 1024):
                             variant = cases % 4
@@ -691,8 +724,7 @@ def phase_adc_vs_plain(torch, dev) -> tuple[float, int]:
                             live = np.arange(n) < num_valid
                             if masked:
                                 live &= mask != 0
-                            scores = _adc_scores64(lut64, codes, m, ksub, rnorms,
-                                                   metric, live)
+                            scores = np.where(live[None, :], all64, -np.inf)
                             i_k = got[1].cpu().numpy()
                             if (i_k[:, min(k, int(live.sum())):] != -1).any():
                                 raise AssertionError("slots beyond the live rows are not -1")
@@ -2955,6 +2987,598 @@ def phase_high_path(torch, dev, card, sift_path):
             "plain_ms": top["plain_ms"], "bound": top["bound"]}
 
 
+# -- phase 14: quantized and bf16 spaces -------------------------------------
+
+INT_SOURCE = CSRC + "topk_int_kernel.cu"
+# Dense int8 tensor-core rate of the H100 SXM data sheet at 700 W.
+INT8_OPS = 1979e12
+# benchmarks/suite.py's deep10m (:412-445) and sift1m-u8 (:268-301).
+N_DEEP, D_DEEP, DEEP_SEED, DEEP_SCALE, DEEP_BATCH = 10_000_000, 96, 4, 0.02, 128
+U8_SEED, U8_BATCH = 2, 256
+U8_COS_QUANT = (0.02, 3.0)  # (scale, zero_point) of the uint8 cosine space
+
+
+def int_bound(nq: int, n: int, d: int, k: int, bias: bool = False) -> tuple[float, str]:
+    """(bound_ms, bound_by) of the integer variant: 2 Q N D operations at
+    the dense int8 rate, or its bytes (the D bytes of each row it reads,
+    the norms, the row sums with ``bias`` and the int8 queries read once,
+    the top k written once)."""
+    t_ops = 2 * nq * n * d / INT8_OPS * 1e3
+    t_bytes = (n * d + 4 * n * (1 + bias) + nq * d + 8 * nq * k) / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _int_recall_on_card(torch, data, dim, qq, rows, k):
+    """recall@k of an inner-product search against the float64 oracle of
+    the int8 queries ``qq`` (on the card) over the int8 rows ``data[:, :dim]``
+    (the engine's block), computed on the card a million rows at a time; a
+    returned row is a hit when its exact dot reaches the k-th best."""
+    q64 = qq[:, :dim].double()
+    best = None
+    for c0 in range(0, data.shape[0], 1_000_000):
+        top = torch.topk(q64 @ data[c0 : c0 + 1_000_000, :dim].double().T, k, dim=1).values
+        best = top if best is None else torch.topk(torch.cat([best, top], 1), k, dim=1).values
+    r = torch.from_numpy(rows.astype(np.int64)).to(data.device)
+    got = (data[r.clamp(min=0)][:, :, :dim].double() * q64[:, None, :]).sum(-1)
+    return float(((got >= best[:, -1:]) & (r >= 0)).sum()) / rows.size
+
+
+def _int_cases(torch, dev, rng) -> int:
+    """(a) The integer variant on 200,003 int8 rows with twins across splits
+    at D in {96, 100, 1536}: the three metrics, int8 with a scale (deferred
+    for IP) and the uint8 offset form (recentred codes, their row sums as
+    ``bias_row``, the scales of full-range integer queries), batches 1, 33
+    and 255, k rotating through {10, 100, 257}, num_valid ending inside a
+    split and a mask that empties whole splits; each case twice, identical
+    to the plain version. Below D = 128 rows and queries are the first D
+    columns of 128-byte rows whose other bytes are random, as the engine
+    hands over its padded blocks. Returns the cases run."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_reference
+
+    n, cases = SPLIT_N, 0
+    mask = np.ones(n, np.float32)
+    mask[40_000:120_000] = 0
+    mask_d = torch.from_numpy(mask).to(dev)
+    forms = {"int8": dict(scale=0.37),
+             "uint8 offset": dict(scale=128 / 127, bias_scale=128.0)}
+    for d in (96, 100, 1536):
+        width = max(d, 128)
+        base = rng.integers(-128, 128, (3000, width)).astype(np.int8)
+        x = torch.from_numpy(base[rng.integers(0, 3000, n)]).to(dev)
+        x[:, d:] = torch.randint(-128, 128, (n, width - d), device=dev).to(torch.int8)
+        x = x[:, :d]
+        bias = x.sum(1, dtype=torch.int32).float()
+        norms = {"int8": ((x.double() * 0.37) ** 2).sum(1).float(),
+                 "uint8 offset": ((x.double() + 128) ** 2).sum(1).float()}
+        q_host = rng.integers(-128, 128, (255, width)).astype(np.int8)
+        for nq in (1, 33, 255):
+            q = torch.from_numpy(q_host[:nq]).to(dev)[:, :d]
+            for metric in (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+                           DistanceMetric.COSINE):
+                for form, kw in forms.items():
+                    kw = dict(kw, bias_row=bias if form != "int8" else None)
+                    k = (10, 100, 257)[cases % 3]
+                    variant = (cases + cases // 4) % 4
+                    num_valid = n - 70_001 if variant & 1 else n
+                    args = (q, x, norms[form], num_valid, k, metric,
+                            mask_d if variant & 2 else None)
+                    _twice_identical(
+                        torch, lambda *a, kw=kw: fused_topk(*a, **kw), args,
+                        fused_topk_reference(*args, **kw),
+                        f"fused_topk[int8] {form} D={d} Q={nq} k={k} {metric.name} "
+                        f"num_valid={num_valid} mask={bool(variant & 2)}")
+                    cases += 1
+        del x, bias, norms
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _affine_cases(torch, dev, rng) -> tuple[int, float]:
+    """(a) The affine int8 load on 20,003 rows of random codes read as
+    ``(c + 128 − zp)·scale``, D in {128, 100}, the three metrics, batches 1,
+    33 and 255, k in {10, 257}: within phase 2's f32 band of the plain
+    version (N(0, 1) queries, unit for cosine). Returns (cases, max |score
+    diff|)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_reference
+
+    n, cases, err = 20_003, 0, 0.0
+    scale, zp = U8_COS_QUANT
+    affine = (128.0 - zp, scale)
+    for d in (128, 100):
+        codes = rng.integers(-128, 128, (n, d)).astype(np.int8)
+        x = ((codes.astype(np.float32) + np.float32(affine[0]))
+             * np.float32(affine[1]))
+        norms = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
+        db = torch.from_numpy(codes).to(dev)
+        nd = torch.from_numpy(norms).to(dev)
+        for metric in (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+                       DistanceMetric.COSINE):
+            q_all = rng.standard_normal((255, d)).astype(np.float32)
+            if metric == DistanceMetric.COSINE:
+                q_all /= np.linalg.norm(q_all, axis=1, keepdims=True)
+            scores = _f64_scores(q_all, x, norms, metric)
+            for nq in (1, 33, 255):
+                q = np.ascontiguousarray(q_all[:nq])
+                qd = torch.from_numpy(q).to(dev)
+                for k in (10, 257):
+                    got = fused_topk(qd, db, nd, n, k, metric, affine=affine)
+                    ref = fused_topk_reference(qd, db, nd, n, k, metric, affine=affine)
+                    if metric == DistanceMetric.COSINE:
+                        tol = np.full(nq, 4 * d * 2.0**-24 + 2.0**-22)
+                    else:
+                        tol = (4 * d * 2.0**-24 * np.linalg.norm(q, axis=1)
+                               * np.sqrt(norms.max()))
+                    err = max(err, _compare(got, ref, False, tol, scores[:nq],
+                                            f"fused_topk[affine] D={d} Q={nq} k={k} "
+                                            f"{metric.name}"))
+                    cases += 1
+    return cases, err
+
+
+def _lut8_cases(torch, dev, rng) -> int:
+    """(a) The int8 LUT on 200,003 rows of codes with twins across splits,
+    pq4 (m=32, ksub=16, packed) and pq8 (m=16, ksub=256), N(0, 1) codebooks
+    and queries (both versions quantize the same f32 LUT on the card), the
+    three metrics, k in {1, 10, 400}, batches rotating through 1, 33 and
+    255, num_valid and the mask as in _int_cases; each twice, identical to
+    the plain version. Returns the cases run."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        fused_adc_topk, fused_adc_topk_reference,
+    )
+
+    n, cases = SPLIT_N, 0
+    mask = np.ones(n, np.float32)
+    mask[40_000:120_000] = 0
+    mask_d = torch.from_numpy(mask).to(dev)
+    for m, ksub, packed in ((32, 16, True), (16, 256, False)):
+        base = rng.integers(0, ksub, (3000, m)).astype(np.uint8)
+        codes = base[rng.integers(0, 3000, n)]
+        books = rng.standard_normal((m, ksub, 4)).astype(np.float32)
+        recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], axis=1)
+        rn = torch.from_numpy((recon.astype(np.float64) ** 2).sum(1).astype(np.float32)).to(dev)
+        stored = torch.from_numpy(pack_codes4(codes) if packed else codes).to(dev)
+        bd = torch.from_numpy(books).to(dev)
+        q_all = rng.standard_normal((255, m * 4)).astype(np.float32)
+        for metric in (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+                       DistanceMetric.COSINE):
+            qm = q_all
+            if metric == DistanceMetric.COSINE:
+                qm = q_all / np.linalg.norm(q_all, axis=1, keepdims=True)
+            for k in (1, 10, 400):
+                nq = (1, 33, 255)[cases % 3]
+                variant = (cases + cases // 4) % 4
+                num_valid = n - 70_001 if variant & 1 else n
+                args = (torch.from_numpy(np.ascontiguousarray(qm[:nq])).to(dev),
+                        stored, bd, rn, num_valid, k, metric,
+                        mask_d if variant & 2 else None, False, packed)
+                _twice_identical(
+                    torch, lambda *a: fused_adc_topk(*a, int8_lut=True), args,
+                    fused_adc_topk_reference(*args, int8_lut=True),
+                    f"fused_adc_topk[int8_lut] m={m} ksub={ksub} Q={nq} k={k} "
+                    f"{metric.name} num_valid={num_valid} mask={bool(variant & 2)}")
+                cases += 1
+    return cases
+
+
+def _p50(torch, search, hosts, dev, **kw) -> float:
+    """search() p50 in ms over the host query sets ``hosts``."""
+    from metrovector_tpu_torch.utils.timing import sync_time
+
+    search(hosts[0], **kw)
+    return float(np.median([sync_time(search, h, device=dev, **kw)[0]
+                            for h in hosts])) * 1e3
+
+
+def _kernel_times(torch, dev, kern, plain, inputs, plain_inputs) -> tuple[float, list, float]:
+    """(kernel ms, its two runs, plain ms) by CUDA events in the order
+    plain, kernel, kernel, plain."""
+    from metrovector_tpu_torch.utils.timing import cuda_ms
+
+    kern(inputs[0])
+    plain(plain_inputs[0])
+    p1 = cuda_ms(plain, plain_inputs, dev)
+    k1 = cuda_ms(kern, inputs, dev)
+    k2 = cuda_ms(kern, inputs, dev)
+    p2 = cuda_ms(plain, plain_inputs, dev)
+    return (k1 + k2) / 2, [k1, k2], (p1 + p2) / 2
+
+
+def _deep10m(torch, dev, card, tmpdir) -> dict:
+    """(b) deep10m at full size through the public path (module
+    docstring). Returns the kernels-line figures of fused_topk[int8]."""
+    from metrovector_tpu_torch import Builder, DataType, DistanceMetric, Reader, SearchEngine
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_reference
+
+    ip = DistanceMetric.INNER_PRODUCT
+    rng = np.random.default_rng(DEEP_SEED)
+    t0 = time.perf_counter()
+    codes = rng.integers(-128, 128, (N_DEEP, D_DEEP)).astype(np.int8)
+    t_gen = time.perf_counter() - t0
+    path = os.path.join(tmpdir, "deep10m.mvt")
+    t0 = time.perf_counter()
+    b = Builder()
+    b.add_vector_space("deep", dim=D_DEEP, dtype=DataType.INT8,
+                       metric=ip).with_quantization(DEEP_SCALE, 0.0)
+    for c0 in range(0, N_DEEP, 1_000_000):
+        b.add_vectors("deep", codes[c0 : c0 + 1_000_000])
+    b.build().save(path)
+    del b, codes
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = SearchEngine(Reader.open(path).vector_space("deep"), device="cuda")
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    sp = engine.space
+    say(f"  (b) deep10m {N_DEEP}x{D_DEEP} int8 IP, scale {DEEP_SCALE} (seed {DEEP_SEED}): "
+        f"drawn in {t_gen:.1f} s, file written in {t_build:.1f} s (Builder in "
+        f"chunks of 1M rows), Reader.open + upload {t_up:.2f} s ({sp.nbytes / 2**20:.0f} "
+        f"MiB on the card, padded_dim {sp.padded_dim})")
+    batches = (DEEP_BATCH, 32)
+    hosts = {nq: [rng.integers(-128, 128, (nq, D_DEEP)).astype(np.float32)
+                  for _ in range(10)] for nq in batches}
+
+    # The main path, counted: one search at each batch.
+    fused_topk.launches_int = fused_topk.launches = fused_topk.launches_affine = 0
+    res = {nq: engine.search(hosts[nq][0], k=10) for nq in batches}
+    launches = fused_topk.launches_int
+    if launches != len(batches) or fused_topk.launches or fused_topk.launches_affine:
+        raise AssertionError(f"deep10m: {len(batches)} searches launched the integer "
+                             f"variant {launches} times")
+    recall = {}
+    for nq in batches:
+        prep = sp.prepare_queries(hosts[nq][0])
+        recall[nq] = _int_recall_on_card(torch, sp.data, D_DEEP, prep.qdev,
+                                         res[nq].indices, 10)
+        if recall[nq] != 1.0:
+            raise AssertionError(f"deep10m recall@10 {recall[nq]} at batch {nq}")
+    say(f"  (b) deep10m recall@10 against the float64 oracle of the quantized "
+        f"queries: " + ", ".join(f"batch {nq} {r:.4f}" for nq, r in recall.items())
+        + f"; fused_topk[int8] launches {launches}")
+
+    out = {}
+    rows = sp.data[:, :D_DEEP]  # what SearchEngine hands the variant
+    for nq in batches:
+        preps = [sp.prepare_queries(h) for h in hosts[nq]]
+        qs = [p.qdev[:, :D_DEEP] for p in preps]
+        scale = preps[0].dot_scale  # max|q| = 128 in every set: one scale
+
+        def kern(q):
+            return fused_topk(q, rows, sp.norms, sp.num_valid, 10, ip, scale=scale)
+
+        def plain(q):
+            return fused_topk_reference(q, rows, sp.norms, sp.num_valid, 10, ip,
+                                        scale=scale)
+
+        if any(p.dot_scale != scale for p in preps):
+            raise AssertionError("deep10m query sets of differing scales")
+        _identical(torch, kern(qs[0]), plain(qs[0]), f"deep10m batch {nq}")
+        kms, runs, pms = _kernel_times(torch, dev, kern, plain, qs, qs[:2])
+        qt = [p.qdev.T.contiguous() if nq > 16 else None for p in preps]
+        mm = None
+        if nq > 16:  # torch._int_mm takes more than 16 rows a side
+            torch._int_mm(sp.data, qt[0])
+            from metrovector_tpu_torch.utils.timing import cuda_ms
+
+            mm = cuda_ms(lambda b: torch._int_mm(sp.data, b), qt[:3], dev)
+        p50 = _p50(torch, engine.search, hosts[nq], dev, k=10)
+        bnd = int_bound(nq, sp.padded_rows, D_DEEP, 10)
+        padded = int_bound(nq, sp.padded_rows, sp.padded_dim, 10)
+        out[nq] = {"ms": kms, "plain_ms": pms, "bound": bnd, "p50": p50, "mm": mm}
+        say(f"  (f) deep10m batch={nq}: fused_topk[int8] k=10 {kms:.4f} ms (runs "
+            f"{runs[0]:.4f}, {runs[1]:.4f}; bound {bnd[0]:.4f} ms by {bnd[1]} at D="
+            f"{D_DEEP}, {bnd[0] / kms:.1%}; at the padded D={sp.padded_dim} "
+            f"{padded[0]:.4f}, {padded[0] / kms:.1%}) | plain {pms:.4f} | yardstick "
+            f"torch._int_mm "
+            f"[{sp.padded_rows},{sp.padded_dim}] x [{sp.padded_dim},{nq}] "
+            + (f"{mm:.4f}" if mm is not None else "n/a")
+            + f" | search() p50 {p50:.4f} ms ({nq / p50 * 1e3:.0f} QPS) | {card}")
+        del qs, qt
+    del engine, sp
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cell": out, "recall": recall}
+
+
+def _sift1m_u8(torch, dev, card, tmpdir) -> dict:
+    """(c) sift1m-u8 at full size (module docstring), and a uint8 cosine
+    space of the same codes. Returns the figures of fused_topk[int8] at
+    batch 256 and of fused_topk[affine]."""
+    from metrovector_tpu_torch import Builder, DataType, DistanceMetric, Reader, SearchEngine
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_reference
+
+    l2, cos = DistanceMetric.L2, DistanceMetric.COSINE
+    rng = np.random.default_rng(U8_SEED)
+    u8 = rng.integers(0, 256, (N_MAIN, D_MAIN)).astype(np.uint8)
+    path = os.path.join(tmpdir, "sift1m_u8.mvt")
+    t0 = time.perf_counter()
+    b = Builder()
+    b.add_vector_space("u8", dim=D_MAIN, dtype=DataType.UINT8,
+                       metric=l2).with_quantization(1.0, 0.0)
+    b.add_vectors("u8", u8)
+    b.add_vector_space("u8cos", dim=D_MAIN, dtype=DataType.UINT8,
+                       metric=cos).with_quantization(*U8_COS_QUANT)
+    b.add_vectors("u8cos", u8)
+    b.build().save(path)
+    del b
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reader = Reader.open(path)
+    engine = SearchEngine(reader.vector_space("u8"), device="cuda")
+    cos_engine = SearchEngine(reader.vector_space("u8cos"), device="cuda")
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    sp, sc = engine.space, cos_engine.space
+    say(f"  (c) sift1m-u8 {N_MAIN}x{D_MAIN} uint8 L2 (seed {U8_SEED}) and the same "
+        f"codes as a uint8 cosine space (scale {U8_COS_QUANT[0]}, zero_point "
+        f"{U8_COS_QUANT[1]}): file written in {t_build:.1f} s, Reader.open + two "
+        f"uploads {t_up:.2f} s ({(sp.nbytes + sc.nbytes) / 2**20:.0f} MiB on the card)")
+    hosts = [rng.integers(0, 256, (U8_BATCH, D_MAIN)).astype(np.float32)
+             for _ in range(10)]
+
+    # The main path, counted: one search in each space.
+    fused_topk.launches_int = fused_topk.launches = fused_topk.launches_affine = 0
+    res = engine.search(hosts[0], k=10)
+    res_c = cos_engine.search(hosts[0], k=10)
+    launches = (fused_topk.launches_int, fused_topk.launches_affine)
+    if launches != (1, 1) or fused_topk.launches:
+        raise AssertionError(f"sift1m-u8: launches (int8, affine) {launches}, "
+                             f"float {fused_topk.launches}")
+
+    prep = sp.prepare_queries(hosts[0])
+    s_r, i_r = fused_topk_reference(prep.qdev, sp.data, sp.norms, sp.num_valid, 10,
+                                    l2, scale=prep.dot_scale, bias_row=sp.rowsums,
+                                    bias_scale=prep.bias_scale)
+    s_r = s_r.cpu().numpy() + 2.0 * prep.const[:, None]
+    if not (np.array_equal(res.indices, i_r.cpu().numpy())
+            and np.array_equal(res.scores, s_r)):
+        raise AssertionError("sift1m-u8: search() differs from the plain version")
+    x64 = torch.from_numpy(u8).to(dev, torch.float64)
+    norms64 = (x64 * x64).sum(1)
+    # the queries as the engine quantized them: o_q + s_q q' (scale 1)
+    q_eff = (prep.qdev[:, :D_MAIN].double() * prep.dot_scale
+             + prep.bias_scale).cpu().numpy()
+    rec_q = _recall_on_card(torch, x64, norms64, q_eff, res.indices, 10)
+    rec_raw = _recall_on_card(torch, x64, norms64, hosts[0], res.indices, 10)
+    say(f"  (c) sift1m-u8 batch={U8_BATCH}: identical to the plain version; recall@10 "
+        f"{rec_q:.4f} against the float64 oracle of the queries as quantized "
+        f"(s_q = {prep.dot_scale:.6f}, o_q = {prep.bias_scale:.0f}), {rec_raw:.4f} "
+        f"against that of the raw queries")
+
+    # uint8 cosine: the affine load against its plain version, within the band
+    scale, zp = U8_COS_QUANT
+    affine = (128.0 - zp, scale)
+    prep_c = sc.prepare_queries(hosts[0])
+    ref_c = fused_topk_reference(prep_c.qdev, sc.data, sc.norms, sc.num_valid, 10,
+                                 cos, affine=affine)
+    xd = (x64 - zp) * scale
+    inv64 = 1.0 / torch.sqrt((xd * xd).sum(1))
+    got_c = (torch.from_numpy(res_c.scores).to(dev), torch.from_numpy(res_c.indices).to(dev))
+    tol = np.full(U8_BATCH, 4 * D_MAIN * 2.0**-24 + 2.0**-22)
+    odd = not np.array_equal(res_c.indices, ref_c[1].cpu().numpy())
+    scores64 = None
+    if odd:  # the exact scores decide whether a differing row is a near-tie
+        q64 = prep_c.qdev.double()
+        scores64 = ((q64 @ xd.T) * inv64[None, :]).cpu().numpy()
+    aff_err = _compare(got_c, ref_c, False, tol, scores64, "uint8 cosine search()")
+    rec_c = _cosine_recall(torch, xd, inv64, hosts[0], res_c.indices, 10)
+    say(f"  (c) uint8 cosine batch={U8_BATCH}: within the f32 band of the plain version "
+        f"(max |score diff| {aff_err:.3g}, indices identical: {not odd}); recall@10 "
+        f"{rec_c:.4f} against the float64 oracle of the dequantized rows")
+    del x64, norms64, xd, inv64
+
+    preps = [sp.prepare_queries(h) for h in hosts]
+    preps_c = [sc.prepare_queries(h) for h in hosts]
+
+    def kern(p):
+        return fused_topk(p.qdev, sp.data, sp.norms, sp.num_valid, 10, l2,
+                          scale=p.dot_scale, bias_row=sp.rowsums, bias_scale=p.bias_scale)
+
+    def plain(p):
+        return fused_topk_reference(p.qdev, sp.data, sp.norms, sp.num_valid, 10, l2,
+                                    scale=p.dot_scale, bias_row=sp.rowsums,
+                                    bias_scale=p.bias_scale)
+
+    def kern_c(q):
+        return fused_topk(q, sc.data, sc.norms, sc.num_valid, 10, cos, affine=affine)
+
+    def plain_c(q):
+        return fused_topk_reference(q, sc.data, sc.norms, sc.num_valid, 10, cos,
+                                    affine=affine)
+
+    kms, runs, pms = _kernel_times(torch, dev, kern, plain, preps, preps[:3])
+    qc = [p.qdev for p in preps_c]
+    ams, aruns, apms = _kernel_times(torch, dev, kern_c, plain_c, qc, qc[:3])
+    p50 = _p50(torch, engine.search, hosts, dev, k=10)
+    p50_c = _p50(torch, cos_engine.search, hosts, dev, k=10)
+    bnd = int_bound(U8_BATCH, sp.padded_rows, sp.padded_dim, 10, bias=True)
+    n, d = sc.padded_rows, sc.padded_dim
+    abnd = bound(2 * U8_BATCH * n * d, n * d + 4 * n + 4 * U8_BATCH * d + 8 * U8_BATCH * 10)
+    say(f"  (f) sift1m-u8 batch={U8_BATCH}: fused_topk[int8] k=10 {kms:.4f} ms (runs "
+        f"{runs[0]:.4f}, {runs[1]:.4f}; bound {bnd[0]:.4f} ms by {bnd[1]}, "
+        f"{bnd[0] / kms:.1%}) | plain {pms:.4f} | search() p50 {p50:.4f} ms "
+        f"({U8_BATCH / p50 * 1e3:.0f} QPS) | {card}")
+    say(f"  (f) uint8 cosine batch={U8_BATCH}: fused_topk[affine] k=10 {ams:.4f} ms "
+        f"(runs {aruns[0]:.4f}, {aruns[1]:.4f}; bound {abnd[0]:.4f} ms by {abnd[1]}, "
+        f"{abnd[0] / ams:.1%}) | plain {apms:.4f} | search() p50 {p50_c:.4f} ms "
+        f"({U8_BATCH / p50_c * 1e3:.0f} QPS) | {card}")
+    del engine, cos_engine, sp, sc, preps, preps_c, qc
+    torch.cuda.empty_cache()
+    return {"int8": {"launches": launches[0], "ms": kms, "plain_ms": pms, "bound": bnd,
+                     "p50": p50, "recall": (rec_q, rec_raw)},
+            "affine": {"launches": launches[1], "ms": ams, "plain_ms": apms,
+                       "bound": abnd, "p50": p50_c, "err": aff_err, "recall": rec_c}}
+
+
+def _pq4_int8_lut(torch, dev, card, pq4) -> dict:
+    """(d) sift1m-pq4 with the int8 LUT on phase 8's index (module
+    docstring). Returns the kernels-line figures of fused_adc_topk[int8_lut]."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk, fused_adc_topk_reference
+    from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+
+    l2 = DistanceMetric.L2
+    idx, x64, norms64, queries = pq4
+    rng = np.random.default_rng(SEED + 14)
+    for fn in (fused_adc_topk, rescore_candidates, fused_topk):
+        fn.launches = 0
+    fused_adc_topk.int8_launches = 0
+    res = {bsz: idx.search(q, k=K_PQ, rerank=RERANK, int8_lut=True)
+           for bsz, q in queries.items()}
+    launches = fused_adc_topk.int8_launches
+    if (launches, rescore_candidates.launches, fused_topk.launches) != (
+            len(res), len(res), 0):
+        raise AssertionError(f"pq4 int8 LUT: {len(res)} searches launched the int8 "
+                             f"LUT scan {launches} times")
+    recall = {}
+    for bsz, q in queries.items():
+        recall[bsz] = _recall_on_card(torch, x64, norms64, q, res[bsz].indices, K_PQ)
+        if recall[bsz] < 0.99:
+            raise AssertionError(f"pq4 int8 LUT recall@10 {recall[bsz]} at batch {bsz}")
+    say(f"  (d) sift1m-pq4 search(k=10, rerank=400, int8_lut=True): recall@10 "
+        + ", ".join(f"batch {b} {r:.4f}" for b, r in recall.items())
+        + f" against the float64 oracle on the card; int8 LUT launches {launches}")
+    out = {}
+    m, ksub = idx.m, idx.ksub
+    n, cols = idx.codes.shape
+    for bsz, q in queries.items():
+        qs = [torch.from_numpy(q).to(dev)]
+        qs += [torch.from_numpy(np.clip(q + rng.integers(-3, 4, q.shape), 0, 255)
+                                .astype(np.float32)).to(dev) for _ in range(9)]
+        args = (idx.codes, idx._books, idx.recon_norms, idx.num_vectors, RERANK, l2,
+                idx.valid, False, True)
+
+        def kern(qd):
+            return fused_adc_topk(qd, *args, int8_lut=True)
+
+        def plain(qd):
+            return fused_adc_topk_reference(qd, *args, int8_lut=True)
+
+        def bf16(qd):
+            return fused_adc_topk(qd, *args)
+
+        _identical(torch, kern(qs[0]), plain(qs[0]), f"pq4 int8 LUT batch {bsz}")
+        kms, runs, pms = _kernel_times(torch, dev, kern, plain, qs, qs[:3])
+        from metrovector_tpu_torch.utils.timing import cuda_ms
+
+        bf16(qs[0])
+        bms = cuda_ms(bf16, qs, dev)
+        hq = [t.cpu().numpy() for t in qs]
+        p50 = _p50(torch, idx.search, hq, dev, k=K_PQ, rerank=RERANK, int8_lut=True)
+        p50_bf = _p50(torch, idx.search, hq, dev, k=K_PQ, rerank=RERANK, exact_lut=False)
+        bnd = bound(2 * bsz * n * m, n * cols + 4 * n + bsz * m * ksub + 4 * bsz
+                    + 8 * bsz * RERANK)
+        out[bsz] = {"ms": kms, "plain_ms": pms, "bound": bnd, "p50": p50}
+        say(f"  (f) sift1m-pq4 batch={bsz}: fused_adc_topk[int8_lut] k={RERANK} "
+            f"{kms:.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}; bound {bnd[0]:.4f} ms by "
+            f"{bnd[1]}, {bnd[0] / kms:.1%}) | plain {pms:.4f} | bf16 LUT {bms:.4f} | "
+            f"search() p50 int8 LUT {p50:.4f} ms ({bsz / p50 * 1e3:.0f} QPS), bf16 "
+            f"LUT {p50_bf:.4f} | {card}")
+    return {"launches": launches, "cell": out, "recall": recall}
+
+
+def _bf16_storage(torch, dev, card, sift_path, tmpdir) -> dict:
+    """(e) Phase 3's corpus written as BFLOAT16 (its integer values are
+    exact in bf16): search() identical to the f32 space at batches 32 and
+    256; K1 over the bf16 rows timed beside the f32 rows."""
+    from metrovector_tpu_torch import Builder, DataType, DistanceMetric, Reader, SearchEngine
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+
+    l2 = DistanceMetric.L2
+    sift = Reader.open(sift_path).vector_space("sift")
+    path = os.path.join(tmpdir, "sift1m_bf16.mvt")
+    t0 = time.perf_counter()
+    b = Builder()
+    b.add_vector_space("sift", dim=D_MAIN, dtype=DataType.BFLOAT16, metric=l2)
+    b.add_vectors("sift", sift.to_numpy())
+    b.build().save(path)
+    del b
+    t_build = time.perf_counter() - t0
+    bf = SearchEngine(Reader.open(path).vector_space("sift"), device="cuda")
+    f32 = SearchEngine(sift, device="cuda")
+    rng = np.random.default_rng(SEED + 15)
+    hosts = {nq: [rng.integers(0, 256, (nq, D_MAIN)).astype(np.float32)
+                  for _ in range(10)] for nq in (32, 256)}
+    fused_topk.launches = 0
+    res = {nq: bf.search(h[0], k=10) for nq, h in hosts.items()}
+    if fused_topk.launches != len(res) or bf.space.data.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 space did not run K1 over bf16 rows")
+    for nq, r in res.items():
+        want = f32.search(hosts[nq][0], k=10)
+        if not (np.array_equal(r.indices, want.indices)
+                and np.array_equal(r.scores, want.scores)
+                and np.array_equal(r.distances, want.distances)):
+            raise AssertionError(f"bf16 space differs from the f32 space at batch {nq}")
+    from metrovector_tpu_torch.utils.timing import cuda_ms
+
+    times = {}
+    for nq in (32, 256):
+        qs = [torch.from_numpy(h).to(dev) for h in hosts[nq]]
+        ms = {}
+        for name, e in (("bf16", bf), ("f32", f32)):
+            s = e.space
+
+            def kern(q, s=s):
+                return fused_topk(q, s.data, s.norms, s.num_valid, 10, l2)
+
+            kern(qs[0])
+            ms[name] = cuda_ms(kern, qs, dev)
+        ms["p50"] = _p50(torch, bf.search, hosts[nq], dev, k=10)
+        times[nq] = ms
+        say(f"  (f) bf16 storage batch={nq}: K1 over bf16 rows {ms['bf16']:.4f} ms, "
+            f"over f32 rows {ms['f32']:.4f} ms | search() p50 {ms['p50']:.4f} ms | {card}")
+    say(f"  (e) phase 3 corpus as BFLOAT16 (file written in {t_build:.1f} s, "
+        f"{bf.space.nbytes / 2**20:.0f} MiB on the card): identical to the f32 space "
+        f"at batches 32 and 256")
+    del bf, f32
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
+    """Phase 14 (module docstring). Returns the kernels-line figures of
+    fused_topk[int8], fused_topk[affine] and fused_adc_topk[int8_lut]."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    t0 = time.perf_counter()
+    int_cases = _int_cases(torch, dev, rng)
+    aff_cases, aff_err = _affine_cases(torch, dev, rng)
+    lut_cases = _lut8_cases(torch, dev, rng)
+    say(f"  (a) kernels vs plain: fused_topk[int8] {int_cases} cases identical twice; "
+        f"fused_topk[affine] {aff_cases} cases within the f32 band (max |score diff| "
+        f"{aff_err:.3g}); fused_adc_topk[int8_lut] {lut_cases} cases identical twice "
+        f"({time.perf_counter() - t0:.1f} s)")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        deep = _deep10m(torch, dev, card, tmp.name)
+        u8 = _sift1m_u8(torch, dev, card, tmp.name)
+        lut = _pq4_int8_lut(torch, dev, card, pq4)
+        _bf16_storage(torch, dev, card, sift_path, tmp.name)
+    finally:
+        tmp.cleanup()
+    say(f"phase 14 quantized and bf16 spaces: ok (deep10m recall@10 1.0000, "
+        f"sift1m-u8 identical to plain, pq4 int8 LUT recall@10 "
+        f"{min(lut['recall'].values()):.4f}, bf16 identical to f32; launches "
+        f"fused_topk[int8] {deep['launches'] + u8['int8']['launches']}, "
+        f"fused_topk[affine] {u8['affine']['launches']}, fused_adc_topk[int8_lut] "
+        f"{lut['launches']}; {time.perf_counter() - t_phase:.1f} s)")
+    top = deep["cell"][DEEP_BATCH]
+    lut_top = lut["cell"][256]
+    return {
+        "int8": {"launches": deep["launches"] + u8["int8"]["launches"], "max_err": 0.0,
+                 "ms": top["ms"], "plain_ms": top["plain_ms"], "bound": top["bound"]},
+        "affine": {"launches": u8["affine"]["launches"],
+                   "max_err": max(aff_err, u8["affine"]["err"]),
+                   "ms": u8["affine"]["ms"], "plain_ms": u8["affine"]["plain_ms"],
+                   "bound": u8["affine"]["bound"]},
+        "int8_lut": {"launches": lut["launches"], "max_err": 0.0, "ms": lut_top["ms"],
+                     "plain_ms": lut_top["plain_ms"], "bound": lut_top["bound"]},
+    }
+
+
 def lookup_figures(torch, lookups: int, card: str) -> None:
     """K2's shared-memory lookups at the timed point (sift1m-pq4, batch
     256), one wavefront (128 bytes) a clock an SM at the 1,980 MHz boost
@@ -3044,13 +3668,16 @@ def main() -> int:
         gather_err, rescore_err = phase_gather_vs_plain(torch, dev)
         pq_launches, pq_times, pq4 = phase_pq_path(torch, dev, card, keep_dir)
         phase_any_k(torch, dev, card, engine, pq4)
-        del engine, pq4
+        del engine  # phase 8's pq4 index stays for phase 14
         torch.cuda.empty_cache()
         sparse_err, dots_err = phase_sparse_vs_plain(torch, dev)
         sparse_launches, sparse_times = phase_sparse_path(torch, dev, card)
         group_err, group_launches, ivf_cell = phase_ivfpq_path(torch, dev, card)
         torch.cuda.empty_cache()
         high = phase_high_path(torch, dev, card, sift_path)
+        torch.cuda.empty_cache()
+        quant = phase_quantized(torch, dev, card, sift_path, pq4)
+        del pq4
     finally:
         tmp.cleanup()
 
@@ -3152,6 +3779,17 @@ def main() -> int:
          "ms": s_row["ell_dots"], "plain_ms": s_row["dots_plain"],
          "bound_ms": dots_bound[0], "bound_by": dots_bound[1],
          "library_ms": s_row["library"]},
+    ] + [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": quant[key]["launches"], "max_abs_err": quant[key]["max_err"],
+         "ms": quant[key]["ms"], "plain_ms": quant[key]["plain_ms"],
+         "bound_ms": quant[key]["bound"][0], "bound_by": quant[key]["bound"][1],
+         "library_ms": None}
+        for name, key, source, replaces in (
+            ("fused_topk[int8]", "int8", INT_SOURCE, KERNEL_REPLACES),
+            ("fused_topk[affine]", "affine", KERNEL_SOURCE, KERNEL_REPLACES),
+            ("fused_adc_topk[int8_lut]", "int8_lut", CSRC + "adc_int8_kernel.cu",
+             "metrovector_tpu/ops/adc_kernel.py:248"))
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name,

@@ -7,15 +7,18 @@ one launch of the fused distance + top-k kernel
 PyTorch version runs instead. Asking for a CUDA device on a machine without
 CUDA raises: nothing falls back to the CPU.
 
-This slice covers f32 spaces at ``precision="highest"`` (exact f32),
-``"high"`` (the bf16x3 split on the tensor cores), ``"high_verified"``
-(``"high"`` over-fetched, re-scored exactly and certified, else re-run at
-``"highest"``) and ``"default"`` (bf16 on the device), and f16 spaces kept
-f16 on the device (f16 ⊂ f32, so results equal the reference's f32 upcast;
+f32 spaces run at ``precision="highest"`` (exact f32), ``"high"`` (the
+bf16x3 split on the tensor cores), ``"high_verified"`` (``"high"``
+over-fetched, re-scored exactly and certified, else re-run at
+``"highest"``) and ``"default"`` (bf16 on the device). f16 spaces stay f16
+on the device (f16 ⊂ f32, so results equal the reference's f32 upcast;
 ``"high"`` and ``"high_verified"`` run ``"highest"`` there, as the
 reference does), or bf16 at ``"default"`` with f32 queries, as the
-reference keeps them. Other dtypes raise :class:`NotImplementedError`
-naming the ROADMAP item that brings them.
+reference keeps them. bf16 spaces go up as bf16 with bf16-rounded queries.
+int8 spaces and uint8 spaces (recentred to int8 ``c − 128``, with per-row
+code sums) run the integer kernel on quantized queries; uint8 cosine
+spaces run the FFMA kernel over the codes dequantized as they are read.
+For these three dtypes the precision changes nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from .ops.topk_kernel import fused_topk
 from .utils.transfer import put_chunked
 
 PRECISIONS = ("highest", "high", "high_verified", "default")
-_SUPPORTED_DTYPES = (DataType.FLOAT32, DataType.FLOAT16)
+_SUPPORTED_DTYPES = (DataType.FLOAT32, DataType.FLOAT16, DataType.BFLOAT16,
+                     DataType.INT8, DataType.UINT8)
 # The certificate of "high_verified" is this multiple of the raw bound that
 # SearchEngine._verify_eps derives.
 VERIFY_SAFETY = 2.0
@@ -81,9 +85,8 @@ def _check_supported(dtype: DataType, precision: str) -> None:
             f"unknown precision {precision!r}; one of {', '.join(PRECISIONS)}"
         )
     if dtype not in _SUPPORTED_DTYPES:
-        raise NotImplementedError(
-            f"{DataType(dtype).name} spaces are not ported yet (ROADMAP A2 "
-            "dtypes: int8, uint8 offset and bf16 storage)"
+        raise InvalidVectorTypeError(
+            f"{DataType(dtype).name} is not a vector dtype"
         )
 
 
@@ -214,12 +217,17 @@ class PreparedQueries:
 
     qdev: torch.Tensor
     sq_norms: np.ndarray  # ‖q‖² of the original float queries
+    dot_scale: float = 1.0  # static multiplier on raw (integer) dots
+    bias_scale: float = 0.0  # multiplier on the per-row code sums
+    const: np.ndarray | None = None  # per-query additive dot constant C(q)
 
 
 class DeviceSpace:
     """One vector space resident on one device: the padded corpus block,
-    its squared norms and an optional validity mask, as tensors ready for
-    :func:`~.ops.topk_kernel.fused_topk`."""
+    its dequantized squared norms and an optional validity mask, as tensors
+    ready for :func:`~.ops.topk_kernel.fused_topk`; for a quantized space
+    its ``scale`` and ``zero_point``, and for uint8 the per-row sums of the
+    recentred codes (``rowsums``, Σ(c − 128) over the logical dims)."""
 
     def __init__(
         self,
@@ -233,6 +241,9 @@ class DeviceSpace:
         name: str = "",
         precision: str = "highest",
         host_ids: np.ndarray | None = None,
+        scale: float = 1.0,
+        zero_point: float = 0.0,
+        rowsums: torch.Tensor | None = None,
     ):
         _check_supported(DataType(dtype), precision)
         self.data = data
@@ -241,8 +252,11 @@ class DeviceSpace:
         self.dim = int(dim)
         self.metric = DistanceMetric(metric)
         self.valid_mask = valid_mask
+        self.scale = float(scale)
+        self.zero_point = float(zero_point)
         self.dtype = DataType(dtype)
         self.name = name
+        self.rowsums = rowsums
         self.precision = precision
         # Host-side stable ID column (u64), only to translate result rows.
         self.host_ids = host_ids
@@ -264,11 +278,13 @@ class DeviceSpace:
         precision: str = "highest",
     ) -> "DeviceSpace":
         """Upload a host :class:`VectorSpace` view to ``device``. The padded
-        block goes up verbatim (bf16 on the device for ``"default"``);
-        tombstones become a validity mask applied in the kernel epilogue."""
+        block goes up verbatim (an f32 or f16 space as bf16 for
+        ``"default"``; a bf16 space as its bits); tombstones become a
+        validity mask applied in the kernel epilogue. A uint8 space goes up
+        recentred, ``c' = c − 128`` over the logical region with padding
+        left 0, with its per-row code sums (the reference's upload)."""
         _check_supported(space.dtype, precision)
         dev = resolve_device(device)
-        target = torch.bfloat16 if precision == "default" else None
         mask = None
         if include_tombstones:
             host_mask = space.tombstone_mask()
@@ -277,15 +293,36 @@ class DeviceSpace:
                 full[: space.num_vectors] = (~host_mask).astype(np.float32)
                 mask = torch.from_numpy(full).to(dev)
         norms = np.array(space.norms(), dtype=np.float32)  # a writable copy
+        block = space.padded_array()
+        rowsums = None
+        if space.dtype == DataType.BFLOAT16:  # uint16 bit patterns
+            data = put_chunked(block.view(np.int16), dev).view(torch.bfloat16)
+        elif space.dtype == DataType.UINT8:
+            # c − 128 as int8 is c's byte with its top bit flipped.
+            shifted = (block ^ np.uint8(0x80)).view(np.int8)
+            shifted[:, space.dim:] = 0
+            shifted[space.num_vectors:, :] = 0
+            rowsums = torch.from_numpy(shifted[:, : space.dim].sum(
+                axis=1, dtype=np.int32).astype(np.float32)).to(dev)
+            data = put_chunked(shifted, dev)
+        elif space.dtype == DataType.INT8:
+            data = put_chunked(block, dev)
+        else:
+            target = torch.bfloat16 if precision == "default" else None
+            data = put_chunked(block, dev, dtype=target)
+        q = space.quantization
         return cls(
-            data=put_chunked(space.padded_array(), dev, dtype=target),
+            data=data,
             norms=torch.from_numpy(norms).to(dev),
             num_valid=space.num_vectors,
             dim=space.dim,
             metric=space.metric,
             valid_mask=mask,
+            scale=q.scale if q else 1.0,
+            zero_point=q.zero_point if q else 0.0,
             dtype=space.dtype,
             name=space.name,
+            rowsums=rowsums,
             precision=precision,
             host_ids=space.ids(),
         )
@@ -295,7 +332,8 @@ class DeviceSpace:
         """Build from a dict of host arrays and scalars — what ``np.asarray``
         gives for a reference ``DeviceSpace``'s ``data``, ``norms``,
         ``valid_mask``, ``num_valid``, ``dim``, ``metric``, ``dtype``,
-        ``precision`` and ``host_ids`` — on ``device``."""
+        ``scale``, ``zero_point``, ``rowsums``, ``precision`` and
+        ``host_ids`` — on ``device``."""
         dev = resolve_device(device)
         data = np.array(state["data"])  # a writable, contiguous copy
         if data.dtype.name == "bfloat16":  # ml_dtypes' type, by its bits
@@ -303,6 +341,7 @@ class DeviceSpace:
         else:
             data_t = torch.from_numpy(data)
         mask = state.get("valid_mask")
+        rowsums = state.get("rowsums")
         return cls(
             data=data_t.to(dev),
             norms=torch.from_numpy(
@@ -314,7 +353,12 @@ class DeviceSpace:
             valid_mask=None if mask is None else torch.from_numpy(
                 np.array(mask, dtype=np.float32)
             ).to(dev),
+            scale=float(state.get("scale", 1.0)),
+            zero_point=float(state.get("zero_point", 0.0)),
             dtype=DataType(int(state["dtype"])),
+            rowsums=None if rowsums is None else torch.from_numpy(
+                np.array(rowsums, dtype=np.float32)
+            ).to(dev),
             precision=str(state.get("precision", "highest")),
             host_ids=state.get("host_ids"),
         )
@@ -382,18 +426,36 @@ class DeviceSpace:
     @property
     def nbytes(self) -> int:
         n = self.data.nbytes + self.norms.nbytes
-        if self.valid_mask is not None:
-            n += self.valid_mask.nbytes
+        for extra in (self.valid_mask, self.rowsums):
+            if extra is not None:
+                n += extra.nbytes
         return n
 
     # -- query preprocessing --------------------------------------------------
 
     def prepare_queries(self, queries) -> PreparedQueries:
-        """Validate, pre-normalize (cosine), pad to ``padded_dim`` and upload
-        as f32. An f32 space at ``"default"`` rounds them through bf16 as
-        its corpus was; an f16 space there (bf16 on the device too) keeps
-        them f32, as the reference does: it keys the rounding on the
-        space's dtype, not on the device block's."""
+        """Validate, pre-normalize (cosine), quantize (int8, uint8), pad to
+        ``padded_dim`` and upload: int8 queries for the integer kernel,
+        else f32. An f32 space at ``"default"`` and a bf16 space round them
+        through bf16 as their corpus was; an f16 space at ``"default"``
+        (bf16 on the device too) keeps them f32, as the reference does: it
+        keys the rounding on the space's dtype, not on the device block's.
+
+        The quantization is the reference's, in numpy on the host, bit for
+        bit. int8: symmetric, ``q' = clip(rint(q / s_q))`` with ``s_q =
+        max|q| / 127``, ``dot_scale = s_q·scale``. uint8 (not cosine), with
+        codes ``c`` (``x = (c − zp)·s``), device codes ``c' = c − 128`` and
+        ``q ≈ o_q + s_q·q'``::
+
+            q·x = s·s_q·(q'·c') + s·o_q·Σc' + C(q)
+            C(q) = s·s_q·(128 − zp)·Σq' + s·o_q·(128 − zp)·D
+
+        so the kernel scores ``dot_scale·idot + bias_scale·Σc'`` and
+        :meth:`SearchEngine._finalize` adds ``C(q)`` back. Integer queries
+        in ``[o_q − 127, o_q + 127]`` quantize exactly; queries spanning
+        0..255 do not (``o_q = 128`` leaves 128 on one side, so ``s_q =
+        128/127``), as in the reference. uint8 cosine keeps f32 queries
+        for the dequantizing scan."""
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -404,11 +466,37 @@ class DeviceSpace:
         qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
         if self.metric == DistanceMetric.COSINE:
             q = q / np.maximum(np.sqrt(qnorms)[:, None], 1e-30)
-        if self.padded_dim != self.dim:
-            q = np.pad(q, ((0, 0), (0, self.padded_dim - self.dim)))
-        qdev = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32))
-        qdev = qdev.to(self.device)
-        if self.dtype == DataType.FLOAT32 and self.precision == "default":
+
+        def upload(arr):
+            if self.padded_dim != self.dim:
+                arr = np.pad(arr, ((0, 0), (0, self.padded_dim - self.dim)))
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+        if self.dtype == DataType.INT8:
+            qscale = float(np.abs(q).max()) / 127.0 or 1.0
+            qq = np.clip(np.rint(q / qscale), -128, 127).astype(np.int8)
+            return PreparedQueries(qdev=upload(qq), sq_norms=qnorms,
+                                   dot_scale=qscale * self.scale)
+        if self.dtype == DataType.UINT8 and self.metric != DistanceMetric.COSINE:
+            o_q = float(np.round((q.min() + q.max()) / 2.0))
+            amax = float(np.abs(q - o_q).max())
+            integral = bool(np.all(q == np.rint(q)))
+            if integral and amax <= 127.0:
+                s_q = 1.0  # exact integer quantization
+            else:
+                s_q = amax / 127.0 if amax > 0 else 1.0
+            qq = np.clip(np.rint((q - o_q) / s_q), -128, 127).astype(np.int8)
+            qsum = qq.sum(axis=1, dtype=np.int64).astype(np.float64)
+            s, zp, d = self.scale, self.zero_point, self.dim
+            const = (
+                s * s_q * (128.0 - zp) * qsum + s * o_q * (128.0 - zp) * d
+            ).astype(np.float32)
+            return PreparedQueries(qdev=upload(qq), sq_norms=qnorms,
+                                   dot_scale=s_q * s, bias_scale=s * o_q,
+                                   const=const)
+        qdev = upload(q.astype(np.float32, copy=False))
+        if self.dtype == DataType.BFLOAT16 or (
+                self.dtype == DataType.FLOAT32 and self.precision == "default"):
             qdev = qdev.to(torch.bfloat16).float()
         return PreparedQueries(qdev=qdev, sq_norms=qnorms)
 
@@ -520,7 +608,26 @@ class SearchEngine:
                     padded_filter_plane(filter_mask, sp.num_valid, sp.padded_rows)
                 ).to(sp.device)
             eff_mask = fdev if eff_mask is None else eff_mask * fdev
-        # "high" and "high_verified" split f32 spaces only; f16 runs "highest".
+        if sp.dtype in (DataType.INT8, DataType.UINT8):
+            if sp.dtype == DataType.UINT8 and sp.metric == DistanceMetric.COSINE:
+                # f32 queries over the codes read as (c' + 128 − zp)·scale
+                scores, idx = fused_topk(
+                    prep.qdev, sp.data, sp.norms, sp.num_valid, k_eff,
+                    sp.metric, valid_mask=eff_mask,
+                    affine=(128.0 - sp.zero_point, sp.scale),
+                )
+            else:
+                # the integer kernel reads the first dim bytes of each
+                # padded row
+                d = sp.dim
+                scores, idx = fused_topk(
+                    prep.qdev[:, :d], sp.data[:, :d], sp.norms, sp.num_valid, k_eff,
+                    sp.metric, valid_mask=eff_mask, scale=prep.dot_scale,
+                    bias_row=sp.rowsums, bias_scale=prep.bias_scale,
+                )
+            return (scores, idx, prep, k_eff, None)
+        # "high" and "high_verified" split f32 spaces only; f16 and bf16 run
+        # "highest".
         f32 = sp.dtype == DataType.FLOAT32
         high = f32 and sp.precision in ("high", "high_verified")
         verified = f32 and sp.precision == "high_verified"
@@ -637,6 +744,11 @@ class SearchEngine:
                 )
                 scores = scores.cpu().numpy()
                 idx = idx.cpu().numpy()
+        if prep.const is not None:
+            # restore the rank-neutral per-query constant C(q): scores and
+            # distances are absolute, not just rank-correct
+            mult = 2.0 if sp.metric == DistanceMetric.L2 else 1.0
+            scores = scores + mult * prep.const[:, None]
         dist = distances_np(scores, sp.metric, prep.sq_norms)
         if k_eff < k:  # pad out to the requested k with sentinels
             pad = ((0, 0), (0, k - k_eff))

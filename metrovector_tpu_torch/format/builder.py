@@ -53,7 +53,9 @@ from .constants import (
     TombstoneFormat,
     VECTOR_DTYPES,
     VectorType,
+    bf16_bits_to_f32,
     numpy_dtype,
+    storage_dtype,
 )
 from .manifest import (
     BlockInfo,
@@ -594,7 +596,7 @@ class Builder:
             rows = (
                 np.concatenate(sp.chunks, axis=0)
                 if sp.chunks
-                else np.zeros((0, max(sp.dim, 1)), dtype=numpy_dtype(sp.dtype))
+                else np.zeros((0, max(sp.dim, 1)), dtype=storage_dtype(sp.dtype))
             )
             q = sp.quantization
             scale = q.scale if q else 1.0
@@ -629,6 +631,8 @@ class Builder:
                     if q is not None:
                         deq = (rows.astype(np.float32) - zp) * scale
                         norms[: rows.shape[0]] = squared_norms(deq)
+                    elif sp.dtype == DataType.BFLOAT16:
+                        norms[: rows.shape[0]] = squared_norms(bf16_bits_to_f32(rows))
                     else:
                         norms[: rows.shape[0]] = squared_norms(rows)
             norms_block = push_block(norms)

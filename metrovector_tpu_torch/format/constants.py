@@ -117,10 +117,11 @@ class IndexKind(enum.IntEnum):
 # numpy dtype mapping -------------------------------------------------------
 
 # numpy has no bfloat16 of its own. The JAX package takes one from
-# ml_dtypes; the port imports no such package, so BFLOAT16 has no numpy
-# dtype here (numpy_dtype raises TypeError), as in the JAX package on a host
-# without ml_dtypes. bf16 storage files wait for ROADMAP A2.
-_BFLOAT16 = None
+# ml_dtypes; the port imports no such package. It holds a BFLOAT16 block on
+# the host as the values' 16-bit patterns in uint16 (storage_dtype), and
+# numpy_dtype(BFLOAT16) raises TypeError: no numpy arithmetic on those bits
+# means anything. f32_to_bf16_bits and bf16_bits_to_f32 convert.
+_BF16_BITS = np.dtype("<u2")
 
 _NP_BY_DTYPE = {
     DataType.FLOAT32: np.dtype("<f4"),
@@ -134,8 +135,6 @@ _NP_BY_DTYPE = {
     DataType.INT64: np.dtype("<i8"),
     DataType.FLOAT64: np.dtype("<f8"),
 }
-if _BFLOAT16 is not None:
-    _NP_BY_DTYPE[DataType.BFLOAT16] = _BFLOAT16
 
 # dtypes allowed for vector blocks (vs metadata columns)
 VECTOR_DTYPES = frozenset(
@@ -157,10 +156,35 @@ def numpy_dtype(dtype: DataType) -> np.dtype:
         raise TypeError(f"no numpy dtype for {dtype!r}") from exc
 
 
+def storage_dtype(dtype: DataType) -> np.dtype:
+    """The numpy dtype that holds a block's bytes on the host:
+    :func:`numpy_dtype`, or uint16 bit patterns for BFLOAT16."""
+    if DataType(dtype) == DataType.BFLOAT16:
+        return _BF16_BITS
+    return numpy_dtype(dtype)
+
+
 def element_size(dtype: DataType) -> int:
     """Bytes per element (reference ``element_size`` maps, e.g.
     ``src/vectors/mem.rs:178-186``)."""
-    return numpy_dtype(dtype).itemsize
+    return storage_dtype(dtype).itemsize
+
+
+def f32_to_bf16_bits(x) -> np.ndarray:
+    """bfloat16 bit patterns (uint16) of ``x`` rounded from f32 to nearest
+    even, as ``ml_dtypes``' ``astype`` rounds: subnormals kept, infinities
+    kept, a NaN becomes the quiet NaN 0x7FC0 with its sign."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    rounded = (u + (0x7FFF + ((u >> 16) & 1))) >> 16
+    nan = (u & 0x7FFFFFFF) > 0x7F800000
+    out = np.where(nan, ((u >> 16) & 0x8000) | 0x7FC0, rounded)
+    return out.astype(_BF16_BITS)
+
+
+def bf16_bits_to_f32(bits) -> np.ndarray:
+    """The f32 values of bfloat16 bit patterns (exact: ``bits << 16``)."""
+    u = np.asarray(bits, dtype=_BF16_BITS).astype(np.uint32) << 16
+    return u.view(np.float32)
 
 
 def sublane_multiple(dtype: DataType) -> int:

@@ -21,7 +21,8 @@ from .constants import (
     CompressionAlgorithm,
     DataType,
     VECTOR_DTYPES,
-    numpy_dtype,
+    f32_to_bf16_bits,
+    storage_dtype,
     padded_dim_for,
     padded_rows_for,
 )
@@ -36,13 +37,19 @@ def as_vector_array(data, dim: int, dtype: DataType) -> np.ndarray:
     """Coerce user input (array-like / list of rows) to a contiguous
     ``[N, dim]`` numpy array of the space's dtype, validating the dimension
     the way the reference's ``add_vectors`` does (``src/builder.rs:165-173``:
-    auto-infer when dim==0, else strict match)."""
+    auto-infer when dim==0, else strict match). A BFLOAT16 space holds
+    bit patterns (:func:`~.constants.storage_dtype`): values are rounded
+    from f32 to nearest even, and an ``ml_dtypes`` bfloat16 array's bits are
+    taken as they are."""
     if dtype not in VECTOR_DTYPES:
         raise InvalidVectorTypeError(
             f"dtype {DataType(dtype).name} is not a vector dtype"
         )
-    np_dt = numpy_dtype(dtype)
+    np_dt = storage_dtype(dtype)
     arr = np.asarray(data)
+    if dtype == DataType.BFLOAT16:
+        arr = (arr.view(np_dt) if arr.dtype.name == "bfloat16"
+               else f32_to_bf16_bits(arr))
     if arr.ndim == 1:
         arr = arr.reshape(1, -1) if arr.size else arr.reshape(0, max(dim, 0))
     if arr.ndim != 2:
@@ -64,7 +71,7 @@ def pack_block(rows: np.ndarray, dtype: DataType, pad_dims: bool = True):
     n, d = rows.shape
     pr = padded_rows_for(n, dtype)
     pd = padded_dim_for(d, pad_dims)
-    block = np.zeros((pr, pd), dtype=numpy_dtype(dtype))
+    block = np.zeros((pr, pd), dtype=storage_dtype(dtype))
     block[:n, :d] = rows
     return block, pr, pd
 
@@ -75,7 +82,7 @@ def unpack_block(raw, padded_rows: int, padded_dim: int, dtype: DataType) -> np.
     ``raw`` is a buffer (mmap slice); the result aliases it. The logical
     vectors are ``view[:num_vectors, :dim]``.
     """
-    np_dt = numpy_dtype(dtype)
+    np_dt = storage_dtype(dtype)
     expect = padded_rows * padded_dim * np_dt.itemsize
     if len(raw) < expect:
         raise DimensionMismatchError(expected=expect, actual=len(raw))

@@ -16,8 +16,8 @@ The counterpart of :mod:`metrovector_tpu.index.pq`:
 
 Files round-trip through the shared format: ``Builder.set_pq_index`` writes
 the sidecar and :meth:`PQIndex.from_space` opens it without retraining.
-The int8 LUT, ``add_rows`` and ``autotune`` are not ported (ROADMAP B2,
-A2/A8); the persisted ``adc`` tuning hint is a Mosaic tile and is not read.
+``add_rows`` and ``autotune`` are not ported (ROADMAP A2/A8); the
+persisted ``adc`` tuning hint is a Mosaic tile and is not read.
 """
 
 from __future__ import annotations
@@ -409,7 +409,8 @@ class PQIndex:
         """Approximate top-k by ADC over the codes; ``rerank=R`` (R ≥ k)
         rescores the top-R ADC candidates exactly against the original
         rows (requires ``keep_vectors``). ``exact_lut``: f32 LUT, else
-        bf16. ``filter_mask``: ``[num_vectors]`` predicate or a
+        bf16; ``int8_lut``: the f32 LUT quantized per query to int8 (it
+        overrides ``exact_lut``, as in the reference). ``filter_mask``: ``[num_vectors]`` predicate or a
         :meth:`prepare_filter` result, applied inside the scan together
         with the tombstones. ``backend`` takes only ``"auto"`` (the device
         decides); ``block_rows`` is accepted and ignored.
@@ -422,11 +423,6 @@ class PQIndex:
             raise ValueError(
                 f"backend={backend!r}: the port has one backend, 'auto' "
                 "(the tensors' device decides)"
-            )
-        if int8_lut:
-            raise NotImplementedError(
-                "int8_lut is not ported yet (ROADMAP B2: the int8-LUT "
-                "variant of the ADC kernel)"
             )
         q = np.ascontiguousarray(queries, np.float32)
         if q.ndim == 1:
@@ -450,7 +446,8 @@ class PQIndex:
         s, i = fused_adc_topk(
             qk, self.codes, self._books, self.recon_norms,
             self.num_vectors, fetch, self.metric, valid_mask=eff_valid,
-            exact_lut=exact_lut, packed4=self.packed4,
+            exact_lut=exact_lut and not int8_lut, packed4=self.packed4,
+            int8_lut=int8_lut,
         )
         if rerank:
             s, i = rescore_candidates(qdev, self.db, self.db_norms, i,

@@ -99,8 +99,10 @@ def load() -> ctypes.CDLL:
                 _compile(out_dir)
             lib = ctypes.CDLL(str(out_dir / LIB_NAME))
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            f32 = ctypes.c_float
             lib.mvt_fused_topk.argtypes = [
-                p, p, i32, p, p,          # q, db, db_dtype, norms, mask
+                p, p, i32, f32, f32,      # q, db, db_dtype, affine off, scale
+                p, p,                     # norms, mask
                 i64, i64, i64, i64,       # nq, n, d, num_valid
                 i32, i32, i32,            # k, metric, tile
                 i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
@@ -123,8 +125,23 @@ def load() -> ctypes.CDLL:
             lib.mvt_fused_topk_high.restype = i32
             lib.mvt_fused_topk_high_occupancy.argtypes = [i32, i32, p]
             lib.mvt_fused_topk_high_occupancy.restype = i32
+            lib.mvt_fused_topk_int.argtypes = [
+                p, i64, p, i64,           # q, qstride, db, ldb
+                p, p, p,                  # norms, mask, bias
+                f32, f32, i32,            # scale, bias_scale, defer
+                i64, i64, i64, i64,       # nq, n, d, num_valid
+                i32, i32,                 # k, metric
+                i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
+                p, p, p,                  # part_s/i, slots
+                p, p, p, p,               # tmp_s/i, out_s/i
+                p,                        # stream
+            ]
+            lib.mvt_fused_topk_int.restype = i32
+            lib.mvt_fused_topk_int_occupancy.argtypes = [i32, i32, p]
+            lib.mvt_fused_topk_int_occupancy.restype = i32
             lib.mvt_adc_topk.argtypes = [
-                p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
+                p, i32, p,                # lut, lut_dtype, lut_scale
+                p, i32, i32,              # codes, cols, packed4
                 p, p,                     # norms, mask
                 i64, i64, i32, i32, i64,  # nq, n, m, ksub, num_valid
                 i32, i32, i32, i32, i64,  # k, metric, qt, splits, rows_per_split

@@ -1,20 +1,25 @@
 """PQ asymmetric-distance scan + top-k: the wrapper of the Hopper kernels
-``csrc/adc_scan.cuh`` (built as ``csrc/adc_kernel.cu``) and, for the IVF
+``csrc/adc_scan.cuh`` (built as ``csrc/adc_kernel.cu``, its int8-LUT
+instances as ``csrc/adc_int8_kernel.cu``) and, for the IVF
 bucket bias, ``csrc/adc_bucket_kernel.cu``, and their plain PyTorch
 version.
 
 Replaces ``metrovector_tpu/ops/adc_kernel.py::fused_adc_topk`` for uint8
 codes ``[N, m]`` and nibble-packed codes ``[N, ⌈m/2⌉]`` (``packed4``), with
-an f32 (``exact_lut``) or bf16 lookup table. A CUDA tensor goes to the
-kernel or the call raises; a CPU tensor goes to
+an f32 (``exact_lut``), bf16 or int8 (``int8_lut``) lookup table. A CUDA
+tensor goes to the kernel or the call raises; a CPU tensor goes to
 :func:`fused_adc_topk_reference`. ``fused_adc_topk.launches`` counts kernel
 launches (scan and merge of one call count once), and
-``fused_adc_topk.group_launches`` those of them with a bucket bias.
+``fused_adc_topk.group_launches`` and ``int8_launches`` those of them with
+a bucket bias and with an int8 LUT.
 
 The per-query table ``LUT[q, j·ksub + c] = q_j · C[j, c]`` is a small
 einsum outside the kernel, as in the JAX package, in full f32 and then
 rounded to bf16 unless ``exact_lut``. Both versions add the m looked-up
-entries of a row in ascending j in f32, so they agree bit for bit.
+entries of a row in ascending j in f32, so they agree bit for bit. The
+int8 LUT is the f32 table quantized per query as the reference does
+(:func:`quantize_lut`); both versions add its entries exactly in integers
+and multiply the sum, rounded to f32, by the query's scale.
 
 The IVF bucket bias (``group_bias [Q, G]`` f32 with ``group_ids [N]``
 int32, the form IVF-PQ's scan calls): a row of bucket ``g = group_ids[row]``
@@ -31,11 +36,10 @@ probes: over ``buckets``, the caller's bucket layout of the same rows (the
 IVF-PQ index keeps one), or else over the rows grouped by ``group_ids`` on
 the device (:func:`_group_layout`). :func:`ivf_scan_plan` is the plain form
 of the kernel's schedule. Not ported: the implicit
-bucket-major map ``group_rows`` (no package code or test calls it), the
-int8 LUT (ROADMAP B2), and the Mosaic knobs (``block_rows``,
-``query_tile``, ``vmem_retry``). Any ``1 ≤ k ≤ N``: above k = 1024 the
-per-split lists live in device memory and a merge tree folds them
-(:mod:`.select`).
+bucket-major map ``group_rows`` (no package code or test calls it) and the
+Mosaic knobs (``block_rows``, ``query_tile``, ``vmem_retry``). Any
+``1 ≤ k ≤ N``: above k = 1024 the per-split lists live in device memory
+and a merge tree folds them (:mod:`.select`).
 """
 
 from __future__ import annotations
@@ -67,6 +71,9 @@ _MIN_BLOCKS_PER_SM = 3
 _METRICS = (
     DistanceMetric.L2, DistanceMetric.INNER_PRODUCT, DistanceMetric.COSINE
 )
+# LutType of csrc/adc_scan.cuh
+LUT_F32, LUT_BF16, LUT_INT8 = 0, 1, 2
+_LUT_CODES = {torch.float32: LUT_F32, torch.bfloat16: LUT_BF16, torch.int8: LUT_INT8}
 
 
 def adc_lut(queries: torch.Tensor, codebooks: torch.Tensor,
@@ -80,6 +87,20 @@ def adc_lut(queries: torch.Tensor, codebooks: torch.Tensor,
                            queries.float().reshape(nq, m, dsub),
                            codebooks.float()).reshape(nq, m * ksub)
     return lut.contiguous() if exact_lut else lut.to(torch.bfloat16)
+
+
+def quantize_lut(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 LUT of an f32 ``lut [Q, m·ksub]`` and its per-query scale,
+    as the reference quantizes it (``adc_kernel.py:431-436``): ``sq =
+    max(max|lut|, 1e-30) / 127`` in f32, then ``clip(round_half_even(lut /
+    sq), −127, 127)``. Returns ``(int8 [Q, m·ksub], sq [Q] f32)``."""
+    amax = torch.clamp(lut.abs().amax(dim=1), min=1e-30)
+    sq = amax / 127.0
+    return (torch.clamp(torch.round(lut / sq[:, None]), -127, 127)
+            .to(torch.int8).contiguous(), sq.contiguous())
+
+
+INT8_LUT_EXCLUSIVE = "int8_lut is mutually exclusive with exact_lut and group_bias"
 
 
 def lut_bias(group_bias: torch.Tensor, exact_lut: bool) -> torch.Tensor:
@@ -116,13 +137,20 @@ def fused_adc_topk_reference(
     group_bias: torch.Tensor | None = None,
     group_ids: torch.Tensor | None = None,
     block_rows: int = 65536,
+    int8_lut: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`fused_adc_topk` (same results): the torch
     twin of ``_adc_search``, the LUT gathered by code per row block, with a
-    carried candidate list (ties to the lowest row)."""
+    carried candidate list (ties to the lowest row). ``int8_lut``: the
+    quantized entries summed in int64, then ``f32(sum)·sq``."""
     metric = DistanceMetric(metric)
     m, ksub, _ = codebooks.shape
-    lut = adc_lut(queries, codebooks, exact_lut).float()
+    sq = None
+    if int8_lut:
+        lut, sq = quantize_lut(adc_lut(queries, codebooks, True))
+        lut = lut.long()
+    else:
+        lut = adc_lut(queries, codebooks, exact_lut).float()
     nq, n = lut.shape[0], codes.shape[0]
     gb = None if group_bias is None else lut_bias(group_bias, exact_lut)
     neg_inf = torch.tensor(float("-inf"), device=lut.device)
@@ -133,10 +161,12 @@ def fused_adc_topk_reference(
         if packed4:
             blk = unpack_nibbles(blk, m)
         blk = blk.long()
-        acc = torch.zeros((nq, stop - start), dtype=torch.float32,
+        acc = torch.zeros((nq, stop - start), dtype=lut.dtype,
                           device=lut.device)
-        for j in range(m):  # ascending j, in f32, as the kernel adds
+        for j in range(m):  # ascending j, in f32 (exact for int8), as the kernel adds
             acc = acc + lut[:, j * ksub + blk[:, j]]
+        if sq is not None:
+            acc = acc.float() * sq[:, None]
         keep = None
         if gb is not None:  # the bias after the m lookups, then the clamp
             gid = group_ids[start:stop].long()
@@ -159,15 +189,18 @@ def fused_adc_topk_reference(
 
 
 def _shared_bytes(qt: int, mk: int, k: int, exact_lut: bool,
-                  lists_in_smem: bool = True, gw: int = 0) -> int:
+                  lists_in_smem: bool = True, gw: int = 0,
+                  int8_lut: bool = False) -> int:
     """Dynamic shared memory of one scan block: the LUT of ``qt`` queries
-    (rounded up to 16 bytes), then per query the bar, two score rows and
-    two sets of candidate words, the buffer and its fill, and the list (none above
-    :data:`SMEM_K` or without ``lists_in_smem``: it lives in device
-    memory); ``gw`` > 0: the bucket kernel's, which adds the two tiles' row
-    ids and, for ``gw`` 32-bit words of buckets, the union's bits and the
-    chunk prefix (``gw + 1`` entries)."""
-    lut = -(-qt * mk * (4 if exact_lut else 2) // 16) * 16
+    (4, 2 or, ``int8_lut``, 1 byte an entry; rounded up to 16 bytes), then
+    per query the bar, two score rows and two sets of candidate words, the
+    buffer and its fill, and the list (none above :data:`SMEM_K` or without
+    ``lists_in_smem``: it lives in device memory); ``gw`` > 0: the bucket
+    kernel's, which adds the two tiles' row ids and, for ``gw`` 32-bit words
+    of buckets, the union's bits and the chunk prefix (``gw + 1``
+    entries)."""
+    esz = 1 if int8_lut else (4 if exact_lut else 2)
+    lut = -(-qt * mk * esz // 16) * 16
     lists = k if lists_in_smem and k <= SMEM_K else 0
     base = lut + qt * (8 + 2 * (4 * _ROW_TILE + _ROW_TILE // 8) + 8 * _BUFFER + 4
                        + 8 * lists)
@@ -175,10 +208,12 @@ def _shared_bytes(qt: int, mk: int, k: int, exact_lut: bool,
 
 
 def _fitting_tiles(mk: int, k: int, exact_lut: bool,
-                   lists_in_smem: bool = True, gw: int = 0) -> list[int]:
+                   lists_in_smem: bool = True, gw: int = 0,
+                   int8_lut: bool = False) -> list[int]:
     """The query tiles whose scan block fits in shared memory."""
     return [t for t in _QUERY_TILES
-            if _shared_bytes(t, mk, k, exact_lut, lists_in_smem, gw) <= SMEM_LIMIT]
+            if _shared_bytes(t, mk, k, exact_lut, lists_in_smem, gw, int8_lut)
+            <= SMEM_LIMIT]
 
 
 def _query_tile(nq: int, occupancy: dict[int, int]) -> int:
@@ -196,7 +231,8 @@ def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
                ksub: int, k: int, lists_in_smem: bool, gw: int = 0,
                tiles: tuple[int, ...] = _QUERY_TILES) -> tuple[tuple[int, int], ...]:
     """(tile, scan blocks per SM) for each of ``tiles`` that fits, from the
-    runtime's occupancy calculator on the current device; ``gw`` > 0: the
+    runtime's occupancy calculator on the current device, for the LUT type
+    ``lut_code`` (:data:`LUT_F32`, :data:`LUT_BF16`, :data:`LUT_INT8`); ``gw`` > 0: the
     bucket kernel with that many words of bucket bits (built for
     :data:`BUCKET_QT` alone unless ``-DMVT_K2B_ALL_TILES``)."""
     from ._build import load, raise_for
@@ -204,7 +240,8 @@ def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
     lib = load()
     smem_k = k if lists_in_smem and k <= SMEM_K else 0
     out = []
-    for qt in _fitting_tiles(m * ksub, k, lut_code == 0, lists_in_smem, gw):
+    for qt in _fitting_tiles(m * ksub, k, lut_code == 0, lists_in_smem, gw,
+                             lut_code == LUT_INT8):
         if qt not in tiles:
             continue
         per_sm = ctypes.c_int(0)
@@ -268,7 +305,8 @@ def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
 
 
 def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
-                exact_lut, group_bias=None, group_ids=None, buckets=None) -> None:
+                exact_lut, group_bias=None, group_ids=None, buckets=None,
+                int8_lut=False) -> None:
     dev = queries.device
     named = [("codes", codes), ("codebooks", codebooks),
              ("recon_norms", recon_norms)]
@@ -297,7 +335,8 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
     gw = 0  # the bucket kernel's buckets: the layout's, or G and the rows in none
     if group_bias is not None:
         gw = _group_words(group_bias.shape[1] + (buckets is None))
-    need = _shared_bytes(1, m * ksub, k, exact_lut, lists_in_smem=False, gw=gw)
+    need = _shared_bytes(1, m * ksub, k, exact_lut, lists_in_smem=False, gw=gw,
+                         int8_lut=int8_lut)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"m*ksub={m * ksub} with k={k}"
@@ -396,6 +435,7 @@ def fused_adc_topk(
     group_bias: torch.Tensor | None = None,
     group_ids: torch.Tensor | None = None,
     buckets: tuple[torch.Tensor, ...] | None = None,
+    int8_lut: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ADC top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
     over PQ ``codes`` (uint8 ``[N, m]``, or ``[N, ⌈m/2⌉]`` with
@@ -411,19 +451,24 @@ def fused_adc_topk(
     reads the rows from it (the plain version needs no layout); without
     it the rows are grouped on the device each call. Returns ``(scores
     [Q, k] f32, indices [Q, k] int32)`` by (score descending, row
-    ascending); unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``."""
+    ascending); unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``.
+    ``int8_lut``: the LUT quantized per query (:func:`quantize_lut`);
+    neither ``exact_lut`` nor a bucket bias goes with it."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
+    if int8_lut and (exact_lut or group_bias is not None):
+        raise ValueError(INT8_LUT_EXCLUSIVE)
     _check_shapes(queries, codes, codebooks, packed4, group_bias, group_ids, buckets)
     if queries.device.type == "cpu":
         return fused_adc_topk_reference(queries, codes, codebooks, recon_norms,
                                         num_valid, k, metric, valid_mask,
-                                        exact_lut, packed4, group_bias, group_ids)
+                                        exact_lut, packed4, group_bias, group_ids,
+                                        int8_lut=int8_lut)
     if queries.device.type != "cuda":
         raise ValueError(f"fused_adc_topk runs on CUDA or CPU, not {queries.device}")
     _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
-                exact_lut, group_bias, group_ids, buckets)
+                exact_lut, group_bias, group_ids, buckets, int8_lut)
     from ._build import load
 
     lib = load()
@@ -435,15 +480,23 @@ def fused_adc_topk(
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
-    lut = adc_lut(queries, codebooks, exact_lut)
-    lut_code = int(not exact_lut)
+    sq = None
+    if int8_lut:
+        lut, sq = quantize_lut(adc_lut(queries, codebooks, True))
+        lut_code = LUT_INT8
+    else:
+        lut = adc_lut(queries, codebooks, exact_lut)
+        lut_code = LUT_F32 if exact_lut else LUT_BF16
     with torch.cuda.device(dev):
         if group_bias is None:
             occupancy = dict(_occupancy(dev.index, lut_code, int(packed4), m, ksub,
                                         min(k, SMEM_K + 1), True))
             qt = _query_tile(nq, occupancy)
             _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
-                    packed4, m, ksub, qt, k <= SMEM_K, occupancy[qt], out_s, out_i)
+                    packed4, m, ksub, qt, k <= SMEM_K, occupancy[qt], out_s, out_i,
+                    lut_scale=sq)
+            if int8_lut:
+                fused_adc_topk.int8_launches += 1
         else:
             layout = (_group_layout(codes, recon_norms, group_ids, group_bias.shape[1])
                       if buckets is None else _bucket_layout(buckets))
@@ -486,11 +539,12 @@ def _bucket_layout(buckets):
 
 def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
             packed4, m, ksub, qt, lists_in_smem, blocks_per_sm, out_s, out_i,
-            splits=None) -> None:
+            splits=None, lut_scale=None) -> None:
     """One launch of the scan and the merge for checked inputs and a LUT
-    ``[Q, m·ksub]`` (f32 or bf16) with query tile ``qt``, the lists in
-    shared memory or not, into ``out_s``/``out_i``; ``splits`` (default: one
-    wave of ``blocks_per_sm`` blocks on every SM) sets the row splits."""
+    ``[Q, m·ksub]`` (f32, bf16, or int8 with its ``lut_scale [Q]`` f32)
+    with query tile ``qt``, the lists in shared memory or not, into
+    ``out_s``/``out_i``; ``splits`` (default: one wave of ``blocks_per_sm``
+    blocks on every SM) sets the row splits."""
     from ._build import raise_for
 
     nq = lut.shape[0]
@@ -506,7 +560,8 @@ def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
                                                   tree=tree)
     slots = select.bar_slots(nq, splits, dev)
     err = lib.mvt_adc_topk(
-        lut.data_ptr(), int(lut.dtype != torch.float32), codes.data_ptr(), cols,
+        lut.data_ptr(), _LUT_CODES[lut.dtype],
+        None if lut_scale is None else lut_scale.data_ptr(), codes.data_ptr(), cols,
         int(packed4), recon_norms.data_ptr(),
         None if valid_mask is None else valid_mask.data_ptr(),
         nq, n, m, ksub, max(0, min(int(num_valid), n)), k, int(metric),
@@ -558,3 +613,4 @@ def _launch_buckets(lib, lut, gbias, layout, valid_mask, num_valid, k, metric,
 
 fused_adc_topk.launches = 0
 fused_adc_topk.group_launches = 0
+fused_adc_topk.int8_launches = 0

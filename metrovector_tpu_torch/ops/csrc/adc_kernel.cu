@@ -1,18 +1,23 @@
 // The ADC scan's C entry points (the kernel and its design: adc_scan.cuh).
-// The IVF bucket-bias variant has its own: adc_bucket_kernel.cu.
+// The IVF bucket-bias variant has its own: adc_bucket_kernel.cu. The
+// int8-LUT instances are compiled in adc_int8_kernel.cu.
 
 #include "adc_scan.cuh"
+
+const void* mvt_adc_pick_int8(int qt, int packed4, int global);
 
 namespace {
 
 const void* pick(int qt, int packed4, int lut_dtype, int global) {
   if (lut_dtype == kLutF32) return pick_lt<float>(qt, packed4, global);
   if (lut_dtype == kLutBF16) return pick_lt<__nv_bfloat16>(qt, packed4, global);
+  if (lut_dtype == kLutI8) return mvt_adc_pick_int8(qt, packed4, global);
   return nullptr;
 }
 
 size_t smem_for(int qt, int lut_dtype, int mk, int smem_k) {
-  return scan_smem_bytes(qt, lut_dtype == kLutF32 ? 4 : 2, mk, smem_k);
+  return scan_smem_bytes(qt, lut_dtype == kLutF32 ? 4 : (lut_dtype == kLutI8 ? 1 : 2),
+                         mk, smem_k);
 }
 
 cudaError_t prepare(const void* fn, size_t smem) {
@@ -26,8 +31,9 @@ cudaError_t prepare(const void* fn, size_t smem) {
 extern "C" {
 
 // Launch the scan and the merge on `stream`; returns the cudaError_t of the
-// launches (0 on success). `lut` is [nq, m*ksub] f32 (lut_dtype 0) or bf16
-// (1); `codes` [n, cols] u8; `mask` may be null. With list_len 0 the lists
+// launches (0 on success). `lut` is [nq, m*ksub] f32 (lut_dtype 0), bf16
+// (1) or int8 (2, with its per-query scale `lut_scale` [nq] f32, else
+// null); `codes` [n, cols] u8; `mask` may be null. With list_len 0 the lists
 // stay in shared memory (k <= 1024) and part_* is [nq, splits, k];
 // otherwise each split's list has list_len entries in part_*. With `tree`
 // (always for lists in device memory) part_* and tmp_* are as large as
@@ -35,7 +41,8 @@ extern "C" {
 // the tree folds the lists; else merge_kernel does and tmp_* is unused.
 // slots is [nq, splits] zeros (the group bars, select.cuh). out_* are
 // [nq, k].
-int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
+int mvt_adc_topk(const void* lut, int lut_dtype, const float* lut_scale,
+                 const uint8_t* codes,
                  int cols, int packed4, const float* norms, const float* mask,
                  int64_t nq, int64_t n, int m, int ksub, int64_t num_valid,
                  int k, int metric, int qt, int splits, int64_t rows_per_split,
@@ -51,7 +58,7 @@ int mvt_adc_topk(const void* lut, int lut_dtype, const uint8_t* codes,
   if (err != cudaSuccess) return err;
   const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
   int vec = cols % 16 == 0 && at % 16 == 0 ? 16 : (cols % 4 == 0 && at % 4 == 0 ? 4 : 0);
-  void* args[] = {&lut,       &codes, &cols,   &norms,          &mask, &nq,
+  void* args[] = {&lut,       &lut_scale, &codes, &cols, &norms,  &mask, &nq,
                   &n,         &m,     &ksub,   &num_valid,      &kl,   &metric,
                   &rows_per_split, &vec, &k, &part_s, &part_i, &slots};
   const dim3 grid(static_cast<unsigned>((nq + qt - 1) / qt),

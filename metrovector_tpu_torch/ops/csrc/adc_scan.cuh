@@ -9,11 +9,14 @@
 // Replaces the Pallas kernel metrovector_tpu/ops/adc_kernel.py::
 // fused_adc_topk (body `_make_adc_kernel`). It computes what that kernel
 // computes, for uint8 codes [N, m] or nibble-packed codes [N, ceil(m/2)]
-// (even subspaces in the low nibble) and an f32 or bf16 lookup table
-// LUT[q, j*ksub + c] = q_j . C[j, c] built outside the kernel:
+// (even subspaces in the low nibble) and an f32, bf16 or int8 lookup table
+// LUT[q, j*ksub + c] = q_j . C[j, c] built outside the kernel (int8: the
+// f32 table quantized per query, LUT8 = rint(LUT / sq[q]) in [-127, 127]):
 //
 //   s(q, x)     = sum over j = 0..m-1, in that order, in f32, of
 //                 LUT[q, j*ksub + code_j(x)]
+//                 (int8: f32(the int32 sum of the LUT8 entries) * sq[q],
+//                 the sum exact, the product rounded once)
 //   score(q, x) = L2:     2 s - |x^|^2
 //                 cosine: s * 1/sqrt(max(|x^|^2, 1e-30))   (q pre-normalized)
 //                 IP:     s
@@ -45,7 +48,9 @@
 //   for a bf16 LUT. (16-byte entries of 4 f32 queries cost more: a
 //   quarter-warp's 8 lanes often hit two entries of one bank group.) Each
 //   query still adds its m entries in ascending j in f32, so the sums are
-//   the plain version's bit for bit.
+//   the plain version's bit for bit. An int8 LUT holds GW = 8 queries an
+//   entry and adds in int32 (exact: |sum| <= 127 m), in a quarter of the
+//   f32 table's shared memory.
 // * A tile is 256 rows, one per thread. The thread reads its row's codes
 //   16 bytes at a time (one load for pq4 and pq8 rows), the first 16 bytes,
 //   the norm and the mask value a tile ahead; it decodes each code once for
@@ -77,6 +82,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "select.cuh"
 
 namespace {
@@ -87,7 +94,11 @@ constexpr int kRows = kThreads;     // rows per tile, one per thread
 constexpr int kWords = kRows / 32;  // candidate words per query and tile
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
-enum LutType { kLutF32 = 0, kLutBF16 = 1 };
+enum LutType { kLutF32 = 0, kLutBF16 = 1, kLutI8 = 2 };
+
+// A row's sum of LUT entries: int32 for an int8 LUT, else f32.
+template <typename LT>
+using AccOf = std::conditional_t<std::is_same_v<LT, int8_t>, int, float>;
 
 // Add the GW entries at p (one code, GW consecutive queries) to a[0..GW),
 // from one shared-memory load.
@@ -128,6 +139,42 @@ __device__ __forceinline__ void lut_add(float* a, const __nv_bfloat16* p) {
   } else {
     a[0] += __bfloat162float(*p);
   }
+}
+
+// The int8 LUT: the GW entries at p are GW bytes (GW of 8, 4, 2 or 1).
+__device__ __forceinline__ int sbyte(unsigned w, int b) {
+  return static_cast<signed char>((w >> (8 * b)) & 0xffu);
+}
+
+template <int GW>
+__device__ __forceinline__ void lut_add(int* a, const int8_t* p) {
+  if constexpr (GW == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      a[b] += sbyte(u.x, b);
+      a[4 + b] += sbyte(u.y, b);
+    }
+  } else if constexpr (GW == 4) {
+    const unsigned u = *reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) a[b] += sbyte(u, b);
+  } else if constexpr (GW == 2) {
+    const unsigned u = *reinterpret_cast<const unsigned short*>(p);
+    a[0] += sbyte(u, 0);
+    a[1] += sbyte(u, 1);
+  } else {
+    a[0] += *p;
+  }
+}
+
+// A row's score before the metric: the f32 sum, or the int8 LUT's int32 sum
+// rounded to f32 times the query's scale.
+__device__ __forceinline__ float lut_sum(float acc, const float*, int64_t) {
+  return acc;
+}
+__device__ __forceinline__ float lut_sum(int acc, const float* sq, int64_t q) {
+  return __fmul_rn(__int2float_rn(acc), __ldg(sq + q));
 }
 
 // Bytes b..b+15 of a row's codes as four little-endian words; bytes past
@@ -198,7 +245,8 @@ inline cudaError_t merge_splits(float* part_s, int* part_i, float* tmp_s,
 
 template <int QT, bool PACKED, typename LT, bool GLOBAL>
 __global__ void __launch_bounds__(kThreads)
-    adc_scan_kernel(const void* lut_raw, const uint8_t* __restrict__ codes,
+    adc_scan_kernel(const void* lut_raw, const float* __restrict__ lut_scale,
+                    const uint8_t* __restrict__ codes,
                     int cols, const float* __restrict__ norms,
                     const float* __restrict__ mask, int64_t nq, int64_t n,
                     int m, int ksub, int64_t num_valid, int k, int metric,
@@ -208,6 +256,7 @@ __global__ void __launch_bounds__(kThreads)
   // GLOBAL: k is the length of each split's list, which lives in part_*
   // ([nq, splits, k]) instead of shared memory; topk is the k asked for.
   // slots ([nq, splits]) holds the group bars' keys (select.cuh).
+  // lut_scale ([nq] f32): the int8 LUT's per-query scale (else unused).
   // Queries per LUT load: 8-byte entries, which a half-warp's 16 lanes
   // read in one pass when their codes differ (ksub = 16).
   constexpr int kEntry = 8 / static_cast<int>(sizeof(LT));
@@ -306,9 +355,9 @@ __global__ void __launch_bounds__(kThreads)
     const float nrm = next_nrm;
     const bool live = next_in && next_keep != 0.f;
     fetch(row + kRows, next_cw, next_nrm, next_keep, next_in);
-    float acc[QT];
+    AccOf<LT> acc[QT];
 #pragma unroll
-    for (int qq = 0; qq < QT; ++qq) acc[qq] = 0.f;
+    for (int qq = 0; qq < QT; ++qq) acc[qq] = 0;
     if (live) {
       const uint8_t* rc = codes + row * cols;
       for (int b = 0; b < cols; b += 16) {
@@ -333,7 +382,8 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.0f / sqrtf(fmaxf(nrm, 1e-30f));
 #pragma unroll
     for (int qq = 0; qq < QT; ++qq) {
-      float s = acc[qq];
+      // (queries past the batch read the last query's scale: never written)
+      float s = lut_sum(acc[qq], lut_scale, q0 + qq < nq ? q0 + qq : nq - 1);
       if (metric == kL2) {
         s = 2.0f * s - nrm;
       } else if (metric == kCosine) {

@@ -68,6 +68,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "scan_common.cuh"
 #include "select.cuh"
 
 namespace {
@@ -88,10 +89,6 @@ constexpr int kStageWords = (kRB + kQB) * 16;
 static_assert(kQB * 4 == kThreads, "one 16-byte query piece a thread");
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
 
 __device__ __forceinline__ unsigned bf2_bits(__nv_bfloat162 h) {
   return *reinterpret_cast<unsigned*>(&h);
@@ -114,29 +111,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// cp.async of `bytes` (16 or 4) from gmem, of which `src` are read and the
-// rest zero-filled.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(src)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(src)
-                 : "memory");
-  }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The 16-byte piece p (dims 4p .. 4p + 3 of a chunk) of stage row r sits at
@@ -428,21 +402,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-struct Variant {
-  const void* fn;
-  size_t smem;
-};
-
 Variant variant(int k, int big_k) {
   return big_k ? Variant{reinterpret_cast<const void*>(high_scan_kernel<true>),
                          scan_smem<true>(k)}
                : Variant{reinterpret_cast<const void*>(high_scan_kernel<false>),
                          scan_smem<false>(k)};
-}
-
-cudaError_t prepare(const Variant& v) {
-  return cudaFuncSetAttribute(v.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(v.smem));
 }
 
 }  // namespace
@@ -500,11 +464,7 @@ int mvt_fused_topk_high(const float* q, void* qsplit, const float* db,
 // Scan blocks that fit on one SM at once for this list length and variant,
 // written to *blocks_per_sm; returns the cudaError_t.
 int mvt_fused_topk_high_occupancy(int k, int big_k, int* blocks_per_sm) {
-  const Variant v = variant(k, big_k);
-  const cudaError_t err = prepare(v);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, v.fn,
-                                                       kThreads, v.smem);
+  return occupancy(variant(k, big_k), kThreads, blocks_per_sm);
 }
 
 }  // extern "C"

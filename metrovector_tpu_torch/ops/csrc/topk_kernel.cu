@@ -59,9 +59,17 @@
 //   one warp per query, for k <= 256 (up to 64 splits, or k <= 32), else the
 //   merge tree of select.cuh.
 //
+// * The affine int8 load (the uint8 cosine space, whose device codes are
+//   c' = c - 128): the corpus is int8 and each code becomes (c' + off) *
+//   scale in f32 (off = 128 - zero_point; two roundings, no fused
+//   multiply-add) as it is staged, which is the reference's dequantizing
+//   read (metrovector_tpu/engine.py::_search_uint8_dequant, which XLA fuses
+//   into the matmul). No dequantized copy of the corpus exists: it reads a
+//   quarter of the f32 bytes, and the FFMA loop is the same.
+//
 // Row offsets are 64-bit (N*D passes 2^31 at 100M x 768). The corpus may
-// be float, __half or __nv_bfloat16; queries are f32. Limits: 1 <= k <= N
-// < 2^31, S <= 512; the Python wrapper checks them.
+// be float, __half, __nv_bfloat16 or int8 (affine); queries are f32.
+// Limits: 1 <= k <= N < 2^31, S <= 512; the Python wrapper checks them.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -71,6 +79,7 @@
 
 #include <type_traits>
 
+#include "scan_common.cuh"
 #include "select.cuh"
 
 namespace {
@@ -85,7 +94,12 @@ constexpr int kMaxSplits = 512;
 constexpr int kSplitsPerLane = kMaxSplits / 32;
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
-enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
+enum DType { kF32 = 0, kF16 = 1, kBF16 = 2, kI8Affine = 3 };
+
+// The affine int8 load's dequantization: x = (c + off) * scale.
+struct Affine {
+  float off, scale;
+};
 
 // The block tiles: QB queries x RB = 8192 / QB rows. A warp owns 32 x 32
 // dots, so the 8 warps are QB / 32 along the queries and RB / 32 along the
@@ -100,14 +114,15 @@ struct Tile {
   static_assert((QB / 32) * kWR == kWarps, "8 warps of 32 x 32");
 };
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
-
-// Element e of a 16-byte piece of T as f32.
+// Element e of a 16-byte piece of T as f32 (int8: dequantized by aff).
 template <typename T>
-__device__ __forceinline__ float piece_at(const uint4& u, int e) {
-  if constexpr (sizeof(T) == 4) {
+__device__ __forceinline__ float piece_at(const uint4& u, int e, Affine aff) {
+  if constexpr (sizeof(T) == 1) {
+    const int h = e >> 2;
+    const unsigned w = h == 0 ? u.x : (h == 1 ? u.y : (h == 2 ? u.z : u.w));
+    const int c = static_cast<signed char>((w >> (8 * (e & 3))) & 0xffu);
+    return __fmul_rn(__fadd_rn(static_cast<float>(c), aff.off), aff.scale);
+  } else if constexpr (sizeof(T) == 4) {
     const unsigned w = e == 0 ? u.x : (e == 1 ? u.y : (e == 2 ? u.z : u.w));
     return __uint_as_float(w);
   } else {
@@ -139,6 +154,8 @@ __device__ __forceinline__ uint4 load_piece(const T* __restrict__ p, bool in,
       unsigned bits;
       if constexpr (sizeof(T) == 4) {
         bits = __float_as_uint(__ldg(reinterpret_cast<const float*>(p) + e));
+      } else if constexpr (sizeof(T) == 1) {
+        bits = __ldg(reinterpret_cast<const unsigned char*>(p) + e);
       } else {
         bits = __ldg(reinterpret_cast<const unsigned short*>(p) + e);
       }
@@ -176,12 +193,12 @@ __global__ void __launch_bounds__(kThreads, 2)
                 const float* __restrict__ norms,
                 const float* __restrict__ mask, int64_t nq, int64_t n,
                 int64_t d, int64_t num_valid, int k, int topk, int metric,
-                int64_t rows_per_split, int splits, int vec,
+                int64_t rows_per_split, int splits, int vec, Affine aff,
                 float* __restrict__ part_s, int* __restrict__ part_i,
                 unsigned long long* __restrict__ slots) {
   // BIG_K: k is the length of each split's list, which lives in part_*;
   // topk is the k asked for. slots ([nq, splits]) holds the group bars'
-  // keys (select.cuh).
+  // keys (select.cuh). aff: the int8 corpus's dequantization.
   using TL = Tile<QB>;
   constexpr int RB = TL::kRB;
   constexpr int kWords = TL::kWords;
@@ -281,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < XE; ++e) {
         const int c = p * XE + e;
-        xb[c * RB + (r ^ swz(c))] = piece_at<T>(xraw[i], e);
+        xb[c * RB + (r ^ swz(c))] = piece_at<T>(xraw[i], e, aff);
       }
     }
     if (q_stages) {
@@ -522,11 +539,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct Variant {
-  const void* fn;
-  size_t smem;
-};
-
 template <typename T, int QB>
 Variant variant_of(int k, int big_k) {
   return big_k ? Variant{reinterpret_cast<const void*>(scan_kernel<T, QB, true>),
@@ -557,18 +569,14 @@ Variant variant(int db_dtype, int tile, int k, int big_k) {
       return variant_t<__half>(tile, k, big_k);
     case kBF16:
       return variant_t<__nv_bfloat16>(tile, k, big_k);
+    case kI8Affine:
+      return variant_t<int8_t>(tile, k, big_k);
     default:
       return Variant{nullptr, 0};
   }
 }
 
 int tile_queries(int tile) { return tile == k32x256 ? 32 : 64; }
-
-cudaError_t prepare(const Variant& v) {
-  if (v.fn == nullptr) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(v.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(v.smem));
-}
 
 }  // namespace
 
@@ -582,7 +590,9 @@ extern "C" {
 // (ops/select.py::merge_scratch) and the tree folds the lists; else
 // warp_merge_kernel does and tmp_* is unused. slots is [nq, splits] zeros
 // (the group bars, select.cuh). out_* are [nq, k]. `tile` is a TileId.
+// db_dtype kI8Affine: int8 codes read as (c + aff_off) * aff_scale.
 int mvt_fused_topk(const float* q, const void* db, int db_dtype,
+                   float aff_off, float aff_scale,
                    const float* norms, const float* mask, int64_t nq,
                    int64_t n, int64_t d, int64_t num_valid, int k, int metric,
                    int tile, int splits, int64_t rows_per_split, int list_len,
@@ -596,12 +606,13 @@ int mvt_fused_topk(const float* q, const void* db, int db_dtype,
   const Variant v = variant(db_dtype, tile, kl, big_k);
   cudaError_t err = prepare(v);
   if (err != cudaSuccess) return err;
-  const size_t esz = db_dtype == kF32 ? 4 : 2;
+  const size_t esz = db_dtype == kF32 ? 4 : (db_dtype == kI8Affine ? 1 : 2);
+  Affine aff{aff_off, aff_scale};
   int vec = ((d * esz) % 16 == 0 && reinterpret_cast<uintptr_t>(db) % 16 == 0 ? 1 : 0) |
             ((d * 4) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 ? 2 : 0);
   void* args[] = {&q,     &db,    &norms,         &mask,   &nq,
                   &n,     &d,     &num_valid,     &kl,     &k,
-                  &metric, &rows_per_split, &splits, &vec, &part_s,
+                  &metric, &rows_per_split, &splits, &vec, &aff, &part_s,
                   &part_i, &slots};
   const int qb = tile_queries(tile);
   const dim3 grid(static_cast<unsigned>((nq + qb - 1) / qb),
@@ -625,11 +636,7 @@ int mvt_fused_topk(const float* q, const void* db, int db_dtype,
 // (cudaErrorInvalidValue for a tile this build lacks).
 int mvt_fused_topk_occupancy(int db_dtype, int tile, int k, int big_k,
                              int* blocks_per_sm) {
-  const Variant v = variant(db_dtype, tile, k, big_k);
-  const cudaError_t err = prepare(v);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, v.fn,
-                                                       kThreads, v.smem);
+  return occupancy(variant(db_dtype, tile, k, big_k), kThreads, blocks_per_sm);
 }
 
 const char* mvt_cuda_error_string(int err) {

@@ -64,6 +64,103 @@ def bf16x3_dots(queries: torch.Tensor, db: torch.Tensor,
     return dots
 
 
+def int_dots(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """``[Q, N]`` f32 dots of int8 ``queries`` and ``db``: the exact integer
+    sums (f64 holds every one, since |dot| ≤ 2¹⁴·D < 2⁵³), each rounded
+    once to f32 as an int32 → f32 conversion rounds (to nearest even)."""
+    return (queries.double() @ db.double().T).float()
+
+
+def f32_scalar(x: float, device) -> torch.Tensor:
+    """``x`` rounded to f32, as a 0-d tensor: an operand that multiplies in
+    f32, as the reference's ``jnp.float32(x)`` does."""
+    return torch.tensor(float(np.float32(x)), dtype=torch.float32, device=device)
+
+
+def deferred_scale(db: torch.Tensor, metric, bias_row, scale: float) -> bool:
+    """The reference's deferred-scale test (``topk_kernel.py:923-929``):
+    int8 inner product with no bias and ``scale > 0`` ranks the unscaled
+    dots and multiplies only the k outputs by ``scale``. Where two raw dots
+    round to one scaled value, the higher raw dot stays first."""
+    return (db.dtype == torch.int8
+            and DistanceMetric(metric) == DistanceMetric.INNER_PRODUCT
+            and bias_row is None and float(scale) > 0.0)
+
+
+def int_scores_block(
+    queries: torch.Tensor,
+    db: torch.Tensor,
+    db_norms: torch.Tensor,
+    metric: DistanceMetric,
+    scale: torch.Tensor | None = None,
+    bias_row: torch.Tensor | None = None,
+    bias_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Greater-is-better ``[Q, N]`` scores of int8 ``queries`` over int8
+    ``db`` in the reference's epilogue order: ``f32(idot)·scale``, then
+    ``+ bias_scale·bias_row`` (a product and a sum, each rounded to f32:
+    no fused multiply-add), then the metric (cosine queries are taken as
+    already normalized). ``scale`` None: the raw dots (deferred mode)."""
+    dots = int_dots(queries, db)
+    if scale is not None:
+        dots = dots * scale
+    if bias_row is not None:
+        dots = dots + bias_scale * bias_row[None, :]
+    metric = DistanceMetric(metric)
+    if metric == DistanceMetric.INNER_PRODUCT:
+        return dots
+    if metric == DistanceMetric.L2:
+        return 2.0 * dots - db_norms[None, :]
+    if metric == DistanceMetric.COSINE:
+        return dots * (1.0 / torch.sqrt(torch.clamp(db_norms, min=1e-30)))[None, :]
+    raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
+
+
+def exact_topk_int(
+    queries: torch.Tensor,
+    db: torch.Tensor,
+    db_norms: torch.Tensor,
+    num_valid: int,
+    k: int,
+    metric: DistanceMetric,
+    valid_mask: torch.Tensor | None = None,
+    scale: float = 1.0,
+    bias_row: torch.Tensor | None = None,
+    bias_scale: float = 0.0,
+    block_rows: int = 16384,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of int8 ``queries`` over int8 ``db`` in plain PyTorch
+    (:func:`int_scores_block`, blocks and ties as :func:`exact_topk`): the
+    reference kernel's integer path. ``scale``, ``bias_scale`` round to
+    f32 as the reference passes them; in the deferred mode
+    (:func:`deferred_scale`) the raw dots are ranked and the k outputs
+    scaled."""
+    dev = queries.device
+    defer = deferred_scale(db, metric, bias_row, scale)
+    sc = f32_scalar(scale, dev)
+    bs = None if bias_row is None else f32_scalar(bias_scale, dev)
+    nq, n = queries.shape[0], db.shape[0]
+    best = empty_topk(nq, dev)
+    for start in range(0, n, block_rows):
+        stop = min(n, start + block_rows)
+        s = int_scores_block(
+            queries, db[start:stop], db_norms[start:stop], metric,
+            None if defer else sc,
+            None if bias_row is None else bias_row[start:stop], bs)
+        vm = None if valid_mask is None else valid_mask[start:stop]
+        best = carry_topk(best, mask_scores(s, start, num_valid, vm), start, k)
+    out_s, out_i = finish_topk(best, k)
+    return (out_s * sc if defer else out_s), out_i
+
+
+def dequantize_rows(db: torch.Tensor, affine: tuple[float, float]) -> torch.Tensor:
+    """f32 rows ``(c + off)·scale`` of int8 codes ``db``, ``affine = (off,
+    scale)``, each step rounded to f32: the reference's dequantizing read of
+    recentred uint8 codes (``off = 128 − zero_point``)."""
+    off, sc = (f32_scalar(v, db.device) for v in affine)
+    return (db.float() + off) * sc
+
+
 def scores_block(
     queries: torch.Tensor,
     db: torch.Tensor,
@@ -153,12 +250,15 @@ def exact_topk(
     block_rows: int = 16384,
     query_inv_norms: torch.Tensor | None = None,
     precision: str = "highest",
+    affine: tuple[float, float] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k in plain PyTorch, the twin of ``exact_topk_xla``: scans
     the corpus in ``block_rows`` blocks with a carried candidate list, so
     ``[Q, N]`` never exists whole. Returns ``(scores [Q, k] f32,
     indices [Q, k] int32)`` best first; slots beyond the unmasked rows hold
     (−inf, −1). ``precision="high"`` scores by :func:`bf16x3_dots`.
+    ``affine``: ``db`` holds int8 codes, dequantized a block at a time by
+    :func:`dequantize_rows`.
 
     Ties go to the lowest index (:func:`carry_topk`). ``torch.topk``
     promises no tie order and is not used."""
@@ -172,7 +272,10 @@ def exact_topk(
     best = empty_topk(nq, q.device)
     for start in range(0, n, block_rows):
         stop = min(n, start + block_rows)
-        s = scores_block(q, db[start:stop], db_norms[start:stop], metric,
+        blk = db[start:stop]
+        if affine is not None:
+            blk = dequantize_rows(blk, affine)
+        s = scores_block(q, blk, db_norms[start:stop], metric,
                          query_inv_norms, precision)
         vm = None if valid_mask is None else valid_mask[start:stop]
         best = carry_topk(best, mask_scores(s, start, num_valid, vm), start, k)

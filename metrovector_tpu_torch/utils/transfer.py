@@ -16,7 +16,9 @@ CHUNK_BYTES = 256 << 20
 
 _TORCH_DTYPES = {np.dtype("float32"): torch.float32,
                  np.dtype("float16"): torch.float16,
-                 np.dtype("int32"): torch.int32}
+                 np.dtype("int32"): torch.int32,
+                 np.dtype("int16"): torch.int16,
+                 np.dtype("int8"): torch.int8}
 
 
 def put_chunked(
@@ -24,15 +26,17 @@ def put_chunked(
     device: torch.device,
     dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Copy the f32, f16 or int32 array ``arr`` to ``device`` in row chunks of at
-    most ``CHUNK_BYTES``, converting to ``dtype`` (default: the array's
-    own) on the device. Returns a new contiguous tensor; ``arr`` is only
+    """Copy the f32, f16, int32, int16 or int8 array ``arr`` to ``device``
+    in row chunks of at most ``CHUNK_BYTES``, converting to ``dtype``
+    (default: the array's own) on the device. Returns a new contiguous tensor; ``arr`` is only
     read."""
     device = torch.device(device)
     try:
         src_dtype = _TORCH_DTYPES[arr.dtype]
     except KeyError:
-        raise TypeError(f"put_chunked uploads f32, f16 or int32, not {arr.dtype}") from None
+        raise TypeError(
+            f"put_chunked uploads f32, f16, int32, int16 or int8, not {arr.dtype}"
+        ) from None
     out = torch.empty(arr.shape, dtype=dtype or src_dtype, device=device)
     if arr.size == 0:
         return out

@@ -16,7 +16,7 @@ from typing import Iterator
 import numpy as np
 
 from ..errors import IndexOutOfBoundsError, InvalidVectorTypeError
-from ..format.constants import DataType, numpy_dtype
+from ..format.constants import DataType, element_size
 from .vector import Vector
 
 
@@ -28,7 +28,7 @@ class VectorSlice:
 
     def __init__(self, block: np.ndarray, stride: int, count: int, dim: int,
                  dtype: DataType, start_index: int = 0):
-        esz = numpy_dtype(dtype).itemsize
+        esz = element_size(dtype)
         if stride % esz != 0:
             raise InvalidVectorTypeError(
                 f"stride {stride} not aligned to element size {esz}"
@@ -77,7 +77,7 @@ class VectorSlice:
     def as_aligned_slice(self) -> np.ndarray:
         """Flat 1-D element view — only valid when rows are tightly packed
         (reference ``as_aligned_slice``, ``src/vectors/mem.rs:89-121``)."""
-        esz = numpy_dtype(self.dtype).itemsize
+        esz = element_size(self.dtype)
         if self.stride != self.dim * esz:
             raise InvalidVectorTypeError(
                 "rows are not tightly packed; use to_numpy() for a strided view"
@@ -103,7 +103,7 @@ class VectorSlice:
         return (self.dim // width) * width
 
     def element_size(self) -> int:
-        return numpy_dtype(self.dtype).itemsize
+        return element_size(self.dtype)
 
     def clone_concurrent(self) -> "VectorSlice":
         """Cheap handle for another thread (reference ``clone_concurrent``

@@ -32,6 +32,8 @@ from ..format.constants import (
     IndexKind,
     TombstoneFormat,
     VectorType,
+    bf16_bits_to_f32,
+    element_size,
     numpy_dtype,
 )
 from ..format.manifest import ColumnInfo, SpaceInfo
@@ -164,7 +166,9 @@ class VectorSpace:
 
     def to_numpy(self) -> np.ndarray:
         """The logical ``[num_vectors, dim]`` view — zero-copy (strided) for
-        dense spaces; a densified copy for sparse spaces."""
+        dense spaces; a densified copy for sparse spaces. A BFLOAT16 space's
+        values widen to an f32 copy (exact); :meth:`padded_array` keeps the
+        stored bit patterns (uint16)."""
         if self.is_sparse:
             out = np.zeros((self.num_vectors, self.dim), dtype=np.float32)
             ip = self._sp_indptr.astype(np.int64)
@@ -173,7 +177,10 @@ class VectorSpace:
             )
             out[rows, self._sp_cols.astype(np.int64)] = self._sp_vals
             return out
-        return self._block[: self.num_vectors, : self.dim]
+        view = self._block[: self.num_vectors, : self.dim]
+        if self.dtype == DataType.BFLOAT16:  # bit patterns → f32 (a copy)
+            return bf16_bits_to_f32(view)
+        return view
 
     def norms(self) -> np.ndarray:
         """Precomputed squared L2 norms, f32 ``[padded_rows]``, zero-copy."""
@@ -203,7 +210,7 @@ class VectorSpace:
         self._require_dense()
         if start < 0 or count < 0 or start + count > self.num_vectors:
             raise IndexOutOfBoundsError(start + count, self.num_vectors)
-        esz = numpy_dtype(self.dtype).itemsize
+        esz = element_size(self.dtype)
         return VectorSlice(
             self._block[start : start + count],
             stride=self.padded_dim * esz,

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..errors import InvalidVectorTypeError
-from ..format.constants import DataType, numpy_dtype
+from ..format.constants import DataType, bf16_bits_to_f32, element_size
 
 
 class Vector:
@@ -35,7 +35,10 @@ class Vector:
         """Materialize as float32 (reference ``as_f32``,
         ``src/vectors/vector.rs:71-92``). Works for any real-valued element
         type; integer (quantized) elements are returned as raw codes — use
-        :meth:`dequantized` for calibrated values."""
+        :meth:`dequantized` for calibrated values. bfloat16 elements are held
+        as their bit patterns and widen exactly."""
+        if self.dtype == DataType.BFLOAT16:
+            return bf16_bits_to_f32(self._view)
         return np.asarray(self._view, dtype=np.float32)
 
     def dequantized(self, scale: float = 1.0, zero_point: float = 0.0) -> np.ndarray:
@@ -88,7 +91,7 @@ class Vector:
         ``as_vector_slice``, ``src/vectors/vector.rs:153-168``)."""
         from .slices import VectorSlice
 
-        esz = numpy_dtype(self.dtype).itemsize
+        esz = element_size(self.dtype)
         return VectorSlice(
             self._view.reshape(1, -1), stride=self.dim * esz, count=1,
             dim=self.dim, dtype=self.dtype,

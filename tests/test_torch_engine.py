@@ -219,12 +219,14 @@ def test_from_state_of_reference_device_space(tmp_path, dtype, precision):
 
 
 def test_unported_modes_raise(tmp_path):
-    """int8 spaces and add_rows still raise; "high" and "high_verified" now
-    run, and on an f16 space (which the reference upcasts but keeps as
-    FLOAT16) they run "highest": no over-fetch, no certificate."""
-    path, _, _ = _file(tmp_path, dtype=DataType.INT8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SearchEngine.open(path, device="cpu")
+    """add_rows still raises; int8 spaces now open and search
+    (tests/test_torch_quantized.py holds them against the reference); "high"
+    and "high_verified" run, and on an f16 space (which the reference
+    upcasts but keeps as FLOAT16) they run "highest": no over-fetch, no
+    certificate."""
+    path, _, q = _file(tmp_path, dtype=DataType.INT8)
+    assert SearchEngine.open(path, device="cpu").search(q, k=5).indices.shape == (
+        len(q), 5)
     path, x, q = _file(tmp_path)
     want = SearchEngine.open(path, device="cpu").search(q, k=5)
     for precision in ("high", "high_verified"):

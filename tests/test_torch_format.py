@@ -2,7 +2,10 @@
 same bytes as the JAX package's for the same inputs, and each package's
 ``Reader`` reads the other's file to equal arrays, checksums included.
 
-Cases: dense f32, f16, int8 and uint8; sparse; a PQ sidecar; metadata
+Cases: dense f32, f16, bf16, int8 and uint8 (bf16: the port holds the bit
+patterns as uint16 where the JAX package has ml_dtypes' bfloat16, so rows
+compare by bits; the values include NaN, infinities, a subnormal and ties
+of the rounding); sparse; a PQ sidecar; metadata
 columns with a string heap and stable ids; tombstones. Each under no
 compression, zlib and LZ4, with the native codec and with ``MVT_NO_NATIVE=1``
 (both packages then take their numpy paths)."""
@@ -15,7 +18,7 @@ import metrovector_tpu.native as jax_native
 import metrovector_tpu_torch as port_mvt
 import metrovector_tpu_torch.native as port_native
 
-KINDS = ["dense_f32", "dense_f16", "dense_int8", "dense_uint8", "sparse", "pq",
+KINDS = ["dense_f32", "dense_f16", "dense_bf16", "dense_int8", "dense_uint8", "sparse", "pq",
          "metadata", "tombstones"]
 N, D = 60, 20
 
@@ -32,11 +35,15 @@ def _build(pkg, kind: str, compression: str) -> bytes:
                            metric=pkg.DistanceMetric.INNER_PRODUCT)
         b.add_sparse_vectors("s", rows)
     else:
-        dtype = {"dense_f16": pkg.DataType.FLOAT16, "dense_int8": pkg.DataType.INT8,
+        dtype = {"dense_f16": pkg.DataType.FLOAT16, "dense_bf16": pkg.DataType.BFLOAT16,
+                 "dense_int8": pkg.DataType.INT8,
                  "dense_uint8": pkg.DataType.UINT8}.get(kind, pkg.DataType.FLOAT32)
         data = rng.standard_normal((N, D)).astype(np.float32)
         if kind == "dense_uint8":
             data = np.abs(data)
+        if kind == "dense_bf16":  # specials, and values halfway between two bf16
+            data[0, :8] = [np.nan, -np.nan, np.inf, -np.inf, 1e-40, 3.4e38,
+                           1 + 2.0**-8, 1 + 3 * 2.0**-8]
         b.add_vector_space("s", dim=D, dtype=dtype, metric=pkg.DistanceMetric.COSINE)
         b.add_vectors("s", data)
     if kind == "pq":
@@ -61,7 +68,8 @@ def _contents(reader) -> dict:
         out.update(zip(("indptr", "cols", "vals"),
                        (np.array(a) for a in sp.sparse_csr())))
     else:
-        out["rows"] = np.array(sp.padded_array())
+        rows = np.array(sp.padded_array())
+        out["rows"] = rows.view(np.uint16) if rows.dtype.name == "bfloat16" else rows
     out["ids"] = None if sp.ids() is None else np.array(sp.ids())
     out["tombstones"] = sp.tombstone_mask()
     pq = sp.pq_arrays()
