@@ -102,11 +102,13 @@ Phases, one line each; any failure exits non-zero:
    ``search()`` step by step, and ``search()`` p50 of both modes at batches
    1 to 256 (the crossover of the modes);
 13. the dense engine's precision ladder: (a) ``fused_topk(precision=
-   "high")`` (the bf16x3 tensor-core kernel) against its plain version over
-   the three metrics, batches 1, 33 and 255, k in {10, 100, 257} and D in
-   {100, 128, 960, 1536}: 200,003 integer rows with twins across splits,
-   num_valid and masks as in phase 2 (identical, twice), and N(0, 1) rows
-   (within the band); (b) the certificate: the scan's error against its
+   "high")`` (the bf16x3 tensor-core kernel, ``wgmma`` fed by TMA) against
+   its plain version over the three metrics, batches 1, 33 and 255, k in
+   {10, 100, 257} and D in {100, 128, 960, 1536}: 200,003 integer rows with
+   twins across splits, num_valid and masks as in phase 2 (identical,
+   twice), with the scan tiles' edges (batches 8, 64, 128, 129 and 256
+   over 100,037 rows, which end inside a 64-row stage, at D 128 and 960),
+   and N(0, 1) rows (within the band); (b) the certificate: the scan's error against its
    raw bound (rows in [0, 1), where nothing cancels, and N(0, 1) rows; the
    ratio printed), and the planted near-tie and 40-copies corpora, where
    ``high_verified`` must fall back and equal ``highest``; (c)
@@ -118,14 +120,19 @@ Phases, one line each; any failure exits non-zero:
    float64 oracle on the card (1.000 gated for ``high_verified``,
    ``high`` and ``highest`` reported), ``verify_stats``, the measured error
    against the certificate's raw bound, and CUDA-event times of the
-   variant, its plain version, K1 ``highest``, K3's re-score at R = 18 and
+   variant (beside the time of the ``mma.sync`` kernel it replaces, from
+   ``PERF.md``),
+   its plain version, K1 ``highest``, K3's re-score at R = 18 and
    ``search()`` p50 at each precision;
 14. quantized and bf16 spaces: (a) K1's integer variant
-   (``ops/csrc/topk_int_kernel.cu``) against its plain version on 200,003
-   int8 rows with twins across splits, D in {96, 100, 1536}, the three
-   metrics, int8 with a scale (deferred for IP) and the uint8 offset form
-   with ``bias_row``, batches 1, 33 and 255, k in {10, 100, 257}, num_valid
-   and masks as in phase 2 (identical, twice); the affine int8 load of
+   (``ops/csrc/topk_int_kernel.cu``, ``wgmma`` s8 fed by TMA) against its
+   plain version on 200,003 int8 rows with twins across splits, D in {96,
+   100, 1536}, the three metrics, int8 with a scale (deferred for IP) and
+   the uint8 offset form with ``bias_row``, batches 1, 33 and 255, k in
+   {10, 100, 257}, num_valid and masks as in phase 2, then the scan tiles'
+   edges (batches 8, 64, 128, 129 and 256 over 100,037 rows at D 96 and
+   1536) (identical, twice); the shared memory the wrapper plans for the
+   tensor-core scans against the library's own sizes; the affine int8 load of
    ``topk_kernel.cu`` within phase 2's band; K2's int8 LUT over pq4 and pq8
    codes with twins, the three metrics, k in {1, 10, 400} (identical,
    twice); (b) ``benchmarks/suite.py``'s deep10m (10M x 96 int8 codes of
@@ -141,7 +148,8 @@ Phases, one line each; any failure exits non-zero:
    batches 256 and 32, recall@10 >= 0.99; (e) the phase 3 corpus written as
    BFLOAT16, identical to the f32 space; (f) CUDA-event times of each new
    kernel and its plain version, ``torch._int_mm`` of the batch's product
-   as a yardstick for the integer scan, and ``search()`` p50.
+   as a yardstick for the integer scan, the times of the ``mma.sync``
+   kernel it replaces (from ``PERF.md``), and ``search()`` p50.
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
@@ -2506,6 +2514,13 @@ def phase_ivfpq_path(torch, dev, card):
 N_GIST, D_GIST, GIST_SEED = 1_000_000, 960, 3  # benchmarks/suite.py:304-410
 HIGH_K, HIGH_MARGIN = 10, 8
 HIGH_SOURCE = CSRC + "topk_high_kernel.cu"
+# The tensor-core scans' tile edges (a tile holds 2 NW queries, NW in 16 ..
+# 128; a stage 64 rows): batches and a row count that ends mid-stage.
+TILE_EDGE_BATCHES, TILE_EDGE_N, TILE_EDGE_D = (8, 64, 128, 129, 256), 100_037, (96, 1536)
+# The kernel this replaces, from PERF.md (NVIDIA H100 80GB HBM3, 700 W):
+# the mma.sync bf16x3 scan, in ms.
+MMA_SYNC_HIGH_MS = {("gist1m", 256): 8.3215, ("gist1m", 64): 2.6154,
+               ("phase 3 corpus", 32): 0.6460}
 # Dense bf16 tensor-core rate of the H100 SXM data sheet at 700 W.
 BF16_FLOPS = 989e12
 
@@ -2637,6 +2652,19 @@ def _high_cases(torch, dev, rng) -> tuple[int, float]:
                                       s64, what)
                     else:
                         _twice_identical(torch, high, args, plain(*args), what)
+                    cases += 1
+        if d in (128, 960):  # the wgmma tiles' edges, rows ending mid-stage
+            m = TILE_EDGE_N
+            q_edge = rng.integers(0, 16, (max(TILE_EDGE_BATCHES), d)).astype(np.float32)
+            for nq in TILE_EDGE_BATCHES:
+                q = torch.from_numpy(q_edge[:nq]).to(dev)
+                for metric in metrics[:2]:
+                    k = (10, 100, 257)[cases % 3]
+                    args = (q, x[:m], norms[:m], m - 29 if cases & 1 else m, k, metric,
+                            mask_d[:m] if cases & 2 else None)
+                    _twice_identical(torch, high, args, plain(*args),
+                                     f"fused_topk[high] tile edge D={d} Q={nq} N={m} "
+                                     f"k={k} {metric.name}")
                     cases += 1
         del x, norms
         torch.cuda.empty_cache()
@@ -2841,9 +2869,12 @@ def _time_high_cell(torch, dev, card, engines, name, batches, metric, qgen, exac
                "highest_ms": f32, "rescore_ms": k3, "p50": p50,
                "bound": high_bound(nq, sp.num_valid, sp.dim, kf)}
         out[nq] = row
+        old = MMA_SYNC_HIGH_MS.get((name, nq))
         say(f"  {name} batch={nq}: fused_topk[high] k={kf} {row['ms']:.4f} ms (runs "
             f"{k1:.4f}, {k2:.4f}; bound {row['bound'][0]:.4f} ms by "
-            f"{row['bound'][1]}, {row['bound'][0] / row['ms']:.1%}) | plain "
+            f"{row['bound'][1]}, {row['bound'][0] / row['ms']:.1%}) | "
+            + (f"the mma.sync kernel it replaces {old:.4f} (PERF.md) | " if old else "")
+            + f"plain "
             f"{row['plain_ms']:.4f} | K1 highest k={HIGH_K} {f32:.4f} | K3 rescore "
             f"R={kf} device {k3:.4f} | search() p50 " + ", ".join(
                 f"{p} {v:.4f}" for p, v in p50.items()) + f" ms | {card}")
@@ -2990,6 +3021,10 @@ def phase_high_path(torch, dev, card, sift_path):
 # -- phase 14: quantized and bf16 spaces -------------------------------------
 
 INT_SOURCE = CSRC + "topk_int_kernel.cu"
+# The kernel this replaces, from PERF.md (NVIDIA H100 80GB HBM3, 700 W):
+# the mma.sync integer scan, in ms.
+MMA_SYNC_INT_MS = {("deep10m", 128): 7.4006, ("deep10m", 32): 2.8819,
+               ("sift1m-u8", 256): 2.2363}
 # Dense int8 tensor-core rate of the H100 SXM data sheet at 700 W.
 INT8_OPS = 1979e12
 # benchmarks/suite.py's deep10m (:412-445) and sift1m-u8 (:268-301).
@@ -3069,9 +3104,50 @@ def _int_cases(torch, dev, rng) -> int:
                         f"fused_topk[int8] {form} D={d} Q={nq} k={k} {metric.name} "
                         f"num_valid={num_valid} mask={bool(variant & 2)}")
                     cases += 1
+        if d in TILE_EDGE_D:  # the wgmma tiles' edges, rows ending mid-stage
+            m = TILE_EDGE_N
+            q_edge = rng.integers(-128, 128, (max(TILE_EDGE_BATCHES), width)).astype(np.int8)
+            for nq in TILE_EDGE_BATCHES:
+                q = torch.from_numpy(q_edge[:nq]).to(dev)[:, :d]
+                for metric in (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT):
+                    for form, kw in forms.items():
+                        kw = dict(kw, bias_row=bias[:m] if form != "int8" else None)
+                        k = (10, 100, 257)[cases % 3]
+                        args = (q, x[:m], norms[form][:m], m - 29 if cases & 1 else m, k,
+                                metric, mask_d[:m] if cases & 2 else None)
+                        _twice_identical(
+                            torch, lambda *a, kw=kw: fused_topk(*a, **kw), args,
+                            fused_topk_reference(*args, **kw),
+                            f"fused_topk[int8] tile edge {form} D={d} Q={nq} N={m} "
+                            f"k={k} {metric.name}")
+                        cases += 1
         del x, bias, norms
         torch.cuda.empty_cache()
     return cases
+
+
+def _scan_smem_mirrors(torch) -> int:
+    """The shared memory of the tensor-core scans' shapes that the wrapper
+    plans (ops/topk_kernel.py::_int_shape, _high_shape) against the
+    library's own sizes: the kernels lay out what the plan counted. Returns
+    the shapes checked."""
+    from metrovector_tpu_torch.ops import _build
+    from metrovector_tpu_torch.ops import topk_kernel as tk
+
+    lib, shapes = _build.load(), 0
+    for nq in (1, 8, 33, 64, 128, 129, 256):
+        for k in (1, 10, 18, 100, 128, 129, 257):
+            for d in (96, 100, 128, 960, 1536):
+                s = tk._int_shape(nq, d, k)
+                got = lib.mvt_fused_topk_int_smem(s.nw, -(-d // tk.INT_CHUNK), s.stages,
+                                                  int(s.resident), 0 if s.big else k)
+                h = tk._high_shape(nq, k)
+                got_h = lib.mvt_fused_topk_high_smem(h.nw, h.stages, 0 if h.big else k)
+                if (got, got_h) != (s.smem, h.smem) or max(got, got_h) > tk.SMEM_LIMIT:
+                    raise AssertionError(f"scan shared memory Q={nq} k={k} D={d}: "
+                                         f"library {got}, {got_h}; plan {s.smem}, {h.smem}")
+                shapes += 2
+    return shapes
 
 
 def _affine_cases(torch, dev, rng) -> tuple[int, float]:
@@ -3275,7 +3351,8 @@ def _deep10m(torch, dev, card, tmpdir) -> dict:
             f"torch._int_mm "
             f"[{sp.padded_rows},{sp.padded_dim}] x [{sp.padded_dim},{nq}] "
             + (f"{mm:.4f}" if mm is not None else "n/a")
-            + f" | search() p50 {p50:.4f} ms ({nq / p50 * 1e3:.0f} QPS) | {card}")
+            + f" | the mma.sync kernel it replaces {MMA_SYNC_INT_MS[('deep10m', nq)]:.4f} "
+            f"(PERF.md) | search() p50 {p50:.4f} ms ({nq / p50 * 1e3:.0f} QPS) | {card}")
         del qs, qt
     del engine, sp
     torch.cuda.empty_cache()
@@ -3398,8 +3475,9 @@ def _sift1m_u8(torch, dev, card, tmpdir) -> dict:
     abnd = bound(2 * U8_BATCH * n * d, n * d + 4 * n + 4 * U8_BATCH * d + 8 * U8_BATCH * 10)
     say(f"  (f) sift1m-u8 batch={U8_BATCH}: fused_topk[int8] k=10 {kms:.4f} ms (runs "
         f"{runs[0]:.4f}, {runs[1]:.4f}; bound {bnd[0]:.4f} ms by {bnd[1]}, "
-        f"{bnd[0] / kms:.1%}) | plain {pms:.4f} | search() p50 {p50:.4f} ms "
-        f"({U8_BATCH / p50 * 1e3:.0f} QPS) | {card}")
+        f"{bnd[0] / kms:.1%}) | plain {pms:.4f} | the mma.sync kernel it replaces "
+        f"{MMA_SYNC_INT_MS[('sift1m-u8', U8_BATCH)]:.4f} (PERF.md) | search() p50 "
+        f"{p50:.4f} ms ({U8_BATCH / p50 * 1e3:.0f} QPS) | {card}")
     say(f"  (f) uint8 cosine batch={U8_BATCH}: fused_topk[affine] k=10 {ams:.4f} ms "
         f"(runs {aruns[0]:.4f}, {aruns[1]:.4f}; bound {abnd[0]:.4f} ms by {abnd[1]}, "
         f"{abnd[0] / ams:.1%}) | plain {apms:.4f} | search() p50 {p50_c:.4f} ms "
@@ -3545,9 +3623,12 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
     rng = np.random.default_rng(SEED + 14)
     t0 = time.perf_counter()
     int_cases = _int_cases(torch, dev, rng)
+    mirrors = _scan_smem_mirrors(torch)
     aff_cases, aff_err = _affine_cases(torch, dev, rng)
     lut_cases = _lut8_cases(torch, dev, rng)
-    say(f"  (a) kernels vs plain: fused_topk[int8] {int_cases} cases identical twice; "
+    say(f"  (a) kernels vs plain: fused_topk[int8] {int_cases} cases identical twice "
+        f"(tile edges: batches {TILE_EDGE_BATCHES}, {TILE_EDGE_N} rows; scan shared "
+        f"memory as planned at {mirrors} shapes); "
         f"fused_topk[affine] {aff_cases} cases within the f32 band (max |score diff| "
         f"{aff_err:.3g}); fused_adc_topk[int8_lut] {lut_cases} cases identical twice "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -3632,6 +3713,8 @@ def time_parent(parent: str, files: str, card: str) -> None:
                 for p, v in got["k3"].items())
             + " | K4 ell_topk k=10 " + ", ".join(
                 f"batch={p} {v:.4f} ms" for p, v in got["k4"].items())
+            + " | K1 variants " + ", ".join(
+                f"{p} {v:.4f} ms" for p, v in got.get("k1v", {}).items())
             + " | search() p50 " + ", ".join(
                 f"{p} {v:.4f} ms" for p, v in got["e2e"].items()) + f" | {card}")
     for point in p50[here]:

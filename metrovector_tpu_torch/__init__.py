@@ -51,6 +51,7 @@ _LAZY = {
     "IVFPQIndex": "metrovector_tpu_torch.index.ivfpq",
     "train_ivfpq": "metrovector_tpu_torch.index.ivfpq",
     "bucket_layout": "metrovector_tpu_torch.index.ivf",
+    "train_kmeans": "metrovector_tpu_torch.index.ivf",
     "train_pq": "metrovector_tpu_torch.index.pq",
     "encode_pq": "metrovector_tpu_torch.index.pq",
     "pack_codes4": "metrovector_tpu_torch.index.pq",
@@ -111,6 +112,7 @@ __all__ = [
     "reconstruct_pq",
     "rewrite_hints",
     "train_ivfpq",
+    "train_kmeans",
     "train_pq",
     "unpack_codes4",
 ]

@@ -367,7 +367,7 @@ class DeviceSpace:
 
     def add_rows(self, rows, ids=None, reserve: float = 1.5) -> None:
         raise NotImplementedError(
-            "add_rows is not ported yet (ROADMAP A2: capacity steps and the "
+            "add_rows is not ported yet (ROADMAP A2 mutation: capacity steps and the "
             "one-snapshot mutation contract)"
         )
 
@@ -562,6 +562,13 @@ class SearchEngine:
         k = min(max_results, max(self.space.num_valid, 1))
         res = self.search(queries, k=k, filter_mask=filter_mask)
         return radius_from_topk(res, radius, k, self.space.num_valid)
+
+    def autotune(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SearchEngine.autotune is not ported yet (ROADMAP autotune: K1 "
+            "sizes its grid from the runtime's occupancy; the JAX package "
+            "tuned block_rows and query_tile)"
+        )
 
     def prepare_filter(self, filter_mask) -> PreparedFilter:
         """Upload a ``[num_vectors]`` predicate once for many searches."""

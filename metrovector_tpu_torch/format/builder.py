@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import io
 import os
+import shutil
+import tempfile
 from typing import Any, BinaryIO, Iterable
 
 import numpy as np
@@ -921,31 +923,33 @@ def _merge_hints(dst: dict, src: dict) -> None:
 
 def rewrite_hints(path: str | os.PathLike, updates: dict[str, Any]) -> None:
     """Merge ``updates`` into an existing file's ``PerformanceHints``
-    manifest table by rewriting only the footer, in place — data blocks
-    (and their per-block CRCs) are untouched, so
+    manifest table. Only the footer changes: data blocks (and their
+    per-block CRCs) keep their bytes and offsets, so
     ``Reader.validate_with_checksum`` still passes afterwards.
 
-    The persistence half of autotuning: tuned kernel tilings
-    (``SearchEngine.autotune(persist=True)``, ``PQIndex.autotune``,
-    ``SparseSearchEngine.autotune``) land under ``hints["tuned"][space]``
-    and engines reattached from the file adopt them by default — the same
-    consume-from-hints pattern as ``stream_chunk_rows``
-    (``parallel/streaming.py``). Merge is recursive: dict values merge
-    key-wise at every depth (so tuning one space keeps other spaces'
-    entries, and one kernel family's tilings keep its siblings' —
-    ``test_rewrite_hints_merges_recursively``), everything else
+    The persistence half of autotuning: tuned kernel tilings land under
+    ``hints["tuned"][space]`` and engines reattached from the file adopt
+    them by default, the same consume-from-hints pattern as
+    ``stream_chunk_rows``. Merge is recursive: dict values merge key-wise
+    at every depth (so tuning one space keeps other spaces' entries, and
+    one kernel family's tilings keep its siblings'), everything else
     replaces.
 
     Reference anchor: the ``PerformanceHints`` table exists in the schema
     (``schema/core.fbs``) but the reference never reads or writes it.
 
-    Not safe concurrently with a writer of the same file; readers holding
-    the old mmap keep serving the old footer (their data views are
-    unaffected — blocks don't move)."""
+    Atomic: the new file (the old blocks, the new footer, its length and
+    the end magic) is written to a temporary file in the same directory,
+    ``fsync``-ed and moved over ``path`` with ``os.replace``. A crash or
+    an error at any point leaves either the old file or the new one, never
+    a mix, and no temporary file behind on an error. A reader that already
+    holds the old mapping keeps the old file (its inode lives on until it
+    unmaps); a reader that opens ``path`` afterwards sees the new hints.
+    Not safe concurrently with another writer of the same file."""
     from .constants import MAGIC_LEN, MIN_FILE_SIZE
 
     path = os.fspath(path)
-    with open(path, "r+b") as f:
+    with open(path, "rb") as f:
         size = os.fstat(f.fileno()).st_size
         if size < MIN_FILE_SIZE:
             raise InvalidFormatError(
@@ -967,10 +971,36 @@ def rewrite_hints(path: str | os.PathLike, updates: dict[str, Any]) -> None:
         manifest = Manifest.from_bytes(f.read(footer_len))
         _merge_hints(manifest.hints, updates)
         footer = manifest.to_bytes()
-        f.seek(footer_start)
-        f.write(footer)
-        f.write(len(footer).to_bytes(FOOTER_LEN_SIZE, "little"))
-        f.write(MAGIC)
-        f.truncate()
-        f.flush()
-        os.fsync(f.fileno())
+        directory = os.path.dirname(os.path.abspath(path))
+        fd, tmp = tempfile.mkstemp(prefix=".mvt-hints-", dir=directory)
+        try:
+            with os.fdopen(fd, "wb") as out:
+                f.seek(0)
+                left = footer_start
+                while left > 0:
+                    chunk = f.read(min(left, 1 << 24))
+                    if not chunk:
+                        raise InvalidFormatError("file shrank while rewriting its hints")
+                    out.write(chunk)
+                    left -= len(chunk)
+                out.write(footer)
+                out.write(len(footer).to_bytes(FOOTER_LEN_SIZE, "little"))
+                out.write(MAGIC)
+                out.flush()
+                os.fsync(out.fileno())
+            shutil.copymode(path, tmp)
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except FileNotFoundError:
+                pass
+            raise
+    try:  # make the rename itself durable
+        dfd = os.open(directory, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)

@@ -426,7 +426,7 @@ class IVFIndex:
 
     def add_rows(self, vectors, ids=None) -> None:
         raise NotImplementedError(
-            "IVFIndex.add_rows is not ported yet (ROADMAP A2, Queue A item 5: "
+            "IVFIndex.add_rows is not ported yet (ROADMAP A2 mutation: "
             "capacity steps and the one-snapshot mutation contract)"
         )
 

@@ -440,13 +440,13 @@ class IVFPQIndex:
 
     def add_rows(self, vectors, ids=None, reserve: float = 1.5) -> None:
         raise NotImplementedError(
-            "IVFPQIndex.add_rows is not ported yet (ROADMAP A2, Queue A item 5: "
+            "IVFPQIndex.add_rows is not ported yet (ROADMAP A2 mutation: "
             "capacity steps and the one-snapshot mutation contract)"
         )
 
     def autotune(self, *args, **kwargs):
         raise NotImplementedError(
-            "IVFPQIndex.autotune is not ported yet (ROADMAP A2, Queue A item 5: "
+            "IVFPQIndex.autotune is not ported yet (ROADMAP autotune: "
             "the ADC kernel has no tile knob; it sizes its grid from the "
             "runtime's occupancy)"
         )

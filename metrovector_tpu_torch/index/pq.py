@@ -16,8 +16,9 @@ The counterpart of :mod:`metrovector_tpu.index.pq`:
 
 Files round-trip through the shared format: ``Builder.set_pq_index`` writes
 the sidecar and :meth:`PQIndex.from_space` opens it without retraining.
-``add_rows`` and ``autotune`` are not ported (ROADMAP A2/A8); the
-persisted ``adc`` tuning hint is a Mosaic tile and is not read.
+``add_rows`` and ``autotune`` are not ported (ROADMAP A2 mutation,
+autotune); the persisted ``adc`` tuning hint is a Mosaic tile and is not
+read.
 """
 
 from __future__ import annotations
@@ -330,13 +331,13 @@ class PQIndex:
 
     def add_rows(self, vectors, ids=None, reserve: float = 1.5) -> None:
         raise NotImplementedError(
-            "PQIndex.add_rows is not ported yet (ROADMAP A2/A8: capacity "
+            "PQIndex.add_rows is not ported yet (ROADMAP A2 mutation: capacity "
             "steps and the one-snapshot mutation contract)"
         )
 
     def autotune(self, *args, **kwargs):
         raise NotImplementedError(
-            "PQIndex.autotune is not ported yet (ROADMAP A2/A8: the ADC "
+            "PQIndex.autotune is not ported yet (ROADMAP autotune: the ADC "
             "kernel sizes its grid from the runtime's occupancy)"
         )
 

@@ -114,31 +114,40 @@ def load() -> ctypes.CDLL:
             lib.mvt_fused_topk_occupancy.argtypes = [i32, i32, i32, i32, p]
             lib.mvt_fused_topk_occupancy.restype = i32
             lib.mvt_fused_topk_high.argtypes = [
-                p, p, p, p, p,            # q, qsplit, db, norms, mask
+                p, p, p, i64, p, p,       # q, qsplit, db, ldb, norms, mask
                 i64, i64, i64, i64,       # nq, n, d, num_valid
                 i32, i32,                 # k, metric
+                i32, i32, i32,            # nw, stages, big
                 i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
                 p, p, p,                  # part_s/i, slots
                 p, p, p, p,               # tmp_s/i, out_s/i
                 p,                        # stream
             ]
             lib.mvt_fused_topk_high.restype = i32
-            lib.mvt_fused_topk_high_occupancy.argtypes = [i32, i32, p]
+            # nw, stages, k_smem, big, out
+            lib.mvt_fused_topk_high_occupancy.argtypes = [i32, i32, i32, i32, p]
             lib.mvt_fused_topk_high_occupancy.restype = i32
+            lib.mvt_fused_topk_high_smem.argtypes = [i32, i32, i32]
+            lib.mvt_fused_topk_high_smem.restype = ctypes.c_longlong
             lib.mvt_fused_topk_int.argtypes = [
                 p, i64, p, i64,           # q, qstride, db, ldb
                 p, p, p,                  # norms, mask, bias
                 f32, f32, i32,            # scale, bias_scale, defer
                 i64, i64, i64, i64,       # nq, n, d, num_valid
                 i32, i32,                 # k, metric
+                i32, i32, i32, i32,       # nw, stages, resident, big
                 i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
                 p, p, p,                  # part_s/i, slots
                 p, p, p, p,               # tmp_s/i, out_s/i
                 p,                        # stream
             ]
             lib.mvt_fused_topk_int.restype = i32
-            lib.mvt_fused_topk_int_occupancy.argtypes = [i32, i32, p]
+            # nw, chunks, stages, resident, k_smem, big, out
+            lib.mvt_fused_topk_int_occupancy.argtypes = [i32, i32, i32, i32, i32,
+                                                         i32, p]
             lib.mvt_fused_topk_int_occupancy.restype = i32
+            lib.mvt_fused_topk_int_smem.argtypes = [i32, i32, i32, i32, i32]
+            lib.mvt_fused_topk_int_smem.restype = ctypes.c_longlong
             lib.mvt_adc_topk.argtypes = [
                 p, i32, p,                # lut, lut_dtype, lut_scale
                 p, i32, i32,              # codes, cols, packed4

@@ -90,8 +90,6 @@ constexpr int kTQ = 8;      // queries per thread
 constexpr int kTR = 4;      // rows per thread
 constexpr int kBK = 16;     // dims per staged chunk
 constexpr int kMaxK = 256;  // lists in shared memory up to this k
-constexpr int kMaxSplits = 512;
-constexpr int kSplitsPerLane = kMaxSplits / 32;
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2, kI8Affine = 3 };
@@ -471,73 +469,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// One warp per query: merge S sorted lists of k into the final top-k.
-__global__ void __launch_bounds__(kThreads)
-    warp_merge_kernel(const float* __restrict__ part_s,
-                      const int* __restrict__ part_i, int64_t nq, int k,
-                      int splits, float* __restrict__ out_s,
-                      int* __restrict__ out_i) {
-  const int lane = threadIdx.x & 31;
-  const int64_t gq = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (gq >= nq) return;  // whole warp; the kernel has no block barrier
-  const float* ps = part_s + gq * splits * k;
-  const int* pi = part_i + gq * splits * k;
-  float* os = out_s + gq * k;
-  int* oi = out_i + gq * k;
-
-  // Lane owns splits lane + 32u: its head position and head entry.
-  int pos[kSplitsPerLane];
-  float hs[kSplitsPerLane];
-  int hi[kSplitsPerLane];
-#pragma unroll
-  for (int u = 0; u < kSplitsPerLane; ++u) {
-    const int sp = lane + 32 * u;
-    pos[u] = 0;
-    hs[u] = sp < splits ? ps[static_cast<int64_t>(sp) * k] : -CUDART_INF_F;
-    hi[u] = sp < splits ? pi[static_cast<int64_t>(sp) * k] : kSentinel;
-  }
-  for (int j = 0; j < k; ++j) {
-    float bs = -CUDART_INF_F;
-    int bi = kSentinel;
-#pragma unroll
-    for (int u = 0; u < kSplitsPerLane; ++u) {
-      if (better(hs[u], hi[u], bs, bi)) {
-        bs = hs[u];
-        bi = hi[u];
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float s2 = __shfl_xor_sync(kFull, bs, o);
-      const int i2 = __shfl_xor_sync(kFull, bi, o);
-      if (better(s2, i2, bs, bi)) {
-        bs = s2;
-        bi = i2;
-      }
-    }
-    if (!(bs > -CUDART_INF_F)) {  // every list is exhausted
-      for (int jj = j + lane; jj < k; jj += 32) {
-        os[jj] = -CUDART_INF_F;
-        oi[jj] = -1;
-      }
-      return;
-    }
-    if (lane == 0) {
-      os[j] = bs;
-      oi[j] = bi;
-    }
-    // Row indices are unique, so exactly one head holds the winner.
-#pragma unroll
-    for (int u = 0; u < kSplitsPerLane; ++u) {
-      if (hi[u] == bi && hs[u] == bs) {
-        const int64_t base = static_cast<int64_t>(lane + 32 * u) * k;
-        const int p = ++pos[u];
-        hs[u] = p < k ? ps[base + p] : -CUDART_INF_F;
-        hi[u] = p < k ? pi[base + p] : kSentinel;
-      }
-    }
-  }
-}
 
 template <typename T, int QB>
 Variant variant_of(int k, int big_k) {
@@ -625,10 +556,7 @@ int mvt_fused_topk(const float* q, const void* db, int db_dtype,
     return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, kl, k,
                       nullptr, 0, out_s, out_i, st);
   }
-  const unsigned merge_blocks = static_cast<unsigned>((nq + kWarps - 1) / kWarps);
-  warp_merge_kernel<<<merge_blocks, kThreads, 0, st>>>(part_s, part_i, nq, k,
-                                                        splits, out_s, out_i);
-  return cudaGetLastError();
+  return warp_merge(part_s, part_i, nq, k, splits, out_s, out_i, st);
 }
 
 // Scan blocks that fit on one SM at once for this corpus dtype, tile, list

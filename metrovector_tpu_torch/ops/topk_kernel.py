@@ -24,6 +24,8 @@ counterpart here.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,12 +47,20 @@ _TILE = TILE_32x256
 _CHUNK = 16
 _BUFFER = 64
 
-# Shape constants of csrc/topk_high_kernel.cu: 64 x 128 block tiles, a ring
-# of 3 chunks, lists in shared memory up to HIGH_SMEM_K.
-HIGH_QB, HIGH_RB, HIGH_STAGES, HIGH_SMEM_K = 64, 128, 3, 128
-# Shape constants of csrc/topk_int_kernel.cu: 64 x 128 block tiles, lists
-# in shared memory up to INT_SMEM_K; queries are read 16 bytes at a time.
-INT_QB, INT_RB, INT_SMEM_K, INT_PIECE = 64, 128, 128, 16
+# Shape constants of the tensor-core scans (csrc/wgmma_scan.cuh): a stage
+# holds SCAN_ROWS rows (the wgmma M); a tile of queries is two consumer
+# warpgroups of NW queries each (the wgmma N); a query's candidate buffer
+# holds SCAN_BUF (select.cuh's kBuf); lists live in shared memory up to
+# SCAN_SMEM_K where they fit beside a ring of at least MIN_STAGES stages,
+# else in device memory.
+SCAN_ROWS, SCAN_BUF, SCAN_SMEM_K, MIN_STAGES = 64, 64, 128, 2
+SCAN_ALIGN = 16  # TMA reads rows whose stride and base are 16-byte multiples
+# csrc/topk_int_kernel.cu: a stage's chunk is 128 bytes of dims; a tile
+# takes the whole batch up to 256 queries.
+INT_NW, INT_CHUNK, INT_MAX_STAGES = (16, 32, 64, 128), 128, 8
+# csrc/topk_high_kernel.cu: a stage's chunk is 32 f32 dims and the chunk's
+# split queries (128 bytes a query); tiles of up to 128 queries.
+HIGH_NW, HIGH_CHUNK, HIGH_MAX_STAGES = (16, 32, 64), 32, 6
 INT_MAX_D = 2**17  # int32 dots of int8 stay exact below this D
 _PRECISIONS = ("highest", "high")
 
@@ -107,15 +117,98 @@ def _shared_bytes(k: int, tile: int = _TILE) -> int:
     return chunks + 4 * 256 + qb * (8 + 4 * rb + 8 * _BUFFER + 4 + 8 * lists)
 
 
-def _shared_bytes_high(k: int) -> int:
-    """Dynamic shared memory of one bf16x3 scan block: the ring of chunks
-    (f32 rows; the queries' hi and lo words), and per query the bar, the
-    score row, the candidate words, the buffer and its fill, and the list
-    (none above :data:`HIGH_SMEM_K`)."""
-    chunks = HIGH_STAGES * 16 * 4 * (HIGH_QB + HIGH_RB)
-    lists = 0 if k > HIGH_SMEM_K else k
-    return chunks + HIGH_QB * (8 + 4 * HIGH_RB + HIGH_RB // 8 + 8 * _BUFFER
-                               + 4 + 8 * lists)
+class ScanShape(NamedTuple):
+    """The shape of one tensor-core scan launch: ``nw`` queries per consumer
+    warpgroup (a tile of ``2 nw``), ``stages`` in the ring, the tile's
+    queries ``resident`` in shared memory (the integer scan), the lists in
+    device memory (``big``), and the block's dynamic shared memory."""
+
+    nw: int
+    stages: int
+    resident: bool
+    big: bool
+    smem: int
+
+
+def _sel_bytes(nw: int, k_smem: int) -> int:
+    """``wgmma_scan.cuh::sel_bytes``: one consumer warpgroup's selection
+    state, per query the bar key, the epilogue's bar, the buffer's offers,
+    the buffer and ``k_smem`` list entries."""
+    raw = nw * (8 + 4 + 4 + 8 * SCAN_BUF + 8 * k_smem)
+    return -(-raw // 16) * 16
+
+
+def _scan_smem(stage: int, stages: int, q_bytes: int, nw: int, k_smem: int) -> int:
+    """``wgmma_scan.cuh::scan_smem``: alignment slack, the ring, resident
+    queries, two warpgroups' selection state and the barriers."""
+    return (1024 + stages * stage + q_bytes + 2 * _sel_bytes(nw, k_smem)
+            + 8 * (2 * stages + 1))
+
+
+def _tile_nw(nq: int, choices: tuple[int, ...]) -> int:
+    """The least NW of ``choices`` whose tile of 2 NW holds the batch, or
+    the largest."""
+    for nw in choices:
+        if 2 * nw >= nq:
+            return nw
+    return choices[-1]
+
+
+def _scan_shape(nq: int, k: int, choices, max_stages: int, stage_of,
+                q_bytes_of) -> ScanShape:
+    """The largest tile (the batch's, where it fits) whose state and a ring
+    of at least :data:`MIN_STAGES` fit in :data:`SMEM_LIMIT`: lists in
+    shared memory if ``k`` allows, else in device memory; queries resident
+    where ``q_bytes_of`` allows, else streamed with each stage. Then as
+    many stages as fit, up to ``max_stages``."""
+    top = choices.index(_tile_nw(nq, choices))
+    for nw in choices[top::-1]:
+        for big in ([False] if k <= SCAN_SMEM_K else []) + [True]:
+            k_smem = 0 if big else k
+            for resident in (True, False) if q_bytes_of else (False,):
+                stage = stage_of(2 * nw, resident)
+                q_bytes = q_bytes_of(2 * nw) if resident else 0
+                fixed = _scan_smem(0, 0, q_bytes, nw, k_smem)
+                stages = min(max_stages, (SMEM_LIMIT - fixed) // (stage + 16))
+                if stages >= MIN_STAGES:
+                    return ScanShape(nw, stages, resident, big,
+                                     _scan_smem(stage, stages, q_bytes, nw, k_smem))
+    raise ValueError(f"no tensor-core scan shape for k={k}")
+
+
+@functools.lru_cache(maxsize=512)
+def _int_shape(nq: int, d: int, k: int) -> ScanShape:
+    """The integer scan's shape (csrc/topk_int_kernel.cu): a stage is 64 rows
+    of a 128-byte chunk (plus the tile's chunk of queries unless they are
+    resident, ``ceil(D / 128)`` chunks of ``2 nw`` queries)."""
+    nch = -(-d // INT_CHUNK)
+    return _scan_shape(
+        nq, k, INT_NW, INT_MAX_STAGES,
+        lambda qb, resident: SCAN_ROWS * INT_CHUNK + (0 if resident else qb * INT_CHUNK),
+        lambda qb: nch * qb * INT_CHUNK)
+
+
+@functools.lru_cache(maxsize=512)
+def _high_shape(nq: int, k: int) -> ScanShape:
+    """The bf16x3 scan's shape (csrc/topk_high_kernel.cu): a stage is 64 f32
+    rows of a 32-dim chunk and the chunk's split queries, 128 bytes each,
+    whatever D."""
+    return _scan_shape(
+        nq, k, HIGH_NW, HIGH_MAX_STAGES,
+        lambda qb, resident: SCAN_ROWS * HIGH_CHUNK * 4 + qb * 4 * HIGH_CHUNK,
+        None)
+
+
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` ``[R, D]`` as it is where TMA can read its rows (row stride and
+    base address multiples of :data:`SCAN_ALIGN` bytes), else one copy into
+    zero-padded rows of the next such stride (its first D columns)."""
+    elem = t.element_size()
+    if (t.stride(0) * elem) % SCAN_ALIGN == 0 and t.data_ptr() % SCAN_ALIGN == 0:
+        return t
+    width = -(-t.shape[1] * elem // SCAN_ALIGN) * SCAN_ALIGN // elem
+    return torch.zeros((t.shape[0], width), dtype=t.dtype,
+                       device=t.device).narrow(1, 0, t.shape[1]).copy_(t)
 
 
 def _check_precision(precision: str, db: torch.Tensor) -> None:
@@ -287,15 +380,22 @@ def _plan(dev, nq, n, k, smem_k, tile, occupancy, splits=None):
     return (splits, rows_per_split, length, tree) + tuple(scratch) + (slots,)
 
 
+_OCCUPANCY: dict[tuple, int] = {}
+
+
 def _occupancy(lib, entry, what, *args):
     """``occupancy(k_smem, big)`` for :func:`_plan` through the library's
-    occupancy entry point ``entry`` (leading arguments ``args``)."""
+    occupancy entry point ``entry`` (leading arguments ``args``), asked once
+    per kernel instance and device."""
     from ._build import raise_for
 
     def per_sm(k_smem, big):
-        out = ctypes.c_int(0)
-        raise_for(lib, entry(*args, k_smem, big, ctypes.byref(out)), what)
-        return out.value
+        key = (what, torch.cuda.current_device(), *args, k_smem, big)
+        if key not in _OCCUPANCY:
+            out = ctypes.c_int(0)
+            raise_for(lib, entry(*args, k_smem, big, ctypes.byref(out)), what)
+            _OCCUPANCY[key] = out.value
+        return _OCCUPANCY[key]
 
     return per_sm
 
@@ -304,23 +404,30 @@ def _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
                  out_s, out_i) -> None:
     """One launch of the query split, the bf16x3 scan and the merge for
     checked inputs into ``out_s``/``out_i``, with one wave of scan blocks
-    (as :func:`_launch`)."""
+    (as :func:`_launch`) of the shape :func:`_high_shape` picks. A corpus
+    whose rows TMA cannot read goes over as :func:`_tma_rows`' copy."""
     from ._build import raise_for
 
     nq, d = queries.shape
     n = db.shape[0]
     dev = queries.device
+    shape = _high_shape(nq, k)
     splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _plan(
-        dev, nq, n, k, HIGH_SMEM_K, (HIGH_QB, HIGH_RB),
-        _occupancy(lib, lib.mvt_fused_topk_high_occupancy, "fused_topk[high]"))
-    # The split queries: per query and 16 dims, 16 words of bf16 pairs.
-    qsplit = torch.empty(nq * -(-d // _CHUNK) * 16, dtype=torch.int32,
-                         device=dev)
+        dev, nq, n, k, 0 if shape.big else k, (2 * shape.nw, SCAN_ROWS),
+        _occupancy(lib, lib.mvt_fused_topk_high_occupancy, "fused_topk[high]",
+                   shape.nw, shape.stages))
+    # The split queries: per tile of 2 nw queries and chunk of 32 dims, the
+    # stage's image of their hi and lo halves (128 bytes a query).
+    tiles = -(-nq // (2 * shape.nw))
+    qsplit = torch.empty(tiles * -(-d // HIGH_CHUNK) * 2 * shape.nw * 4 * HIGH_CHUNK,
+                         dtype=torch.uint8, device=dev)
+    db = _tma_rows(db)
     err = lib.mvt_fused_topk_high(
-        queries.data_ptr(), qsplit.data_ptr(), db.data_ptr(),
+        queries.data_ptr(), qsplit.data_ptr(), db.data_ptr(), db.stride(0),
         db_norms.data_ptr(),
         None if valid_mask is None else valid_mask.data_ptr(),
         nq, n, d, max(0, min(int(num_valid), n)), k, int(metric),
+        shape.nw, shape.stages, int(shape.big),
         splits, rows_per_split, length, int(tree),
         part_s.data_ptr(), part_i.data_ptr(), slots.data_ptr(),
         tmp_s.data_ptr(), tmp_i.data_ptr(),
@@ -334,22 +441,21 @@ def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
                 k, metric, scale, bias_scale, defer, out_s, out_i) -> None:
     """One launch of the integer scan, the merge and (``defer``) the scale
     for checked inputs into ``out_s``/``out_i``, with one wave of scan
-    blocks (as :func:`_launch`). The kernel reads the queries 16 bytes at a
-    time: they go over as they are where D is a multiple of 16 and their
-    rows are 16-byte aligned, else copied into rows of zeros up to the next
-    multiple of 16."""
+    blocks (as :func:`_launch`) of the shape :func:`_int_shape` picks. TMA
+    reads the first D bytes of each row of queries and corpus: each goes
+    over as it is where its row stride and base are 16-byte multiples (the
+    engine's padded blocks), else as :func:`_tma_rows`' copy."""
     from ._build import raise_for
 
     nq, d = queries.shape
     n = db.shape[0]
     dev = queries.device
+    shape = _int_shape(nq, d, k)
     splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _plan(
-        dev, nq, n, k, INT_SMEM_K, (INT_QB, INT_RB),
-        _occupancy(lib, lib.mvt_fused_topk_int_occupancy, "fused_topk[int8]"))
-    if d % INT_PIECE or queries.stride(0) % INT_PIECE or queries.data_ptr() % INT_PIECE:
-        width = -(-d // INT_PIECE) * INT_PIECE
-        queries = torch.zeros((nq, width), dtype=torch.int8,
-                              device=dev).narrow(1, 0, d).copy_(queries)
+        dev, nq, n, k, 0 if shape.big else k, (2 * shape.nw, SCAN_ROWS),
+        _occupancy(lib, lib.mvt_fused_topk_int_occupancy, "fused_topk[int8]",
+                   shape.nw, -(-d // INT_CHUNK), shape.stages, int(shape.resident)))
+    queries, db = _tma_rows(queries), _tma_rows(db)
     err = lib.mvt_fused_topk_int(
         queries.data_ptr(), queries.stride(0), db.data_ptr(), db.stride(0),
         db_norms.data_ptr(),
@@ -357,6 +463,7 @@ def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
         None if bias_row is None else bias_row.data_ptr(),
         float(scale), float(bias_scale), int(defer),
         nq, n, d, max(0, min(int(num_valid), n)), k, int(metric),
+        shape.nw, shape.stages, int(shape.resident), int(shape.big),
         splits, rows_per_split, length, int(tree),
         part_s.data_ptr(), part_i.data_ptr(), slots.data_ptr(),
         tmp_s.data_ptr(), tmp_i.data_ptr(),

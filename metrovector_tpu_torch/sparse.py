@@ -321,7 +321,7 @@ class SparseSearchEngine:
 
     def autotune(self, *args, **kwargs):
         raise NotImplementedError(
-            "SparseSearchEngine.autotune is not ported yet (ROADMAP A11: the "
+            "SparseSearchEngine.autotune is not ported yet (ROADMAP autotune: the "
             "ELL kernel sizes its grid from the runtime's occupancy; the JAX "
             "package tuned an XLA scan tile)"
         )

@@ -242,6 +242,12 @@ def test_unported_modes_raise(tmp_path):
         eng.space.add_rows(np.zeros((1, D), np.float32))
 
 
+def test_autotune_not_ported_names_its_roadmap_item(tmp_path):
+    path, _, _ = _file(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP autotune"):
+        SearchEngine.open(path, device="cpu").autotune()
+
+
 @pytest.mark.parametrize("precision", ["high", "default"])
 def test_precision_modes(tmp_path, precision):
     """The mirror of ``tests/test_engine.py::test_precision_modes``: "high"

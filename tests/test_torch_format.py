@@ -8,7 +8,13 @@ compare by bits; the values include NaN, infinities, a subnormal and ties
 of the rounding); sparse; a PQ sidecar; metadata
 columns with a string heap and stable ids; tombstones. Each under no
 compression, zlib and LZ4, with the native codec and with ``MVT_NO_NATIVE=1``
-(both packages then take their numpy paths)."""
+(both packages then take their numpy paths).
+
+``rewrite_hints`` writes the same bytes as the JAX package's, and a rewrite
+that fails partway (in the new footer, or at the rename) leaves the old file
+whole, with its old hints, and no temporary file."""
+
+import os
 
 import numpy as np
 import pytest
@@ -17,6 +23,8 @@ import metrovector_tpu as jax_mvt
 import metrovector_tpu.native as jax_native
 import metrovector_tpu_torch as port_mvt
 import metrovector_tpu_torch.native as port_native
+from metrovector_tpu_torch.format.constants import FOOTER_LEN_SIZE as FOOTER_LEN
+from metrovector_tpu_torch.format.constants import MAGIC_LEN
 
 KINDS = ["dense_f32", "dense_f16", "dense_bf16", "dense_int8", "dense_uint8", "sparse", "pq",
          "metadata", "tombstones"]
@@ -122,3 +130,112 @@ def test_port_codec_builds_outside_its_sources():
         pytest.skip("no C++ compiler: the port's numpy path is covered above")
     assert "/build/" in port_native._SO.replace("\\", "/")
     assert not port_native._SO.startswith(port_native._HERE)
+
+
+# ------------------------------------------------------- footer rewrite ---
+
+HINTS_OLD = {"tuned": {"s": {"dense": {"block_rows": 64}}}}
+HINTS_NEW = {"tuned": {"s": {"adc": {"block_rows": 512}}, "t": {"x": 1}}}
+
+
+def _file_with_hints(tmp_path, pkg, name="h.mvt") -> str:
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(_build(pkg, "metadata", "NONE"))
+    pkg.rewrite_hints(path, HINTS_OLD)
+    return path
+
+
+def test_rewrite_hints_same_bytes_as_reference(tmp_path):
+    """Both packages' rewrite_hints give the same file, twice in a row (the
+    second merges into the first's hints), and the blocks still verify."""
+    jax_path = _file_with_hints(tmp_path, jax_mvt, "jax.mvt")
+    port_path = _file_with_hints(tmp_path, port_mvt, "port.mvt")
+    jax_mvt.rewrite_hints(jax_path, HINTS_NEW)
+    port_mvt.rewrite_hints(port_path, HINTS_NEW)
+    with open(jax_path, "rb") as a, open(port_path, "rb") as b:
+        assert a.read() == b.read()
+    reader = port_mvt.Reader.open(port_path)
+    reader.validate_with_checksum()
+    assert reader.manifest.hints["tuned"]["s"] == {
+        "dense": {"block_rows": 64}, "adc": {"block_rows": 512}}
+
+
+class _CrashingFile:
+    """A file whose writes stop, with an error, halfway through the first
+    write that reaches past ``limit``: a crash once the new footer has
+    begun."""
+
+    def __init__(self, f, limit):
+        self._f, self._limit = f, limit
+
+    def write(self, data):
+        pos = self._f.tell()
+        if pos + len(data) > self._limit:
+            head = max(0, self._limit - pos)
+            self._f.write(data[: head + (len(data) - head) // 2])
+            self._f.flush()
+            raise OSError("simulated crash while writing the footer")
+        return self._f.write(data)
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return self._f.__exit__(*exc)
+
+
+def _assert_old_file(tmp_path, path, image):
+    with open(path, "rb") as f:
+        assert f.read() == image
+    reader = port_mvt.Reader.open(path)
+    reader.validate_with_checksum()
+    assert reader.manifest.hints == HINTS_OLD
+    assert sorted(os.listdir(tmp_path)) == [os.path.basename(path)]
+
+
+def test_rewrite_hints_crash_in_footer_keeps_old_file(tmp_path, monkeypatch):
+    """A rewrite that fails once it has begun to write the new footer leaves
+    the original file as it was (old hints, blocks verify) and no
+    temporary file."""
+    path = _file_with_hints(tmp_path, port_mvt)
+    with open(path, "rb") as f:
+        image = f.read()
+    flen = int.from_bytes(image[-MAGIC_LEN - FOOTER_LEN:-MAGIC_LEN], "little")
+    footer_start = len(image) - MAGIC_LEN - FOOTER_LEN - flen
+    real_open, real_fdopen = open, os.fdopen
+    crashes = []
+
+    def crashing(f, mode):
+        if any(c in mode for c in "wa+"):
+            crashes.append(mode)
+            return _CrashingFile(f, footer_start)
+        return f
+
+    monkeypatch.setattr("builtins.open", lambda p, mode="r", *a, **kw: crashing(
+        real_open(p, mode, *a, **kw), mode))
+    monkeypatch.setattr(os, "fdopen", lambda fd, mode="r", *a, **kw: crashing(
+        real_fdopen(fd, mode, *a, **kw), mode))
+    with pytest.raises(OSError, match="simulated crash"):
+        port_mvt.rewrite_hints(path, HINTS_NEW)
+    monkeypatch.undo()
+    assert crashes
+    _assert_old_file(tmp_path, path, image)
+
+
+def test_rewrite_hints_failed_replace_keeps_old_file(tmp_path, monkeypatch):
+    path = _file_with_hints(tmp_path, port_mvt)
+    with open(path, "rb") as f:
+        image = f.read()
+
+    def refuse(src, dst):
+        raise OSError("simulated failure of the rename")
+
+    monkeypatch.setattr(os, "replace", refuse)
+    with pytest.raises(OSError, match="simulated failure"):
+        port_mvt.rewrite_hints(path, HINTS_NEW)
+    monkeypatch.undo()
+    _assert_old_file(tmp_path, path, image)

@@ -310,7 +310,7 @@ def test_guards_and_unported_options(tmp_path, rng):
         eng.search(np.zeros((1, 15), np.float32))
     with pytest.raises(DimensionMismatchError):
         eng.search(np.zeros((1, 16), np.float32), filter_mask=np.ones(19, bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP autotune"):
         eng.autotune()
     eng.block_rows = 1024  # accepted and ignored
     assert eng.search(np.ones((1, 16), np.float32), k=2).indices.shape == (1, 2)

@@ -261,10 +261,89 @@ def test_high_takes_f32_corpus_only(dtype):
 
 @pytest.mark.parametrize("k", [1, 10, 18, 22, 23, 128, 129, 257, 5000])
 def test_high_kernel_shared_memory(k):
-    """A bf16x3 scan block fits in shared memory at every k (lists above
-    HIGH_SMEM_K live in device memory), and up to k = 22 (the main path's
-    k = 10 plus the default margin of 8 is 18) two blocks fit on an SM."""
-    sb = topk_kernel._shared_bytes_high(k)
-    assert sb <= topk_kernel.SMEM_LIMIT
-    two_blocks = (233_472 - 2 * 1024) // 2
-    assert (sb <= two_blocks) == (k <= 22 or k > topk_kernel.HIGH_SMEM_K)
+    """A bf16x3 scan block (csrc/topk_high_kernel.cu) fits in shared memory
+    at every k and batch, with a ring of at least MIN_STAGES stages: lists
+    above SCAN_SMEM_K live in device memory, and up to k = 22 (the main
+    path's k = 10 plus the default margin of 8 is 18) they stay in shared
+    memory at every batch, beside at least four stages of 128 queries."""
+    for nq in (1, 8, 16, 32, 33, 64, 100, 128, 129, 255, 256, 1000):
+        shape = topk_kernel._high_shape(nq, k)
+        assert shape.smem <= topk_kernel.SMEM_LIMIT
+        assert topk_kernel.MIN_STAGES <= shape.stages <= topk_kernel.HIGH_MAX_STAGES
+        assert shape.nw in topk_kernel.HIGH_NW and not shape.resident
+        stage = 64 * 32 * 4 + 2 * shape.nw * 128
+        assert shape.smem == topk_kernel._scan_smem(
+            stage, shape.stages, 0, shape.nw, 0 if shape.big else k)
+        # the tile follows the batch: 2 nw queries, the least that holds it
+        assert 2 * shape.nw >= min(nq, 128)
+        assert shape.nw == 16 or 2 * (shape.nw // 2) < min(nq, 128) or shape.big
+        if k <= 22:
+            assert not shape.big
+            assert shape.stages >= (4 if nq > 64 else topk_kernel.HIGH_MAX_STAGES)
+        assert shape.big == (k > topk_kernel.SCAN_SMEM_K) or k > 22
+
+
+def _trunc(v: np.ndarray, ulp: np.ndarray) -> np.ndarray:
+    """v truncated toward zero to a multiple of ulp."""
+    return np.trunc(v / ulp) * ulp
+
+
+def _wgmma_step(acc: np.ndarray, terms: np.ndarray) -> np.ndarray:
+    """One wgmma k step in the worst case the certificate models: the 16
+    products and the accumulator aligned to the largest exponent among them
+    and truncated to 24 bits there, their sum (exact in float64) truncated
+    to 24 bits once more."""
+    big = np.maximum(np.abs(terms).max(axis=-1), np.abs(acc))
+    ulp = np.exp2(np.floor(np.log2(np.where(big > 0, big, 1.0))) - 23)
+    total = _trunc(acc, ulp) + _trunc(terms, ulp[..., None]).sum(axis=-1)
+    tulp = np.exp2(np.floor(np.log2(np.where(total != 0, np.abs(total), 1.0))) - 23)
+    return _trunc(total, tulp)
+
+
+def _emulate_wgmma_bf16x3(q: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """The bf16x3 kernel's dots [Q, N] in its order: per k step of 16 dims
+    one wgmma adds x_hi q_hi into acc, two add x_lo q_hi, then x_hi q_lo,
+    into sml; at the end acc + sml is rounded once to f32."""
+    def halves(v):
+        hi, lo = split_bf16x3(torch.from_numpy(v))
+        return hi.float().double().numpy(), lo.float().double().numpy()
+
+    (qh, ql), (xh, xl) = halves(q), halves(x)
+    d = q.shape[1]
+    acc = np.zeros((q.shape[0], x.shape[0]))
+    sml = np.zeros_like(acc)
+    for s in range(0, d, 16):
+        e = slice(s, min(s + 16, d))
+
+        def prods(a, b):
+            return a[:, None, e] * b[None, :, e]  # exact: 8 x 8 significant bits
+
+        acc = _wgmma_step(acc, prods(qh, xh))
+        sml = _wgmma_step(sml, prods(qh, xl))
+        sml = _wgmma_step(sml, prods(ql, xh))
+    return (acc.astype(np.float32) + sml.astype(np.float32)).astype(np.float64)
+
+
+@pytest.mark.parametrize("kind", ["positive", "mixed"])
+@pytest.mark.parametrize("d", [16, 100, 128, 960, 1536])
+def test_wgmma_accumulation_within_certificate(d, kind):
+    """The certificate's model of the tensor cores holds for the kernel's
+    k step and grouping (csrc/topk_high_kernel.cu: one 16-deep wgmma step
+    per add, x_hi q_hi apart from the two small terms): the emulated
+    worst-case truncating sums stay within high_sum_bounds(D)[0] of the
+    exact sum of the same products, in units of S = sum |q_d x_d|, where
+    nothing cancels (all positive) and on mixed signs."""
+    rng = np.random.default_rng(d)
+    if kind == "positive":
+        q = rng.random((4, d)).astype(np.float32)
+        x = rng.random((64, d)).astype(np.float32)
+    else:
+        q = rng.standard_normal((4, d)).astype(np.float32)
+        x = rng.standard_normal((64, d)).astype(np.float32)
+    got = _emulate_wgmma_bf16x3(q, x)
+    exact = bf16x3_dots(torch.from_numpy(q), torch.from_numpy(x),
+                        torch.float64).numpy()
+    s_abs = np.abs(q.astype(np.float64)) @ np.abs(x.astype(np.float64)).T
+    ratio = np.abs(got - exact) / (high_sum_bounds(d)[0] * s_abs)
+    assert ratio.max() < 1.0
+    assert np.abs(got - exact).max() > 0  # the emulation does truncate

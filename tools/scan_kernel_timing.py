@@ -3,7 +3,7 @@
 NVIDIA GPU, on inputs made on the card from fixed seeds.
 
     python3 tools/scan_kernel_timing.py [--root DIR] [--define FLAG ...]
-                                        [--profile] [--kernels k1,k2,k3,k4]
+                                        [--profile] [--kernels k1,k1v,k2,k3,k4]
                                         [--files DIR] [--out FILE]
 
 ``--root`` names the checkout whose ``metrovector_tpu_torch`` is imported
@@ -19,6 +19,16 @@ Points (the kernels-line points of ``chip_smoke.py``):
   256, 128 and 32 at k=10, batch 32 at k=100; beside it one ``torch.mm`` of
   the batch-256 product in full f32 (TF32 off), a yardstick for the scan
   alone (it selects nothing);
+* K1's tensor-core variants (``k1v``, kernels ``int_scan_kernel`` and
+  ``high_scan_kernel``, the latter after ``split_queries_kernel``): the
+  integer scan over 10M random int8 rows of 96 codes stored 128 bytes a
+  row (``deep10m``'s shape: inner product, deferred scale 0.02, k=10) at
+  batches 128 and 32, beside ``torch._int_mm`` of the batch-128 product
+  on the padded rows, and over 1M random rows of 128 codes in the uint8
+  offset form (``sift1m-u8``'s: L2, scale 128/127 and the row sums as
+  ``bias_row``) at batch 256; the bf16x3 scan over 1M x 960 N(0, 1) rows
+  (``gist1m``'s: cosine, unit queries, k=18) at batches 256 and 64, and
+  over the K1 corpus at batch 32, k=10, beside K1 ``highest`` there;
 * ``fused_adc_topk`` (K2) at k=400, L2, f32 LUT, over 1M random codes:
   4-bit m=32 (nibble-packed) and 8-bit m=16, batches 256 and 32;
 * ``ell_topk`` (K4) at ``sparse1m`` shape (1M rows x 48 entries over
@@ -53,6 +63,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 N, D = 1_000_000, 128
 K1_POINTS = ((256, 10), (128, 10), (32, 10), (32, 100))
+K1V_INT_N, K1V_INT_D, K1V_INT_WIDTH, K1V_GIST_D = 10_000_000, 96, 128, 960
 K2_POINTS = (("pq4", 32, 16, True), ("pq8", 16, 256, False))
 K2_K, K2_BATCHES = 400, (256, 32)
 K3_R, K3_K, K3_BATCHES = 400, 10, (256, 32)
@@ -84,7 +95,7 @@ def measure(profile: bool, kernels: set[str]) -> dict:
     l2, ip = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    out = {"k1": {}, "k2": {}, "k3": {}, "k4": {}, "by_kernel": {}}
+    out = {"k1": {}, "k1v": {}, "k2": {}, "k3": {}, "k4": {}, "by_kernel": {}}
 
     def timed(name, fn, inputs):
         fn(inputs[0])
@@ -133,6 +144,16 @@ def measure(profile: bool, kernels: set[str]) -> dict:
             out["k1_mm_ms"] = cuda_ms(lambda q: torch.mm(q, db_t), qs, dev)
             print(f"  torch.mm [{nq},{D}] x [{D},{N}] f32: {out['k1_mm_ms']:.4f} ms",
                   flush=True)
+    if "k1v" in kernels:  # the bf16x3 scan over the K1 corpus, beside K1 highest
+        qs = [torch.randint(0, 256, (32, D), generator=g, device=dev).float()
+              for _ in range(ITERS)]
+        out["k1v"]["high,1Mx128,32"] = timed(
+            "high 1Mx128 32", lambda q: fused_topk(q, db, norms, N, 10, l2,
+                                                   precision="high"), qs)
+        out["k1v"]["highest,1Mx128,32"] = timed(
+            "highest 1Mx128 32", lambda q: fused_topk(q, db, norms, N, 10, l2), qs)
+        print(f"  K1 bf16x3 1M x {D} batch=32 k=10: {out['k1v']['high,1Mx128,32']:.4f} "
+              f"ms; K1 highest {out['k1v']['highest,1Mx128,32']:.4f} ms", flush=True)
     for nq in K3_BATCHES if "k3" in kernels else ():
         cands = []
         for _ in range(2 * ITERS):
@@ -176,6 +197,8 @@ def measure(profile: bool, kernels: set[str]) -> dict:
         del books, codes, stored, rnorms
         torch.cuda.empty_cache()
 
+    if "k1v" in kernels:
+        k1v_points(out, timed, torch, fused_topk, dev, g)
     if "k4" not in kernels:
         return out
     n_pad = -(-N // 8192) * 8192
@@ -197,6 +220,61 @@ def measure(profile: bool, kernels: set[str]) -> dict:
         out["k4"][str(nq)] = ms
         print(f"  K4 ell_topk batch={nq} k=10: {ms:.4f} ms", flush=True)
     return out
+
+
+def k1v_points(out, timed, torch, fused_topk, dev, g) -> None:
+    """The integer and bf16x3 points of K1's variants (module docstring)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.utils.timing import cuda_ms
+
+    l2, ip, cos = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+                   DistanceMetric.COSINE)
+    n, d = K1V_INT_N, K1V_INT_D
+    rows = torch.randint(-128, 128, (n, K1V_INT_WIDTH), generator=g, device=dev,
+                         dtype=torch.int8)
+    x, zn = rows[:, :d], torch.zeros(n, device=dev)
+    for nq in (128, 32):
+        qs = [torch.randint(-128, 128, (nq, d), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(ITERS)]
+        ms = timed(f"int8 deep10m {nq}", lambda q: fused_topk(
+            q, x, zn, n, 10, ip, scale=0.02), qs)
+        out["k1v"][f"int8,deep10m,{nq}"] = ms
+        line = f"  K1 int8 {n} x {d} (rows of {K1V_INT_WIDTH}) batch={nq} k=10: {ms:.4f} ms"
+        if nq == 128:
+            qt = [torch.nn.functional.pad(q, (0, K1V_INT_WIDTH - d)).T.contiguous()
+                  for q in qs]
+            torch._int_mm(rows, qt[0])
+            mm = cuda_ms(lambda b: torch._int_mm(rows, b), qt[:3], dev)
+            out["k1v"]["int_mm,deep10m,128"] = mm
+            line += f"; torch._int_mm on the padded rows {mm:.4f} ms"
+        print(line, flush=True)
+    del rows, x, zn
+    m = 1_000_000
+    u = torch.randint(-128, 128, (m, D), generator=g, device=dev, dtype=torch.int8)
+    un = ((u.double() + 128) ** 2).sum(1).float()
+    bias = u.sum(1, dtype=torch.int32).float()
+    qs = [torch.randint(-128, 128, (256, D), generator=g, device=dev, dtype=torch.int8)
+          for _ in range(ITERS)]
+    out["k1v"]["int8,sift1m-u8,256"] = timed("int8 sift1m-u8 256", lambda q: fused_topk(
+        q, u, un, m, 10, l2, scale=128 / 127, bias_row=bias, bias_scale=128.0), qs)
+    print(f"  K1 int8 uint8-offset {m} x {D} batch=256 k=10: "
+          f"{out['k1v']['int8,sift1m-u8,256']:.4f} ms", flush=True)
+    del u, un, bias
+    torch.cuda.empty_cache()
+    xg = torch.randn((m, K1V_GIST_D), generator=g, device=dev)
+    gn = (xg.double() ** 2).sum(1).float()
+    for nq in (256, 64):
+        qs = []
+        for _ in range(4):
+            q = torch.randn((nq, K1V_GIST_D), generator=g, device=dev)
+            qs.append(q / q.norm(dim=1, keepdim=True))
+        ms = timed(f"high gist1m {nq}", lambda q: fused_topk(
+            q, xg, gn, m, 18, cos, precision="high"), qs)
+        out["k1v"][f"high,gist1m,{nq}"] = ms
+        print(f"  K1 bf16x3 {m} x {K1V_GIST_D} cosine batch={nq} k=18: {ms:.4f} ms",
+              flush=True)
+    del xg, gn
+    torch.cuda.empty_cache()
 
 
 def search_p50(files: str) -> dict:
@@ -251,8 +329,8 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--kernels", default="k1,k2,k3,k4",
-                    help="which of k1, k2, k3, k4 to time (comma-separated)")
+    ap.add_argument("--kernels", default="k1,k1v,k2,k3,k4",
+                    help="which of k1, k1v, k2, k3, k4 to time (comma-separated)")
     ap.add_argument("--files", help="a directory of chip_smoke.py's files: "
                     "also time search() p50 on them")
     ap.add_argument("--out")

@@ -1,0 +1,226 @@
+#!/usr/bin/env python3
+"""Where the time of K1's tensor-core scans goes, on one NVIDIA GPU.
+
+    python3 tools/wgmma_scan_profile.py [--out FILE]
+
+Without a hardware profiler, this builds patched copies of the port under
+``build/wgmma_profile/`` (git-ignored), all in parallel, and times each in
+a process of its own, by device time per kernel name (``torch.profiler``):
+
+* ``as_is``: the scans as they are;
+* ``counters``: the integer scan with ``clock64()`` counters in its
+  consumer loop, read back through an extra ``extern "C"`` entry: per
+  block, consumer warpgroup 0's lane 0 sums the cycles of each phase of a
+  tile (the group bar's refresh; the wait for the stage and the MMA; the
+  compare pass; the offers, flushes and their barriers), the tiles that had
+  offer work and its own passing scores;
+* ``no_epilogue``: neither scan compares, offers or selects (the TMA ring
+  and the MMA alone, each warpgroup still waiting for its group);
+* ``tma_only``: no MMA either (the TMA ring alone).
+
+The points are ``tools/scan_kernel_timing.py``'s ``k1v`` shapes: the
+integer scan over 10M random int8 rows of 96 codes in 128-byte rows
+(inner product, deferred scale) at batches 128 and 32 and over 1M rows of
+128 codes in the uint8 offset form at batch 256; the bf16x3 scan over 1M x
+960 N(0, 1) rows, cosine, k=18, at batches 256 and 64. The patches are text
+edits of this checkout's sources: the script fails if a source no longer
+holds the text it edits. The variants' answers are not checked (only
+``as_is`` computes the contract). The last line of the output is JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORK = os.path.join(ROOT, "build", "wgmma_profile")
+
+INT, HIGH = "topk_int_kernel.cu", "topk_high_kernel.cu"
+COUNTERS = [
+    (INT, "namespace {\n\nconstexpr int kChunk = 128;",
+     "__device__ long long g_prof[1024][8];\nnamespace {\n\nconstexpr int kChunk = 128;"),
+    (INT, "  int64_t step = 0;\n  for (int t = 0; t < tiles; ++t) {\n"
+          "    const int t0 = row_begin + t * kScanRows;\n"
+          "    if (t > 0 && t % kRefresh == 0) sel_refresh(S, warp, lane);",
+     "  int64_t step = 0;\n  long long P[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  const long long T0 = clock64();\n  for (int t = 0; t < tiles; ++t) {\n"
+     "    const int t0 = row_begin + t * kScanRows;\n    long long ta = clock64();\n"
+     "    if (t > 0 && t % kRefresh == 0) sel_refresh(S, warp, lane);\n"
+     "    P[1] += clock64() - ta;\n    ta = clock64();"),
+    (INT, "    // Epilogue and masks: the compare pass",
+     "    P[2] += clock64() - ta;\n    ta = clock64();\n"
+     "    // Epilogue and masks: the compare pass"),
+    (INT, "    sel_epilogue<NW>(S, pass, warp, lane, t0 + r_lo, bar_id, [&](int i) {",
+     "    P[3] += clock64() - ta;\n    ta = clock64();\n    P[6] += __popcll(pass);\n"
+     "    sel_epilogue<NW>(S, pass, warp, lane, t0 + r_lo, bar_id, [&](int i) {"),
+    (INT, "    });\n  }\n  sel_finish(S, tw, bar_id);",
+     "    });\n    const long long d = clock64() - ta;\n    P[4] += d;\n    P[7] += d > 300;\n  }\n"
+     "  P[0] = clock64() - T0;\n  if (tw == 0 && blockIdx.x * gridDim.y + blockIdx.y < 512) {\n"
+     "    for (int i = 0; i < 8; ++i) g_prof[2 * (blockIdx.x * gridDim.y + blockIdx.y) + wg][i] = P[i];\n"
+     "  }\n  sel_finish(S, tw, bar_id);"),
+    (INT, 'extern "C" {\n',
+     'extern "C" {\nint mvt_scan_profile(long long* out) {\n'
+     "  return cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n}\n"),
+]
+COUNTER_FIELDS = ("cycles", "refresh", "stage wait + MMA", "compare pass",
+                  "offers, flushes, barriers", "-", "own passing scores",
+                  "tiles with offer work")
+NO_EPILOGUE = [
+    (INT, "    unsigned long long pass;\n    if (defer) {",
+     "    unsigned long long pass = acc[0] == 0x7fffff01;\n    if (false) {"),
+    (INT, "    } else {\n      float inv[2], badd[2];",
+     "    } else if (false) {\n      float inv[2], badd[2];"),
+    (HIGH, re.compile(r"    const unsigned long long pass =\n.*?;\n", re.S),
+     "    const unsigned long long pass = acc[0] == 1234.5f && sml[0] == 3.25f;\n"),
+]
+TMA_ONLY = NO_EPILOGUE + [
+    (INT, "      for (int kk = 0; kk < kChunk / 32; ++kk) {",
+     "      for (int kk = 0; kk < 0; ++kk) {"),
+    (HIGH, "      for (int kk = 0; kk < 2; ++kk) {\n        const int first",
+     "      for (int kk = 0; kk < 0; ++kk) {\n        const int first"),
+]
+VARIANTS = {"as_is": [], "counters": COUNTERS, "no_epilogue": NO_EPILOGUE,
+            "tma_only": TMA_ONLY}
+
+CHILD = r'''
+import ctypes, json, sys
+sys.path.insert(0, ROOT)
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from metrovector_tpu_torch import DistanceMetric as M
+from metrovector_tpu_torch.ops import _build
+lib = _build.load()
+if BUILD_ONLY:
+    sys.exit(0)
+from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(4)
+out = {}
+def point(name, fn, inputs):
+    fn(inputs[0]); torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in inputs:
+            fn(x)
+        torch.cuda.synchronize()
+    row = {}
+    for ev in prof.key_averages():
+        kernel = (ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
+                  .split("(")[0].split("<")[0])
+        if ev.device_time_total > 0:
+            row[kernel] = row.get(kernel, 0.0) + ev.device_time_total / 1e3 / len(inputs)
+    if COUNTERS:
+        buf = (ctypes.c_longlong * (1024 * 8))()
+        fn(inputs[0]); torch.cuda.synchronize()
+        lib.mvt_scan_profile(buf)
+        a = np.frombuffer(buf, dtype=np.int64).reshape(1024, 8)
+        live = a[a[:, 0] > 0]
+        row["counters"] = [float(x) for x in live.mean(0)]
+    out[name] = row
+ip, l2, cos = M.INNER_PRODUCT, M.L2, M.COSINE
+n = 10_000_000
+rows = torch.randint(-128, 128, (n, 128), dtype=torch.int8, device=dev, generator=g)
+x, zn = rows[:, :96], torch.zeros(n, device=dev)
+for nq in (128, 32):
+    qs = [torch.randint(-128, 128, (nq, 96), dtype=torch.int8, device=dev, generator=g)
+          for _ in range(4)]
+    point(f"int8 deep10m {nq}", lambda q: fused_topk(q, x, zn, n, 10, ip, scale=0.02), qs)
+del rows, x, zn
+m = 1_000_000
+u = torch.randint(-128, 128, (m, 128), dtype=torch.int8, device=dev, generator=g)
+un = ((u.double() + 128) ** 2).sum(1).float()
+bias = u.sum(1, dtype=torch.int32).float()
+qs = [torch.randint(-128, 128, (256, 128), dtype=torch.int8, device=dev, generator=g)
+      for _ in range(4)]
+point("int8 sift1m-u8 256", lambda q: fused_topk(q, u, un, m, 10, l2, scale=128 / 127,
+                                                 bias_row=bias, bias_scale=128.0), qs)
+del u, un, bias
+if not COUNTERS:
+    xg = torch.randn((m, 960), generator=g, device=dev)
+    gn = (xg.double() ** 2).sum(1).float()
+    for nq in (256, 64):
+        qs = [torch.randn((nq, 960), generator=g, device=dev) for _ in range(3)]
+        qs = [q / q.norm(dim=1, keepdim=True) for q in qs]
+        point(f"high gist1m {nq}", lambda q: fused_topk(q, xg, gn, m, 18, cos,
+                                                        precision="high"), qs)
+print(json.dumps(out))
+'''
+
+
+def patched(name: str, edits) -> str:
+    """A copy of this checkout's package under WORK/name with ``edits``."""
+    dst = os.path.join(WORK, name)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "metrovector_tpu_torch"),
+                    os.path.join(dst, "metrovector_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for src, old, new in edits:
+        path = os.path.join(dst, "metrovector_tpu_torch", "ops", "csrc", src)
+        text = open(path).read()
+        if isinstance(old, re.Pattern):
+            text, hits = old.subn(new, text, count=1)
+        else:
+            hits = text.count(old)
+            text = text.replace(old, new)
+        if hits < 1:
+            raise RuntimeError(f"{name}: {src} no longer holds the text this edits")
+        open(path, "w").write(text)
+    return dst
+
+
+def child(root: str, counters: bool, build_only: bool) -> subprocess.Popen:
+    code = (f"ROOT = {root!r}\nCOUNTERS = {counters!r}\nBUILD_ONLY = {build_only!r}\n"
+            + CHILD)
+    return subprocess.Popen([sys.executable, "-c", code], cwd=root, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    roots = {name: patched(name, edits) for name, edits in VARIANTS.items()}
+    builds = {name: child(root, name == "counters", True) for name, root in roots.items()}
+    for name, proc in builds.items():
+        _, err = proc.communicate(timeout=1200)
+        if proc.returncode != 0:
+            print(f"{name}: build failed\n{err[-3000:]}", file=sys.stderr)
+            return 1
+    result = {"card": card}
+    for name, root in roots.items():
+        proc = child(root, name == "counters", False)
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            print(f"{name}: run failed\n{err[-3000:]}", file=sys.stderr)
+            return 1
+        result[name] = json.loads(out.strip().splitlines()[-1])
+        for point, row in result[name].items():
+            times = ", ".join(f"{k} {v:.4f} ms" for k, v in row.items() if k != "counters")
+            print(f"{name:12s} {point}: {times} | {card}", flush=True)
+            if "counters" in row:
+                print("             counters (cycles per block, warpgroup 0): " + ", ".join(
+                    f"{f} {v:.0f}" for f, v in zip(COUNTER_FIELDS, row["counters"])
+                    if f != "-"), flush=True)
+    result["counter_fields"] = COUNTER_FIELDS
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
