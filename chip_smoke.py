@@ -47,7 +47,11 @@ Phases, one line each; any failure exits non-zero:
    at batches 256 and 32 for 4-bit m=32 and 8-bit m=16 codes, recall
    against a float64 oracle on the card, the kernels' launch counts, the
    result held against the plain re-rank, CUDA-event times of each kernel
-   and its plain version; then a 20k-row corpus with a full re-rank;
+   and its plain version; ``sift1m-pq`` (ksub = 256) also at
+   ``search(k=10, rerank=400, int8_lut=True)``, batches 256 and 32 (the
+   int8 LUT's lookup scan: recall@10 >= 0.99, the kernel identical to its
+   plain version, its time beside the bf16 LUT's and both bounds); then a
+   20k-row corpus with a full re-rank;
 9. any k and any D: ``fused_topk`` at k in {257, 1000, 1025, 5000, N} over
    20k rows and at D in {1536, 3072}, ``fused_adc_topk`` at k in {1025,
    4096, N}, ``rescore_candidates`` at R in {4097, 8192} in both tie modes,
@@ -132,10 +136,18 @@ Phases, one line each; any failure exits non-zero:
    {10, 100, 257}, num_valid and masks as in phase 2, then the scan tiles'
    edges (batches 8, 64, 128, 129 and 256 over 100,037 rows at D 96 and
    1536) (identical, twice); the shared memory the wrapper plans for the
-   tensor-core scans against the library's own sizes; the affine int8 load of
-   ``topk_kernel.cu`` within phase 2's band; K2's int8 LUT over pq4 and pq8
-   codes with twins, the three metrics, k in {1, 10, 400} (identical,
-   twice); (b) ``benchmarks/suite.py``'s deep10m (10M x 96 int8 codes of
+   tensor-core scans (K2's int8-LUT product too) against the library's own
+   sizes; the affine int8 load of ``topk_kernel.cu`` within phase 2's band;
+   K2's int8 LUT on both routes (``ops/adc_kernel.py::int8_lut_route``:
+   the tensor-core product ``adc_int8_mma_kernel.cu`` at ksub <= 16 while
+   32 queries' LUT fits a block, else the lookup scan) over pq4 and pq8
+   codes with twins, the three metrics, k in {1, 10, 400}, then unpacked
+   ksub=16 codes, ksub=8, m = 23 and 24, batches 128, 129 and 256, k =
+   1024, 1025 and N, the product's largest m (270 packed, 199 not) and
+   pq4 LUTs past it on the lookup route (m = 288 packed, 200 not), and
+   LUTs of +-127 alone (m = 32; 256 and 257 at ksub = 256, the lookup
+   lanes' bound; 288 and 513 packed at ksub = 16) (identical, twice);
+   (b) ``benchmarks/suite.py``'s deep10m (10M x 96 int8 codes of
    seed 4, IP, quantization scale 0.02): ``Builder`` in chunks ->
    ``Reader.open`` -> ``SearchEngine(device="cuda")`` -> ``search(k=10)`` at
    batches 128 and 32, recall@10 1.000 against a float64 oracle of the
@@ -145,7 +157,9 @@ Phases, one line each; any failure exits non-zero:
    quantized and of the raw queries, and the same codes as a uint8 cosine
    space through the affine load, within the band; (d) phase 8's
    ``sift1m-pq4`` index at ``search(k=10, rerank=400, int8_lut=True)``,
-   batches 256 and 32, recall@10 >= 0.99; (e) the phase 3 corpus written as
+   batches 256 and 32, recall@10 >= 0.99, one launch of the tensor-core
+   product a search, its time beside the bf16 LUT's and both bounds (the
+   CUDA cores' adds, the tensor cores' product); (e) the phase 3 corpus written as
    BFLOAT16, identical to the f32 space; (f) CUDA-event times of each new
    kernel and its plain version, ``torch._int_mm`` of the batch's product
    as a yardstick for the integer scan, the times of the ``mma.sync``
@@ -154,7 +168,8 @@ Phases, one line each; any failure exits non-zero:
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
 operations, 989 TFLOP/s dense bf16 for the bf16x3 variant, 1,979 TOP/s
-dense int8 for the integer variant, and 3.35 TB/s); the last line is
+dense int8 for the integer variant, and 3.35 TB/s; K2's int8 LUT the lesser
+of its CUDA-core and tensor-core bounds); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -1089,6 +1104,95 @@ def _pq_host_split(torch, dev, idx, packed, qs, host) -> dict:
     return out
 
 
+def _int8_lut_searches(torch, dev, card, name, route, idx, x64, norms64,
+                       queries) -> dict:
+    """``name`` (phase 8's sift1m-pq4 or sift1m-pq index) with the int8 LUT
+    on its ``route`` (ops/adc_kernel.py::int8_lut_route: "mma", the
+    tensor-core product of adc_int8_mma_kernel.cu; "lookup", the lookup
+    scan of adc_scan.cuh). Every count at 0, ``search(k=10, rerank=400,
+    int8_lut=True)`` at batches 256 and 32: one int8-LUT launch each, each
+    of the tensor-core product on that route and none on the other, one
+    re-rank, no dense scan; recall@10 >= 0.99 against the float64 oracle on
+    the card; the kernel identical to its plain version at the searches'
+    inputs; CUDA-event times of the kernel beside the bf16 LUT's (the
+    kernel again after it), the plain version and both bounds; search()
+    p50 with the int8 and with the bf16 LUT. Returns the kernels-line
+    figures of the route's kernel."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        fused_adc_topk, fused_adc_topk_reference, int8_lut_route,
+    )
+    from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+    from metrovector_tpu_torch.utils.timing import cuda_ms
+
+    l2 = DistanceMetric.L2
+    m, ksub = idx.m, idx.ksub
+    n, cols = idx.codes.shape
+    packed = idx.packed4
+    if int8_lut_route(ksub, m, cols) != route:
+        raise AssertionError(f"{name} (m={m}, ksub={ksub}) does not route to {route}")
+    for fn in (fused_adc_topk, rescore_candidates, fused_topk):
+        fn.launches = 0
+    fused_adc_topk.int8_launches = 0
+    fused_adc_topk.int8_mma_launches = 0
+    res = {bsz: idx.search(q, k=K_PQ, rerank=RERANK, int8_lut=True)
+           for bsz, q in queries.items()}
+    searches = len(res)
+    got = (fused_adc_topk.launches, fused_adc_topk.int8_launches,
+           fused_adc_topk.int8_mma_launches, rescore_candidates.launches,
+           fused_topk.launches)
+    if got != (searches, searches, searches if route == "mma" else 0, searches, 0):
+        raise AssertionError(f"{name} int8 LUT: {searches} searches counted (K2, of it int8 "
+                             f"LUT, of it tensor-core product, K3, K1) {got}")
+    launches = got[2] if route == "mma" else got[1]
+    recall = {bsz: _recall_on_card(torch, x64, norms64, q, res[bsz].indices, K_PQ)
+              for bsz, q in queries.items()}
+    if min(recall.values()) < 0.99:
+        raise AssertionError(f"{name} int8 LUT recall@10 {recall}")
+    say(f"  {name} search(k=10, rerank=400, int8_lut=True): recall@10 "
+        + ", ".join(f"batch {b} {r:.4f}" for b, r in recall.items())
+        + f" against the float64 oracle on the card; {route} launches {launches}")
+    rng = np.random.default_rng(SEED + 14)
+    kernel = "int8_mma" if route == "mma" else "int8_lut"
+    cell = {}
+    for bsz, q in queries.items():
+        qs = [torch.from_numpy(q).to(dev)]
+        qs += [torch.from_numpy(np.clip(q + rng.integers(-3, 4, q.shape), 0, 255)
+                                .astype(np.float32)).to(dev) for _ in range(9)]
+        args = (idx.codes, idx._books, idx.recon_norms, idx.num_vectors, RERANK, l2,
+                idx.valid, False, packed)
+
+        def kern(qd):
+            return fused_adc_topk(qd, *args, int8_lut=True)
+
+        def plain(qd):
+            return fused_adc_topk_reference(qd, *args, int8_lut=True)
+
+        def bf16(qd):
+            return fused_adc_topk(qd, *args)
+
+        _identical(torch, kern(qs[0]), plain(qs[0]), f"{name} int8 LUT batch {bsz}")
+        kms, runs, pms = _kernel_times(torch, dev, kern, plain, qs, qs[:3])
+        bf16(qs[0])
+        bms = cuda_ms(bf16, qs, dev)
+        kms2 = cuda_ms(kern, qs, dev)
+        hq = [t.cpu().numpy() for t in qs]
+        p50 = _p50(torch, idx.search, hq, dev, k=K_PQ, rerank=RERANK, int8_lut=True)
+        p50_bf = _p50(torch, idx.search, hq, dev, k=K_PQ, rerank=RERANK, exact_lut=False)
+        bnd = lut8_bounds(bsz, n, m, ksub, cols, RERANK)
+        cell[bsz] = {"ms": kms, "plain_ms": pms, "bound": bnd["least"], "bounds": bnd,
+                     "p50": p50, "bf16_ms": bms, "p50_bf16": p50_bf}
+        cc, tc = bnd["cuda_cores"], bnd["tensor_cores"]
+        say(f"  {name} batch={bsz}: fused_adc_topk[{kernel}] k={RERANK} {kms:.4f} ms "
+            f"(runs {runs[0]:.4f}, {runs[1]:.4f}, after the bf16 LUT {kms2:.4f}; bounds: "
+            f"CUDA-core adds {cc[0]:.4f} ms by {cc[1]}, tensor-core product {tc[0]:.4f} "
+            f"ms by {tc[1]}, share of the lesser {bnd['least'][0] / kms:.1%}) | plain "
+            f"{pms:.4f} | bf16 LUT {bms:.4f} | search() p50 int8 LUT {p50:.4f} ms "
+            f"({bsz / p50 * 1e3:.0f} QPS), bf16 LUT {p50_bf:.4f} | {card}")
+    return {"launches": launches, "cell": cell, "recall": recall}
+
+
 def phase_pq_path(torch, dev, card, keep=None):
     """The PQ path end to end at full size (module docstring, phase 8)."""
     from metrovector_tpu_torch import Builder, DistanceMetric, Reader
@@ -1288,6 +1392,8 @@ def phase_pq_path(torch, dev, card, keep=None):
             if packed:
                 kept = (idx, x64, norms64, queries)
             else:
+                times["int8_lookup"] = _int8_lut_searches(
+                    torch, dev, card, "sift1m-pq", "lookup", idx, x64, norms64, queries)
                 del idx
             torch.cuda.empty_cache()
     finally:
@@ -3128,10 +3234,12 @@ def _int_cases(torch, dev, rng) -> int:
 
 def _scan_smem_mirrors(torch) -> int:
     """The shared memory of the tensor-core scans' shapes that the wrapper
-    plans (ops/topk_kernel.py::_int_shape, _high_shape) against the
+    plans (ops/topk_kernel.py::_int_shape, _high_shape, and
+    ops/adc_kernel.py::int8_mma_shape, K2's int8-LUT product) against the
     library's own sizes: the kernels lay out what the plan counted. Returns
     the shapes checked."""
     from metrovector_tpu_torch.ops import _build
+    from metrovector_tpu_torch.ops import adc_kernel as ak
     from metrovector_tpu_torch.ops import topk_kernel as tk
 
     lib, shapes = _build.load(), 0
@@ -3147,6 +3255,17 @@ def _scan_smem_mirrors(torch) -> int:
                     raise AssertionError(f"scan shared memory Q={nq} k={k} D={d}: "
                                          f"library {got}, {got_h}; plan {s.smem}, {h.smem}")
                 shapes += 2
+    for nq in (1, 32, 33, 64, 128, 129, 256, 4096):
+        for k in (1, 10, 128, 129, 400, 1000, 1024):
+            for m, cols in ((32, 16), (24, 12), (23, 12), (32, 32), (23, 23), (16, 8),
+                            (64, 32), (200, 100), (270, 135), (199, 199)):
+                p = ak.int8_mma_shape(nq, m, cols, k)
+                got = lib.mvt_adc_int8_mma_smem(p.nw, m, cols, p.stages,
+                                                0 if p.big else k)
+                if got != p.smem or got > tk.SMEM_LIMIT:
+                    raise AssertionError(f"int8 LUT product shared memory Q={nq} k={k} "
+                                         f"m={m} cols={cols}: library {got}, plan {p.smem}")
+                shapes += 1
     return shapes
 
 
@@ -3193,51 +3312,114 @@ def _affine_cases(torch, dev, rng) -> tuple[int, float]:
     return cases, err
 
 
-def _lut8_cases(torch, dev, rng) -> int:
-    """(a) The int8 LUT on 200,003 rows of codes with twins across splits,
-    pq4 (m=32, ksub=16, packed) and pq8 (m=16, ksub=256), N(0, 1) codebooks
-    and queries (both versions quantize the same f32 LUT on the card), the
-    three metrics, k in {1, 10, 400}, batches rotating through 1, 33 and
-    255, num_valid and the mask as in _int_cases; each twice, identical to
-    the plain version. Returns the cases run."""
+def _lut8_case(torch, dev, rng, m, ksub, packed, n, nq, k, metric, masked,
+               extreme=False, cut=None) -> None:
+    """One int8-LUT case on ``n`` rows of codes with twins (3,000 distinct
+    rows), twice identical to the plain version: ``masked`` a mask that
+    empties rows n/5 to n/2, and num_valid ending 7,001 rows early (``cut``,
+    default ``masked``, sets the latter apart). ``extreme``: every LUT
+    entry ±127 (dsub = 1, codebook entries ±1, queries of ones), rows 0-49
+    all code 0 (+127 in every subspace) and 50-99 all code 1 (-127), so
+    |sum| = 127 m."""
     from metrovector_tpu_torch import DistanceMetric
     from metrovector_tpu_torch.index.pq import pack_codes4
     from metrovector_tpu_torch.ops.adc_kernel import (
         fused_adc_topk, fused_adc_topk_reference,
     )
 
+    dsub = 1 if extreme else 4
+    base = rng.integers(0, ksub, (3000, m)).astype(np.uint8)
+    codes = base[rng.integers(0, 3000, n)]
+    if extreme:
+        books = np.where(rng.random((m, ksub, 1)) < 0.5, -1.0, 1.0).astype(np.float32)
+        books[:, 0], books[:, 1] = 1.0, -1.0
+        codes[:50], codes[50:100] = 0, 1
+        q = np.ones((nq, m), np.float32)
+    else:
+        books = rng.standard_normal((m, ksub, dsub)).astype(np.float32)
+        q = rng.standard_normal((nq, m * dsub)).astype(np.float32)
+    if metric == DistanceMetric.COSINE:
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], axis=1)
+    rn = torch.from_numpy((recon.astype(np.float64) ** 2).sum(1).astype(np.float32)).to(dev)
+    stored = torch.from_numpy(pack_codes4(codes) if packed else codes).to(dev)
+    mask = None
+    if masked:
+        keep = np.ones(n, np.float32)
+        keep[n // 5: n // 2] = 0
+        mask = torch.from_numpy(keep).to(dev)
+    num_valid = n - 7_001 if (masked if cut is None else cut) else n
+    args = (torch.from_numpy(q).to(dev), stored, torch.from_numpy(books).to(dev), rn,
+            num_valid, k, metric, mask, False, packed)
+    _twice_identical(
+        torch, lambda *a: fused_adc_topk(*a, int8_lut=True), args,
+        fused_adc_topk_reference(*args, int8_lut=True),
+        f"fused_adc_topk[int8_lut] m={m} ksub={ksub} packed={packed} N={n} Q={nq} "
+        f"k={k} {metric.name} num_valid={num_valid} mask={bool(masked)} extreme={extreme}")
+
+
+def _lut8_cases(torch, dev, rng) -> tuple[int, int]:
+    """(a) The int8 LUT on both routes, each case twice identical to the
+    plain version: on 200,003 rows of codes with twins across splits, pq4
+    (m=32, ksub=16, packed: the tensor-core product) and pq8 (m=16,
+    ksub=256: the lookup scan), N(0, 1) codebooks and queries, the three
+    metrics, k in {1, 10, 400}, batches rotating through 1, 33 and 255,
+    num_valid and the mask as in _int_cases; then on 100,037 rows (ending
+    inside a 64-row stage) unpacked ksub=16 codes, ksub=8 (LUT columns
+    padded to 16), odd m = 23 and deep100m-pq4's m = 24, the query tiles'
+    edges (batches 128, 129 and 256), k = 1024 and, with the product's
+    lists in device memory and the merge tree, k = 1025, packed and not;
+    on 20,003 rows k = N, packed and not; the largest pq4 LUTs the product
+    holds (m = 270 packed, 199 not) and the smallest it routes to the
+    lookup scan (m = 288 packed, 200 not); and LUTs of ±127 alone (|sum| =
+    127 m) at m=32 ksub=16, at the lookup lanes' bound (m = 256 and 257 at
+    ksub = 256) and across a widening of packed lanes (m = 288 and 513 at
+    ksub = 16, the lookup route). Returns (cases, of them the tensor-core
+    product's launches / 2)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk, int8_lut_route
+
+    l2, ip, cos = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
+                   DistanceMetric.COSINE)
     n, cases = SPLIT_N, 0
-    mask = np.ones(n, np.float32)
-    mask[40_000:120_000] = 0
-    mask_d = torch.from_numpy(mask).to(dev)
+    mma0 = fused_adc_topk.int8_mma_launches
     for m, ksub, packed in ((32, 16, True), (16, 256, False)):
-        base = rng.integers(0, ksub, (3000, m)).astype(np.uint8)
-        codes = base[rng.integers(0, 3000, n)]
-        books = rng.standard_normal((m, ksub, 4)).astype(np.float32)
-        recon = np.concatenate([books[j][codes[:, j]] for j in range(m)], axis=1)
-        rn = torch.from_numpy((recon.astype(np.float64) ** 2).sum(1).astype(np.float32)).to(dev)
-        stored = torch.from_numpy(pack_codes4(codes) if packed else codes).to(dev)
-        bd = torch.from_numpy(books).to(dev)
-        q_all = rng.standard_normal((255, m * 4)).astype(np.float32)
-        for metric in (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT,
-                       DistanceMetric.COSINE):
-            qm = q_all
-            if metric == DistanceMetric.COSINE:
-                qm = q_all / np.linalg.norm(q_all, axis=1, keepdims=True)
+        for metric in (l2, ip, cos):
             for k in (1, 10, 400):
                 nq = (1, 33, 255)[cases % 3]
                 variant = (cases + cases // 4) % 4
-                num_valid = n - 70_001 if variant & 1 else n
-                args = (torch.from_numpy(np.ascontiguousarray(qm[:nq])).to(dev),
-                        stored, bd, rn, num_valid, k, metric,
-                        mask_d if variant & 2 else None, False, packed)
-                _twice_identical(
-                    torch, lambda *a: fused_adc_topk(*a, int8_lut=True), args,
-                    fused_adc_topk_reference(*args, int8_lut=True),
-                    f"fused_adc_topk[int8_lut] m={m} ksub={ksub} Q={nq} k={k} "
-                    f"{metric.name} num_valid={num_valid} mask={bool(variant & 2)}")
+                _lut8_case(torch, dev, rng, m, ksub, packed, n, nq, k, metric, variant & 2,
+                           cut=variant & 1)
                 cases += 1
-    return cases
+    e, s = TILE_EDGE_N, 20_003
+    edges = [  # (m, ksub, packed, n, nq, k, metric, masked)
+        (32, 16, False, e, 128, 400, l2, True), (32, 16, False, e, 33, 10, cos, False),
+        (16, 8, True, e, 129, 10, l2, False), (23, 8, False, e, 256, 400, ip, True),
+        (23, 16, True, e, 129, 400, l2, True), (23, 16, False, e, 64, 100, cos, False),
+        (24, 16, True, e, 256, 400, l2, False), (24, 16, True, e, 128, 10, ip, True),
+        (32, 16, True, e, 129, 400, cos, True), (32, 16, True, e, 256, 1024, l2, True),
+        (32, 16, True, e, 256, 10, ip, False), (16, 256, False, e, 256, 1024, l2, True),
+        (16, 256, False, e, 129, 400, ip, False), (12, 256, False, e, 128, 10, cos, True),
+        (32, 16, True, e, 33, 1025, l2, True), (32, 16, False, e, 129, 1025, ip, False),
+        (32, 16, True, s, 9, s, l2, False), (24, 16, False, s, 37, s, cos, True),
+        (270, 16, True, s, 65, 400, l2, True), (199, 16, False, s, 33, 10, ip, False),
+        (288, 16, True, s, 65, 400, l2, True), (200, 16, False, s, 33, 10, ip, False),
+    ]
+    for m, ksub, packed, rows, nq, k, metric, masked in edges:
+        cols = (m + 1) // 2 if packed else m
+        want = "lookup" if ksub > 16 or m in (288, 200) else "mma"
+        if int8_lut_route(ksub, m, cols) != want:
+            raise AssertionError(f"int8 LUT m={m} ksub={ksub} packed={packed} does not "
+                                 f"route to {want}")
+        _lut8_case(torch, dev, rng, m, ksub, packed, rows, nq, k, metric, masked)
+        cases += 1
+    for m, ksub, packed in ((32, 16, False), (256, 256, False), (257, 256, False),
+                            (288, 16, True), (513, 16, True)):
+        for metric in (ip, l2):
+            _lut8_case(torch, dev, rng, m, ksub, packed, 20_003, 9, 10, metric, False,
+                       extreme=True)
+            cases += 1
+    return cases, (fused_adc_topk.int8_mma_launches - mma0) // 2
 
 
 def _p50(torch, search, hosts, dev, **kw) -> float:
@@ -3490,72 +3672,20 @@ def _sift1m_u8(torch, dev, card, tmpdir) -> dict:
                        "bound": abnd, "p50": p50_c, "err": aff_err, "recall": rec_c}}
 
 
-def _pq4_int8_lut(torch, dev, card, pq4) -> dict:
-    """(d) sift1m-pq4 with the int8 LUT on phase 8's index (module
-    docstring). Returns the kernels-line figures of fused_adc_topk[int8_lut]."""
-    from metrovector_tpu_torch import DistanceMetric
-    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk, fused_adc_topk_reference
-    from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
-    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
-
-    l2 = DistanceMetric.L2
-    idx, x64, norms64, queries = pq4
-    rng = np.random.default_rng(SEED + 14)
-    for fn in (fused_adc_topk, rescore_candidates, fused_topk):
-        fn.launches = 0
-    fused_adc_topk.int8_launches = 0
-    res = {bsz: idx.search(q, k=K_PQ, rerank=RERANK, int8_lut=True)
-           for bsz, q in queries.items()}
-    launches = fused_adc_topk.int8_launches
-    if (launches, rescore_candidates.launches, fused_topk.launches) != (
-            len(res), len(res), 0):
-        raise AssertionError(f"pq4 int8 LUT: {len(res)} searches launched the int8 "
-                             f"LUT scan {launches} times")
-    recall = {}
-    for bsz, q in queries.items():
-        recall[bsz] = _recall_on_card(torch, x64, norms64, q, res[bsz].indices, K_PQ)
-        if recall[bsz] < 0.99:
-            raise AssertionError(f"pq4 int8 LUT recall@10 {recall[bsz]} at batch {bsz}")
-    say(f"  (d) sift1m-pq4 search(k=10, rerank=400, int8_lut=True): recall@10 "
-        + ", ".join(f"batch {b} {r:.4f}" for b, r in recall.items())
-        + f" against the float64 oracle on the card; int8 LUT launches {launches}")
-    out = {}
-    m, ksub = idx.m, idx.ksub
-    n, cols = idx.codes.shape
-    for bsz, q in queries.items():
-        qs = [torch.from_numpy(q).to(dev)]
-        qs += [torch.from_numpy(np.clip(q + rng.integers(-3, 4, q.shape), 0, 255)
-                                .astype(np.float32)).to(dev) for _ in range(9)]
-        args = (idx.codes, idx._books, idx.recon_norms, idx.num_vectors, RERANK, l2,
-                idx.valid, False, True)
-
-        def kern(qd):
-            return fused_adc_topk(qd, *args, int8_lut=True)
-
-        def plain(qd):
-            return fused_adc_topk_reference(qd, *args, int8_lut=True)
-
-        def bf16(qd):
-            return fused_adc_topk(qd, *args)
-
-        _identical(torch, kern(qs[0]), plain(qs[0]), f"pq4 int8 LUT batch {bsz}")
-        kms, runs, pms = _kernel_times(torch, dev, kern, plain, qs, qs[:3])
-        from metrovector_tpu_torch.utils.timing import cuda_ms
-
-        bf16(qs[0])
-        bms = cuda_ms(bf16, qs, dev)
-        hq = [t.cpu().numpy() for t in qs]
-        p50 = _p50(torch, idx.search, hq, dev, k=K_PQ, rerank=RERANK, int8_lut=True)
-        p50_bf = _p50(torch, idx.search, hq, dev, k=K_PQ, rerank=RERANK, exact_lut=False)
-        bnd = bound(2 * bsz * n * m, n * cols + 4 * n + bsz * m * ksub + 4 * bsz
-                    + 8 * bsz * RERANK)
-        out[bsz] = {"ms": kms, "plain_ms": pms, "bound": bnd, "p50": p50}
-        say(f"  (f) sift1m-pq4 batch={bsz}: fused_adc_topk[int8_lut] k={RERANK} "
-            f"{kms:.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}; bound {bnd[0]:.4f} ms by "
-            f"{bnd[1]}, {bnd[0] / kms:.1%}) | plain {pms:.4f} | bf16 LUT {bms:.4f} | "
-            f"search() p50 int8 LUT {p50:.4f} ms ({bsz / p50 * 1e3:.0f} QPS), bf16 "
-            f"LUT {p50_bf:.4f} | {card}")
-    return {"launches": launches, "cell": out, "recall": recall}
+def lut8_bounds(nq: int, n: int, m: int, ksub: int, cols: int, k: int) -> dict:
+    """Both bounds of an int8-LUT scan over ``n`` rows of ``cols`` code
+    bytes, each (bound_ms, bound_by) with the bytes of the codes, norms, LUT
+    and scales read once and the top k written once: the lookups' adds on
+    the CUDA cores (2 Q N m at 67 T/s, an add counting two, as K2's f32
+    bound) and the one-hot product on the tensor cores (2 Q N K at the
+    dense int8 rate, K = 16 m at ksub <= 16, m ksub above). The share is
+    taken from the lesser."""
+    nbytes = n * cols + 4 * n + nq * m * ksub + 4 * nq + 8 * nq * k
+    t_bytes = nbytes / HBM_BYTES * 1e3
+    cores = bound(2 * nq * n * m, nbytes)
+    t_mma = 2 * nq * n * m * max(ksub, 16) / INT8_OPS * 1e3
+    tensor = (t_mma, "operations") if t_mma >= t_bytes else (t_bytes, "bytes")
+    return {"cuda_cores": cores, "tensor_cores": tensor, "least": min(cores, tensor)}
 
 
 def _bf16_storage(torch, dev, card, sift_path, tmpdir) -> dict:
@@ -3625,18 +3755,19 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
     int_cases = _int_cases(torch, dev, rng)
     mirrors = _scan_smem_mirrors(torch)
     aff_cases, aff_err = _affine_cases(torch, dev, rng)
-    lut_cases = _lut8_cases(torch, dev, rng)
+    lut_cases, mma_cases = _lut8_cases(torch, dev, rng)
     say(f"  (a) kernels vs plain: fused_topk[int8] {int_cases} cases identical twice "
         f"(tile edges: batches {TILE_EDGE_BATCHES}, {TILE_EDGE_N} rows; scan shared "
         f"memory as planned at {mirrors} shapes); "
         f"fused_topk[affine] {aff_cases} cases within the f32 band (max |score diff| "
-        f"{aff_err:.3g}); fused_adc_topk[int8_lut] {lut_cases} cases identical twice "
+        f"{aff_err:.3g}); fused_adc_topk int8 LUT {lut_cases} cases identical twice "
+        f"({mma_cases} by the tensor-core product, {lut_cases - mma_cases} by lookups) "
         f"({time.perf_counter() - t0:.1f} s)")
     tmp = tempfile.TemporaryDirectory()
     try:
         deep = _deep10m(torch, dev, card, tmp.name)
         u8 = _sift1m_u8(torch, dev, card, tmp.name)
-        lut = _pq4_int8_lut(torch, dev, card, pq4)
+        lut = _int8_lut_searches(torch, dev, card, "(d) sift1m-pq4", "mma", *pq4)
         _bf16_storage(torch, dev, card, sift_path, tmp.name)
     finally:
         tmp.cleanup()
@@ -3644,7 +3775,7 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
         f"sift1m-u8 identical to plain, pq4 int8 LUT recall@10 "
         f"{min(lut['recall'].values()):.4f}, bf16 identical to f32; launches "
         f"fused_topk[int8] {deep['launches'] + u8['int8']['launches']}, "
-        f"fused_topk[affine] {u8['affine']['launches']}, fused_adc_topk[int8_lut] "
+        f"fused_topk[affine] {u8['affine']['launches']}, fused_adc_topk[int8_mma] "
         f"{lut['launches']}; {time.perf_counter() - t_phase:.1f} s)")
     top = deep["cell"][DEEP_BATCH]
     lut_top = lut["cell"][256]
@@ -3655,7 +3786,7 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
                    "max_err": max(aff_err, u8["affine"]["err"]),
                    "ms": u8["affine"]["ms"], "plain_ms": u8["affine"]["plain_ms"],
                    "bound": u8["affine"]["bound"]},
-        "int8_lut": {"launches": lut["launches"], "max_err": 0.0, "ms": lut_top["ms"],
+        "int8_mma": {"launches": lut["launches"], "max_err": 0.0, "ms": lut_top["ms"],
                      "plain_ms": lut_top["plain_ms"], "bound": lut_top["bound"]},
     }
 
@@ -3678,7 +3809,8 @@ def lookup_figures(torch, lookups: int, card: str) -> None:
 def time_parent(parent: str, files: str, card: str) -> None:
     """K1-K4 of another checkout (the parent commit, unpacked by the caller)
     at the kernels-line points, and its search() p50 on this run's dense
-    and PQ files (in ``files``), each in a process of its own
+    and PQ files (in ``files``; on the PQ files also with the int8 LUT, and
+    K2's own time with the int8 and the bf16 LUT), each in a process of its own
     (tools/scan_kernel_timing.py), beside this one's in the same process
     layout: parent, this tree, this tree, parent with the kernels, then
     three more pairs of search() alone in alternating order; the p50s'
@@ -3719,7 +3851,8 @@ def time_parent(parent: str, files: str, card: str) -> None:
                 f"{p} {v:.4f} ms" for p, v in got["e2e"].items()) + f" | {card}")
     for point in p50[here]:
         a, b = (np.array(p50[r][point]) for r in (parent, here))
-        say(f"  search() p50 {point}, {len(a)} processes each: parent median "
+        what = "K2 k=400 by CUDA events" if "K2" in point else "search() p50"
+        say(f"  {what} {point}, {len(a)} processes each: parent median "
             f"{np.median(a):.4f} ms ({a.min():.4f}-{a.max():.4f}), this tree "
             f"{np.median(b):.4f} ({b.min():.4f}-{b.max():.4f}) | {card}")
     say(f"  timing both checkouts took {time.perf_counter() - t0:.1f} s")
@@ -3761,6 +3894,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         quant = phase_quantized(torch, dev, card, sift_path, pq4)
         del pq4
+        lookup = pq_times["int8_lookup"]
+        quant["int8_lut"] = {"launches": lookup["launches"], "max_err": 0.0,
+                             **{k: lookup["cell"][256][k] for k in ("ms", "plain_ms", "bound")}}
     finally:
         tmp.cleanup()
 
@@ -3871,6 +4007,8 @@ def main() -> int:
         for name, key, source, replaces in (
             ("fused_topk[int8]", "int8", INT_SOURCE, KERNEL_REPLACES),
             ("fused_topk[affine]", "affine", KERNEL_SOURCE, KERNEL_REPLACES),
+            ("fused_adc_topk[int8_mma]", "int8_mma", CSRC + "adc_int8_mma_kernel.cu",
+             "metrovector_tpu/ops/adc_kernel.py:248"),
             ("fused_adc_topk[int8_lut]", "int8_lut", CSRC + "adc_int8_kernel.cu",
              "metrovector_tpu/ops/adc_kernel.py:248"))
     ]}))

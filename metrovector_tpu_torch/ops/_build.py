@@ -163,6 +163,25 @@ def load() -> ctypes.CDLL:
             lib.mvt_adc_topk_occupancy.argtypes = [i32, i32, i32, i32, i32,
                                                    i32, p]
             lib.mvt_adc_topk_occupancy.restype = i32
+            lib.mvt_adc_int8_mma.argtypes = [
+                p, p, p, i32, i32,        # lut, lut_scale, codes, cols, packed4
+                p, p,                     # norms, mask
+                i64, i64, i32, i64,       # nq, n, m, num_valid
+                i32, i32,                 # k, metric
+                i32, i32, i32,            # nw, stages, big
+                i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
+                p, p, p,                  # part_s/i, slots
+                p, p, p, p,               # tmp_s/i, out_s/i
+                p,                        # stream
+            ]
+            lib.mvt_adc_int8_mma.restype = i32
+            # nw, packed4, m, cols, stages, k_smem, big, out
+            lib.mvt_adc_int8_mma_occupancy.argtypes = [i32, i32, i32, i32, i32, i32,
+                                                       i32, p]
+            lib.mvt_adc_int8_mma_occupancy.restype = i32
+            # nw, m, cols, stages, k_smem
+            lib.mvt_adc_int8_mma_smem.argtypes = [i32, i32, i32, i32, i32]
+            lib.mvt_adc_int8_mma_smem.restype = ctypes.c_longlong
             lib.mvt_adc_bucket_topk.argtypes = [
                 p, i32, p, i32, i32,      # lut, lut_dtype, codes, cols, packed4
                 p, p, p, i64, p, i32,     # norms, ids, starts, stride, counts, nb

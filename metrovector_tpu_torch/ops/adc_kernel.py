@@ -1,6 +1,8 @@
 """PQ asymmetric-distance scan + top-k: the wrapper of the Hopper kernels
 ``csrc/adc_scan.cuh`` (built as ``csrc/adc_kernel.cu``, its int8-LUT
-instances as ``csrc/adc_int8_kernel.cu``) and, for the IVF
+lookup instances as ``csrc/adc_int8_kernel.cu``), for an int8 LUT at
+ksub ≤ 16 ``csrc/adc_int8_mma_kernel.cu`` (the tensor-core product,
+:func:`int8_lut_route`) and, for the IVF
 bucket bias, ``csrc/adc_bucket_kernel.cu``, and their plain PyTorch
 version.
 
@@ -11,7 +13,8 @@ tensor goes to the kernel or the call raises; a CPU tensor goes to
 :func:`fused_adc_topk_reference`. ``fused_adc_topk.launches`` counts kernel
 launches (scan and merge of one call count once), and
 ``fused_adc_topk.group_launches`` and ``int8_launches`` those of them with
-a bucket bias and with an int8 LUT.
+a bucket bias and with an int8 LUT, ``int8_mma_launches`` those of the
+int8 LUT's tensor-core product.
 
 The per-query table ``LUT[q, j·ksub + c] = q_j · C[j, c]`` is a small
 einsum outside the kernel, as in the JAX package, in full f32 and then
@@ -19,7 +22,10 @@ rounded to bf16 unless ``exact_lut``. Both versions add the m looked-up
 entries of a row in ascending j in f32, so they agree bit for bit. The
 int8 LUT is the f32 table quantized per query as the reference does
 (:func:`quantize_lut`); both versions add its entries exactly in integers
-and multiply the sum, rounded to f32, by the query's scale.
+(on CUDA, routed by :func:`int8_lut_route`: at ksub ≤ 16 as the int8
+tensor-core product of the rows' one-hot codes and the LUT, above, and
+for a pq4 LUT too large for the product, as lookups adding two queries an
+integer add) and multiply the sum, rounded to f32, by the query's scale.
 
 The IVF bucket bias (``group_bias [Q, G]`` f32 with ``group_ids [N]``
 int32, the form IVF-PQ's scan calls): a row of bucket ``g = group_ids[row]``
@@ -54,7 +60,11 @@ from ..format.constants import DistanceMetric
 
 from . import select
 from .distances import carry_topk, empty_topk, finish_topk, full_f32_matmul, mask_scores
-from .topk_kernel import SMEM_LIMIT
+from .topk_kernel import (
+    MIN_STAGES, SCAN_ROWS, SMEM_LIMIT, ScanShape, _scan_smem, _tile_nw,
+)
+from .topk_kernel import _occupancy as _scan_occupancy
+from .topk_kernel import _plan as _scan_plan
 
 SMEM_K = 1024  # lists in shared memory up to this k
 # Shape constants of csrc/adc_scan.cuh
@@ -74,6 +84,15 @@ _METRICS = (
 # LutType of csrc/adc_scan.cuh
 LUT_F32, LUT_BF16, LUT_INT8 = 0, 1, 2
 _LUT_CODES = {torch.float32: LUT_F32, torch.bfloat16: LUT_BF16, torch.int8: LUT_INT8}
+# Subspaces the lookup scan's 16-bit lanes of biased int8 entries add
+# before they are widened (csrc/adc_scan.cuh's kLaneSpan: 255·256 < 2^16).
+LANE_SPAN = 256
+# Shape constants of csrc/adc_int8_mma_kernel.cu: the tile's queries per
+# consumer warpgroup (the wgmma N), the bytes of K a chunk (8 subspaces of
+# 16 columns), the most stages of the ring.
+INT8_MMA_NW, INT8_MMA_CHUNK, INT8_MMA_MAX_STAGES = (16, 32, 64, 128), 128, 32
+# ksub at or below which the int8 LUT is summed on the tensor cores.
+INT8_MMA_KSUB = 16
 
 
 def adc_lut(queries: torch.Tensor, codebooks: torch.Tensor,
@@ -256,6 +275,101 @@ def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
     return tuple(out)
 
 
+def int8_lut_route(ksub: int, m: int, cols: int) -> str:
+    """The kernel that sums an int8 LUT of m subspaces over codes of
+    ``cols`` bytes a row on CUDA: ``"mma"`` for ksub ≤ :data:`INT8_MMA_KSUB`
+    (pq4, packed or not) whose resident LUT fits the product's smallest
+    tile (:func:`int8_mma_fits`), the exact int8 tensor-core product of the
+    rows' one-hot codes (K = 16 m) and the LUT
+    (``csrc/adc_int8_mma_kernel.cu``); ``"lookup"`` otherwise:
+    ``csrc/adc_scan.cuh``'s scan, adding two queries' biased entries an
+    integer add, for ksub > 16 (pq8, where a one-hot product would do
+    ksub/16 times the lookups' work in zeros) and for a pq4 LUT too large
+    for the product (m above 270 packed, 199 unpacked), which the lookup
+    scan holds a query at a time. Both give the plain version's sums
+    exactly."""
+    return "mma" if ksub <= INT8_MMA_KSUB and int8_mma_fits(m, cols) else "lookup"
+
+
+def _mma_row_blocks(nw: int) -> int:
+    """``adc_int8_mma_kernel.cu::row_blocks``: 64-row blocks a tile, as
+    many as keep a warpgroup's accumulators at 64 registers, at most 4."""
+    return 1 if nw >= 128 else (2 if nw >= 64 else 4)
+
+
+def _mma_stage_bytes(cols: int, nw: int) -> int:
+    """``adc_int8_mma_kernel.cu::stage_bytes``: a tile's rows' codes
+    (rounded up to 16 bytes) and 32 bytes of slack, their norms and mask
+    values, rounded up to 1024."""
+    rows = SCAN_ROWS * _mma_row_blocks(nw)
+    code = -(-rows * cols // 16) * 16 + 32
+    return -(-(code + 8 * rows) // 1024) * 1024
+
+
+def _mma_chunks(m: int) -> int:
+    """``adc_int8_mma_kernel.cu::lut_chunks``: 128-byte chunks of the
+    resident LUT, a whole number of pairs (16 subspaces)."""
+    return -(-m // 16) * 2
+
+
+def _mma_q_bytes(qb: int, m: int) -> int:
+    """``adc_int8_mma_kernel.cu::q_bytes``: the resident LUT of ``qb``
+    queries, :func:`_mma_chunks` chunks of 128 bytes each, and their
+    scales."""
+    return _mma_chunks(m) * qb * INT8_MMA_CHUNK + 4 * qb
+
+
+@functools.lru_cache(maxsize=1024)
+def _mma_plan(nq: int, m: int, cols: int, k: int) -> ScanShape | None:
+    """:func:`int8_mma_shape`, or None where not even 32 queries' LUT
+    fits."""
+    top = INT8_MMA_NW.index(_tile_nw(nq, INT8_MMA_NW))
+    for big in ([False] if k <= SMEM_K else []) + [True]:
+        k_smem = 0 if big else k
+        for nw in INT8_MMA_NW[top::-1]:
+            stage = _mma_stage_bytes(cols, nw)
+            q_bytes = _mma_q_bytes(2 * nw, m)
+            fixed = _scan_smem(0, 0, q_bytes, nw, k_smem)
+            stages = min(INT8_MMA_MAX_STAGES, (SMEM_LIMIT - fixed) // (stage + 16))
+            if stages >= MIN_STAGES:
+                return ScanShape(nw, stages, True, big,
+                                 _scan_smem(stage, stages, q_bytes, nw, k_smem))
+    return None
+
+
+def int8_mma_fits(m: int, cols: int) -> bool:
+    """Whether the product's smallest tile (32 queries, the lists in device
+    memory) fits shared memory for m subspaces over ``cols`` bytes a row:
+    then :func:`int8_mma_shape` has a plan at every batch and k."""
+    return _mma_plan(1, m, cols, SMEM_K + 1) is not None
+
+
+def int8_mma_shape(nq: int, m: int, cols: int, k: int) -> ScanShape:
+    """The plan of the tensor-core int8-LUT scan for a batch of ``nq``, m
+    subspaces stored ``cols`` bytes a row, at ``k``: ``nw`` queries a
+    consumer warpgroup (the wgmma N; a block takes 2 nw; a tile of rows is
+    :func:`_mma_row_blocks` blocks of 64), the largest tile
+    up to the one that holds the batch whose resident LUT and scales,
+    selection state and a ring of at least :data:`.topk_kernel.MIN_STAGES`
+    stages fit in :data:`SMEM_LIMIT`: first with the lists in shared memory
+    (``k`` ≤ :data:`SMEM_K`), else in device memory (``big``);
+    then as many stages as fit up to :data:`INT8_MMA_MAX_STAGES`. ``smem``
+    is the block's dynamic shared memory (``wgmma_scan.cuh::scan_smem``).
+    At m = 32 and k = 400 that is 32 queries a block with the lists in
+    shared memory; at k = 10, 128 queries. Raises ValueError where not even
+    32 queries' LUT fits (:func:`int8_lut_route` sends those shapes to the
+    lookup scan)."""
+    shape = _mma_plan(nq, m, cols, k)
+    if shape is None:
+        raise ValueError(
+            f"m={m} with k={k}: the int8 LUT of {2 * INT8_MMA_NW[0]} queries "
+            f"({_mma_q_bytes(2 * INT8_MMA_NW[0], m)} bytes) and a ring of "
+            f"{MIN_STAGES} stages do not fit the {SMEM_LIMIT} bytes of shared "
+            "memory a block may use"
+        )
+    return shape
+
+
 def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
                   group_ids=None, buckets=None) -> None:
     if codebooks.dim() != 3:
@@ -335,8 +449,11 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
     gw = 0  # the bucket kernel's buckets: the layout's, or G and the rows in none
     if group_bias is not None:
         gw = _group_words(group_bias.shape[1] + (buckets is None))
-    need = _shared_bytes(1, m * ksub, k, exact_lut, lists_in_smem=False, gw=gw,
-                         int8_lut=int8_lut)
+    if int8_lut and int8_lut_route(ksub, m, codes.shape[1]) == "mma":
+        need = 0  # the route's plan fits at every batch and k
+    else:
+        need = _shared_bytes(1, m * ksub, k, exact_lut, lists_in_smem=False, gw=gw,
+                             int8_lut=int8_lut)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"m*ksub={m * ksub} with k={k}"
@@ -488,7 +605,12 @@ def fused_adc_topk(
         lut = adc_lut(queries, codebooks, exact_lut)
         lut_code = LUT_F32 if exact_lut else LUT_BF16
     with torch.cuda.device(dev):
-        if group_bias is None:
+        if int8_lut and int8_lut_route(ksub, m, codes.shape[1]) == "mma":
+            _launch_int8_mma(lib, lut, sq, codes, recon_norms, valid_mask, num_valid, k,
+                             metric, packed4, m, ksub, out_s, out_i)
+            fused_adc_topk.int8_launches += 1
+            fused_adc_topk.int8_mma_launches += 1
+        elif group_bias is None:
             occupancy = dict(_occupancy(dev.index, lut_code, int(packed4), m, ksub,
                                         min(k, SMEM_K + 1), True))
             qt = _query_tile(nq, occupancy)
@@ -575,6 +697,49 @@ def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
     raise_for(lib, err, "fused_adc_topk")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where its base address is a multiple of 16 bytes (TMA's bulk
+    copy reads it), else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_int8_mma(lib, lut8, sq, codes, recon_norms, valid_mask, num_valid, k,
+                     metric, packed4, m, ksub, out_s, out_i, splits=None) -> None:
+    """One launch of the tensor-core int8-LUT scan and the merge for checked
+    inputs: ``lut8 [Q, m·ksub]`` int8 with its scales ``sq [Q]``, each
+    subspace widened to 16 columns with zeros where ksub < 16, the shape of
+    :func:`int8_mma_shape`, one wave of scan blocks (``splits`` overrides
+    it, as :func:`.topk_kernel._plan`)."""
+    from ._build import raise_for
+
+    nq = lut8.shape[0]
+    n, cols = codes.shape
+    dev = lut8.device
+    shape = int8_mma_shape(nq, m, cols, k)
+    if ksub < INT8_MMA_KSUB:
+        wide = torch.zeros((nq, m, INT8_MMA_KSUB), dtype=torch.int8, device=dev)
+        wide[:, :, :ksub] = lut8.view(nq, m, ksub)
+        lut8 = wide.view(nq, m * INT8_MMA_KSUB)
+    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _scan_plan(
+        dev, nq, n, k, 0 if shape.big else k,
+        (2 * shape.nw, SCAN_ROWS * _mma_row_blocks(shape.nw)),
+        _scan_occupancy(lib, lib.mvt_adc_int8_mma_occupancy, "fused_adc_topk[int8_mma]",
+                        shape.nw, int(packed4), m, cols, shape.stages), splits)
+    codes, recon_norms = _aligned16(codes), _aligned16(recon_norms)
+    if valid_mask is not None:
+        valid_mask = _aligned16(valid_mask)
+    err = lib.mvt_adc_int8_mma(
+        lut8.data_ptr(), sq.data_ptr(), codes.data_ptr(), cols, int(packed4),
+        recon_norms.data_ptr(), None if valid_mask is None else valid_mask.data_ptr(),
+        nq, n, m, max(0, min(int(num_valid), n)), k, int(metric),
+        shape.nw, shape.stages, int(shape.big), splits, rows_per_split, length,
+        int(tree), part_s.data_ptr(), part_i.data_ptr(), slots.data_ptr(),
+        tmp_s.data_ptr(), tmp_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_for(lib, err, "fused_adc_topk[int8_mma]")
+
+
 def _launch_buckets(lib, lut, gbias, layout, valid_mask, num_valid, k, metric,
                     packed4, m, ksub, qt, lists_in_smem, blocks_per_sm, out_s,
                     out_i, splits=None, tree=None) -> None:
@@ -614,3 +779,4 @@ def _launch_buckets(lib, lut, gbias, layout, valid_mask, num_valid, k, metric,
 fused_adc_topk.launches = 0
 fused_adc_topk.group_launches = 0
 fused_adc_topk.int8_launches = 0
+fused_adc_topk.int8_mma_launches = 0

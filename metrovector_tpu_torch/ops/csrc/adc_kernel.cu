@@ -1,6 +1,7 @@
 // The ADC scan's C entry points (the kernel and its design: adc_scan.cuh).
 // The IVF bucket-bias variant has its own: adc_bucket_kernel.cu. The
-// int8-LUT instances are compiled in adc_int8_kernel.cu.
+// int8-LUT lookup instances are compiled in adc_int8_kernel.cu; the int8
+// LUT's tensor-core product (ksub <= 16) is adc_int8_mma_kernel.cu.
 
 #include "adc_scan.cuh"
 
@@ -16,8 +17,9 @@ const void* pick(int qt, int packed4, int lut_dtype, int global) {
 }
 
 size_t smem_for(int qt, int lut_dtype, int mk, int smem_k) {
-  return scan_smem_bytes(qt, lut_dtype == kLutF32 ? 4 : (lut_dtype == kLutI8 ? 1 : 2),
-                         mk, smem_k);
+  return scan_smem_bytes(
+      qt, lut_dtype == kLutF32 ? 4 : (lut_dtype == kLutI8 ? sizeof(Lut8Smem) : 2), mk,
+      smem_k);
 }
 
 cudaError_t prepare(const void* fn, size_t smem) {

@@ -48,9 +48,11 @@
 //   for a bf16 LUT. (16-byte entries of 4 f32 queries cost more: a
 //   quarter-warp's 8 lanes often hit two entries of one bank group.) Each
 //   query still adds its m entries in ascending j in f32, so the sums are
-//   the plain version's bit for bit. An int8 LUT holds GW = 8 queries an
-//   entry and adds in int32 (exact: |sum| <= 127 m), in a quarter of the
-//   f32 table's shared memory.
+//   the plain version's bit for bit. An int8 LUT (the lookup route: ksub >
+//   16, or a pq4 LUT too large for adc_int8_mma_kernel.cu's product) holds
+//   GW = 8 queries an entry, biased to unsigned bytes, in a quarter of the
+//   f32 table's shared memory, and adds two queries an integer add
+//   (lut8_row; exact: |sum| <= 127 m).
 // * A tile is 256 rows, one per thread. The thread reads its row's codes
 //   16 bytes at a time (one load for pq4 and pq8 rows), the first 16 bytes,
 //   the norm and the mask value a tile ahead; it decodes each code once for
@@ -141,30 +143,60 @@ __device__ __forceinline__ void lut_add(float* a, const __nv_bfloat16* p) {
   }
 }
 
-// The int8 LUT: the GW entries at p are GW bytes (GW of 8, 4, 2 or 1).
-__device__ __forceinline__ int sbyte(unsigned w, int b) {
-  return static_cast<signed char>((w >> (8 * b)) & 0xffu);
+// The int8 LUT (the lookup route of ops/adc_kernel.py::int8_lut_route:
+// ksub > 16, and a ksub <= 16 LUT whose 32 queries do not fit the
+// tensor-core product of adc_int8_mma_kernel.cu) is staged with each entry
+// biased, e + 128 in [1, 255], and a row's sums add two queries at once in
+// the 16-bit lanes of a 32-bit word: over 256 subspaces a lane reaches at
+// most 255 * 256 < 2^16, so nothing carries into the other lane, and every
+// 256 subspaces the lanes are widened into int32 sums. Minus 128 m, they
+// are the plain version's sums exactly. The entries stay 1 byte, 8 queries
+// an 8-byte load widened with prmt. Entries pre-widened to 16 bits (4
+// queries a load, no prmt) timed within 1-7 % of it at sift1m-pq on an
+// H100 (PERF.md), but double the LUT's shared memory: a query's LUT of m
+// ksub entries must fit one block, and every m that ran with 1-byte
+// entries still does.
+using Lut8Smem = uint8_t;
+constexpr int kLaneSpan = 256;  // subspaces a lane may add before widening
+
+// The LUT type as it sits in shared memory.
+template <typename LT>
+struct SmemOf {
+  using type = LT;
+};
+template <>
+struct SmemOf<int8_t> {
+  using type = Lut8Smem;
+};
+
+template <typename ST, typename LT>
+__device__ __forceinline__ ST to_smem(LT v) {
+  if constexpr (std::is_same_v<LT, int8_t>) {
+    return static_cast<ST>(static_cast<int>(v) + 128);
+  } else {
+    return v;
+  }
 }
 
+// Add the GW biased entries at p (one code, GW consecutive queries) to the
+// lanes l[0 .. (GW + 1) / 2): queries 2 i and 2 i + 1 in the low and high
+// 16 bits of l[i].
 template <int GW>
-__device__ __forceinline__ void lut_add(int* a, const int8_t* p) {
+__device__ __forceinline__ void lane_add(unsigned* l, const uint8_t* p) {
   if constexpr (GW == 8) {
     const uint2 u = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      a[b] += sbyte(u.x, b);
-      a[4 + b] += sbyte(u.y, b);
-    }
+    l[0] += __byte_perm(u.x, 0, 0x4140);
+    l[1] += __byte_perm(u.x, 0, 0x4342);
+    l[2] += __byte_perm(u.y, 0, 0x4140);
+    l[3] += __byte_perm(u.y, 0, 0x4342);
   } else if constexpr (GW == 4) {
     const unsigned u = *reinterpret_cast<const unsigned*>(p);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) a[b] += sbyte(u, b);
+    l[0] += __byte_perm(u, 0, 0x4140);
+    l[1] += __byte_perm(u, 0, 0x4342);
   } else if constexpr (GW == 2) {
-    const unsigned u = *reinterpret_cast<const unsigned short*>(p);
-    a[0] += sbyte(u, 0);
-    a[1] += sbyte(u, 1);
+    l[0] += __byte_perm(*reinterpret_cast<const unsigned short*>(p), 0, 0x4140);
   } else {
-    a[0] += *p;
+    l[0] += *p;
   }
 }
 
@@ -217,15 +249,60 @@ __host__ __device__ constexpr size_t scan_smem_bytes(int qt, int lsz, int mk,
 // Stage the LUT of queries q0 .. q0 + QT - 1 in shared memory,
 // query-interleaved: ls[G][mk][GW]. Queries past the batch repeat its last
 // entry (their results are never written). Called by the whole block.
-template <int QT, int GW, typename LT>
-__device__ __forceinline__ void stage_lut(LT* ls, const LT* lut, int64_t q0,
+template <int QT, int GW, typename ST, typename LT>
+__device__ __forceinline__ void stage_lut(ST* ls, const LT* lut, int64_t q0,
                                           int64_t nq, int mk) {
   const int64_t lut_end = nq * mk;
   for (int e = threadIdx.x; e < QT * mk; e += kThreads) {
     const int qq = e / mk;
     const int c = e - qq * mk;
     const int64_t g = (q0 + qq) * mk + c;
-    ls[((qq / GW) * mk + c) * GW + qq % GW] = lut[g < lut_end ? g : lut_end - 1];
+    ls[((qq / GW) * mk + c) * GW + qq % GW] =
+        to_smem<ST>(lut[g < lut_end ? g : lut_end - 1]);
+  }
+}
+
+// A row's int8-LUT sums for QT queries (codes whose first 16 bytes are
+// cw0, nibble-packed or not; the staged entries ls[G][mk][GW]): the biased
+// entries added in lanes, kLaneSpan subspaces at a time, then widened.
+template <int QT, int GW, bool PACKED>
+__device__ __forceinline__ void lut8_row(int (&acc)[QT], const Lut8Smem* ls,
+                                         const uint8_t* rc, uint4 cw0, int cols,
+                                         int vec, int m, int ksub, int mk) {
+  constexpr int G = QT / GW;
+  constexpr int kLanes = (QT + 1) / 2;
+  constexpr int kPer = (GW + 1) / 2;        // lane words of one load
+  constexpr int kPerWord = PACKED ? 8 : 4;  // codes a 32-bit word
+  constexpr int kSpanCols = kLaneSpan / (PACKED ? 2 : 1);  // bytes of kLaneSpan codes
+#pragma unroll
+  for (int qq = 0; qq < QT; ++qq) acc[qq] = -128 * m;
+  for (int b0 = 0; b0 < cols; b0 += kSpanCols) {
+    unsigned lanes[kLanes];
+#pragma unroll
+    for (int i = 0; i < kLanes; ++i) lanes[i] = 0;
+    const int b1 = min(cols, b0 + kSpanCols);
+    for (int b = b0; b < b1; b += 16) {
+      const uint4 cw = b == 0 ? cw0 : code_block(rc, b, cols, vec);
+      const uint32_t w[4] = {cw.x, cw.y, cw.z, cw.w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+#pragma unroll
+        for (int u = 0; u < kPerWord; ++u) {
+          const int j = PACKED ? 2 * b + 8 * t + u : b + 4 * t + u;
+          if (j < m) {
+            const unsigned c = PACKED ? (w[t] >> (4 * u)) & 15u : (w[t] >> (8 * u)) & 255u;
+            const Lut8Smem* e = ls + (j * ksub + c) * GW;
+#pragma unroll
+            for (int g = 0; g < G; ++g) lane_add<GW>(lanes + kPer * g, e + g * mk * GW);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kLanes; ++i) {
+      acc[2 * i] += static_cast<int>(lanes[i] & 0xffffu);
+      if (2 * i + 1 < QT) acc[2 * i + 1] += static_cast<int>(lanes[i] >> 16);
+    }
   }
 }
 
@@ -259,16 +336,17 @@ __global__ void __launch_bounds__(kThreads)
   // lut_scale ([nq] f32): the int8 LUT's per-query scale (else unused).
   // Queries per LUT load: 8-byte entries, which a half-warp's 16 lanes
   // read in one pass when their codes differ (ksub = 16).
-  constexpr int kEntry = 8 / static_cast<int>(sizeof(LT));
+  using ST = typename SmemOf<LT>::type;
+  constexpr int kEntry = 8 / static_cast<int>(sizeof(ST));
   constexpr int GW = QT < kEntry ? QT : kEntry;
   constexpr int G = QT / GW;
   constexpr int kPerWarp = (QT + kWarps - 1) / kWarps;  // queries a warp selects for
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int mk = m * ksub;
   const int ks = GLOBAL ? 0 : k;
-  LT* ls = reinterpret_cast<LT*>(smem_raw);  // [G][mk][GW] the LUT
+  ST* ls = reinterpret_cast<ST*>(smem_raw);  // [G][mk][GW] the LUT
   auto* bar = reinterpret_cast<unsigned long long*>(
-      smem_raw + lut_bytes(QT, sizeof(LT), mk));      // [QT] rank keys
+      smem_raw + lut_bytes(QT, sizeof(ST), mk));      // [QT] rank keys
   float* sc2 = reinterpret_cast<float*>(bar + QT);    // [2][QT][kRows] scores
   unsigned* cand2 = reinterpret_cast<unsigned*>(sc2 + 2 * QT * kRows);  // [2][QT][kWords]
   float* bs = reinterpret_cast<float*>(cand2 + 2 * QT * kWords);  // [QT][kBuf] buffer
@@ -358,7 +436,9 @@ __global__ void __launch_bounds__(kThreads)
     AccOf<LT> acc[QT];
 #pragma unroll
     for (int qq = 0; qq < QT; ++qq) acc[qq] = 0;
-    if (live) {
+    if constexpr (std::is_same_v<LT, int8_t>) {
+      if (live) lut8_row<QT, GW, PACKED>(acc, ls, codes + row * cols, cw0, cols, vec, m, ksub, mk);
+    } else if (live) {
       const uint8_t* rc = codes + row * cols;
       for (int b = 0; b < cols; b += 16) {
         const uint4 cw = b == 0 ? cw0 : code_block(rc, b, cols, vec);

@@ -3,15 +3,17 @@
 NVIDIA GPU, on inputs made on the card from fixed seeds.
 
     python3 tools/scan_kernel_timing.py [--root DIR] [--define FLAG ...]
-                                        [--profile] [--kernels k1,k1v,k2,k3,k4]
-                                        [--files DIR] [--out FILE]
+                                        [--profile] [--kernels k1,k1v,k2,k2i8,k3,k4]
+                                        [--files DIR] [--turns DIR] [--out FILE]
 
 ``--root`` names the checkout whose ``metrovector_tpu_torch`` is imported
 and built (default: this one), so that two commits can be timed in one
 call on one card, each in a process of its own: ``chip_smoke.py`` times the
 parent commit's tree this way beside this one's. ``--define`` appends a
 ``-D`` flag to the kernels' build (a variant builds beside the default one:
-the flags are part of the build directory's hash).
+the flags are part of the build directory's hash). ``--turns DIR`` times
+the kernels asked for in four processes, DIR's checkout, this one, this one
+and DIR's again, and prints each run's JSON and then their medians.
 
 Points (the kernels-line points of ``chip_smoke.py``):
 
@@ -31,6 +33,9 @@ Points (the kernels-line points of ``chip_smoke.py``):
   over the K1 corpus at batch 32, k=10, beside K1 ``highest`` there;
 * ``fused_adc_topk`` (K2) at k=400, L2, f32 LUT, over 1M random codes:
   4-bit m=32 (nibble-packed) and 8-bit m=16, batches 256 and 32;
+* K2's int8 LUT (``k2i8``) at the same points (random norms), beside the
+  bf16 LUT: the tensor-core product at pq4 (``int8_mma_kernel``), the
+  lookup scan at pq8 (``adc_scan_kernel``);
 * ``ell_topk`` (K4) at ``sparse1m`` shape (1M rows x 48 entries over
   30,522 terms, queries of 256 nonzeros), k=10, batches 256 and 32;
 * ``rescore_candidates`` (K3) over the K1 corpus, R=400, k=10, L2, batches
@@ -56,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -95,7 +101,7 @@ def measure(profile: bool, kernels: set[str]) -> dict:
     l2, ip = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    out = {"k1": {}, "k1v": {}, "k2": {}, "k3": {}, "k4": {}, "by_kernel": {}}
+    out = {"k1": {}, "k1v": {}, "k2": {}, "k2i8": {}, "k3": {}, "k4": {}, "by_kernel": {}}
 
     def timed(name, fn, inputs):
         fn(inputs[0])
@@ -197,6 +203,8 @@ def measure(profile: bool, kernels: set[str]) -> dict:
         del books, codes, stored, rnorms
         torch.cuda.empty_cache()
 
+    if "k2i8" in kernels:
+        k2i8_points(out, timed, torch, fused_adc_topk, dev)
     if "k1v" in kernels:
         k1v_points(out, timed, torch, fused_topk, dev, g)
     if "k4" not in kernels:
@@ -220,6 +228,30 @@ def measure(profile: bool, kernels: set[str]) -> dict:
         out["k4"][str(nq)] = ms
         print(f"  K4 ell_topk batch={nq} k=10: {ms:.4f} ms", flush=True)
     return out
+
+
+def k2i8_points(out, timed, torch, fused_adc_topk, dev) -> None:
+    """K2's int8 LUT and the bf16 LUT beside it at the K2 points, on inputs
+    of a generator of their own (the same in every checkout)."""
+    from metrovector_tpu_torch import DistanceMetric
+
+    l2 = DistanceMetric.L2
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    for name, m, ksub, packed in K2_POINTS:
+        books = torch.randn((m, ksub, D // m), generator=g, device=dev)
+        codes = torch.randint(0, ksub, (N, m), generator=g, device=dev, dtype=torch.uint8)
+        rnorms = torch.rand(N, generator=g, device=dev) * 100
+        stored = (codes[:, 0::2] | (codes[:, 1::2] << 4)).contiguous() if packed else codes
+        for nq in K2_BATCHES:
+            qs = [torch.randn((nq, D), generator=g, device=dev) for _ in range(ITERS)]
+            for lut, kw in (("int8", {"int8_lut": True}), ("bf16", {})):
+                ms = timed(f"k2i8 {name} {nq} {lut}", lambda q, kw=kw: fused_adc_topk(
+                    q, stored, books, rnorms, N, K2_K, l2, None, False, packed, **kw), qs)
+                out["k2i8"][f"{name},{nq},{lut}"] = ms
+                print(f"  K2 {lut} LUT {name} batch={nq} k={K2_K}: {ms:.4f} ms", flush=True)
+        del books, codes, stored, rnorms
+        torch.cuda.empty_cache()
 
 
 def k1v_points(out, timed, torch, fused_topk, dev, g) -> None:
@@ -282,16 +314,27 @@ def search_p50(files: str) -> dict:
     chip_smoke.py wrote to ``files``: the dense 1M x 128 space
     (``sift1m_like.mvt``, integer queries) and the PQ spaces
     (``sift1m-pq4.mvt``, ``sift1m-pq.mvt``, rerank 400, queries that are
-    noisy copies of corpus rows, rounded), queries from fixed seeds."""
+    noisy copies of corpus rows, rounded), queries from fixed seeds. On the
+    PQ spaces also the int8 LUT's search() p50 (``name,nq,int8``) and K2's
+    own time on the index, by CUDA events, at the searches' k = 400, with
+    the int8 and the bf16 LUT (``name,nq,K2 int8`` and ``K2 bf16``)."""
     import numpy as np
     import torch
 
-    from metrovector_tpu_torch import Reader, SearchEngine
+    from metrovector_tpu_torch import DistanceMetric, Reader, SearchEngine
     from metrovector_tpu_torch.index.pq import PQIndex
-    from metrovector_tpu_torch.utils.timing import sync_time
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk
+    from metrovector_tpu_torch.utils.timing import cuda_ms, sync_time
 
     dev = torch.device("cuda", 0)
     out = {}
+
+    def p50(point, search, qs):
+        search(qs[0])
+        out[point] = float(np.median([sync_time(search, q, device=dev)[0]
+                                      for q in qs])) * 1e3
+        print(f"  {point} search() p50 {out[point]:.4f} ms", flush=True)
+
     for name in ("sift1m_like", "sift1m-pq4", "sift1m-pq"):
         path = os.path.join(files, name + ".mvt")
         if not os.path.exists(path):
@@ -300,28 +343,68 @@ def search_p50(files: str) -> dict:
         rng = np.random.default_rng(11)
         if name == "sift1m_like":
             index = SearchEngine(space, device="cuda")
-            search = index.search
-            make = lambda nq: rng.integers(0, 256, (nq, D)).astype(np.float32)  # noqa: E731
-        else:
-            index = PQIndex.from_space(space, device="cuda")
-            search = lambda q: index.search(q, k=10, rerank=400)  # noqa: E731
-            x = index.db
-
-            def make(nq):
+            for nq in (32, 256):
+                p50(f"{name},{nq}", index.search,
+                    [rng.integers(0, 256, (nq, D)).astype(np.float32) for _ in range(20)])
+            del index
+            torch.cuda.empty_cache()
+            continue
+        index = PQIndex.from_space(space, device="cuda")
+        x = index.db
+        args = (index.codes, index._books, index.recon_norms, index.num_vectors, K2_K,
+                DistanceMetric.L2, index.valid, False, index.packed4)
+        for nq in (32, 256):
+            qs = []
+            for _ in range(20):
                 rows = torch.from_numpy(rng.integers(0, x.shape[0], nq)).to(dev)
                 base = x[rows].cpu().numpy()
-                return np.clip(np.rint(base + rng.normal(0, 8, base.shape)), 0,
-                               255).astype(np.float32)
-        for nq in (32, 256):
-            qs = [make(nq) for _ in range(20)]
-            search(qs[0])
-            out[f"{name},{nq}"] = float(np.median(
-                [sync_time(search, q, device=dev)[0] for q in qs])) * 1e3
-            print(f"  {name} batch={nq} search() p50 {out[f'{name},{nq}']:.4f} ms",
-                  flush=True)
-        del index, search
+                qs.append(np.clip(np.rint(base + rng.normal(0, 8, base.shape)), 0,
+                                  255).astype(np.float32))
+            p50(f"{name},{nq}", lambda q: index.search(q, k=10, rerank=K2_K), qs)
+            p50(f"{name},{nq},int8", lambda q: index.search(q, k=10, rerank=K2_K,
+                                                             int8_lut=True), qs)
+            qd = [torch.from_numpy(q).to(dev) for q in qs[:ITERS]]
+            for lut, kw in (("int8", {"int8_lut": True}), ("bf16", {})):
+                run = lambda q, kw=kw: fused_adc_topk(q, *args, **kw)  # noqa: E731
+                run(qd[0])
+                out[f"{name},{nq},K2 {lut}"] = cuda_ms(run, qd, dev)
+                print(f"  {name} batch={nq} K2 {lut} LUT k={K2_K}: "
+                      f"{out[f'{name},{nq},K2 {lut}']:.4f} ms", flush=True)
+        del index
         torch.cuda.empty_cache()
     return out
+
+
+def turns(args) -> int:
+    """The kernels of ``args.turns``' checkout and this one in turns (other,
+    this, this, other), each in a process of its own; prints each run's
+    JSON and, last, the medians by checkout."""
+    import statistics
+
+    other = os.path.abspath(args.turns)
+    runs = {other: [], ROOT: []}
+    for root in (other, ROOT, ROOT, other):
+        cmd = [sys.executable, os.path.abspath(__file__), "--root", root,
+               "--kernels", args.kernels] + [f"--define={d}" for d in args.define]
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=1800)
+        if run.returncode != 0:
+            print(f"timing {root} failed:\n{run.stderr[-3000:]}", file=sys.stderr)
+            return 1
+        got = json.loads(run.stdout.strip().splitlines()[-1])
+        runs[root].append(got)
+        print(json.dumps(got), flush=True)
+    medians = {}
+    for root, got in runs.items():
+        medians[root] = {
+            part: {point: statistics.median(g[part][point] for g in got)
+                   for point in got[0][part] if isinstance(got[0][part][point], float)}
+            for part in ("k1", "k1v", "k2", "k2i8", "k4") if got[0].get(part)}
+    result = {"turns": [other, ROOT, ROOT, other], "medians": medians}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"runs": runs, **result}, f, indent=1)
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -330,11 +413,15 @@ def main() -> int:
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--kernels", default="k1,k1v,k2,k3,k4",
-                    help="which of k1, k1v, k2, k3, k4 to time (comma-separated)")
+                    help="which of k1, k1v, k2, k2i8, k3, k4 to time (comma-separated)")
+    ap.add_argument("--turns", help="another checkout: time it and this one in "
+                    "turns (DIR, this, this, DIR), a process each")
     ap.add_argument("--files", help="a directory of chip_smoke.py's files: "
                     "also time search() p50 on them")
     ap.add_argument("--out")
     args = ap.parse_args()
+    if args.turns:
+        return turns(args)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch

@@ -88,7 +88,10 @@ TMA_ONLY = NO_EPILOGUE + [
 VARIANTS = {"as_is": [], "counters": COUNTERS, "no_epilogue": NO_EPILOGUE,
             "tma_only": TMA_ONLY}
 
-CHILD = r'''
+# The child process of every variant: loads (and so builds) the package at
+# ROOT, then runs a profile's points, each through point(), and prints their
+# JSON.
+HARNESS = r'''
 import ctypes, json, sys
 sys.path.insert(0, ROOT)
 import numpy as np, torch
@@ -98,7 +101,6 @@ from metrovector_tpu_torch.ops import _build
 lib = _build.load()
 if BUILD_ONLY:
     sys.exit(0)
-from metrovector_tpu_torch.ops.topk_kernel import fused_topk
 dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(4)
 out = {}
@@ -122,6 +124,10 @@ def point(name, fn, inputs):
         live = a[a[:, 0] > 0]
         row["counters"] = [float(x) for x in live.mean(0)]
     out[name] = row
+'''
+
+POINTS = r'''
+from metrovector_tpu_torch.ops.topk_kernel import fused_topk
 ip, l2, cos = M.INNER_PRODUCT, M.L2, M.COSINE
 n = 10_000_000
 rows = torch.randint(-128, 128, (n, 128), dtype=torch.int8, device=dev, generator=g)
@@ -148,7 +154,6 @@ if not COUNTERS:
         qs = [q / q.norm(dim=1, keepdim=True) for q in qs]
         point(f"high gist1m {nq}", lambda q: fused_topk(q, xg, gn, m, 18, cos,
                                                         precision="high"), qs)
-print(json.dumps(out))
 '''
 
 
@@ -173,17 +178,21 @@ def patched(name: str, edits) -> str:
     return dst
 
 
-def child(root: str, counters: bool, build_only: bool) -> subprocess.Popen:
+def child(root: str, counters: bool, build_only: bool, points: str) -> subprocess.Popen:
     code = (f"ROOT = {root!r}\nCOUNTERS = {counters!r}\nBUILD_ONLY = {build_only!r}\n"
-            + CHILD)
+            + HARNESS + points + "print(json.dumps(out))\n")
     return subprocess.Popen([sys.executable, "-c", code], cwd=root, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out")
-    args = ap.parse_args()
+def profile(variants: dict, points: str, counter_fields, prefix: str = "",
+            out_path: str | None = None) -> int:
+    """Build every variant (``name: edits``) as a patched copy under
+    ``WORK/prefix+name``, all in parallel, then run ``points`` (code for the
+    child, after HARNESS) in each, one process at a time; the ``counters``
+    variant's ``mvt_scan_profile`` entry is read after each point and
+    printed by ``counter_fields`` ("-": not printed). Prints a line a point
+    and, last, the JSON of every run; ``out_path`` gets it too."""
     import torch
 
     if not torch.cuda.is_available():
@@ -192,8 +201,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    roots = {name: patched(name, edits) for name, edits in VARIANTS.items()}
-    builds = {name: child(root, name == "counters", True) for name, root in roots.items()}
+    roots = {name: patched(prefix + name, edits) for name, edits in variants.items()}
+    builds = {name: child(root, name == "counters", True, points)
+              for name, root in roots.items()}
     for name, proc in builds.items():
         _, err = proc.communicate(timeout=1200)
         if proc.returncode != 0:
@@ -201,7 +211,7 @@ def main() -> int:
             return 1
     result = {"card": card}
     for name, root in roots.items():
-        proc = child(root, name == "counters", False)
+        proc = child(root, name == "counters", False, points)
         out, err = proc.communicate(timeout=900)
         if proc.returncode != 0:
             print(f"{name}: run failed\n{err[-3000:]}", file=sys.stderr)
@@ -212,14 +222,21 @@ def main() -> int:
             print(f"{name:12s} {point}: {times} | {card}", flush=True)
             if "counters" in row:
                 print("             counters (cycles per block, warpgroup 0): " + ", ".join(
-                    f"{f} {v:.0f}" for f, v in zip(COUNTER_FIELDS, row["counters"])
+                    f"{f} {v:.0f}" for f, v in zip(counter_fields, row["counters"])
                     if f != "-"), flush=True)
-    result["counter_fields"] = COUNTER_FIELDS
-    if args.out:
-        with open(args.out, "w") as f:
+    result["counter_fields"] = counter_fields
+    if out_path:
+        with open(out_path, "w") as f:
             json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    return profile(VARIANTS, POINTS, COUNTER_FIELDS, out_path=args.out)
 
 
 if __name__ == "__main__":
