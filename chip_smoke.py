@@ -165,6 +165,37 @@ Phases, one line each; any failure exits non-zero:
    as a yardstick for the integer scan, the times of the ``mma.sync``
    kernel it replaces (from ``PERF.md``), and ``search()`` p50.
 
+15. presampled and group_rows: the main path, counted: one
+   ``fused_topk_presampled`` call (K1's two-phase scan: phase 1 over every
+   64th row, phase 2 seeded with its top-k, the seed's k-th entry the
+   floor of every split's bar) at k = 100 on each of the phase 3 corpus,
+   deep10m and gist1m at ``high``, each phase one launch of its route's
+   kernel, identical to ``fused_topk`` and to its plain version (on
+   gist1m's float data within phase 13's band of it); (a) the same
+   function against
+   ``fused_topk``, ``fused_topk_reference`` and
+   ``fused_topk_presampled_reference`` on 200,003 rows with twins across
+   splits, on the FFMA kernel (f32, f16, bf16), ``high``, int8 IP with a
+   deferred scale and int8 L2, strides 16, 64 and 1,000, k in {1, 10, 100,
+   257, 1000, 1025}, batches 1, 33 and 255, num_valid inside a split and
+   off the stride, a mask that kills every subsampled row, k above the
+   subsample's rows (identical, twice); (b) CUDA-event times of phase 1,
+   phase 2 and the whole at stride 64 beside plain ``fused_topk`` and the
+   plain version on the same queries, on the phase 3 corpus (batches 32
+   and 256, k 10, 100 and 1,000), phase 14's deep10m (batch 128, k = 100)
+   and phase 13's gist1m at ``high`` (batch 256, k 18 and 100), each
+   beside K1's bound (the function returns K1's answer, so phase 1 is a
+   time of its own, not a larger bound), and the integer scan's offers and
+   flushes with and without the seed (``tools/wgmma_scan_profile.py
+   --seed-counts``, its variant built in phase 1); (c) phase 12's
+   ``sift1m-ivfpq`` bucket layout read as rows bucket-major, padded to
+   ``group_rows`` (one counted call at each batch's first inputs, the
+   main path): ``fused_adc_topk(group_rows=)`` identical to the
+   ``group_ids`` form, to its plain version and in its scores to the
+   row-order call, at the main path's inputs (batches 1, 8, 256, fetch
+   400), a ragged N whose tail bucket is longer than ``group_rows``
+   (identical, twice, to both), and its device time.
+
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
 operations, 989 TFLOP/s dense bf16 for the bf16x3 variant, 1,979 TOP/s
@@ -230,13 +261,28 @@ def phase_device(torch) -> tuple[str, str]:
     return name, smi.splitlines()[0]
 
 
-def phase_build() -> None:
+def phase_build() -> str:
+    """Builds the package's kernels and, beside them, phase 15's counting
+    variant of the integer scan (tools/wgmma_scan_profile.py: only the
+    sources its edits reach, linked with the package's other objects), so
+    that no build runs while a later phase times. Returns the variant's
+    root."""
+    import wgmma_scan_profile
+
     from metrovector_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load()
-    dt = time.perf_counter() - t0
-    say(f"phase 1 build: ok ({dt:.2f} s, {_build.build_dir()})")
+    started = wgmma_scan_profile.start_seed_counts()
+    try:
+        _build.load()
+        dt = time.perf_counter() - t0
+        wgmma_scan_profile.link_seed_counts(started)
+    finally:
+        wgmma_scan_profile.stop(started)
+    say(f"phase 1 build: ok ({dt:.2f} s, {_build.build_dir()}; phase 15's counting "
+        f"variant, {len(started[1])} sources recompiled beside it, linked at "
+        f"{time.perf_counter() - t0:.2f} s)")
+    return started[0]
 
 
 def _f64_scores(q, x, norms, metric):
@@ -2421,6 +2467,7 @@ def phase_ivfpq_path(torch, dev, card):
     queries = {bsz: _pq_queries(rng, x, bsz) for bsz in IVF_BATCHES}
     counts = {"fused_adc_topk[group_bias]": 0, "rescore_candidates": 0}
     cell, recalls, p50 = None, {}, {}
+    keep = {"pins": {}}  # sift1m-ivfpq's index and timed inputs, for phase 15
     tmp = tempfile.TemporaryDirectory()
     try:
         for name, m, ksub, packed in IVFPQ_CONFIGS:
@@ -2522,6 +2569,9 @@ def phase_ivfpq_path(torch, dev, card):
                       for _ in range(20)]
                 pins = [(q, idx._scan_bias(q, IVF_NPROBE)[0]) for q in qs]
 
+                if name == IVFPQ_CONFIGS[0][0]:
+                    keep["idx"], keep["pins"][bsz] = idx, pins
+
                 def k2(p):
                     return fused_adc_topk(p[0], *gargs, p[1], idx.row_bucket, buckets=bk)
 
@@ -2612,7 +2662,7 @@ def phase_ivfpq_path(torch, dev, card):
         + ", ".join(f"{n} {md} batch {b} {r:.4f}" for (n, b, md, rr), r in recalls.items()
                     if rr == 400 and b == 256)
         + f"; launches {counts})")
-    return max_err, counts["fused_adc_topk[group_bias]"], cell
+    return max_err, counts["fused_adc_topk[group_bias]"], cell, keep
 
 
 # -- phase 13: the dense engine's precision ladder ---------------------------
@@ -3121,7 +3171,8 @@ def phase_high_path(torch, dev, card, sift_path):
         f"{time.perf_counter() - t_phase:.1f} s)")
     top = cell[256]
     return {"launches": launches, "max_err": max_err, "ms": top["ms"],
-            "plain_ms": top["plain_ms"], "bound": top["bound"]}
+            "plain_ms": top["plain_ms"], "bound": top["bound"],
+            "keep": {"data": sp.data, "norms": sp.norms, "num_valid": sp.num_valid}}
 
 
 # -- phase 14: quantized and bf16 spaces -------------------------------------
@@ -3499,6 +3550,7 @@ def _deep10m(torch, dev, card, tmpdir) -> dict:
 
     out = {}
     rows = sp.data[:, :D_DEEP]  # what SearchEngine hands the variant
+    keep = {"rows": rows, "norms": sp.norms, "num_valid": sp.num_valid}
     for nq in batches:
         preps = [sp.prepare_queries(h) for h in hosts[nq]]
         qs = [p.qdev[:, :D_DEEP] for p in preps]
@@ -3513,6 +3565,8 @@ def _deep10m(torch, dev, card, tmpdir) -> dict:
 
         if any(p.dot_scale != scale for p in preps):
             raise AssertionError("deep10m query sets of differing scales")
+        if nq == DEEP_BATCH:
+            keep.update(queries=qs, scale=scale)
         _identical(torch, kern(qs[0]), plain(qs[0]), f"deep10m batch {nq}")
         kms, runs, pms = _kernel_times(torch, dev, kern, plain, qs, qs[:2])
         qt = [p.qdev.T.contiguous() if nq > 16 else None for p in preps]
@@ -3538,7 +3592,7 @@ def _deep10m(torch, dev, card, tmpdir) -> dict:
         del qs, qt
     del engine, sp
     torch.cuda.empty_cache()
-    return {"launches": launches, "cell": out, "recall": recall}
+    return {"launches": launches, "cell": out, "recall": recall, "keep": keep}
 
 
 def _sift1m_u8(torch, dev, card, tmpdir) -> dict:
@@ -3788,6 +3842,7 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
                    "bound": u8["affine"]["bound"]},
         "int8_mma": {"launches": lut["launches"], "max_err": 0.0, "ms": lut_top["ms"],
                      "plain_ms": lut_top["plain_ms"], "bound": lut_top["bound"]},
+        "keep": deep["keep"],
     }
 
 
@@ -3804,6 +3859,341 @@ def lookup_figures(torch, lookups: int, card: str) -> None:
         f"each (one wavefront per 32) {lookups / 32 / per_ms:.4f} ms; in 8-byte "
         f"entries (2 wavefronts a load) f32 LUT {lookups / 32 / per_ms:.4f} ms, "
         f"bf16 LUT {lookups / 64 / per_ms:.4f} ms | {card}")
+
+
+# -- phase 15: presampled and group_rows -------------------------------------
+
+PRE_STRIDE = 64  # the reference's default stride, the timed one
+PRE_STRIDES = (16, 64, 1000)
+PRE_KS = (1, 10, 100, 257, 1000, 1025)
+
+
+def _presampled_routes(torch, dev, rng, n, d):
+    """The K1 routes of the exactness cases over 200,003 rows with twins
+    across splits: (name, queries, db, norms, metric, kwargs) for FFMA
+    f32/f16/bf16, "high", int8 IP with a deferred scale and int8 L2."""
+    from metrovector_tpu_torch import DistanceMetric
+
+    L2, IP = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT
+    x = torch.from_numpy(_twin_rows(rng, n, d, 16)).to(dev)
+    norms = (x.double() ** 2).sum(1).float()
+    q = torch.from_numpy(rng.integers(0, 16, (255, d)).astype(np.float32)).to(dev)
+    c8 = torch.from_numpy(_twin_rows(rng, n, d, 16) - 8).to(dev).to(torch.int8)
+    n8 = (c8.double() ** 2).sum(1).float()
+    q8 = torch.from_numpy(rng.integers(-8, 8, (255, d)).astype(np.int8)).to(dev)
+    return [("f32", q, x, norms, L2, {}),
+            ("f16", q, x.to(torch.float16), norms, IP, {}),
+            ("bf16", q, x.to(torch.bfloat16), norms, L2, {}),
+            ("high", q, x, norms, IP, {"precision": "high"}),
+            ("int8 IP deferred", q8, c8, n8, IP, {"scale": 0.02}),
+            ("int8 L2", q8, c8, n8, L2, {})]
+
+
+def _presampled_cases(torch, dev, rng) -> int:
+    """fused_topk_presampled on every K1 route, strides 16, 64 and 1000, k
+    in {1, 10, 100, 257, 1000, 1025}, batches 1, 33 and 255 by turns, with
+    num_valid ending inside a split off the stride, a mask that kills every
+    subsampled row (seed empty: floor 0), k above the subsample's live
+    rows (stride 1000: 201 rows), and twins whose scan rows tie seeded
+    scores at lower indices: twice identical, scores and indices, to
+    fused_topk, to fused_topk_reference and to its plain version. Returns
+    the cases run."""
+    from metrovector_tpu_torch.ops.topk_kernel import (
+        fused_topk, fused_topk_presampled, fused_topk_presampled_reference,
+        fused_topk_reference,
+    )
+
+    n, cases = SPLIT_N, 0
+    routes = _presampled_routes(torch, dev, rng, n, 128)
+    for name, q_all, db, norms, metric, kw in routes:
+        for stride in PRE_STRIDES:
+            kill = torch.ones(n, device=dev)
+            kill[::stride] = 0  # every subsampled row dead
+            for k in PRE_KS:
+                nq = (1, 33, 255)[cases % 3]
+                variant = cases % 4
+                num_valid = n - 70_001 if variant & 1 else n
+                mask = kill if variant == 2 else None
+                q = q_all[:nq]
+                args = (q, db, norms, num_valid, k, metric)
+                what = (f"presampled {name} {metric.name} stride={stride} Q={nq} k={k} "
+                        f"num_valid={num_valid} mask={'kills the subsample' if mask is not None else None}")
+                pkw = dict(kw, valid_mask=mask, stride=stride)
+                fkw = dict(kw, valid_mask=mask)
+                plain = fused_topk(*args, **fkw)
+                _identical(torch, plain, fused_topk_reference(*args, **fkw), what + " (K1)")
+                _identical(torch, fused_topk_presampled_reference(*args, **pkw), plain,
+                           what + " (plain version)")
+                _twice_identical(torch, lambda: fused_topk_presampled(*args, **pkw), (),
+                                 plain, what)
+                cases += 1
+    del routes
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _held_to_plain(torch, got, ref, q, db, norms, metric, kw, what) -> float:
+    """fused_topk_presampled (got) against its plain version (ref):
+    identical, except on the float data of precision "high" (gist1m), where
+    the plain version's f32 matmuls sum the same products in another order:
+    there within phase 13's band (_compare_high). Returns the largest score
+    difference."""
+    if kw.get("precision") != "high":
+        _identical(torch, got, ref, what)
+        return 0.0
+    return _compare_high(got, ref, _acc_band(q.cpu().numpy(), float(norms.max().sqrt()),
+                                             metric, db.shape[1]),
+                         _bf16x3_scores64(torch, q, db, norms, metric), what)
+
+
+def _presampled_times(torch, dev, label, q_sets, db, norms, nv, k, metric, kw,
+                      k1_bound, card) -> dict:
+    """Phase 1, phase 2 and the whole of fused_topk_presampled (stride 64,
+    the subsample pre-sliced) beside plain fused_topk, by CUDA events in
+    one run, plain, presampled, presampled, plain, then its plain version
+    on the first three of the same query sets; the seeded pair held
+    identical to fused_topk, and to the plain version (_held_to_plain), on
+    the first set. The
+    bound is K1's (``k1_bound``): the function returns fused_topk's answer,
+    and phase 1 is this algorithm's cost, not work that answer needs.
+    Returns the row."""
+    from metrovector_tpu_torch.ops.topk_kernel import (
+        fused_topk, fused_topk_presampled, fused_topk_presampled_reference,
+    )
+    from metrovector_tpu_torch.utils.timing import cuda_ms
+
+    s = PRE_STRIDE
+    n = db.shape[0]
+    t_copy = None
+    if q_sets[0].dtype != torch.int8 and kw.get("precision") != "high":
+        db[::s].contiguous()
+        t_copy = cuda_ms(lambda _: db[::s].contiguous(), range(5), dev)
+        db_sub = db[::s].contiguous()
+    else:
+        db_sub = db[::s]
+    sub = (db_sub, norms[::s].contiguous())
+    nv_sub, k1 = -(-nv // s), min(k, -(-n // s))
+    seeds = [fused_topk(q, *sub, nv_sub, k1, metric, raw_scores=True, **kw) for q in q_sets]
+    pairs = [(q, a, torch.where(b >= 0, b * s, b)) for q, (a, b) in zip(q_sets, seeds)]
+    pre = lambda q: fused_topk_presampled(q, db, norms, nv, k, metric, stride=s, sub=sub, **kw)  # noqa: E731
+    plain = lambda q: fused_topk(q, db, norms, nv, k, metric, **kw)  # noqa: E731
+    p1 = lambda q: fused_topk(q, *sub, nv_sub, k1, metric, raw_scores=True, **kw)  # noqa: E731
+    p2 = lambda t: fused_topk(t[0], db, norms, nv, k, metric, seed_s=t[1], seed_i=t[2],  # noqa: E731
+                              exclude_stride=s, **kw)
+    pv = lambda q: fused_topk_presampled_reference(  # noqa: E731
+        q, db, norms, nv, k, metric, stride=s, sub=sub, **kw)
+    _identical(torch, pre(q_sets[0]), plain(q_sets[0]), f"{label} k={k}: timed inputs")
+    err = _held_to_plain(torch, pre(q_sets[0]), pv(q_sets[0]), q_sets[0], db, norms,
+                         metric, kw, f"{label} k={k}: timed inputs vs the plain version")
+    for fn, x in ((pre, q_sets[0]), (plain, q_sets[0]), (p1, q_sets[0]), (p2, pairs[0])):
+        fn(x)
+    a1 = cuda_ms(plain, q_sets, dev)
+    b1 = cuda_ms(pre, q_sets, dev)
+    t1 = cuda_ms(p1, q_sets, dev)
+    t2 = cuda_ms(p2, pairs, dev)
+    b2 = cuda_ms(pre, q_sets, dev)
+    a2 = cuda_ms(plain, q_sets, dev)
+    tv = cuda_ms(pv, q_sets[:3], dev)
+    row = {"plain": (a1 + a2) / 2, "pre": (b1 + b2) / 2, "p1": t1, "p2": t2,
+           "runs": (a1, b1, b2, a2), "copy": t_copy, "plain_version": tv, "err": err,
+           "bound": k1_bound}
+    say(f"  timing {label} k={k} stride {s}: presampled {row['pre']:.4f} ms "
+        f"(runs {b1:.4f}, {b2:.4f}; phase 1 {t1:.4f} + phase 2 {t2:.4f} = {t1 + t2:.4f}) "
+        f"| plain fused_topk {row['plain']:.4f} (runs {a1:.4f}, {a2:.4f}) | "
+        f"presampled / plain {row['pre'] / row['plain']:.3f} | its plain version "
+        f"fused_topk_presampled_reference {tv:.4f} | bound (K1's) {k1_bound[0]:.4f} ms "
+        f"({k1_bound[1]}), share {k1_bound[0] / row['pre']:.1%}"
+        + (f" | the subsample's copy db[::{s}].contiguous() {t_copy:.4f} ms" if t_copy else "")
+        + f" | {card}")
+    return row
+
+
+def _group_rows_on_card(torch, dev, card, ivf) -> dict:
+    """sift1m-ivfpq's rows bucket-major, padded to group_rows (phase 12's
+    bucket layout as it stands: [C', B] slots, B = group_rows, dead slots
+    masked): fused_adc_topk(group_rows=B) at the main path's inputs
+    (batches 1, 8, 256, fetch 400, the search's bf16 LUT) identical to the
+    group_ids form, to its plain version, and in its scores to the
+    row-order call; a ragged N with a tail bucket longer than B, twice
+    identical to both; then its device time. Returns the kernels-line
+    row."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk, fused_adc_topk_reference
+    from metrovector_tpu_torch.utils.timing import cuda_ms, device_ms
+
+    L2 = DistanceMetric.L2
+    idx = ivf["idx"]
+    groups, width, cols = idx.buckets.shape
+    codes = idx.buckets.reshape(-1, cols)
+    norms = idx.bucket_norms.reshape(-1)
+    ids = idx.bucket_ids.reshape(-1)
+    live = (ids >= 0).float()
+    n = codes.shape[0]
+    gids = (torch.arange(n, device=dev) // width).to(torch.int32)
+    m, ksub = idx._books.shape[:2]
+    fill = idx.bucket_fill.double()
+    # The main path, counted: one call at each batch's first inputs.
+    fused_adc_topk.group_rows_launches = 0
+    mains = {bsz: fused_adc_topk(p[0][0], codes, idx._books, norms, n, 400, L2, live,
+                                 False, False, p[0][1], group_rows=width)
+             for bsz, p in ivf["pins"].items()}
+    launches = fused_adc_topk.group_rows_launches
+    if launches != len(mains):
+        raise AssertionError(f"{len(mains)} group_rows calls made {launches} launches")
+    cell = {}
+    for bsz, pins in ivf["pins"].items():
+        qd, bias = pins[0]
+        if bias.shape[1] != groups:
+            raise AssertionError("sift1m-ivfpq: a bias column per bucket of the layout")
+        args = (codes, idx._books, norms, n, 400, L2, live, False, False, bias)
+        got = mains[bsz]
+        what = f"sift1m-ivfpq group_rows={width} batch {bsz}"
+        _identical(torch, got, fused_adc_topk(qd, *args, gids), what + " vs group_ids")
+        _identical(torch, got, fused_adc_topk_reference(qd, *args, group_rows=width),
+                   what + " vs plain")
+        row_order = fused_adc_topk(qd, idx.codes_row, idx._books, idx.rnorms_row,
+                                   idx.num_vectors, 400, L2, idx.row_valid, False, False,
+                                   bias, idx.row_bucket)
+        if not torch.equal(got[0], row_order[0]) or not torch.equal(
+                ids[got[1].long().clamp(min=0)].sort(1).values,
+                row_order[1].sort(1).values):
+            raise AssertionError(f"{what}: scores or rows differ from the row-order form")
+        # The tail bucket: the first G - 4 buckets as the groups and N 37
+        # rows short of the layout, so the rows past (G - 4)·group_rows (four
+        # buckets less 37 rows, more than the stride) take no bias and every
+        # query scans them.
+        nt, short = n - 37, groups - 4
+        targs = (codes[:nt], idx._books, norms[:nt], nt, 400, L2, live[:nt], False, False,
+                 bias[:, :short].contiguous())
+        tail = f"{what}, N={nt} and {short} groups (a tail of {nt - short * width} rows)"
+        _twice_identical(torch, lambda: fused_adc_topk(qd, *targs, group_rows=width), (),
+                         fused_adc_topk_reference(qd, *targs, group_rows=width),
+                         tail + " vs plain")
+        _twice_identical(torch, lambda: fused_adc_topk(qd, *targs, group_rows=width), (),
+                         fused_adc_topk(qd, *targs, gids[:nt]), tail + " vs group_ids")
+        k2 = lambda p: fused_adc_topk(p[0], *args[:-1], p[1], group_rows=width)  # noqa: E731
+        plain = lambda p: fused_adc_topk_reference(p[0], *args[:-1], p[1],  # noqa: E731
+                                                   group_rows=width)
+        k2(pins[0]), plain(pins[0])
+        p1 = cuda_ms(plain, pins[:3], dev)
+        a1 = device_ms(k2, pins, dev)
+        a2 = device_ms(k2, pins, dev)
+        p2 = cuda_ms(plain, pins[:3], dev)
+        probed = [p[1] > -1e28 for p in pins]  # this run's work, per call
+        pairs = float(np.mean([float((pr.double() @ fill).sum()) for pr in probed]))
+        union = float(np.mean([float(fill[pr.any(0)].sum()) for pr in probed]))
+        tail = bsz * m * ksub * 2 + bsz * groups * 4 + bsz * 400 * 8
+        bnd = bound(2 * m * pairs, union * (cols + 8) + tail)
+        cell[bsz] = {"ms": (a1 + a2) / 2, "plain_ms": (p1 + p2) / 2, "bound": bnd}
+        say(f"  timing sift1m-ivfpq group_rows={width} ({groups} buckets, {n} slots) "
+            f"batch={bsz} fetch=400: {cell[bsz]['ms']:.4f} ms on the device ({a1:.4f}, "
+            f"{a2:.4f}) | plain {cell[bsz]['plain_ms']:.4f} | bound of the probed work "
+            f"{bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / cell[bsz]['ms']:.1%} | {card}")
+    return {"launches": launches, "max_err": 0.0, **cell[256]}
+
+
+def phase_presampled(torch, dev, card, dense, deep, gist, ivf, counters) -> dict:
+    """Phase 15 (module docstring): (a) exactness of fused_topk_presampled
+    on the card, (b) its phases' times beside plain fused_topk on phases
+    3, 13 and 14's corpora and the integer scan's offers and flushes with
+    and without the seed (``counters``: the root of phase 1's build of
+    tools/wgmma_scan_profile.py's seed_counts variant), (c) the group_rows
+    form on sift1m-ivfpq.
+    Returns the kernels-line rows of both."""
+    import wgmma_scan_profile
+
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import (
+        fused_topk, fused_topk_presampled, fused_topk_presampled_reference,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 16)
+    L2, IP, COS = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT, DistanceMetric.COSINE
+    sp = dense
+    g = torch.Generator(device=dev).manual_seed(GIST_SEED)
+    gist_qs = [torch.randn((256, D_GIST), generator=g, device=dev) for _ in range(5)]
+    gist_qs = [q / q.norm(dim=1, keepdim=True) for q in gist_qs]
+    # The main path, counted: fused_topk_presampled as a caller runs it
+    # (stride 64, k = 100, no pre-sliced subsample) on each corpus, every
+    # count at 0 just before and read just after; then each result is held
+    # to fused_topk's.
+    main = [("phase 3 corpus", torch.from_numpy(rng.integers(0, 256, (256, D_MAIN)).astype(
+                 np.float32)).to(dev), sp.data, sp.norms, sp.num_valid, L2, {}),
+            ("deep10m", deep["queries"][0], deep["rows"], deep["norms"], deep["num_valid"],
+             IP, {"scale": deep["scale"]}),
+            ("gist1m", gist_qs[0], gist["data"], gist["norms"], gist["num_valid"], COS,
+             {"precision": "high"})]
+    routes = ("launches", "launches_int", "launches_high", "launches_affine")
+    for attr in routes + ("launches_presampled",):
+        setattr(fused_topk, attr, 0)
+    outs = [fused_topk_presampled(q, db, nrm, nv, 100, metric, stride=PRE_STRIDE, **kw)
+            for _, q, db, nrm, nv, metric, kw in main]
+    launches = fused_topk.launches_presampled
+    seen = {attr: getattr(fused_topk, attr) for attr in routes}
+    if launches != 3 or seen != {"launches": 2, "launches_int": 2, "launches_high": 2,
+                                 "launches_affine": 0}:
+        raise AssertionError(f"3 presampled calls: {launches} counted, routes {seen}")
+    max_err = 0.0
+    for (name, q, db, nrm, nv, metric, kw), out in zip(main, outs):
+        _identical(torch, out, fused_topk(q, db, nrm, nv, 100, metric, **kw),
+                   f"{name}: the presampled main path")
+        max_err = max(max_err, _held_to_plain(
+            torch, out, fused_topk_presampled_reference(
+                q, db, nrm, nv, 100, metric, stride=PRE_STRIDE, **kw),
+            q, db, nrm, metric, kw, f"{name}: the presampled main path vs its plain version"))
+    say(f"  main path: fused_topk_presampled at k=100 on the phase 3 corpus (batch 256), "
+        f"deep10m (128) and gist1m at high (256), identical to fused_topk, to "
+        f"fused_topk_presampled_reference on the integer corpora and within phase 13's "
+        f"band of it on gist1m (max |score diff| {max_err:.3g}); "
+        f"launches_presampled {launches}, phases by route {seen}")
+    cases = _presampled_cases(torch, dev, np.random.default_rng(SEED + 15))
+    say(f"  (a) fused_topk_presampled on the K1 routes: {cases} cases, each twice "
+        f"identical to fused_topk and both plain versions "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    times = {}
+    for nq in (32, 256):
+        qs = [torch.from_numpy(rng.integers(0, 256, (nq, D_MAIN)).astype(np.float32)).to(dev)
+              for _ in range(10)]
+        for k in (10, 100, 1000):
+            kb = bound(2 * nq * N_MAIN * D_MAIN,
+                       4 * (N_MAIN * D_MAIN + N_MAIN + nq * D_MAIN) + 8 * nq * k)
+            times[("dense", nq, k)] = _presampled_times(
+                torch, dev, f"phase 3 corpus 1M x 128 f32 L2 batch={nq}", qs, sp.data,
+                sp.norms, sp.num_valid, k, L2, {}, kb, card)
+    qs = deep["queries"]
+    times[("deep", 128, 100)] = _presampled_times(
+        torch, dev, "deep10m int8 IP batch=128", qs, deep["rows"], deep["norms"],
+        deep["num_valid"], 100, IP, {"scale": deep["scale"]},
+        int_bound(128, deep["rows"].shape[0], D_DEEP, 100), card)
+    for k in (18, 100):
+        times[("gist", 256, k)] = _presampled_times(
+            torch, dev, "gist1m high cosine batch=256", gist_qs, gist["data"], gist["norms"],
+            gist["num_valid"], k, COS, {"precision": "high"},
+            high_bound(256, gist["num_valid"], D_GIST, k), card)
+    t0 = time.perf_counter()
+    for name, row in wgmma_scan_profile.seed_counts(counters).items():
+        kernels = ", ".join(f"{kn} {v:.4f} ms" for kn, v in row.items()
+                            if kn not in ("offers", "flushes"))
+        say(f"  (b) integer scan counters at deep10m's shape (10M x 96 random int8, "
+            f"batch 128, k=100; tools/wgmma_scan_profile.py --seed-counts): {name}: "
+            f"offers {row['offers']:.0f}, flushes {row['flushes']:.0f} | {kernels} | {card}")
+    say(f"  (b) counters: {time.perf_counter() - t0:.1f} s")
+
+    top = times[("dense", 256, 100)]
+    max_err = max([max_err] + [row["err"] for row in times.values()])
+
+    t0 = time.perf_counter()
+    group = _group_rows_on_card(torch, dev, card, ivf)
+    say(f"  (c) group_rows: {time.perf_counter() - t0:.1f} s")
+    say(f"phase 15 presampled and group_rows: ok ({cases} exact cases; main path "
+        f"fused_topk_presampled calls {launches}, group_rows launches "
+        f"{group['launches']}; {time.perf_counter() - t_phase:.1f} s)")
+    return {"presampled": {"launches": launches, "max_err": max_err, "ms": top["pre"],
+                           "plain_ms": top["plain_version"], "bound": top["bound"],
+                           "phase1_ms": top["p1"], "phase2_ms": top["p2"]},
+            "group_rows": group}
 
 
 def time_parent(parent: str, files: str, card: str) -> None:
@@ -3869,7 +4259,12 @@ def main() -> int:
         return 2
     card_name, card = phase_device(torch)
     dev = torch.device("cuda", 0)
-    phase_build()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    counters = phase_build()
+    return _main(torch, card_name, card, dev, parent, counters)
+
+
+def _main(torch, card_name, card, dev, parent, counters) -> int:
     # With --parent, the dense and PQ files stay for the parent's search().
     keep = tempfile.TemporaryDirectory() if parent is not None else None
     keep_dir = keep.name if keep is not None else None
@@ -3884,11 +4279,12 @@ def main() -> int:
         gather_err, rescore_err = phase_gather_vs_plain(torch, dev)
         pq_launches, pq_times, pq4 = phase_pq_path(torch, dev, card, keep_dir)
         phase_any_k(torch, dev, card, engine, pq4)
+        dense = engine.space  # the phase 3 corpus stays for phase 15
         del engine  # phase 8's pq4 index stays for phase 14
         torch.cuda.empty_cache()
         sparse_err, dots_err = phase_sparse_vs_plain(torch, dev)
         sparse_launches, sparse_times = phase_sparse_path(torch, dev, card)
-        group_err, group_launches, ivf_cell = phase_ivfpq_path(torch, dev, card)
+        group_err, group_launches, ivf_cell, ivf_keep = phase_ivfpq_path(torch, dev, card)
         torch.cuda.empty_cache()
         high = phase_high_path(torch, dev, card, sift_path)
         torch.cuda.empty_cache()
@@ -3897,6 +4293,10 @@ def main() -> int:
         lookup = pq_times["int8_lookup"]
         quant["int8_lut"] = {"launches": lookup["launches"], "max_err": 0.0,
                              **{k: lookup["cell"][256][k] for k in ("ms", "plain_ms", "bound")}}
+        torch.cuda.empty_cache()
+        quant.update(phase_presampled(torch, dev, card, dense, quant.pop("keep"),
+                                      high.pop("keep"), ivf_keep, counters))
+        del dense, ivf_keep
     finally:
         tmp.cleanup()
 
@@ -4010,6 +4410,10 @@ def main() -> int:
             ("fused_adc_topk[int8_mma]", "int8_mma", CSRC + "adc_int8_mma_kernel.cu",
              "metrovector_tpu/ops/adc_kernel.py:248"),
             ("fused_adc_topk[int8_lut]", "int8_lut", CSRC + "adc_int8_kernel.cu",
+             "metrovector_tpu/ops/adc_kernel.py:248"),
+            ("fused_topk_presampled", "presampled", KERNEL_SOURCE,
+             "metrovector_tpu/ops/topk_kernel.py:1040"),
+            ("fused_adc_topk[group_rows]", "group_rows", CSRC + "adc_bucket_kernel.cu",
              "metrovector_tpu/ops/adc_kernel.py:248"))
     ]}))
     say(json.dumps({"ok": True, "device": {

@@ -20,7 +20,12 @@ from .gather_kernel import (
     rescore_candidates_reference,
 )
 from .sparse_kernel import ell_dots, ell_dots_reference, ell_topk, ell_topk_reference
-from .topk_kernel import fused_topk, fused_topk_reference
+from .topk_kernel import (
+    fused_topk,
+    fused_topk_presampled,
+    fused_topk_presampled_reference,
+    fused_topk_reference,
+)
 
 __all__ = [
     "distances_np",
@@ -32,6 +37,8 @@ __all__ = [
     "fused_adc_topk",
     "fused_adc_topk_reference",
     "fused_topk",
+    "fused_topk_presampled",
+    "fused_topk_presampled_reference",
     "fused_topk_reference",
     "gather_rows",
     "gather_rows_reference",

@@ -100,6 +100,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out_dir / LIB_NAME))
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             f32 = ctypes.c_float
+            seed = [p, p, i32, i32, i32, i32]
             lib.mvt_fused_topk.argtypes = [
                 p, p, i32, f32, f32,      # q, db, db_dtype, affine off, scale
                 p, p,                     # norms, mask
@@ -108,6 +109,7 @@ def load() -> ctypes.CDLL:
                 i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
                 p, p, p,                  # part_s/i, slots
                 p, p, p, p,               # tmp_s/i, out_s/i
+                *seed,                    # seed_s/i, kseed, mul, lists, excl
                 p,                        # stream
             ]
             lib.mvt_fused_topk.restype = i32
@@ -121,6 +123,7 @@ def load() -> ctypes.CDLL:
                 i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
                 p, p, p,                  # part_s/i, slots
                 p, p, p, p,               # tmp_s/i, out_s/i
+                *seed,                    # seed_s/i, kseed, mul, lists, excl
                 p,                        # stream
             ]
             lib.mvt_fused_topk_high.restype = i32
@@ -139,6 +142,7 @@ def load() -> ctypes.CDLL:
                 i32, i64, i32, i32,       # splits, rows_per_split, list_len, tree
                 p, p, p,                  # part_s/i, slots
                 p, p, p, p,               # tmp_s/i, out_s/i
+                *seed, i32,               # seed_s/i, kseed, mul, lists, excl; raw
                 p,                        # stream
             ]
             lib.mvt_fused_topk_int.restype = i32

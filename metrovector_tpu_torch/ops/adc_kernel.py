@@ -13,8 +13,9 @@ tensor goes to the kernel or the call raises; a CPU tensor goes to
 :func:`fused_adc_topk_reference`. ``fused_adc_topk.launches`` counts kernel
 launches (scan and merge of one call count once), and
 ``fused_adc_topk.group_launches`` and ``int8_launches`` those of them with
-a bucket bias and with an int8 LUT, ``int8_mma_launches`` those of the
-int8 LUT's tensor-core product.
+a bucket bias and with an int8 LUT, ``group_rows_launches`` those of the
+bucket bias with the bucket-major map ``group_rows``, ``int8_mma_launches``
+those of the int8 LUT's tensor-core product.
 
 The per-query table ``LUT[q, j·ksub + c] = q_j · C[j, c]`` is a small
 einsum outside the kernel, as in the JAX package, in full f32 and then
@@ -41,11 +42,20 @@ bucket kernel, which scores only the buckets that some query of a tile
 probes: over ``buckets``, the caller's bucket layout of the same rows (the
 IVF-PQ index keeps one), or else over the rows grouped by ``group_ids`` on
 the device (:func:`_group_layout`). :func:`ivf_scan_plan` is the plain form
-of the kernel's schedule. Not ported: the implicit
-bucket-major map ``group_rows`` (no package code or test calls it) and the
-Mosaic knobs (``block_rows``, ``query_tile``, ``vmem_retry``). Any
-``1 ≤ k ≤ N``: above k = 1024 the per-split lists live in device memory
-and a merge tree folds them (:mod:`.select`).
+of the kernel's schedule. The implicit bucket-major map ``group_rows``
+(``bucket = row // group_rows``, for rows stored bucket by bucket) goes
+with ``group_bias`` alone; rows whose bucket is G or more take no bias and
+every query scans them, as a ``group_ids`` outside ``[0, G)`` does. (The
+reference's one-hot pads the bias columns to a multiple of 128 with
+−1e30, so there a row whose bucket lies in ``[G, ⌈G/128⌉·128)`` scores
+−inf; the reference also takes only ``N`` a multiple of ``group_rows``
+and ``group_rows`` a multiple of 128, which the port does not ask.) On
+CUDA it runs the bucket kernel over the rows as they stand: bucket g's
+slots start at g·group_rows, the tail past G·group_rows is bucket G, and a
+slot is its own row (no argsort, no copy). Not ported: the Mosaic knobs
+(``block_rows``, ``query_tile``, ``vmem_retry``). Any ``1 ≤ k ≤ N``: above
+k = 1024 the per-split lists live in device memory and a merge tree folds
+them (:mod:`.select`).
 """
 
 from __future__ import annotations
@@ -157,12 +167,17 @@ def fused_adc_topk_reference(
     group_ids: torch.Tensor | None = None,
     block_rows: int = 65536,
     int8_lut: bool = False,
+    group_rows: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`fused_adc_topk` (same results): the torch
     twin of ``_adc_search``, the LUT gathered by code per row block, with a
     carried candidate list (ties to the lowest row). ``int8_lut``: the
-    quantized entries summed in int64, then ``f32(sum)·sq``."""
+    quantized entries summed in int64, then ``f32(sum)·sq``.
+    ``group_rows``: the bias of ``group_ids = row // group_rows``."""
     metric = DistanceMetric(metric)
+    if group_rows:
+        group_ids = torch.div(torch.arange(codes.shape[0], device=codes.device),
+                              int(group_rows), rounding_mode="floor").to(torch.int32)
     m, ksub, _ = codebooks.shape
     sq = None
     if int8_lut:
@@ -371,7 +386,7 @@ def int8_mma_shape(nq: int, m: int, cols: int, k: int) -> ScanShape:
 
 
 def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
-                  group_ids=None, buckets=None) -> None:
+                  group_ids=None, buckets=None, group_rows=0) -> None:
     if codebooks.dim() != 3:
         raise ValueError("codebooks must be [m, ksub, dsub]")
     m, ksub, dsub = codebooks.shape
@@ -391,8 +406,16 @@ def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
             )
     elif cols != m:
         raise ValueError(f"codes [N, {cols}] vs codebooks m={m}")
-    if (group_bias is None) != (group_ids is None):
-        raise ValueError("group_bias and group_ids come together")
+    if group_rows:
+        if group_ids is not None or buckets is not None:
+            raise ValueError("group_rows is the row-to-bucket map: no group_ids "
+                             "or buckets with it")
+        if group_bias is None:
+            raise ValueError("group_rows goes with group_bias")
+        if int(group_rows) < 1:
+            raise ValueError(f"group_rows={group_rows} must be positive")
+    elif (group_bias is None) != (group_ids is None):
+        raise ValueError("group_bias and group_ids (or group_rows) come together")
     if buckets is not None and group_bias is None:
         raise ValueError("buckets lay out the rows of a group_bias call")
     if group_bias is not None:
@@ -402,7 +425,7 @@ def _check_shapes(queries, codes, codebooks, packed4, group_bias=None,
                 f"group_bias must be [Q={queries.shape[0]}, G >= 1], got "
                 f"{tuple(group_bias.shape)}"
             )
-        if tuple(group_ids.shape) != (codes.shape[0],):
+        if group_ids is not None and tuple(group_ids.shape) != (codes.shape[0],):
             raise ValueError(f"group_ids must be [N={codes.shape[0]}]")
     if buckets is not None:
         bcodes, bids, bnorms, bfill = buckets
@@ -426,8 +449,9 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
              ("recon_norms", recon_norms)]
     if valid_mask is not None:
         named.append(("valid_mask", valid_mask))
-    grouped = [] if group_bias is None else [("group_bias", group_bias),
-                                             ("group_ids", group_ids)]
+    grouped = [] if group_bias is None else [("group_bias", group_bias)]
+    if group_ids is not None:
+        grouped.append(("group_ids", group_ids))
     if buckets is not None:
         grouped += list(zip(("bucket codes", "bucket ids", "bucket norms",
                              "bucket fill"), buckets))
@@ -465,7 +489,8 @@ def _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
         if t.dtype != torch.float32 or tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be a [{n}] float32 tensor")
     if group_bias is not None:
-        if group_bias.dtype != torch.float32 or group_ids.dtype != torch.int32:
+        if group_bias.dtype != torch.float32 or (
+                group_ids is not None and group_ids.dtype != torch.int32):
             raise ValueError("group_bias must be float32 and group_ids int32")
     if buckets is not None:
         want = (torch.uint8, torch.int32, torch.float32, torch.int32)
@@ -553,6 +578,7 @@ def fused_adc_topk(
     group_ids: torch.Tensor | None = None,
     buckets: tuple[torch.Tensor, ...] | None = None,
     int8_lut: bool = False,
+    group_rows: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ADC top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
     over PQ ``codes`` (uint8 ``[N, m]``, or ``[N, ⌈m/2⌉]`` with
@@ -570,18 +596,21 @@ def fused_adc_topk(
     [Q, k] f32, indices [Q, k] int32)`` by (score descending, row
     ascending); unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``.
     ``int8_lut``: the LUT quantized per query (:func:`quantize_lut`);
-    neither ``exact_lut`` nor a bucket bias goes with it."""
+    neither ``exact_lut`` nor a bucket bias goes with it. ``group_rows``
+    (with ``group_bias``, instead of ``group_ids``): row r is in bucket
+    ``r // group_rows`` (module docstring)."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
     if int8_lut and (exact_lut or group_bias is not None):
         raise ValueError(INT8_LUT_EXCLUSIVE)
-    _check_shapes(queries, codes, codebooks, packed4, group_bias, group_ids, buckets)
+    _check_shapes(queries, codes, codebooks, packed4, group_bias, group_ids, buckets,
+                  group_rows)
     if queries.device.type == "cpu":
         return fused_adc_topk_reference(queries, codes, codebooks, recon_norms,
                                         num_valid, k, metric, valid_mask,
                                         exact_lut, packed4, group_bias, group_ids,
-                                        int8_lut=int8_lut)
+                                        int8_lut=int8_lut, group_rows=group_rows)
     if queries.device.type != "cuda":
         raise ValueError(f"fused_adc_topk runs on CUDA or CPU, not {queries.device}")
     _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
@@ -620,7 +649,10 @@ def fused_adc_topk(
             if int8_lut:
                 fused_adc_topk.int8_launches += 1
         else:
-            layout = (_group_layout(codes, recon_norms, group_ids, group_bias.shape[1])
+            groups = group_bias.shape[1]
+            layout = (_rows_layout(codes, recon_norms, int(group_rows), groups)
+                      if group_rows else
+                      _group_layout(codes, recon_norms, group_ids, groups)
                       if buckets is None else _bucket_layout(buckets))
             per_sm = dict(_occupancy(dev.index, lut_code, int(packed4), m, ksub,
                                      min(k, SMEM_K + 1), True,
@@ -630,6 +662,8 @@ def fused_adc_topk(
                             valid_mask, min(int(num_valid), n), k, metric, packed4,
                             m, ksub, BUCKET_QT, k <= SMEM_K, per_sm, out_s, out_i)
             fused_adc_topk.group_launches += 1
+            if group_rows:
+                fused_adc_topk.group_rows_launches += 1
     fused_adc_topk.launches += 1
     return out_s, out_i
 
@@ -648,6 +682,18 @@ def _group_layout(codes, recon_norms, group_ids, groups: int):
     starts = torch.cumsum(counts, 0) - counts
     return (codes[order], order.to(torch.int32), recon_norms[order], starts, 0,
             counts.to(torch.int32))
+
+
+def _rows_layout(codes, recon_norms, group_rows: int, groups: int):
+    """The bucket-major form's rows as the bucket kernel reads a layout,
+    where they stand: bucket g's slots start at g·group_rows and hold
+    ``min(group_rows, N − g·group_rows)`` rows (none past N), the rows past
+    G·group_rows are bucket G, and slot s is row s (no ids)."""
+    n = codes.shape[0]
+    first = torch.arange(groups + 1, dtype=torch.int64, device=codes.device) * group_rows
+    counts = (n - first).clamp_(min=0)
+    counts[:groups].clamp_(max=group_rows)
+    return codes, None, recon_norms, None, group_rows, counts.to(torch.int32)
 
 
 def _bucket_layout(buckets):
@@ -720,7 +766,7 @@ def _launch_int8_mma(lib, lut8, sq, codes, recon_norms, valid_mask, num_valid, k
         wide = torch.zeros((nq, m, INT8_MMA_KSUB), dtype=torch.int8, device=dev)
         wide[:, :, :ksub] = lut8.view(nq, m, ksub)
         lut8 = wide.view(nq, m * INT8_MMA_KSUB)
-    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _scan_plan(
+    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots, _ = _scan_plan(
         dev, nq, n, k, 0 if shape.big else k,
         (2 * shape.nw, SCAN_ROWS * _mma_row_blocks(shape.nw)),
         _scan_occupancy(lib, lib.mvt_adc_int8_mma_occupancy, "fused_adc_topk[int8_mma]",
@@ -764,7 +810,8 @@ def _launch_buckets(lib, lut, gbias, layout, valid_mask, num_valid, k, metric,
     slots = select.bar_slots(nq, splits, dev)
     err = lib.mvt_adc_bucket_topk(
         lut.data_ptr(), int(lut.dtype != torch.float32), bcodes.data_ptr(),
-        bcodes.shape[1], int(packed4), norms.data_ptr(), ids.data_ptr(),
+        bcodes.shape[1], int(packed4), norms.data_ptr(),
+        None if ids is None else ids.data_ptr(),
         None if starts is None else starts.data_ptr(), stride, counts.data_ptr(),
         counts.shape[0], None if valid_mask is None else valid_mask.data_ptr(),
         gbias.data_ptr(), gbias.shape[1], nq, m, ksub, max(0, int(num_valid)), k,
@@ -778,5 +825,6 @@ def _launch_buckets(lib, lut, gbias, layout, valid_mask, num_valid, k, metric,
 
 fused_adc_topk.launches = 0
 fused_adc_topk.group_launches = 0
+fused_adc_topk.group_rows_launches = 0
 fused_adc_topk.int8_launches = 0
 fused_adc_topk.int8_mma_launches = 0

@@ -17,9 +17,11 @@
 //
 // The rows come from a bucket layout: bucket b's slots start at starts[b]
 // (or b * stride) and its first counts[b] slots hold its rows' codes, norms
-// and original row ids (-1: padding or a tombstone, never scored). The
-// IVF-PQ index keeps such a layout for its probe mode ([C', B] slots, fill
-// counts); the row-order form is grouped into one on the device.
+// and original row ids (-1: padding or a tombstone, never scored; no ids:
+// a slot is its own row). The IVF-PQ index keeps such a layout for its
+// probe mode ([C', B] slots, fill counts); the row-order form is grouped
+// into one on the device; the bucket-major form (`group_rows`: bucket =
+// row / group_rows) is one as it stands, stride group_rows and no ids.
 //
 // What bounds it: a query probes a few percent of the buckets, so the
 // design reads only those. Walking every row in original order and testing
@@ -255,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
     const int j = static_cast<int>(c - cur_c0) * kChunk + lane;
     if (j < cur_cnt) {
       s.at = cur_start + j;
-      s.row = ids[s.at];
+      s.row = ids != nullptr ? ids[s.at] : static_cast<int>(s.at);
       s.in = s.row >= 0 && s.row < num_valid;
     }
     if (s.in) {
@@ -445,8 +447,8 @@ extern "C" {
 // Launch the bucket scan and the merge on `stream`; returns the cudaError_t
 // of the launches (0 on success). `lut` is [nq, m*ksub] f32 (lut_dtype 0)
 // or bf16 (1). The layout: `codes` [slots, cols] u8, `norms` and `ids`
-// [slots]; bucket b's first counts[b] slots start at starts[b] ([nb]
-// int64), or at b * stride when starts is null. `gbias` is [nq, ngroups]
+// [slots] (ids null: slot s is row s); bucket b's first counts[b] slots
+// start at starts[b] ([nb] int64), or at b * stride when starts is null. `gbias` is [nq, ngroups]
 // f32 (ngroups <= nb; buckets past ngroups take no bias); `mask` [rows] by
 // original row id, may be null. With lists_global each split's list (k
 // entries) lives in part_*, else in shared memory (k <= 1024); part_*,

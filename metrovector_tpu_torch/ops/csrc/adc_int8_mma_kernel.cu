@@ -405,6 +405,7 @@ __global__ void __launch_bounds__(kScanThreads, 1)
   S.topk = topk;
   S.split = split;
   S.splits = splits;
+  S.lists = splits;
   S.place = bar_place(splits, topk);
   S.big = big;
   S.int_bar = 0;

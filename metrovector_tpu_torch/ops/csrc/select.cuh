@@ -89,6 +89,61 @@ __host__ __device__ __forceinline__ int bar_place(int splits, int k) {
   return (k + g - 1) / g - 1;
 }
 
+// A seed (K1's presampled scan): per query the exact top kseed of a subset
+// of the rows that the scan leaves out, seed_s / seed_i [nq, kseed] best
+// first, (-inf, any) where unfilled, a row's index times seed_mul. Its
+// floor is the key of its k-th entry, 0 (prunes nothing) where it holds
+// fewer than k finite entries. Every split's bar starts there: a row that
+// does not beat the floor has k better rows in the seed, which enters the
+// final fold as lists of its own (seed_lists_kernel), so pruning it leaves
+// the answer bit for bit the same, as for the group bar.
+__device__ __forceinline__ unsigned long long seed_floor(
+    const float* seed_s, const int* seed_i, int kseed, int seed_mul, int64_t q,
+    int k) {
+  if (seed_s == nullptr || kseed < k) return 0ull;
+  const int64_t e = q * kseed + k - 1;
+  return kth_rank(seed_s[e], seed_i[e] * seed_mul);
+}
+
+// The seed as `count` more sorted lists of len of part ([nq, lists, len],
+// lists `first` .. first + count - 1): list first + c holds seed entries
+// [c len, (c + 1) len), indices times seed_mul, the rest (-inf, kSentinel).
+__global__ void __launch_bounds__(256)
+    seed_lists_kernel(const float* __restrict__ seed_s,
+                      const int* __restrict__ seed_i, int kseed, int seed_mul,
+                      int64_t nq, int lists, int first, int count, int len,
+                      float* __restrict__ part_s, int* __restrict__ part_i) {
+  const int64_t per_q = static_cast<int64_t>(count) * len;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= nq * per_q) return;
+  const int64_t q = e / per_q;
+  const int64_t j = e % per_q;  // the seed entry, c len + place
+  float s = -CUDART_INF_F;
+  int row = kSentinel;
+  if (j < kseed) {
+    const float v = seed_s[q * kseed + j];
+    if (v > -CUDART_INF_F) {
+      s = v;
+      row = seed_i[q * kseed + j] * seed_mul;
+    }
+  }
+  const int64_t o = (q * lists + first) * static_cast<int64_t>(len) + j;
+  part_s[o] = s;
+  part_i[o] = row;
+}
+
+inline cudaError_t seed_lists(const float* seed_s, const int* seed_i, int kseed,
+                              int seed_mul, int64_t nq, int lists, int first,
+                              int len, float* part_s, int* part_i,
+                              cudaStream_t stream) {
+  const int count = lists - first;
+  if (seed_s == nullptr || count <= 0) return cudaSuccess;
+  const int64_t total = nq * count * static_cast<int64_t>(len);
+  seed_lists_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      seed_s, seed_i, kseed, seed_mul, nq, lists, first, count, len, part_s, part_i);
+  return cudaGetLastError();
+}
+
 // Lane `lane`'s part of the group bar of query gq for split `split`: the
 // slot of the group's lane-th split, ~0 past the group (keys never reach
 // ~0). slots is [nq, splits], null for no group bar.

@@ -172,11 +172,16 @@ __global__ void __launch_bounds__(kScanThreads, 1)
                      const float* __restrict__ norms,
                      const float* __restrict__ mask, int64_t nq, int64_t n, int nch,
                      int64_t num_valid, int k, int topk, int metric,
-                     int64_t rows_per_split, int splits, int stages, int big,
-                     float* __restrict__ part_s, int* __restrict__ part_i,
-                     unsigned long long* __restrict__ slots) {
-  // big: each split's list (length k) lives in part_*; topk is the k asked
-  // for. slots ([nq, splits]) holds the group bars' keys (select.cuh).
+                     int64_t rows_per_split, int splits, int lists, int stages,
+                     int big, float* __restrict__ part_s, int* __restrict__ part_i,
+                     unsigned long long* __restrict__ slots,
+                     const float* __restrict__ seed_s, const int* __restrict__ seed_i,
+                     int kseed, int seed_mul, int excl) {
+  // big: each split's list (length k) lives in part_* ([nq, lists, k]: the
+  // splits' lists, then the seed's); topk is the k asked for. slots ([nq,
+  // splits]) holds the group bars' keys (select.cuh). seed_* (may be null):
+  // the seed whose floor starts each bar; excl > 0: rows r % excl == 0
+  // never score.
   constexpr int QB = 2 * NW;
   constexpr int kImage = 2 * QB * kHalfRow;  // a chunk's query image
   extern __shared__ unsigned char smem_raw[];
@@ -234,12 +239,17 @@ __global__ void __launch_bounds__(kScanThreads, 1)
   S.topk = topk;
   S.split = split;
   S.splits = splits;
+  S.lists = lists;
   S.place = bar_place(splits, topk);
   S.big = big;
   S.int_bar = 0;
   S.part_s = part_s;
   S.part_i = part_i;
   S.slots = slots;
+  S.seed_s = seed_s;
+  S.seed_i = seed_i;
+  S.kseed = kseed;
+  S.seed_mul = seed_mul;
   sel_init(S, tw);
   wg_sync(bar_id);
 
@@ -274,7 +284,8 @@ __global__ void __launch_bounds__(kScanThreads, 1)
       const int row = t0 + r_lo + 8 * h;
       const bool in = row < valid_end;
       nrm[h] = in && metric != kIP ? __ldg(norms + row) : 0.f;
-      live |= static_cast<unsigned>(in && (mask == nullptr || __ldg(mask + row) != 0.f))
+      live |= static_cast<unsigned>(in && (mask == nullptr || __ldg(mask + row) != 0.f) &&
+                                    (excl == 0 || row % excl != 0))
               << h;
     }
     for (int c = 0; c < nch; ++c, ++step) {
@@ -356,7 +367,8 @@ extern "C" {
 // large as every level of the merge tree needs (ops/select.py::
 // merge_scratch) and the tree folds the lists; else warp_merge_kernel does and
 // tmp_* is unused. slots is [nq, splits] zeros (the group bars,
-// select.cuh). out_* are [nq, k].
+// select.cuh). out_* are [nq, k]. The seed and excl as for mvt_fused_topk
+// (part_* then hold splits + nseed lists).
 int mvt_fused_topk_high(const float* q, void* qsplit, const float* db,
                         int64_t ldb, const float* norms, const float* mask,
                         int64_t nq,
@@ -365,7 +377,8 @@ int mvt_fused_topk_high(const float* q, void* qsplit, const float* db,
                         int64_t rows_per_split, int list_len, int tree,
                         float* part_s, int* part_i, unsigned long long* slots,
                         float* tmp_s, int* tmp_i, float* out_s, int* out_i,
-                        void* stream) {
+                        const float* seed_s, const int* seed_i, int kseed,
+                        int seed_mul, int nseed, int excl, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int kl = big ? list_len : k;
   int nch = static_cast<int>((d + kChunk - 1) / kChunk);
@@ -384,19 +397,24 @@ int mvt_fused_topk_high(const float* q, void* qsplit, const float* db,
                       kScanRows, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   const unsigned char* qs = static_cast<const unsigned char*>(qsplit);
+  int lists = splits + (seed_s != nullptr ? nseed : 0);
+  err = seed_lists(seed_s, seed_i, kseed, seed_mul, nq, lists, splits, kl, part_s,
+                   part_i, st);
+  if (err != cudaSuccess) return err;
   void* args[] = {&qs, &rmap, &norms, &mask, &nq, &n, &nch, &num_valid, &kl, &k,
-                  &metric, &rows_per_split, &splits, &stages, &big,
-                  &part_s, &part_i, &slots};
+                  &metric, &rows_per_split, &splits, &lists, &stages, &big,
+                  &part_s, &part_i, &slots, &seed_s, &seed_i, &kseed, &seed_mul,
+                  &excl};
   const dim3 grid(static_cast<unsigned>(tiles_q), static_cast<unsigned>(splits));
   err = cudaLaunchKernel(v.fn, grid, dim3(kScanThreads), args, v.smem, st);
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (big || tree) {
-    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, kl, k,
+    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, lists, kl, k,
                       nullptr, 0, out_s, out_i, st);
   }
-  return warp_merge(part_s, part_i, nq, k, splits, out_s, out_i, st);
+  return warp_merge(part_s, part_i, nq, k, lists, out_s, out_i, st);
 }
 
 // Scan blocks of this shape that fit on one SM at once, written to

@@ -157,11 +157,16 @@ __global__ void __launch_bounds__(kScanThreads, 1)
                     const float* __restrict__ bias, float scale,
                     float bias_scale, int defer, int64_t nq, int64_t n, int nch,
                     int64_t num_valid, int k, int topk, int metric,
-                    int64_t rows_per_split, int splits, int stages, int resident,
-                    int big, float* __restrict__ part_s, int* __restrict__ part_i,
-                    unsigned long long* __restrict__ slots) {
-  // big: each split's list (length k) lives in part_*; topk is the k asked
-  // for. slots ([nq, splits]) holds the group bars' keys (select.cuh).
+                    int64_t rows_per_split, int splits, int lists, int stages,
+                    int resident, int big, float* __restrict__ part_s,
+                    int* __restrict__ part_i, unsigned long long* __restrict__ slots,
+                    const float* __restrict__ seed_s, const int* __restrict__ seed_i,
+                    int kseed, int seed_mul, int excl) {
+  // big: each split's list (length k) lives in part_* ([nq, lists, k]: the
+  // splits' lists, then the seed's); topk is the k asked for. slots ([nq,
+  // splits]) holds the group bars' keys (select.cuh). seed_* (may be null):
+  // the seed whose floor starts each bar, in the scan's own domain (raw
+  // dots in deferred mode); excl > 0: rows r % excl == 0 never score.
   constexpr int QB = 2 * NW;
   extern __shared__ unsigned char smem_raw[];
   const int sb = stage_bytes(QB, resident);
@@ -228,12 +233,17 @@ __global__ void __launch_bounds__(kScanThreads, 1)
   S.topk = topk;
   S.split = split;
   S.splits = splits;
+  S.lists = lists;
   S.place = bar_place(splits, topk);
   S.big = big;
   S.int_bar = defer;
   S.part_s = part_s;
   S.part_i = part_i;
   S.slots = slots;
+  S.seed_s = seed_s;
+  S.seed_i = seed_i;
+  S.kseed = kseed;
+  S.seed_mul = seed_mul;
   sel_init(S, tw);
   if (resident) mbar_wait(sm.qbar, 0);
   wg_sync(bar_id);
@@ -255,7 +265,8 @@ __global__ void __launch_bounds__(kScanThreads, 1)
       const bool in = row < valid_end;
       nrm[h] = in && metric != kIP ? __ldg(norms + row) : 0.f;
       brow[h] = in && bias != nullptr ? __ldg(bias + row) : 0.f;
-      live |= static_cast<unsigned>(in && (mask == nullptr || __ldg(mask + row) != 0.f))
+      live |= static_cast<unsigned>(in && (mask == nullptr || __ldg(mask + row) != 0.f) &&
+                                    (excl == 0 || row % excl != 0))
               << h;
     }
     for (int c = 0; c < nch; ++c, ++step) {
@@ -336,8 +347,8 @@ Variant variant(int nw, int nch, int stages, int resident, int k_smem) {
 
 extern "C" {
 
-// Launch the scan, the merge and (defer) the scale on `stream`. Returns the
-// cudaError_t of the launches (0 on success). q is [nq][qstride] int8 and
+// Launch the scan, the merge and (defer, unless raw) the scale on `stream`.
+// Returns the cudaError_t of the launches (0 on success). q is [nq][qstride] int8 and
 // db [n][ldb] int8, of which the first d of a row are read; both base
 // addresses and strides are multiples of 16 bytes. `mask` and `bias` may be
 // null. The tile takes 2 nw queries (nw in 16, 32, 64, 128) and a ring of
@@ -347,7 +358,9 @@ extern "C" {
 // with big) part_* and tmp_* are as large as every level of the merge tree
 // needs (ops/select.py::merge_scratch) and the tree folds the lists; else
 // warp_merge_kernel does and tmp_* is unused. slots is [nq, splits] zeros (the
-// group bars, select.cuh). out_* are [nq, k].
+// group bars, select.cuh). out_* are [nq, k]. The seed and excl as for
+// mvt_fused_topk (part_* then hold splits + nseed lists); in deferred mode
+// its scores are raw dots, as the scan ranks them.
 int mvt_fused_topk_int(const int8_t* q, int64_t qstride, const int8_t* db,
                        int64_t ldb, const float* norms, const float* mask,
                        const float* bias, float scale, float bias_scale,
@@ -356,7 +369,9 @@ int mvt_fused_topk_int(const int8_t* q, int64_t qstride, const int8_t* db,
                        int resident, int big, int splits, int64_t rows_per_split,
                        int list_len, int tree, float* part_s, int* part_i,
                        unsigned long long* slots, float* tmp_s, int* tmp_i,
-                       float* out_s, int* out_i, void* stream) {
+                       float* out_s, int* out_i, const float* seed_s,
+                       const int* seed_i, int kseed, int seed_mul, int nseed,
+                       int excl, int raw, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int kl = big ? list_len : k;
   int nch = static_cast<int>((d + kChunk - 1) / kChunk);
@@ -371,10 +386,15 @@ int mvt_fused_topk_int(const int8_t* q, int64_t qstride, const int8_t* db,
   err = tensor_map_2d(&rmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, db, d, n, ldb, kChunk,
                       kScanRows, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
+  int lists = splits + (seed_s != nullptr ? nseed : 0);
+  err = seed_lists(seed_s, seed_i, kseed, seed_mul, nq, lists, splits, kl, part_s,
+                   part_i, st);
+  if (err != cudaSuccess) return err;
   void* args[] = {&qmap,  &rmap,     &norms,  &mask,   &bias,   &scale,
                   &bias_scale, &defer, &nq,   &n,      &nch,    &num_valid,
-                  &kl,    &k,        &metric, &rows_per_split,  &splits,
-                  &stages, &resident, &big,   &part_s, &part_i, &slots};
+                  &kl,    &k,        &metric, &rows_per_split,  &splits, &lists,
+                  &stages, &resident, &big,   &part_s, &part_i, &slots,
+                  &seed_s, &seed_i,  &kseed, &seed_mul, &excl};
   const dim3 grid(static_cast<unsigned>((nq + qb - 1) / qb),
                   static_cast<unsigned>(splits));
   err = cudaLaunchKernel(v.fn, grid, dim3(kScanThreads), args, v.smem, st);
@@ -382,12 +402,12 @@ int mvt_fused_topk_int(const int8_t* q, int64_t qstride, const int8_t* db,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (big || tree) {
-    err = merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, kl, k, nullptr,
+    err = merge_tree(part_s, part_i, tmp_s, tmp_i, nq, lists, kl, k, nullptr,
                      0, out_s, out_i, st);
   } else {
-    err = warp_merge(part_s, part_i, nq, k, splits, out_s, out_i, st);
+    err = warp_merge(part_s, part_i, nq, k, lists, out_s, out_i, st);
   }
-  if (err != cudaSuccess || !defer) return err;
+  if (err != cudaSuccess || !defer || raw) return err;
   const int64_t count = nq * k;
   scale_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, st>>>(
       out_s, count, scale);

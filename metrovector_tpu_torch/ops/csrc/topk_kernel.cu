@@ -191,12 +191,17 @@ __global__ void __launch_bounds__(kThreads, 2)
                 const float* __restrict__ norms,
                 const float* __restrict__ mask, int64_t nq, int64_t n,
                 int64_t d, int64_t num_valid, int k, int topk, int metric,
-                int64_t rows_per_split, int splits, int vec, Affine aff,
+                int64_t rows_per_split, int splits, int lists, int vec, Affine aff,
                 float* __restrict__ part_s, int* __restrict__ part_i,
-                unsigned long long* __restrict__ slots) {
-  // BIG_K: k is the length of each split's list, which lives in part_*;
-  // topk is the k asked for. slots ([nq, splits]) holds the group bars'
-  // keys (select.cuh). aff: the int8 corpus's dequantization.
+                unsigned long long* __restrict__ slots,
+                const float* __restrict__ seed_s, const int* __restrict__ seed_i,
+                int kseed, int seed_mul, int excl) {
+  // BIG_K: k is the length of each split's list, which lives in part_*
+  // ([nq, lists, k]: the splits' lists, then the seed's); topk is the k
+  // asked for. slots ([nq, splits]) holds the group bars' keys
+  // (select.cuh). aff: the int8 corpus's dequantization. seed_* (may be
+  // null): the seed whose floor starts each query's bar (select.cuh's
+  // seed_floor); excl > 0: rows r with r % excl == 0 never score.
   using TL = Tile<QB>;
   constexpr int RB = TL::kRB;
   constexpr int kWords = TL::kWords;
@@ -227,10 +232,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bool qvec = vec & 2;  // d % 4 == 0 and aligned queries
 
   auto list_s = [&](int qq) {
-    return BIG_K ? part_s + ((q0 + qq) * splits + split) * k : cs + qq * k;
+    return BIG_K ? part_s + ((q0 + qq) * lists + split) * k : cs + qq * k;
   };
   auto list_i = [&](int qq) {
-    return BIG_K ? part_i + ((q0 + qq) * splits + split) * k : ci + qq * k;
+    return BIG_K ? part_i + ((q0 + qq) * lists + split) * k : ci + qq * k;
   };
   if (BIG_K) {
     for (int64_t e = tid; e < static_cast<int64_t>(QB) * k; e += kThreads) {
@@ -247,7 +252,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   for (int e = tid; e < QB; e += kThreads) {
-    bar[e] = 0;
+    bar[e] = q0 + e < nq ? seed_floor(seed_s, seed_i, kseed, seed_mul, q0 + e, topk) : 0ull;
     bc[e] = 0;
   }
 
@@ -344,7 +349,9 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int row = r0 + b;
           const bool in = row < valid_end;
           nrm[b] = in ? __ldg(norms + row) : 0.f;
-          live |= (in && (mask == nullptr || __ldg(mask + row) != 0.f)) << b;
+          live |= (in && (mask == nullptr || __ldg(mask + row) != 0.f) &&
+                   (excl == 0 || row % excl != 0))
+                  << b;
         }
       }
       const bool more = !last || t0 + RB < row_end;
@@ -462,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int qq = e / k;
     const int64_t gq = q0 + qq;
     if (gq < nq) {
-      const int64_t o = (gq * splits + split) * k + e % k;
+      const int64_t o = (gq * lists + split) * k + e % k;
       part_s[o] = cs[e];
       part_i[o] = ci[e];
     }
@@ -515,13 +522,16 @@ extern "C" {
 
 // Launch the scan and the merge on `stream`. Returns the cudaError_t of the
 // launches (0 on success). `mask` may be null. For k <= 256 the caller
-// allocates part_* as [nq, splits, k] (list_len = k); above, as [nq,
-// splits, list_len]. With `tree` (always above k = 256) part_* and tmp_*
-// are as large as every level of the merge tree needs
-// (ops/select.py::merge_scratch) and the tree folds the lists; else
-// warp_merge_kernel does and tmp_* is unused. slots is [nq, splits] zeros
-// (the group bars, select.cuh). out_* are [nq, k]. `tile` is a TileId.
-// db_dtype kI8Affine: int8 codes read as (c + aff_off) * aff_scale.
+// allocates part_* as [nq, lists, k] (list_len = k); above, as [nq,
+// lists, list_len], lists = splits + nseed. With `tree` (always above
+// k = 256) part_* and tmp_* are as large as every level of the merge tree
+// needs (ops/select.py::merge_scratch) and the tree folds the lists; else
+// warp_merge_kernel does (lists <= 512) and tmp_* is unused. slots is [nq,
+// splits] zeros (the group bars, select.cuh). out_* are [nq, k]. `tile` is
+// a TileId. db_dtype kI8Affine: int8 codes read as (c + aff_off) *
+// aff_scale. The seed (seed_s / seed_i [nq, kseed], null for none; indices
+// times seed_mul) starts every bar at its floor and enters the fold as the
+// last nseed lists; excl > 0 leaves rows r % excl == 0 out of the scan.
 int mvt_fused_topk(const float* q, const void* db, int db_dtype,
                    float aff_off, float aff_scale,
                    const float* norms, const float* mask, int64_t nq,
@@ -530,7 +540,9 @@ int mvt_fused_topk(const float* q, const void* db, int db_dtype,
                    int tree,
                    float* part_s, int* part_i,
                    unsigned long long* slots, float* tmp_s, int* tmp_i,
-                   float* out_s, int* out_i, void* stream) {
+                   float* out_s, int* out_i, const float* seed_s,
+                   const int* seed_i, int kseed, int seed_mul, int nseed,
+                   int excl, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int big_k = k > kMaxK;
   int kl = big_k ? list_len : k;
@@ -541,10 +553,14 @@ int mvt_fused_topk(const float* q, const void* db, int db_dtype,
   Affine aff{aff_off, aff_scale};
   int vec = ((d * esz) % 16 == 0 && reinterpret_cast<uintptr_t>(db) % 16 == 0 ? 1 : 0) |
             ((d * 4) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 ? 2 : 0);
+  int lists = splits + (seed_s != nullptr ? nseed : 0);
+  err = seed_lists(seed_s, seed_i, kseed, seed_mul, nq, lists, splits, kl, part_s,
+                   part_i, st);
+  if (err != cudaSuccess) return err;
   void* args[] = {&q,     &db,    &norms,         &mask,   &nq,
                   &n,     &d,     &num_valid,     &kl,     &k,
-                  &metric, &rows_per_split, &splits, &vec, &aff, &part_s,
-                  &part_i, &slots};
+                  &metric, &rows_per_split, &splits, &lists, &vec, &aff, &part_s,
+                  &part_i, &slots, &seed_s, &seed_i, &kseed, &seed_mul, &excl};
   const int qb = tile_queries(tile);
   const dim3 grid(static_cast<unsigned>((nq + qb - 1) / qb),
                   static_cast<unsigned>(splits));
@@ -553,10 +569,10 @@ int mvt_fused_topk(const float* q, const void* db, int db_dtype,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (big_k || tree) {
-    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, splits, kl, k,
+    return merge_tree(part_s, part_i, tmp_s, tmp_i, nq, lists, kl, k,
                       nullptr, 0, out_s, out_i, st);
   }
-  return warp_merge(part_s, part_i, nq, k, splits, out_s, out_i, st);
+  return warp_merge(part_s, part_i, nq, k, lists, out_s, out_i, st);
 }
 
 // Scan blocks that fit on one SM at once for this corpus dtype, tile, list

@@ -492,19 +492,24 @@ struct WgSel {
   int* ci;
   // Where the lists and the bars go: the warpgroup's first query q0 (of
   // nq_w live ones), the split, list length k (topk asked), lists in
-  // device memory (big: part_* [nq, splits, k]) or in cs/ci; the group
-  // bar's first slot and size (select.cuh).
+  // device memory (big: part_* [nq, lists, k], the splits' lists first)
+  // or in cs/ci; the group bar's first slot and size (select.cuh).
   int64_t q0;
-  int nq_w, nw, k, topk, split, splits, place, big, int_bar, gbase, gsize;
+  int nq_w, nw, k, topk, split, splits, lists, place, big, int_bar, gbase, gsize;
   float* part_s;
   int* part_i;
   unsigned long long* slots;
+  // The seed whose floor starts each bar (select.cuh's seed_floor; null:
+  // none).
+  const float* seed_s;
+  const int* seed_i;
+  int kseed, seed_mul;
 
   __device__ float* list_s(int qq) const {
-    return big ? part_s + ((q0 + qq) * splits + split) * k : cs + qq * k;
+    return big ? part_s + ((q0 + qq) * lists + split) * k : cs + qq * k;
   }
   __device__ int* list_i(int qq) const {
-    return big ? part_i + ((q0 + qq) * splits + split) * k : ci + qq * k;
+    return big ? part_i + ((q0 + qq) * lists + split) * k : ci + qq * k;
   }
 };
 
@@ -518,6 +523,10 @@ __device__ __forceinline__ WgSel sel_at(unsigned char* p, int nw, int k_smem) {
   s.cs = reinterpret_cast<float*>(s.bi + nw * kBuf);
   s.ci = reinterpret_cast<int*>(s.cs + nw * k_smem);
   s.nw = nw;
+  s.seed_s = nullptr;
+  s.seed_i = nullptr;
+  s.kseed = 0;
+  s.seed_mul = 1;
   return s;
 }
 
@@ -560,8 +569,9 @@ __device__ __forceinline__ void sel_raise(const WgSel& s, int qq,
 }
 
 // Before the first tile, by the warpgroup's 128 threads (tw): empty lists,
-// zero bars and buffers; a query past nq_w never passes (NaN, or
-// INT32_MAX: no int8 dot of D < 2^17 reaches it).
+// bars at the seed's floor (0 without a seed) and empty buffers; a query
+// past nq_w never passes (NaN, or INT32_MAX: no int8 dot of D < 2^17
+// reaches it).
 __device__ void sel_init(WgSel& s, int tw) {
   s.gbase = bar_base(s.split, s.splits, s.topk);
   s.gsize = bar_group(s.splits, s.topk);
@@ -578,9 +588,12 @@ __device__ void sel_init(WgSel& s, int tw) {
     s.ci[e] = kSentinel;
   }
   for (int e = tw; e < s.nw; e += 128) {
-    s.bar[e] = 0;
+    const unsigned long long fk =
+        e < s.nq_w ? seed_floor(s.seed_s, s.seed_i, s.kseed, s.seed_mul, s.q0 + e, s.topk)
+                   : 0ull;
+    s.bar[e] = fk;
     s.bc[e] = 0;
-    s.thr[e] = e < s.nq_w ? epilogue_bar(s, 0)
+    s.thr[e] = e < s.nq_w ? epilogue_bar(s, fk)
                           : (s.int_bar ? __int_as_float(INT32_MAX) : CUDART_NAN_F);
   }
 }
@@ -675,7 +688,7 @@ __device__ __forceinline__ void sel_epilogue(const WgSel& s, unsigned long long 
 }
 
 // After the last tile: each warp merges its queries' buffers into their
-// lists; lists in shared memory then go to part_* [nq, splits, k]. `id` is
+// lists; lists in shared memory then go to part_* [nq, lists, k]. `id` is
 // the warpgroup's named barrier.
 __device__ void sel_finish(const WgSel& s, int tw, int id) {
   const int warp = tw >> 5;
@@ -690,7 +703,7 @@ __device__ void sel_finish(const WgSel& s, int tw, int id) {
   if (s.big) return;
   wg_sync(id);
   for (int e = tw; e < s.nq_w * s.k; e += 128) {
-    const int64_t o = ((s.q0 + e / s.k) * s.splits + s.split) * s.k + e % s.k;
+    const int64_t o = ((s.q0 + e / s.k) * s.lists + s.split) * s.k + e % s.k;
     s.part_s[o] = s.cs[e];
     s.part_i[o] = s.ci[e];
   }

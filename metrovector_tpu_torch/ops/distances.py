@@ -128,13 +128,14 @@ def exact_topk_int(
     bias_row: torch.Tensor | None = None,
     bias_scale: float = 0.0,
     block_rows: int = 16384,
+    raw_scores: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of int8 ``queries`` over int8 ``db`` in plain PyTorch
     (:func:`int_scores_block`, blocks and ties as :func:`exact_topk`): the
     reference kernel's integer path. ``scale``, ``bias_scale`` round to
     f32 as the reference passes them; in the deferred mode
     (:func:`deferred_scale`) the raw dots are ranked and the k outputs
-    scaled."""
+    scaled, unless ``raw_scores``."""
     dev = queries.device
     defer = deferred_scale(db, metric, bias_row, scale)
     sc = f32_scalar(scale, dev)
@@ -150,7 +151,7 @@ def exact_topk_int(
         vm = None if valid_mask is None else valid_mask[start:stop]
         best = carry_topk(best, mask_scores(s, start, num_valid, vm), start, k)
     out_s, out_i = finish_topk(best, k)
-    return (out_s * sc if defer else out_s), out_i
+    return (out_s * sc if defer and not raw_scores else out_s), out_i
 
 
 def dequantize_rows(db: torch.Tensor, affine: tuple[float, float]) -> torch.Tensor:

@@ -53,6 +53,13 @@ def bar_slots(nq: int, splits: int, device) -> torch.Tensor:
     return torch.zeros((nq, splits), dtype=torch.int64, device=device)
 
 
+def seed_lists(seed_k: int, length: int) -> int:
+    """Lists of ``length`` that a seed of ``seed_k`` sorted entries fills
+    beside the splits' (``select.cuh::seed_lists_kernel``): one while the
+    lists hold k entries, more where they are shorter (device memory)."""
+    return -(-seed_k // length) if seed_k else 0
+
+
 def merge_scratch(lists: int, length: int, k: int) -> tuple[int, int]:
     """Entries per query that ``select.cuh::merge_tree`` needs in its two
     buffers (part, tmp) to fold ``lists`` sorted lists of ``length`` into k:

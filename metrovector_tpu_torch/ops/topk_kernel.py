@@ -5,13 +5,21 @@ codes dequantized as they are staged, ``affine``),
 cores) and ``csrc/topk_int_kernel.cu`` (int8 queries over an int8 corpus:
 exact integer dots on the tensor cores), and their plain PyTorch versions.
 
-Replaces ``metrovector_tpu/ops/topk_kernel.py::fused_topk``. A CUDA tensor
-goes to a kernel or the call raises; a CPU tensor goes to
-:func:`fused_topk_reference`. ``fused_topk.launches`` counts launches of the
-FFMA kernel over a float corpus, ``launches_affine`` over an affine int8
-one, ``launches_high`` those of the bf16x3 kernel and ``launches_int`` those
-of the integer kernel (the passes of one call count once), so a run can
-show that its main path went through them.
+Replaces ``metrovector_tpu/ops/topk_kernel.py::fused_topk`` and
+``fused_topk_presampled``. A CUDA tensor goes to a kernel or the call
+raises; a CPU tensor goes to :func:`fused_topk_reference`.
+``fused_topk.launches`` counts launches of the FFMA kernel over a float
+corpus, ``launches_affine`` over an affine int8 one, ``launches_high`` those
+of the bf16x3 kernel and ``launches_int`` those of the integer kernel (the
+passes of one call count once), ``launches_presampled`` the two-phase calls
+of :func:`fused_topk_presampled` (each of whose phases also counts on its
+route), so a run can show that its main path went through them.
+
+A seed (``seed_s``, ``seed_i``: the exact top-k of rows the scan leaves out,
+``exclude_stride`` or a mask) starts every split's bar at the key of its
+k-th entry and enters the final merge once, as lists of its own
+(``csrc/select.cuh``'s ``seed_floor`` and ``seed_lists_kernel``), on all
+three kernels.
 
 Like the TPU kernel it takes any ``1 ≤ k ≤ N`` and any D: above k = 256 the
 per-split lists move from shared memory into device memory and a merge
@@ -32,7 +40,9 @@ import torch
 from ..format.constants import DistanceMetric
 
 from . import select
-from .distances import deferred_scale, exact_topk, exact_topk_int
+from .distances import (
+    deferred_scale, exact_topk, exact_topk_int, f32_scalar, finish_topk,
+)
 
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may opt into (sm_90)
 # Shape constants of csrc/topk_kernel.cu
@@ -84,25 +94,61 @@ def fused_topk_reference(
     bias_row: torch.Tensor | None = None,
     bias_scale: float = 1.0,
     affine: tuple[float, float] | None = None,
+    seed_s: torch.Tensor | None = None,
+    seed_i: torch.Tensor | None = None,
+    exclude_stride: int | None = None,
+    raw_scores: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`fused_topk` (same signature and results):
     :func:`~.distances.exact_topk` with the kernel's cosine epilogue, which
     takes queries as already normalized. At ``"high"`` the dots are
     :func:`~.distances.bf16x3_dots`: the kernel's products exactly, summed
     in another order. int8 queries: :func:`~.distances.exact_topk_int`;
-    ``affine``: the int8 corpus dequantized a block at a time."""
+    ``affine``: the int8 corpus dequantized a block at a time. The rows
+    ``r % exclude_stride == 0`` are masked out of the scan, and the seed is
+    merged with the scan's k best by (score descending, row ascending); in
+    the deferred mode both are raw dots and the scale multiplies the merged
+    k unless ``raw_scores``."""
     metric = DistanceMetric(metric)
     _check_precision(precision, db)
+    if exclude_stride:
+        keep = torch.arange(db.shape[0], device=db.device) % int(exclude_stride) != 0
+        valid_mask = keep.float() if valid_mask is None else torch.where(
+            keep, valid_mask, torch.zeros((), device=db.device))
+    defer = False
     if queries.dtype == torch.int8:
-        return exact_topk_int(queries, db, db_norms, int(num_valid), k, metric,
+        defer = deferred_scale(db, metric, bias_row, scale)
+        s, i = exact_topk_int(queries, db, db_norms, int(num_valid), k, metric,
                               valid_mask=valid_mask, scale=scale,
-                              bias_row=bias_row, bias_scale=bias_scale)
-    inv_q = None
-    if metric == DistanceMetric.COSINE:
-        inv_q = torch.ones(queries.shape[0], device=queries.device)
-    return exact_topk(queries, db, db_norms, int(num_valid), k, metric,
-                      valid_mask=valid_mask, query_inv_norms=inv_q,
-                      precision=precision, affine=affine)
+                              bias_row=bias_row, bias_scale=bias_scale,
+                              raw_scores=True)
+    else:
+        inv_q = None
+        if metric == DistanceMetric.COSINE:
+            inv_q = torch.ones(queries.shape[0], device=queries.device)
+        s, i = exact_topk(queries, db, db_norms, int(num_valid), k, metric,
+                          valid_mask=valid_mask, query_inv_norms=inv_q,
+                          precision=precision, affine=affine)
+    if seed_s is not None:
+        s, i = merge_seed(s, i, seed_s, seed_i, k)
+    if defer and not raw_scores:
+        s = s * f32_scalar(scale, s.device)
+    return s, i
+
+
+def merge_seed(s: torch.Tensor, i: torch.Tensor, seed_s: torch.Tensor,
+               seed_i: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k best of a scan's ``(s, i) [Q, k]`` and a seed ``[Q, k']`` of
+    other rows, by (score descending, row ascending); unfilled slots
+    (−inf, −1)."""
+    big = torch.iinfo(torch.int64).max
+    cand_s = torch.cat([seed_s.float(), s], dim=1)
+    cand_i = torch.cat([seed_i.long(), i.long()], dim=1)
+    cand_i = torch.where(torch.isneginf(cand_s), big, cand_i)
+    order = torch.sort(cand_i, dim=1, stable=True).indices
+    cand_s, cand_i = cand_s.gather(1, order), cand_i.gather(1, order)
+    order = torch.sort(-cand_s, dim=1, stable=True).indices[:, :k]
+    return finish_topk((cand_s.gather(1, order), cand_i.gather(1, order)), k)
 
 
 def _shared_bytes(k: int, tile: int = _TILE) -> int:
@@ -239,7 +285,7 @@ def _check_dtypes(queries, db, bias_row, affine) -> None:
 
 
 def _check(queries, db, db_norms, k, valid_mask, bias_row=None,
-           affine=None) -> None:
+           affine=None, precision="highest") -> None:
     _check_dtypes(queries, db, bias_row, affine)
     dev = queries.device
     named = [("db", db), ("db_norms", db_norms)]
@@ -272,9 +318,12 @@ def _check(queries, db, db_norms, k, valid_mask, bias_row=None,
     for name, t in named[1:]:
         if t.dtype != torch.float32 or tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be a [{n}] float32 tensor")
-    # The integer kernel reads rows of any stride (the engine's blocks are
-    # padded past D); the others need contiguous tensors.
-    strided = {"queries", "db"} if queries.dtype == torch.int8 else set()
+    # The tensor-core kernels read the corpus's rows at any stride (TMA; the
+    # engine's int8 blocks are padded past D, the presampled scan's
+    # subsample is every stride-th row), the integer one the queries' too;
+    # the rest must be contiguous.
+    strided = ({"queries", "db"} if queries.dtype == torch.int8
+               else {"db"} if precision == "high" else set())
     for name, t in [("queries", queries)] + named:
         if not (t.stride(-1) == 1 if name in strided else t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous"
@@ -294,6 +343,12 @@ def fused_topk(
     bias_row: torch.Tensor | None = None,
     bias_scale: float = 1.0,
     affine: tuple[float, float] | None = None,
+    seed_s: torch.Tensor | None = None,
+    seed_i: torch.Tensor | None = None,
+    exclude_stride: int | None = None,
+    raw_scores: bool = False,
+    *,
+    _seed_stride: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
     over ``db [N, D]`` (f32 / f16 / bf16) with squared norms
@@ -312,23 +367,66 @@ def fused_topk(
     ``bias_scale·bias_row [N]`` f32 when given (uint8 offset spaces), each
     rounded to f32, then the metric; int8 inner product with no bias and
     ``scale > 0`` ranks the raw dots and scales the k outputs
-    (:func:`~.distances.deferred_scale`). There ``queries`` and ``db`` may
-    be row-strided views (``stride(1) == 1``), such as the first D columns
-    of padded blocks: the kernel reads D bytes a row. ``affine = (off, scale)``: f32
-    queries over an int8 ``db`` read as ``(c + off)·scale`` in f32 (the
-    uint8 cosine space), by the FFMA kernel."""
+    (:func:`~.distances.deferred_scale`; ``raw_scores`` leaves them
+    raw). There ``queries`` and ``db`` may be row-strided views
+    (``stride(1) == 1``), such as the first D columns of padded blocks: the
+    kernel reads D bytes a row; so may ``db`` at ``"high"``. ``affine =
+    (off, scale)``: f32 queries over an int8 ``db`` read as ``(c +
+    off)·scale`` in f32 (the uint8 cosine space), by the FFMA kernel.
+
+    The reference's two-phase arguments: ``seed_s [Q, k']`` f32 and
+    ``seed_i [Q, k']`` int32 (``k' ≤ k``, best first, (−inf, −1)
+    unfilled) are the exact top-k' of rows the scan does not score, in the
+    scan's own score domain (raw dots in the deferred mode), and
+    ``exclude_stride`` leaves the rows ``r % exclude_stride == 0`` out of
+    the scan; the result is the k best of both. ``_seed_stride``
+    (:func:`fused_topk_presampled`'s phase 2): ``seed_i`` counts rows of
+    ``db[::_seed_stride]``, multiplied as the kernel reads them."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
     _check_precision(precision, db)
+    if (seed_s is None) != (seed_i is None):
+        raise ValueError("seed_s and seed_i come together")
     if queries.device.type == "cpu":
         _check_dtypes(queries, db, bias_row, affine)
+        if seed_i is not None and _seed_stride != 1:
+            seed_i = torch.where(seed_i >= 0, seed_i * _seed_stride, seed_i)
         return fused_topk_reference(queries, db, db_norms, num_valid, k,
                                     metric, valid_mask, precision, scale,
-                                    bias_row, bias_scale, affine)
+                                    bias_row, bias_scale, affine, seed_s, seed_i,
+                                    exclude_stride, raw_scores)
+    seed = None if seed_s is None else (seed_s, seed_i, _seed_stride)
+    return _fused_topk_cuda(queries, db, db_norms, num_valid, k, metric,
+                            valid_mask, precision, scale, bias_row, bias_scale,
+                            affine, seed, exclude_stride, raw_scores)
+
+
+def _check_seed(seed, nq: int, k: int, dev) -> None:
+    seed_s, seed_i, _ = seed
+    if (seed_s.device != dev or seed_i.device != dev or seed_s.dtype != torch.float32
+            or seed_i.dtype != torch.int32 or seed_s.dim() != 2
+            or seed_s.shape != seed_i.shape or seed_s.shape[0] != nq
+            or not 1 <= seed_s.shape[1] <= k
+            or not (seed_s.is_contiguous() and seed_i.is_contiguous())):
+        raise ValueError(
+            f"seed_s and seed_i must be contiguous [Q={nq}, k' <= {k}] float32 and "
+            f"int32 tensors on {dev}")
+
+
+def _fused_topk_cuda(queries, db, db_norms, num_valid, k, metric, valid_mask,
+                     precision, scale, bias_row, bias_scale, affine, seed,
+                     exclude_stride, raw_scores):
+    """:func:`fused_topk` on CUDA; ``seed``: ``(seed_s, seed_i, mul)``, the
+    seed's indices times ``mul``, or None."""
     if queries.device.type != "cuda":
         raise ValueError(f"fused_topk runs on CUDA or CPU, not {queries.device}")
-    _check(queries, db, db_norms, k, valid_mask, bias_row, affine)
+    _check(queries, db, db_norms, k, valid_mask, bias_row, affine, precision)
+    if seed is not None:
+        _check_seed(seed, queries.shape[0], k, queries.device)
+    excl = int(exclude_stride or 0)
+    if excl < 0:
+        raise ValueError(f"exclude_stride={exclude_stride} must be positive")
     from ._build import load
 
     lib = load()
@@ -338,20 +436,25 @@ def fused_topk(
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
-        return out_s.fill_(float("-inf")), out_i.fill_(-1)
+        out_s.fill_(float("-inf")), out_i.fill_(-1)
+        if seed is None:
+            return out_s, out_i
+        return merge_seed(out_s, out_i, seed[0], seed[1] * seed[2], k)
     with torch.cuda.device(dev):
         if queries.dtype == torch.int8:
             _launch_int(lib, queries, db, db_norms, valid_mask, bias_row,
                         num_valid, k, metric, scale, bias_scale,
-                        deferred_scale(db, metric, bias_row, scale), out_s, out_i)
+                        deferred_scale(db, metric, bias_row, scale), out_s, out_i,
+                        seed=seed, excl=excl, raw=raw_scores)
             fused_topk.launches_int += 1
         elif precision == "high":
             _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k,
-                         metric, out_s, out_i)
+                         metric, out_s, out_i, seed=seed, excl=excl)
             fused_topk.launches_high += 1
         else:
             _launch(lib, queries, db, db_norms, valid_mask, num_valid, k,
-                    metric, _TILE, out_s, out_i, affine=affine)
+                    metric, _TILE, out_s, out_i, affine=affine, seed=seed,
+                    excl=excl)
             if affine is None:
                 fused_topk.launches += 1
             else:
@@ -359,25 +462,142 @@ def fused_topk(
     return out_s, out_i
 
 
-def _plan(dev, nq, n, k, smem_k, tile, occupancy, splits=None):
+def _subsample(queries, db, db_norms, num_valid, k, stride, precision,
+               valid_mask, sub):
+    """Phase 1's inputs: ``(db_sub, norms_sub, nv_sub, mask_sub, k_sub)``,
+    as the reference forms them (``topk_kernel.py:1079-1098``)."""
+    n = db.shape[0]
+    n_sub = -(-n // stride)
+    if sub is None:
+        db_sub = db[::stride]
+        if (queries.device.type == "cuda" and queries.dtype != torch.int8
+                and precision != "high"):
+            db_sub = db_sub.contiguous()  # the FFMA kernel reads whole rows
+        sub = (db_sub, db_norms[::stride].contiguous())
+    db_sub, norms_sub = sub
+    if db_sub.shape[0] != n_sub or tuple(norms_sub.shape) != (n_sub,):
+        raise ValueError(f"sub must hold the {n_sub} rows db[::{stride}] and their norms")
+    nv_sub = max(0, -(-int(num_valid) // stride))  # rows i·stride < num_valid
+    mask_sub = None if valid_mask is None else valid_mask[::stride].contiguous()
+    return db_sub, norms_sub, nv_sub, mask_sub, min(k, n_sub)
+
+
+def fused_topk_presampled(
+    queries: torch.Tensor,
+    db: torch.Tensor,
+    db_norms: torch.Tensor,
+    num_valid: int,
+    k: int,
+    metric,
+    scale: float = 1.0,
+    stride: int = 64,
+    precision: str = "highest",
+    valid_mask: torch.Tensor | None = None,
+    sub: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-phase exact top-k, identical to :func:`fused_topk` (the
+    reference's ``fused_topk_presampled``, ``topk_kernel.py:1040``): phase 1
+    is :func:`fused_topk` of the ``[::stride]`` row subsample, its scores
+    left raw (``raw_scores``); phase 2 scans the other rows with that
+    top-k as its seed (``exclude_stride=stride``), so seed ∪ scan
+    partitions the rows. Every split's bar then starts at the seed's k-th
+    entry, where a plain scan starts from nothing. Corpora of at most
+    ``4·stride`` rows take one plain :func:`fused_topk`.
+
+    ``sub``: the pre-sliced ``(db[::stride], db_norms[::stride])``. Without
+    it the subsample is ``db[::stride]`` as a strided view where the route
+    reads row strides (int8 queries; ``"high"``), else one contiguous copy
+    (the FFMA kernel). The arguments are :func:`fused_topk`'s; the
+    reference's TPU knobs (``block_rows``, ``query_tile``, ``merge``,
+    ``interpret``) have no counterpart here. A CPU tensor goes to
+    :func:`fused_topk_presampled_reference`."""
+    metric = DistanceMetric(metric)
+    if queries.device.type == "cpu":
+        _check_precision(precision, db)
+        _check_dtypes(queries, db, None, None)
+        return fused_topk_presampled_reference(queries, db, db_norms, num_valid, k,
+                                               metric, scale, stride, precision,
+                                               valid_mask, sub)
+    if db.shape[0] <= 4 * stride:
+        return fused_topk(queries, db, db_norms, num_valid, k, metric, valid_mask,
+                          precision, scale)
+    _check_precision(precision, db)
+    db_sub, norms_sub, nv_sub, mask_sub, k_sub = _subsample(
+        queries, db, db_norms, num_valid, k, stride, precision, valid_mask, sub)
+    seed_s, seed_i = fused_topk(queries, db_sub, norms_sub, nv_sub, k_sub, metric,
+                                mask_sub, precision, scale, raw_scores=True)
+    out = fused_topk(queries, db, db_norms, num_valid, k, metric, valid_mask, precision,
+                     scale, seed_s=seed_s, seed_i=seed_i, exclude_stride=stride,
+                     _seed_stride=stride)
+    fused_topk.launches_presampled += 1
+    return out
+
+
+def fused_topk_presampled_reference(
+    queries: torch.Tensor,
+    db: torch.Tensor,
+    db_norms: torch.Tensor,
+    num_valid: int,
+    k: int,
+    metric,
+    scale: float = 1.0,
+    stride: int = 64,
+    precision: str = "highest",
+    valid_mask: torch.Tensor | None = None,
+    sub: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`fused_topk_presampled` (same signature and
+    results): its two phases through :func:`fused_topk_reference`, on any
+    device."""
+    metric = DistanceMetric(metric)
+    if db.shape[0] <= 4 * stride:
+        return fused_topk_reference(queries, db, db_norms, num_valid, k, metric,
+                                    valid_mask, precision, scale)
+    db_sub, norms_sub, nv_sub, mask_sub, k_sub = _subsample(
+        queries, db, db_norms, num_valid, k, stride, precision, valid_mask, sub)
+    seed_s, seed_i = fused_topk_reference(queries, db_sub, norms_sub, nv_sub, k_sub,
+                                          metric, mask_sub, precision, scale,
+                                          raw_scores=True)
+    seed_i = torch.where(seed_i >= 0, seed_i * stride, seed_i)
+    return fused_topk_reference(queries, db, db_norms, num_valid, k, metric,
+                                valid_mask, precision, scale, seed_s=seed_s,
+                                seed_i=seed_i, exclude_stride=stride)
+
+
+def _plan(dev, nq, n, k, smem_k, tile, occupancy, splits=None, seed_k=0):
     """The host plan of one launch: ``(splits, rows_per_split, length,
-    tree, part_s, part_i, tmp_s, tmp_i, slots)`` for a kernel whose blocks
-    take ``tile = (queries, rows)`` and keep lists of up to ``smem_k`` in
-    shared memory. ``occupancy(k_smem, big)`` returns the scan blocks that
-    fit on one SM; ``splits`` (default: one wave, as many scan blocks as
-    fit on the card at once) sets the row splits, fewer above ``smem_k`` if
-    the lists would pass the scratch bound."""
+    tree, part_s, part_i, tmp_s, tmp_i, slots, seed_lists)`` for a kernel
+    whose blocks take ``tile = (queries, rows)`` and keep lists of up to
+    ``smem_k`` in shared memory. ``occupancy(k_smem, big)`` returns the
+    scan blocks that fit on one SM; ``splits`` (default: one wave, as many
+    scan blocks as fit on the card at once) sets the row splits, fewer
+    above ``smem_k`` if the lists would pass the scratch bound. A seed of
+    ``seed_k`` entries takes ``seed_lists`` lists of ``length`` after the
+    splits' (:func:`.select.seed_lists`), and leaves room for one beside
+    :data:`.select.MAX_SPLITS` splits' lists in shared memory."""
     big = k > smem_k
     if splits is None:
         per_sm = occupancy(min(k, smem_k), int(big))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = max(1, sms * max(1, per_sm) // -(-nq // tile[0]))
+    if seed_k:
+        splits = min(splits, select.MAX_SPLITS - 1)
     splits, rows_per_split, length = select.row_splits(
         n, tile[1], splits, nq, k, lists_in_smem=not big)
-    tree = select.merge_by_tree(splits, k, not big)
-    scratch = select.scratch(nq, splits, length, k, dev, tree=tree)
+    nseed = select.seed_lists(seed_k, length)
+    tree = select.merge_by_tree(splits + nseed, k, not big)
+    scratch = select.scratch(nq, splits + nseed, length, k, dev, tree=tree)
     slots = select.bar_slots(nq, splits, dev)
-    return (splits, rows_per_split, length, tree) + tuple(scratch) + (slots,)
+    return (splits, rows_per_split, length, tree) + tuple(scratch) + (slots, nseed)
+
+
+def _seed_args(seed, nseed: int, excl: int) -> tuple:
+    """The C entry points' seed arguments: ``seed_s, seed_i, kseed,
+    seed_mul, nseed, excl``."""
+    if seed is None:
+        return (None, None, 0, 1, 0, excl)
+    seed_s, seed_i, mul = seed
+    return (seed_s.data_ptr(), seed_i.data_ptr(), seed_s.shape[1], int(mul), nseed, excl)
 
 
 _OCCUPANCY: dict[tuple, int] = {}
@@ -401,21 +621,23 @@ def _occupancy(lib, entry, what, *args):
 
 
 def _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
-                 out_s, out_i) -> None:
+                 out_s, out_i, seed=None, excl=0) -> None:
     """One launch of the query split, the bf16x3 scan and the merge for
     checked inputs into ``out_s``/``out_i``, with one wave of scan blocks
     (as :func:`_launch`) of the shape :func:`_high_shape` picks. A corpus
-    whose rows TMA cannot read goes over as :func:`_tma_rows`' copy."""
+    whose rows TMA cannot read goes over as :func:`_tma_rows`' copy.
+    ``seed`` and ``excl`` as in :func:`_launch`."""
     from ._build import raise_for
 
     nq, d = queries.shape
     n = db.shape[0]
     dev = queries.device
     shape = _high_shape(nq, k)
-    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _plan(
+    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots, nseed = _plan(
         dev, nq, n, k, 0 if shape.big else k, (2 * shape.nw, SCAN_ROWS),
         _occupancy(lib, lib.mvt_fused_topk_high_occupancy, "fused_topk[high]",
-                   shape.nw, shape.stages))
+                   shape.nw, shape.stages),
+        seed_k=0 if seed is None else seed[0].shape[1])
     # The split queries: per tile of 2 nw queries and chunk of 32 dims, the
     # stage's image of their hi and lo halves (128 bytes a query).
     tiles = -(-nq // (2 * shape.nw))
@@ -431,30 +653,34 @@ def _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
         splits, rows_per_split, length, int(tree),
         part_s.data_ptr(), part_i.data_ptr(), slots.data_ptr(),
         tmp_s.data_ptr(), tmp_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), *_seed_args(seed, nseed, excl),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_for(lib, err, "fused_topk[high]")
 
 
 def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
-                k, metric, scale, bias_scale, defer, out_s, out_i) -> None:
-    """One launch of the integer scan, the merge and (``defer``) the scale
-    for checked inputs into ``out_s``/``out_i``, with one wave of scan
-    blocks (as :func:`_launch`) of the shape :func:`_int_shape` picks. TMA
-    reads the first D bytes of each row of queries and corpus: each goes
-    over as it is where its row stride and base are 16-byte multiples (the
-    engine's padded blocks), else as :func:`_tma_rows`' copy."""
+                k, metric, scale, bias_scale, defer, out_s, out_i, seed=None,
+                excl=0, raw=False) -> None:
+    """One launch of the integer scan, the merge and (``defer``, unless
+    ``raw``) the scale for checked inputs into ``out_s``/``out_i``, with
+    one wave of scan blocks (as :func:`_launch`) of the shape
+    :func:`_int_shape` picks. TMA reads the first D bytes of each row of
+    queries and corpus: each goes over as it is where its row stride and
+    base are 16-byte multiples (the engine's padded blocks), else as
+    :func:`_tma_rows`' copy. ``seed`` and ``excl`` as in :func:`_launch`;
+    in deferred mode the seed's scores are raw dots."""
     from ._build import raise_for
 
     nq, d = queries.shape
     n = db.shape[0]
     dev = queries.device
     shape = _int_shape(nq, d, k)
-    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _plan(
+    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots, nseed = _plan(
         dev, nq, n, k, 0 if shape.big else k, (2 * shape.nw, SCAN_ROWS),
         _occupancy(lib, lib.mvt_fused_topk_int_occupancy, "fused_topk[int8]",
-                   shape.nw, -(-d // INT_CHUNK), shape.stages, int(shape.resident)))
+                   shape.nw, -(-d // INT_CHUNK), shape.stages, int(shape.resident)),
+        seed_k=0 if seed is None else seed[0].shape[1])
     queries, db = _tma_rows(queries), _tma_rows(db)
     err = lib.mvt_fused_topk_int(
         queries.data_ptr(), queries.stride(0), db.data_ptr(), db.stride(0),
@@ -467,18 +693,22 @@ def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
         splits, rows_per_split, length, int(tree),
         part_s.data_ptr(), part_i.data_ptr(), slots.data_ptr(),
         tmp_s.data_ptr(), tmp_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), *_seed_args(seed, nseed, excl), int(raw),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_for(lib, err, "fused_topk[int8]")
 
 
 def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
-            tile, out_s, out_i, splits=None, affine=None) -> None:
+            tile, out_s, out_i, splits=None, affine=None, seed=None,
+            excl=0) -> None:
     """One launch of the scan and the merge for checked inputs with block
     tile ``tile`` (a tile the library was built with) into
     ``out_s``/``out_i``. ``splits`` as in :func:`_plan`; ``affine = (off,
-    scale)``: an int8 ``db`` dequantized as it is staged."""
+    scale)``: an int8 ``db`` dequantized as it is staged; ``seed = (seed_s,
+    seed_i, mul)``: the seed (its indices times ``mul``) that starts the
+    bars and joins the merge; ``excl`` > 0: rows ``r % excl == 0`` are
+    left out."""
     from ._build import raise_for
 
     nq, d = queries.shape
@@ -486,10 +716,10 @@ def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
     dev = queries.device
     code = _AFFINE_CODE if affine is not None else _DTYPE_CODES[db.dtype]
     off, sc = affine if affine is not None else (0.0, 1.0)
-    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots = _plan(
+    splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots, nseed = _plan(
         dev, nq, n, k, SMEM_K, _TILES[tile],
         _occupancy(lib, lib.mvt_fused_topk_occupancy, "fused_topk", code, tile),
-        splits)
+        splits, seed_k=0 if seed is None else seed[0].shape[1])
     err = lib.mvt_fused_topk(
         queries.data_ptr(), db.data_ptr(), code, float(off), float(sc),
         db_norms.data_ptr(),
@@ -499,7 +729,7 @@ def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
         part_s.data_ptr(), part_i.data_ptr(),
         slots.data_ptr(),
         tmp_s.data_ptr(), tmp_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), *_seed_args(seed, nseed, excl),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_for(lib, err, "fused_topk")
@@ -509,3 +739,4 @@ fused_topk.launches = 0
 fused_topk.launches_affine = 0
 fused_topk.launches_high = 0
 fused_topk.launches_int = 0
+fused_topk.launches_presampled = 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of K1's tensor-core scans goes, on one NVIDIA GPU.
 
-    python3 tools/wgmma_scan_profile.py [--out FILE]
+    python3 tools/wgmma_scan_profile.py [--out FILE] [--seed-counts]
 
 Without a hardware profiler, this builds patched copies of the port under
 ``build/wgmma_profile/`` (git-ignored), all in parallel, and times each in
@@ -18,6 +18,18 @@ a process of its own, by device time per kernel name (``torch.profiler``):
   and the MMA alone, each warpgroup still waiting for its group);
 * ``tma_only``: no MMA either (the TMA ring alone).
 
+With ``--seed-counts`` it builds one variant instead, ``seed_counts``:
+device counters of the integer scan's offers (scores that reached their
+bar) and flushes (buffer merges into a list, the last ones included), read
+and reset through ``mvt_scan_counts``, at deep10m's shape (10M random int8
+rows of 96 codes in 128-byte rows, inner product, deferred scale, batch
+128, k = 100) for plain ``fused_topk`` and for ``fused_topk_presampled``
+(stride 64) and its phase 1 alone. Only the sources its edits reach are
+compiled; the rest of its library is this checkout's own objects.
+``chip_smoke.py`` builds it beside the package in phase 1
+(:func:`start_seed_counts`, :func:`link_seed_counts`) and runs it in phase
+15 (:func:`seed_counts`).
+
 The points are ``tools/scan_kernel_timing.py``'s ``k1v`` shapes: the
 integer scan over 10M random int8 rows of 96 codes in 128-byte rows
 (inner product, deferred scale) at batches 128 and 32 and over 1M rows of
@@ -31,10 +43,12 @@ holds the text it edits. The variants' answers are not checked (only
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 
@@ -87,6 +101,63 @@ TMA_ONLY = NO_EPILOGUE + [
 ]
 VARIANTS = {"as_is": [], "counters": COUNTERS, "no_epilogue": NO_EPILOGUE,
             "tma_only": TMA_ONLY}
+
+WGMMA = "wgmma_scan.cuh"
+SEED_COUNTS = [
+    (WGMMA, "namespace {\n\nconstexpr int kScanRows",
+     "namespace {\n\n__device__ unsigned long long g_counts[2];  // offers, flushes\n"
+     "constexpr int kScanRows"),
+    (WGMMA, "    flush_buffer(ls, li, s.k, s.bs + qq * kBuf, s.bi + qq * kBuf, kBuf, lane);\n"
+            "    if (lane == 0) {\n",
+     "    flush_buffer(ls, li, s.k, s.bs + qq * kBuf, s.bi + qq * kBuf, kBuf, lane);\n"
+     "    if (lane == 0) {\n      atomicAdd(&g_counts[1], 1ull);\n"),
+    (WGMMA, "                   s.bi + qq * kBuf, cnt, lane);\n",
+     "                   s.bi + qq * kBuf, cnt, lane);\n"
+     "      if (lane == 0) atomicAdd(&g_counts[1], 1ull);\n"),
+    (INT, "    sel_epilogue<NW>(S, pass, warp, lane, t0 + r_lo, bar_id, [&](int i) {",
+     "    {\n      const unsigned c = __reduce_add_sync(0xffffffffu,\n"
+     "          static_cast<unsigned>(__popcll(pass)));\n"
+     "      if (lane == 0 && c) atomicAdd(&g_counts[0], static_cast<unsigned long long>(c));\n"
+     "    }\n"
+     "    sel_epilogue<NW>(S, pass, warp, lane, t0 + r_lo, bar_id, [&](int i) {"),
+    (INT, 'extern "C" {\n',
+     'extern "C" {\nint mvt_scan_counts(unsigned long long* out) {\n'
+     "  const unsigned long long zero[2] = {0, 0};\n"
+     "  cudaError_t e = cudaMemcpyFromSymbol(out, g_counts, sizeof(g_counts));\n"
+     "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));\n"
+     "  return e;\n}\n"),
+]
+
+SEED_POINTS = r'''
+from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_presampled
+n, s, k = 10_000_000, 64, 100
+rows = torch.randint(-128, 128, (n, 128), dtype=torch.int8, device=dev, generator=g)
+x, zn = rows[:, :96], torch.zeros(n, device=dev)
+sub = (x[::s], zn[::s].contiguous())
+qs = [torch.randint(-128, 128, (128, 96), dtype=torch.int8, device=dev, generator=g)
+      for _ in range(4)]
+ip = M.INNER_PRODUCT
+fns = {"plain": lambda q: fused_topk(q, x, zn, n, k, ip, scale=0.02),
+       "presampled": lambda q: fused_topk_presampled(q, x, zn, n, k, ip, scale=0.02,
+                                                     stride=s, sub=sub),
+       "phase 1": lambda q: fused_topk(q, *sub, -(-n // s), k, ip, scale=0.02,
+                                       raw_scores=True)}
+buf = (ctypes.c_ulonglong * 2)()
+for name, fn in fns.items():
+    point(name, fn, qs)
+    counts = []
+    for q in qs:
+        torch.cuda.synchronize()
+        lib.mvt_scan_counts(buf)
+        fn(q)
+        torch.cuda.synchronize()
+        lib.mvt_scan_counts(buf)
+        counts.append((buf[0], buf[1]))
+    out[name]["offers"] = float(np.mean([c[0] for c in counts]))
+    out[name]["flushes"] = float(np.mean([c[1] for c in counts]))
+if not torch.equal(fns["plain"](qs[0])[1], fns["presampled"](qs[0])[1]):
+    raise AssertionError("seed_counts: presampled differs from fused_topk")
+'''
 
 # The child process of every variant: loads (and so builds) the package at
 # ROOT, then runs a profile's points, each through point(), and prints their
@@ -182,7 +253,108 @@ def child(root: str, counters: bool, build_only: bool, points: str) -> subproces
     code = (f"ROOT = {root!r}\nCOUNTERS = {counters!r}\nBUILD_ONLY = {build_only!r}\n"
             + HARNESS + points + "print(json.dumps(out))\n")
     return subprocess.Popen([sys.executable, "-c", code], cwd=root, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+
+
+def _build_module(root: str):
+    """The ``ops/_build.py`` of the package at ``root``, loaded under a
+    name of its own (its build directory follows its own sources)."""
+    path = os.path.join(root, "metrovector_tpu_torch", "ops", "_build.py")
+    spec = importlib.util.spec_from_file_location(f"_build_of_{abs(hash(root))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def start_seed_counts() -> tuple[str, list]:
+    """Patch the ``seed_counts`` variant and start compiling the ``.cu``
+    files its edits reach (edited, or including an edited file), each in an
+    ``nvcc`` of its own; returns its root and ``(stem, process)`` for each.
+    :func:`link_seed_counts` takes every other object from this checkout's
+    build."""
+    root = patched("seed_counts", SEED_COUNTS)
+    var = _build_module(root)
+    here = os.path.join(ROOT, "metrovector_tpu_torch", "ops", "csrc")
+    text = {p.name: p.read_text() for p in var._sources()}
+    touched = {name for name, t in text.items()
+               if t != open(os.path.join(here, name)).read()}
+    while True:  # an include of a touched file touches the includer
+        more = {name for name, t in text.items() if name not in touched
+                and any(f'#include "{h}"' in t for h in touched)}
+        if not more:
+            break
+        touched |= more
+    out_dir = var.build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in var._sources():
+        if src.suffix == ".cu" and src.name in touched:
+            cmd = [var._nvcc(), *var.NVCC_FLAGS, "-I", str(var.CSRC), "-c",
+                   "-o", str(out_dir / (src.stem + ".o")), str(src)]
+            jobs.append((src.stem, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                start_new_session=True)))
+    return root, jobs
+
+
+def link_seed_counts(started) -> None:
+    """Wait for :func:`start_seed_counts`' compiles and link the variant's
+    library from them and this checkout's other objects (its build must
+    have run: ``_build.load()``)."""
+    root, jobs = started
+    for _, proc in jobs:
+        out = proc.communicate(timeout=1200)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"seed_counts: nvcc failed ({proc.returncode})\n{out[-3000:]}")
+    var, main = _build_module(root), _build_module(ROOT)
+    out_dir, main_dir = var.build_dir(), main.build_dir()
+    ours = {stem for stem, _ in jobs}
+    objs = [str((out_dir if src.stem in ours else main_dir) / (src.stem + ".o"))
+            for src in var._sources() if src.suffix == ".cu"]
+    missing = [o for o in objs if not os.path.exists(o)]
+    if missing:
+        raise RuntimeError(f"seed_counts: no object {missing[0]}: build this checkout first")
+    run = subprocess.run([var._nvcc(), "-shared", "-Xcompiler", "-fPIC", "-o",
+                          str(out_dir / var.LIB_NAME), *objs], capture_output=True, text=True)
+    if run.returncode != 0:
+        raise RuntimeError(f"seed_counts: link failed\n{run.stderr[-3000:]}")
+
+
+def stop(started) -> None:
+    """Kill :func:`start_seed_counts`' compiles that are still running."""
+    for _, proc in started[1]:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def seed_counts(root: str | None = None) -> dict:
+    """The ``seed_counts`` points (module docstring) of the variant built
+    at ``root`` (:func:`start_seed_counts`, :func:`link_seed_counts`), else
+    built now: per run, device ms by kernel name and the mean ``offers`` and
+    ``flushes`` of one call."""
+    if root is None:
+        sys.path.insert(0, ROOT)
+        from metrovector_tpu_torch.ops import _build
+
+        _build.load()
+        started = start_seed_counts()
+        try:
+            link_seed_counts(started)
+        finally:
+            stop(started)
+        root = started[0]
+    proc = child(root, False, False, SEED_POINTS)
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"seed_counts: run failed\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def profile(variants: dict, points: str, counter_fields, prefix: str = "",
@@ -235,7 +407,17 @@ def profile(variants: dict, points: str, counter_fields, prefix: str = "",
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out")
+    ap.add_argument("--seed-counts", action="store_true")
     args = ap.parse_args()
+    if args.seed_counts:
+        result = seed_counts()
+        for name, row in result.items():
+            print(f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        print(json.dumps(result), flush=True)
+        return 0
     return profile(VARIANTS, POINTS, COUNTER_FIELDS, out_path=args.out)
 
 
