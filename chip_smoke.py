@@ -195,6 +195,47 @@ Phases, one line each; any failure exits non-zero:
    row-order call, at the main path's inputs (batches 1, 8, 256, fetch
    400), a ragged N whose tail bucket is longer than ``group_rows``
    (identical, twice, to both), and its device time.
+16. live mutation and the facade, through the public entry points, each
+   count at 0 before a public call and read after (``_Tally``), each
+   search held against the same call with every kernel swapped for its
+   plain version (``plain_versions``): (a) the phase 3 file through
+   ``Database.open(path).engine("sift", mode="exact")``, 50,000 integer
+   rows appended across capacity (1M -> 1.5M rows), 50,000 within it
+   (``data_ptr`` unchanged), 1,000 rows deleted by id and 1,000 by
+   position, a batch-256 k=10 search after each step identical to the
+   plain version with no deleted row; ``add_rows`` ms at the growth step
+   and within, ``search()`` p50 before and after; ``high_verified`` after
+   rows of 4x the largest norm, identical to "highest", its
+   ``verify_stats``; phase 14's deep10m (int8 IP), sift1m-u8 (uint8 L2)
+   and uint8 cosine spaces (the affine load, within phase 14's band) and
+   the phase 3 corpus written as BFLOAT16, each grown across and within
+   capacity (float rows quantized by the space's calibration) and
+   trimmed; (b) a ``MicroBatcher`` (``pipeline=False``, then ``True``)
+   over a fresh engine of the phase 3 file, 32 client threads sending
+   2,000 requests while a writer appends 20 chunks of 10,000 rows (across
+   a capacity step) and deletes 100 after each: every answer below the row
+   count published when it returned, holding no row deleted before its
+   submit, its ids its rows; afterwards identical to the plain version;
+   (e) one file with ``sift1m-pq``'s and ``sift1m-ivfpq``'s sidecars over
+   their 1M rows, an IVF space and a 20,000-row HNSW space:
+   ``Database.engine(mode="auto")`` routes each to its index (identical to
+   its plain versions; the footprint estimate equal to ``nbytes``),
+   ``mode="exact"`` bypasses it, a budget of one space evicts the least
+   recently used, the batcher answers as ``search()``; (c) phase 8's
+   ``sift1m-pq4`` and ``sift1m-pq`` indexes grown by 200,000 rows (across
+   capacity) and trimmed by 1,000: ``search(k=10, rerank=400)`` with the
+   f32 and the int8 LUT at batch 256, K2 against its plain version by
+   phase 8's rule and K3 identical on the grown index, recall@10 >= 0.99
+   against the float64 oracle of the grown corpus; (d) phase 12's
+   ``sift1m-ivfpq`` grown by 100,000 rows in groups of the corpus's shape
+   drawn off rows of 8 clusters, which overflow into new buckets (groups
+   apart from the cluster's own, as ``_p16_ivfpq`` says why): both modes
+   at batches 1, 8 and 256
+   identical to their plain versions, recall@10 >= 0.99 at rerank 400 with
+   appended rows returned; then 1,000 deleted, ``rebuild()`` and again;
+   IVF flat over the same rows and quantizer, the same overflow. Every
+   kernel of the slice must have launched on this path; its launches are
+   added to the kernels line's.
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
@@ -206,11 +247,13 @@ of its CUDA-core and tensor-core bounds); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -1268,6 +1311,7 @@ def phase_pq_path(torch, dev, card, keep=None):
     counts = {fn.__name__: 0 for fn in wrappers}
     times, recalls = {}, {}
     kept = None  # the pq4 index and its oracle data, for phase 9
+    kept8 = None  # the sift1m-pq index, for phase 16
     tmp = tempfile.TemporaryDirectory()
     try:
         for name, m, ksub, packed in PQ_CONFIGS:
@@ -1440,6 +1484,7 @@ def phase_pq_path(torch, dev, card, keep=None):
             else:
                 times["int8_lookup"] = _int8_lut_searches(
                     torch, dev, card, "sift1m-pq", "lookup", idx, x64, norms64, queries)
+                kept8 = idx  # for phase 16
                 del idx
             torch.cuda.empty_cache()
     finally:
@@ -1477,7 +1522,7 @@ def phase_pq_path(torch, dev, card, keep=None):
         + ", ".join(f"{n} batch {b} {r:.4f}" for (n, b), r in recalls.items())
         + f"; launches {counts}; 20k full re-rank through K2 + K3 identical "
         "to the plain route, recall@10 1.0000)")
-    return counts, times, kept
+    return counts, times, kept, kept8
 
 
 def _identical(torch, got, ref, what) -> None:
@@ -3590,9 +3635,10 @@ def _deep10m(torch, dev, card, tmpdir) -> dict:
             + f" | the mma.sync kernel it replaces {MMA_SYNC_INT_MS[('deep10m', nq)]:.4f} "
             f"(PERF.md) | search() p50 {p50:.4f} ms ({nq / p50 * 1e3:.0f} QPS) | {card}")
         del qs, qt
-    del engine, sp
+    del sp
     torch.cuda.empty_cache()
-    return {"launches": launches, "cell": out, "recall": recall, "keep": keep}
+    return {"launches": launches, "cell": out, "recall": recall, "keep": keep,
+            "engine": engine}  # the engine stays for phase 16
 
 
 def _sift1m_u8(torch, dev, card, tmpdir) -> dict:
@@ -3718,9 +3764,11 @@ def _sift1m_u8(torch, dev, card, tmpdir) -> dict:
         f"(runs {aruns[0]:.4f}, {aruns[1]:.4f}; bound {abnd[0]:.4f} ms by {abnd[1]}, "
         f"{abnd[0] / ams:.1%}) | plain {apms:.4f} | search() p50 {p50_c:.4f} ms "
         f"({U8_BATCH / p50_c * 1e3:.0f} QPS) | {card}")
+    engines = {"u8": engine, "u8cos": cos_engine}  # for phase 16
     del engine, cos_engine, sp, sc, preps, preps_c, qc
     torch.cuda.empty_cache()
-    return {"int8": {"launches": launches[0], "ms": kms, "plain_ms": pms, "bound": bnd,
+    return {"engines": engines,
+            "int8": {"launches": launches[0], "ms": kms, "plain_ms": pms, "bound": bnd,
                      "p50": p50, "recall": (rec_q, rec_raw)},
             "affine": {"launches": launches[1], "ms": ams, "plain_ms": apms,
                        "bound": abnd, "p50": p50_c, "err": aff_err, "recall": rec_c}}
@@ -3843,6 +3891,7 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
         "int8_mma": {"launches": lut["launches"], "max_err": 0.0, "ms": lut_top["ms"],
                      "plain_ms": lut_top["plain_ms"], "bound": lut_top["bound"]},
         "keep": deep["keep"],
+        "keep16": {"deep": deep["engine"], **u8["engines"]},
     }
 
 
@@ -4196,6 +4245,677 @@ def phase_presampled(torch, dev, card, dense, deep, gist, ivf, counters) -> dict
             "group_rows": group}
 
 
+# ------------------------------------------------------------------ phase 16 ---
+
+P16_APPEND, P16_DELETE = 50_000, 1_000
+P16_WRITER = (20, 10_000, 100)  # (chunks, rows a chunk, deletes after each)
+P16_CLIENTS, P16_REQUESTS = 32, 2_000
+P16_PQ_APPEND, P16_IVF_APPEND, P16_IVF_CENTERS = 200_000, 100_000, 8
+P16_HNSW_N = 20_000  # the facade's HNSW space: a host build that fits the phase
+P16_GROUP = 250  # rows of one appended group in (d): the corpus's ~244 a center
+P16_KERNELS = ("fused_topk", "fused_topk[high]", "fused_topk[int8]",
+               "fused_topk[affine]", "fused_adc_topk", "fused_adc_topk[int8_mma]",
+               "fused_adc_topk[int8_lut]", "fused_adc_topk[group_bias]",
+               "rescore_candidates")
+
+
+def _launch_counts() -> dict:
+    """Each kernels-line wrapper's count, by the kernels line's names."""
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk as a
+    from metrovector_tpu_torch.ops.gather_kernel import gather_rows, rescore_candidates
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk as t
+
+    return {"fused_topk": t.launches, "fused_topk[high]": t.launches_high,
+            "fused_topk[int8]": t.launches_int, "fused_topk[affine]": t.launches_affine,
+            "fused_topk_presampled": t.launches_presampled,
+            "fused_adc_topk": a.launches - a.int8_launches - a.group_launches,
+            "fused_adc_topk[int8_mma]": a.int8_mma_launches,
+            "fused_adc_topk[int8_lut]": a.int8_launches - a.int8_mma_launches,
+            "fused_adc_topk[group_bias]": a.group_launches - a.group_rows_launches,
+            "fused_adc_topk[group_rows]": a.group_rows_launches,
+            "gather_rows": gather_rows.launches,
+            "rescore_candidates": rescore_candidates.launches}
+
+
+def _zero_counts() -> None:
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk as a
+    from metrovector_tpu_torch.ops.gather_kernel import gather_rows, rescore_candidates
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk as t
+
+    for name in ("launches", "launches_high", "launches_int", "launches_affine",
+                 "launches_presampled"):
+        setattr(t, name, 0)
+    for name in ("launches", "int8_launches", "int8_mma_launches", "group_launches",
+                 "group_rows_launches"):
+        setattr(a, name, 0)
+    gather_rows.launches = rescore_candidates.launches = 0
+
+
+class _Tally:
+    """Phase 16's launches on its main path: every count set to 0 just
+    before a public call, read just after and added here. Launches made to
+    compare a kernel with its plain version happen outside and are not
+    counted."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def add(self) -> None:
+        """Add the counts since the last ``_zero_counts``."""
+        for name, n in _launch_counts().items():
+            self.counts[name] = self.counts.get(name, 0) + n
+
+    def __call__(self, fn, *args, **kw):
+        _zero_counts()
+        out = fn(*args, **kw)
+        self.add()
+        return out
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The port's search paths with each kernel's wrapper swapped for its
+    plain version in the modules that call it (this script's swap; the
+    port is unchanged): a search inside runs no kernel."""
+    import metrovector_tpu_torch.engine as eng_mod
+    import metrovector_tpu_torch.index.ivfpq as ivfpq_mod
+    import metrovector_tpu_torch.index.pq as pq_mod
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk_reference
+    from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates_reference
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk_reference
+
+    def adc(*args, buckets=None, **kw):  # the plain scan reads the rows in order
+        return fused_adc_topk_reference(*args, **kw)
+
+    def rescore_rows(q, db, norms, cand, k, metric):
+        return rescore_candidates_reference(q, db, norms, cand, k, metric, tie="row")
+
+    swaps = ((eng_mod, "fused_topk", fused_topk_reference),
+             (eng_mod, "rescore_topk", rescore_rows),
+             (pq_mod, "fused_adc_topk", adc),
+             (pq_mod, "rescore_candidates", rescore_candidates_reference),
+             (ivfpq_mod, "fused_adc_topk", adc),
+             (ivfpq_mod, "rescore_candidates", rescore_candidates_reference))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _same_result(got, ref, what) -> None:
+    if not (np.array_equal(got.indices, ref.indices)
+            and np.array_equal(got.scores, ref.scores)
+            and np.array_equal(got.ids, ref.ids)):
+        raise AssertionError(f"{what}: differs from the plain version")
+
+
+def _no_deleted(res, dead: set, what) -> None:
+    if dead and np.isin(res.indices, np.fromiter(dead, np.int64)).any():
+        raise AssertionError(f"{what}: a deleted row surfaced")
+
+
+def _timed_add(torch, dev, fn, *args, **kw) -> float:
+    """ms of one mutation, the device synchronized before and after."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn(*args, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _p16_dense(torch, dev, card, tally, path, name, sizes) -> dict:
+    """(a) the phase 3 file through the facade, grown across and within
+    capacity, with deletes by id and by position, each step's search at
+    batch 256 identical to the plain version; add_rows and search() times."""
+    from metrovector_tpu_torch import Database
+
+    n_add, n_del, nq = sizes
+    rng = np.random.default_rng(SEED + 16)
+    eng = Database.open(path, device=dev).engine(name, mode="exact")
+    sp = eng.space
+    n0, cap0 = sp.num_valid, sp.padded_rows
+    hosts = [rng.integers(0, 256, (nq, sp.dim)).astype(np.float32) for _ in range(5)]
+    p50_before = _p50(torch, eng.search, hosts, dev, k=10) if dev.type == "cuda" else 0.0
+    dead: set = set()
+
+    def check(step):
+        res = tally(eng.search, hosts[0], k=10)
+        with plain_versions():
+            ref = eng.search(hosts[0], k=10)
+        _same_result(res, ref, f"(a) {step}")
+        _no_deleted(res, dead, f"(a) {step}")
+
+    ms_grow = _timed_add(torch, dev, sp.add_rows,
+                         rng.integers(0, 256, (n_add, sp.dim)).astype(np.float32))
+    if not sp.padded_rows > cap0 or sp.num_valid != n0 + n_add:
+        raise AssertionError("(a) the first append did not cross capacity")
+    check("grown across capacity")
+    ptr, cap1 = sp.data.data_ptr(), sp.padded_rows
+    ms_within = _timed_add(torch, dev, sp.add_rows,
+                           rng.integers(0, 256, (n_add, sp.dim)).astype(np.float32))
+    if sp.data.data_ptr() != ptr or sp.padded_rows != cap1:
+        raise AssertionError("(a) an append within capacity moved the corpus")
+    check("grown within capacity")
+    by_id = rng.choice(sp.num_valid, n_del, replace=False)
+    sp.delete_rows(ids=by_id)  # no ID column: an id is its row
+    dead.update(by_id.tolist())
+    by_pos = rng.choice(np.setdiff1d(np.arange(sp.num_valid), by_id), n_del, replace=False)
+    sp.delete_rows(rows=by_pos)
+    dead.update(by_pos.tolist())
+    check("after deletes")
+    p50_after = _p50(torch, eng.search, hosts, dev, k=10) if dev.type == "cuda" else 0.0
+    say(f"  (a) {name}: {n0} rows -> {sp.num_valid} ({cap0} -> {sp.padded_rows} "
+        f"capacity); add_rows of {n_add} rows at a growth step {ms_grow:.2f} ms, within "
+        f"capacity {ms_within:.2f} ms (synchronized; data_ptr unchanged); {2 * n_del} "
+        f"deleted; batch {nq} k=10 identical to the plain version at each step; "
+        f"search() p50 {p50_before:.4f} ms before growth, {p50_after:.4f} ms after | {card}")
+    return {"grow_ms": ms_grow, "within_ms": ms_within, "p50": (p50_before, p50_after)}
+
+
+def _p16_verified(torch, dev, card, tally, path, name, sizes) -> None:
+    """(a) high_verified after rows of 4x the corpus's largest norm: equal
+    to "highest", with the fallbacks counted."""
+    from metrovector_tpu_torch import Database
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk_reference
+
+    n_add, _, nq = sizes
+    rng = np.random.default_rng(SEED + 161)
+    db = Database.open(path, device=dev, engine_kwargs={"precision": "high_verified"})
+    eng = db.engine(name, mode="exact")
+    sp = eng.space
+    x = sp.data[: sp.num_valid]
+    big = (2 * x[torch.argmax(sp.norms[: sp.num_valid])]).cpu().numpy()
+    rows = np.repeat(big[None, : sp.dim], n_add // 10, axis=0)
+    rows[:, 0] += np.arange(rows.shape[0], dtype=np.float32) % 7  # norms ~4x the largest
+    sp.add_rows(rows)
+    q = rng.integers(0, 256, (nq, sp.dim)).astype(np.float32)
+    res = tally(eng.search, q, k=10)
+    snap = sp.snapshot
+    prep = sp.prepare_queries(q)
+    s_r, i_r = fused_topk_reference(prep.qdev, snap.data, snap.norms, snap.num_valid,
+                                    10, sp.metric, valid_mask=snap.valid_mask)
+    if not (np.array_equal(res.indices, i_r.cpu().numpy())
+            and np.array_equal(res.scores, s_r.cpu().numpy())):
+        raise AssertionError("(a) high_verified after the 4x-norm rows differs from highest")
+    say(f"  (a) high_verified: {rows.shape[0]} rows of ~4x the largest norm appended "
+        f"({sp.num_valid} rows); batch {nq} identical to the plain 'highest'; "
+        f"verify_stats {eng.verify_stats} | {card}")
+
+
+def _p16_space(torch, dev, card, tally, eng, label, rows_fn, sizes, band=None) -> None:
+    """(a) one resident space (int8, uint8, bf16) grown across and within
+    capacity and trimmed, each step's search equal to the plain version
+    (``band(q)``: a check within a band of it, for uint8 cosine)."""
+    n_add, n_del, nq = sizes
+    rng = np.random.default_rng(SEED + 162)
+    sp = eng.space
+    n0, cap0 = sp.num_valid, sp.padded_rows
+    q = rows_fn(rng, nq)
+    check = band(q) if band is not None else None
+    dead: set = set()
+    ms = []
+    for step in ("across capacity", "within capacity", "after deletes"):
+        if step == "after deletes":
+            victims = rng.choice(sp.num_valid, n_del, replace=False)
+            sp.delete_rows(rows=victims)
+            dead.update(victims.tolist())
+        else:
+            ms.append(_timed_add(torch, dev, sp.add_rows, rows_fn(rng, n_add)))
+        res = tally(eng.search, q, k=10)
+        with plain_versions():
+            ref = eng.search(q, k=10)
+        _no_deleted(res, dead, f"(a) {label} {step}")
+        if check is None:
+            _same_result(res, ref, f"(a) {label} {step}")
+        else:
+            check(res, ref, f"(a) {label} {step}")
+    if not sp.padded_rows > cap0:
+        raise AssertionError(f"(a) {label}: no growth step")
+    say(f"  (a) {label}: {n0} -> {sp.num_valid} rows ({cap0} -> {sp.padded_rows} "
+        f"capacity), float rows quantized by the space's calibration where it is "
+        f"integer; add_rows {ms[0]:.2f} ms at the growth step, {ms[1]:.2f} ms within; "
+        f"batch {nq} k=10 {'within the band of' if band else 'identical to'} the "
+        f"plain version at each step | {card}")
+
+
+class _RowScores:
+    """float64 scores ``[Q, N]`` on the card, read back only where
+    ``_compare`` looks (``[row, columns]``)."""
+
+    def __init__(self, torch, t):
+        self.torch, self.t = torch, t
+
+    def __getitem__(self, key):
+        r, cols = key
+        idx = self.torch.as_tensor(np.asarray(cols, np.int64), device=self.t.device)
+        return self.t[r, idx].cpu().numpy()
+
+
+def _cosine_band(torch, sp, q):
+    """uint8 cosine search() against its plain version: phase 14's band,
+    differing rows only at near-ties of the exact (float64) similarity."""
+
+    def check(res, ref, what):
+        t = torch.from_numpy
+        tol = np.full(len(res.indices), 4 * sp.dim * 2.0**-24 + 2.0**-22)
+        scores64 = None
+        if not np.array_equal(res.indices, ref.indices):
+            snap = sp.snapshot
+            xd = ((snap.data[: snap.num_valid, : sp.dim].double() + 128 - sp.zero_point)
+                  * sp.scale)
+            inv = 1.0 / torch.sqrt((xd * xd).sum(1))
+            q64 = sp.prepare_queries(q).qdev[:, : sp.dim].double()
+            scores64 = _RowScores(torch, (q64 @ xd.T) * inv[None, :])
+        _compare((t(res.scores), t(res.indices)), (t(ref.scores), t(ref.indices)),
+                 False, tol, scores64, what)
+    return check
+
+
+def _p16_serving(torch, dev, card, tally, path, name, pipeline, sizes) -> dict:
+    """(b) MicroBatcher over a fresh engine of the phase 3 file while a
+    writer appends and deletes: every answer checked against what was
+    published when it returned."""
+    from metrovector_tpu_torch import Database, MicroBatcher
+
+    chunks, chunk_rows, n_del = P16_WRITER if sizes is None else sizes[0]
+    clients, requests = (P16_CLIENTS, P16_REQUESTS) if sizes is None else sizes[1]
+    eng = Database.open(path, device=dev).engine(name, mode="exact")
+    sp = eng.space
+    n0, cap0 = sp.num_valid, sp.padded_rows
+    rng = np.random.default_rng(SEED + 163 + int(pipeline))
+    deleted_at: list = []
+    errors: list = []
+    answers: list = []
+    lock = threading.Lock()
+
+    def writer():
+        try:
+            for _ in range(chunks):
+                sp.add_rows(rng.integers(0, 256, (chunk_rows, sp.dim)).astype(np.float32))
+                victims = rng.choice(sp.num_valid, n_del, replace=False)
+                sp.delete_rows(rows=victims)
+                deleted_at.append((time.monotonic(), victims))
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    def client(c):
+        crng = np.random.default_rng(10_000 + c)
+        try:
+            for _ in range(requests // clients + (c < requests % clients)):
+                q = crng.integers(0, 256, (1, sp.dim)).astype(np.float32)
+                t0 = time.monotonic()
+                res = mb.submit(q).result(timeout=120)
+                nv = sp.num_valid
+                with lock:
+                    answers.append((t0, res, nv))
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    t_run = time.perf_counter()
+    _zero_counts()
+    with MicroBatcher(eng, k=10, max_batch=256, max_wait_ms=1.0, pipeline=pipeline) as mb:
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+        threads.append(threading.Thread(target=writer))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    tally.add()
+    t_run = time.perf_counter() - t_run
+    if errors:
+        raise errors[0]
+    if len(answers) != requests:
+        raise AssertionError(f"(b) {len(answers)} answers of {requests}")
+    if not sp.padded_rows > cap0:
+        raise AssertionError("(b) the writer crossed no capacity step")
+    for t0, res, nv in answers:
+        rows = res.indices[res.indices >= 0]
+        if (rows >= nv).any():
+            raise AssertionError("(b) an answer names a row past the published count")
+        gone = [v for t, v in deleted_at if t < t0]
+        if gone and np.isin(rows, np.concatenate(gone)).any():
+            raise AssertionError("(b) an answer holds a row deleted before its submit")
+        if not np.array_equal(res.ids[res.indices >= 0], rows.astype(np.uint64)):
+            raise AssertionError("(b) an answer's ids do not match its rows")
+    q = rng.integers(0, 256, (256, sp.dim)).astype(np.float32)
+    res = tally(eng.search, q, k=10)
+    with plain_versions():
+        ref = eng.search(q, k=10)
+    _same_result(res, ref, "(b) after the writer stopped")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # a faulted launch would raise here
+    say(f"  (b) MicroBatcher pipeline={pipeline}: {clients} clients, {requests} "
+        f"requests answered in {t_run:.2f} s while a writer appended {chunks} x "
+        f"{chunk_rows} rows and deleted {n_del} after each ({n0} -> {sp.num_valid} "
+        f"rows, {cap0} -> {sp.padded_rows} capacity); every answer below the row count "
+        f"published when it returned, none deleted before its submit, ids = rows; "
+        f"after the writer, identical to the plain version | {card}")
+    return {"seconds": t_run}
+
+
+def _grown_oracle(torch, dev, x_old, new, dead):
+    """float64 rows and norms on the card of the grown corpus, a deleted
+    row's norm +inf (so ``_recall_on_card`` never counts it a neighbour)."""
+    x64 = torch.cat([x_old.double(), torch.from_numpy(new).to(dev, torch.float64)])
+    norms64 = (x64 * x64).sum(1)
+    if dead:
+        norms64[torch.as_tensor(sorted(dead), device=dev)] = float("inf")
+    return x64, norms64
+
+
+def _p16_pq(torch, dev, card, tally, idx, name, sizes) -> dict:
+    """(c) a phase 8 index grown across capacity and trimmed: K2 and K3
+    against their plain versions on the grown index (phase 8's rule), the
+    f32 and the int8 LUT, recall@10 against the float64 oracle."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.pq import unpack_codes4
+    from metrovector_tpu_torch.ops.adc_kernel import (
+        adc_lut, fused_adc_topk, fused_adc_topk_reference,
+    )
+    from metrovector_tpu_torch.ops.gather_kernel import (
+        rescore_candidates, rescore_candidates_reference,
+    )
+
+    L2 = DistanceMetric.L2
+    n_add, n_del, nq = sizes
+    rng = np.random.default_rng(SEED + 164)
+    n0, cap0 = idx.num_vectors, int(idx.codes.shape[0])
+    x_old = idx.db[:n0]
+    x_host = x_old.cpu().numpy()
+    new = _pq_queries(rng, x_host, n_add)  # noisy copies of corpus rows
+    ms = _timed_add(torch, dev, idx.add_rows, new)
+    if not int(idx.codes.shape[0]) > cap0:
+        raise AssertionError(f"(c) {name}: the append did not cross capacity")
+    dead = set(rng.choice(idx.num_vectors, n_del, replace=False).tolist())
+    idx.delete_rows(sorted(dead))
+    x64, norms64 = _grown_oracle(torch, dev, x_old, new, dead)
+    grown = np.concatenate([x_host, new])
+    q = np.concatenate([_pq_queries(rng, new, nq // 2), _pq_queries(rng, x_host, nq - nq // 2)])
+    qd = torch.from_numpy(q).to(dev)
+    out = {}
+    for int8 in (False, True):
+        lut_name = "int8 LUT" if int8 else "f32 LUT"
+        res = tally(idx.search, q, k=10, rerank=RERANK, int8_lut=int8)
+        _no_deleted(res, dead, f"(c) {name} {lut_name}")
+        rec = _recall_on_card(torch, x64, norms64, q, res.indices, 10)
+        if rec < 0.99:
+            raise AssertionError(f"(c) {name} {lut_name}: recall@10 {rec:.4f} < 0.99")
+        args = (qd, idx.codes, idx._books, idx.recon_norms, idx.num_vectors, RERANK, L2)
+        kw = dict(valid_mask=idx.valid, exact_lut=not int8, packed4=idx.packed4,
+                  int8_lut=int8)
+        got = fused_adc_topk(*args, **kw)
+        ref = fused_adc_topk_reference(*args, **kw)
+        if int8:
+            _identical(torch, got, ref, f"(c) {name} int8 LUT: K2")
+        else:
+            codes = idx.codes[: idx.num_vectors].cpu().numpy()
+            if idx.packed4:
+                codes = unpack_codes4(codes, idx.m)
+            _same_candidates(torch, got, ref, adc_lut(qd, idx._books, True), codes,
+                             idx.recon_norms[: idx.num_vectors].cpu().numpy(), idx.m,
+                             idx.ksub, f"(c) {name} f32 LUT: K2")
+        k3 = rescore_candidates(qd, idx.db, idx.db_norms, got[1], 10, L2, tie="position")
+        k3_ref = rescore_candidates_reference(qd, idx.db, idx.db_norms, got[1], 10, L2,
+                                              tie="position")
+        _identical(torch, k3, k3_ref, f"(c) {name} {lut_name}: K3")
+        if not (np.array_equal(res.indices, k3[1].cpu().numpy())
+                and np.array_equal(res.scores, k3[0].cpu().numpy())):
+            raise AssertionError(f"(c) {name} {lut_name}: search() is not K2 then K3")
+        out[lut_name] = rec
+    del x64, norms64, grown
+    say(f"  (c) {name}: {n0} -> {idx.num_vectors} rows ({cap0} -> "
+        f"{int(idx.codes.shape[0])} capacity; add_rows of {n_add} rows {ms:.1f} ms, "
+        f"encoded on the card), {n_del} deleted; batch {nq} k=10 rerank {RERANK}: "
+        + ", ".join(f"{k} recall@10 {v:.4f}" for k, v in out.items())
+        + f"; K2 and K3 as their plain versions on the grown index | {card}")
+    return out
+
+
+def _p16_ivfpq(torch, dev, card, tally, idx, sizes) -> dict:
+    """(d) phase 12's sift1m-ivfpq grown by rows of the corpus's own shape
+    (groups of 250 at spread 12, as ``_clustered_u8_corpus`` draws them)
+    around centers drawn off rows of a few clusters, which overflow into
+    new buckets; both modes at batches 1, 8 and 256 identical to their
+    plain versions and recall@10 >= 0.99 at rerank 400; then deletes,
+    rebuild() and again; IVF flat the same.
+
+    The groups' centers lie 64 a dimension off a row of their cluster, so
+    that groups do not overlap: near copies of the cluster's rows, or
+    groups on top of its own, would raise the density around a query some
+    tenfold, and a fetch of 400 candidates would then miss true neighbours
+    whatever the code (recall at a fixed re-rank depth measures the data
+    as much as the index)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.index.ivf import IVFIndex
+
+    L2 = DistanceMetric.L2
+    n_add, n_del, batches, centers = sizes
+    rng = np.random.default_rng(SEED + 165)
+    n0, nb0 = idx.num_vectors, idx.num_buckets
+    x_old = idx.db[:n0]
+    x_host = x_old.cpu().numpy()
+    assign0 = idx.cells[np.maximum(idx.row_bucket_host[:n0], 0)].astype(np.int32)
+    which = rng.choice(idx.num_clusters, centers, replace=False)
+    groups = n_add // P16_GROUP
+    seeds = (x_host[rng.choice(np.flatnonzero(np.isin(assign0, which)), groups)]
+             + rng.normal(0.0, 64.0, (groups, idx.dim)))
+    new = np.clip(np.rint(seeds[rng.integers(0, groups, n_add)]
+                          + rng.normal(0.0, 12.0, (n_add, idx.dim))), 0, 255).astype(np.float32)
+    ms = _timed_add(torch, dev, idx.add_rows, new)
+    nb1 = idx.num_buckets
+    if not nb1 > nb0:
+        raise AssertionError("(d) the overflow allocated no bucket")
+    in_new = int((idx.row_bucket_host[n0:] >= nb0).sum())
+    qs = {b: np.concatenate([_pq_queries(rng, new, b - b // 2), _pq_queries(rng, x_host, b // 2)])
+          for b in batches}
+    dead: set = set()
+    recalls = {}
+    for stage in ("appended", "deleted + rebuild()"):
+        if stage != "appended":
+            dead = set(rng.choice(idx.num_vectors, n_del, replace=False).tolist())
+            idx.delete_rows(sorted(dead))
+            idx.rebuild()
+        x64, norms64 = _grown_oracle(torch, dev, x_old, new, dead)
+        for mode in ("scan", "probe"):
+            rows, hits_new = [], 0
+            for b in batches:
+                res = tally(idx.search, qs[b], k=10, nprobe=IVF_NPROBE, rerank=RERANK,
+                            mode=mode)
+                with plain_versions():
+                    ref = idx.search(qs[b], k=10, nprobe=IVF_NPROBE, rerank=RERANK,
+                                     mode=mode)
+                _same_result(res, ref, f"(d) {stage} {mode} batch {b}")
+                _no_deleted(res, dead, f"(d) {stage} {mode} batch {b}")
+                rows.append(res.indices)
+                hits_new += int((res.indices[: b - b // 2] >= n0).sum())
+            q_all = np.concatenate([qs[b] for b in batches])
+            rec = _recall_on_card(torch, x64, norms64, q_all, np.concatenate(rows), 10)
+            if rec < 0.99 or hits_new == 0:
+                raise AssertionError(f"(d) {stage} {mode}: recall@10 {rec:.4f}, "
+                                     f"{hits_new} appended rows returned")
+            recalls[(stage, mode)] = (rec, hits_new)
+        del x64, norms64
+    say(f"  (d) sift1m-ivfpq: {n0} -> {idx.num_vectors} rows, {n_add} in {groups} "
+        f"groups drawn off rows of {centers} clusters (add_rows {ms:.1f} ms); {nb0} -> {nb1} buckets "
+        f"({in_new} appended rows in new buckets), {idx.num_buckets} after "
+        f"rebuild(); {n_del} deleted; "
+        f"nprobe {IVF_NPROBE} rerank {RERANK}, batches {batches}, each identical to its "
+        "plain version: " + ", ".join(
+            f"{s} {m} recall@10 {r:.4f} ({h} appended rows returned)"
+            for (s, m), (r, h) in recalls.items()) + f" | {card}")
+
+    # IVF flat: the same overflow case over the same rows and quantizer
+    norms = np.einsum("ij,ij->i", x_host, x_host, dtype=np.float64).astype(np.float32)
+    flat = IVFIndex.build(x_host, norms, L2, idx.num_clusters, centroids=idx.centroids,
+                          assignments=assign0, device=dev)
+    fb0 = flat.num_buckets
+    ms_flat = _timed_add(torch, dev, flat.add_rows, new)
+    if not flat.num_buckets > fb0:
+        raise AssertionError("(d) IVF flat: the overflow allocated no bucket")
+    x64, norms64 = _grown_oracle(torch, dev, x_old, new, set())
+    q = qs[batches[-1]]
+    res = tally(flat.search, q, k=10, nprobe=IVF_NPROBE)
+    rec = _recall_on_card(torch, x64, norms64, q, res.indices, 10)
+    own = flat.search(new[:64], k=1, nprobe=IVF_NPROBE).indices[:, 0]
+    if rec < 0.99 or not (own >= n0).all():
+        raise AssertionError(f"(d) IVF flat: recall@10 {rec:.4f}, appended rows "
+                             f"found {(own >= n0).mean():.3f}")
+    del x64, norms64
+    say(f"  (d) IVF flat over the same rows and quantizer: {fb0} -> {flat.num_buckets} "
+        f"buckets after the same append (add_rows {ms_flat:.1f} ms); batch "
+        f"{batches[-1]} nprobe {IVF_NPROBE} recall@10 {rec:.4f}; each appended row "
+        f"its own nearest | {card}")
+    return {"assign0": assign0}
+
+
+def _p16_facade(torch, dev, card, tally, tmpdir, pq8, ivf, assign0, n_hnsw, nq) -> None:
+    """(e) Database over one file with a PQ, an IVF-PQ, an IVF and an HNSW
+    space: mode="auto" routes each to its index (identical to the index's
+    plain versions), mode="exact" bypasses them, a budget that holds one
+    space evicts the least recently used, the batcher answers as search."""
+    from metrovector_tpu_torch import Builder, Database, DistanceMetric
+    from metrovector_tpu_torch.database import IndexEngine
+    from metrovector_tpu_torch.engine import SearchEngine
+    from metrovector_tpu_torch.index.hnsw import HNSWIndex
+
+    L2 = DistanceMetric.L2
+    t0 = time.perf_counter()
+    n = pq8.num_vectors
+    x_pq = pq8.db[:n].cpu().numpy()
+    x_ivf = ivf.db[: len(assign0)].cpu().numpy()
+    graph = HNSWIndex.build(x_ivf[:n_hnsw], L2, m=16, ef_construction=100)
+    t_hnsw = time.perf_counter() - t0
+    path = os.path.join(tmpdir, "facade.mvt")
+    b = Builder()
+    for space, rows in (("pq", x_pq), ("ivfpq", x_ivf), ("ivf", x_ivf),
+                        ("hnsw", x_ivf[:n_hnsw])):
+        b.add_vector_space(space, dim=rows.shape[1], metric=L2)
+        b.add_vectors(space, rows)
+    b.set_pq_index("pq", pq8.codebooks, pq8.codes[:n].cpu().numpy())
+    for space in ("ivfpq", "ivf"):
+        b.set_ivf_index(space, ivf.centroids, assign0, nprobe=IVF_NPROBE)
+    b.set_pq_index("ivfpq", ivf.codebooks, ivf.codes_row[: len(assign0)].cpu().numpy(),
+                   residual=True)
+    b.set_hnsw_index("hnsw", graph.layers, graph.entry, m=16, ef_construction=100)
+    b.build().save(path)
+    t_file = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 166)
+    q = _pq_queries(rng, x_ivf[:n_hnsw], nq)
+    db = Database.open(path, device=dev)
+    for space in ("pq", "ivfpq", "ivf", "hnsw"):
+        if db.index_kind(space) != space:
+            raise AssertionError(f"(e) {space}: detected {db.index_kind(space)}")
+        eng = db.engine(space)
+        if not (isinstance(eng, IndexEngine) and eng.kind == space):
+            raise AssertionError(f"(e) {space}: mode='auto' did not route to its index")
+        res = tally(db.search, space, q, k=10)
+        with plain_versions():
+            ref = db.search(space, q, k=10)
+        _same_result(res, ref, f"(e) {space} through the facade")
+        if db.engine(space).nbytes != db._estimate_nbytes(space, space):
+            raise AssertionError(f"(e) {space}: the footprint estimate is not nbytes")
+    exact = db.engine("ivf", mode="exact")
+    if not isinstance(exact, SearchEngine):
+        raise AssertionError("(e) mode='exact' did not bypass the index")
+    res = tally(db.search, "ivf", q, k=10, mode="exact")
+    with plain_versions():
+        ref = db.search("ivf", q, k=10, mode="exact")
+    _same_result(res, ref, "(e) ivf mode='exact'")
+    one = db._estimate_nbytes("pq")
+    small = Database.open(path, device=dev, hbm_budget=one)
+    tally(small.search, "pq", q, k=10, mode="exact")
+    tally(small.search, "ivf", q, k=10, mode="exact")
+    if list(small._engines) != ["ivf"] or small.resident_bytes != one:
+        raise AssertionError(f"(e) the budget kept {list(small._engines)}")
+    with db.batcher("pq", k=10, max_batch=64, max_wait_ms=1.0) as mb:
+        futs = [mb.submit(q[i]) for i in range(len(q))]
+        got = [f.result(timeout=120) for f in futs]
+    direct = db.search("pq", q, k=10)
+    for i, r in enumerate(got):
+        if not (np.array_equal(r.indices[0], direct.indices[i])
+                and np.array_equal(r.scores[0], direct.scores[i])):
+            raise AssertionError(f"(e) batcher answer {i} differs from search()")
+    del db, small
+    say(f"  (e) Database over {n} x {x_pq.shape[1]} PQ, IVF-PQ and IVF spaces and a "
+        f"{n_hnsw}-row HNSW space (host build {t_hnsw:.1f} s on all cores; file "
+        f"written {t_file:.1f} s): mode='auto' routed each to its index (identical to "
+        f"its plain versions, footprint estimate = nbytes), mode='exact' to "
+        f"SearchEngine; a budget of one space ({one} bytes) evicted the least recently "
+        f"used; the batcher's {len(q)} answers equal search() | {card}")
+
+
+def phase_mutation(torch, dev, card, sift_path, dense, quant16, pq4, pq8, ivf) -> dict:
+    """Phase 16 (module docstring). Returns its launches by kernels-line
+    name and its times."""
+    from metrovector_tpu_torch import Builder, DataType, Reader, SearchEngine
+
+    t_phase = time.perf_counter()
+    tally = _Tally()
+    sizes = (P16_APPEND, P16_DELETE, 256)
+    times = _p16_dense(torch, dev, card, tally, sift_path, "sift", sizes)
+    _p16_verified(torch, dev, card, tally, sift_path, "sift", sizes)
+    deep, u8, u8cos = quant16["deep"], quant16["u8"], quant16["u8cos"]
+    ds = deep.space
+    _p16_space(torch, dev, card, tally, deep, "deep10m int8 IP", lambda r, n: (
+        r.integers(-128, 128, (n, ds.dim)) * ds.scale
+        + r.uniform(-0.4, 0.4, (n, ds.dim)) * ds.scale).astype(np.float32), sizes)
+    _p16_space(torch, dev, card, tally, u8, "sift1m-u8 uint8 L2", lambda r, n:
+               r.uniform(0, 255, (n, D_MAIN)).astype(np.float32), sizes)
+    cs = u8cos.space
+    _p16_space(torch, dev, card, tally, u8cos, "uint8 cosine (affine load)",
+               lambda r, n: ((r.integers(0, 256, (n, D_MAIN)) - cs.zero_point) * cs.scale
+                             ).astype(np.float32), sizes,
+               band=lambda q: _cosine_band(torch, cs, q))
+    del deep, u8, u8cos, ds, cs
+    quant16.clear()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        x = dense.data[: dense.num_valid, : dense.dim].cpu().numpy()
+        bf_path = os.path.join(tmp.name, "sift1m_bf16.mvt")
+        b = Builder()
+        b.add_vector_space("bf", dim=D_MAIN, dtype=DataType.BFLOAT16)
+        b.add_vectors("bf", x)
+        b.build().save(bf_path)
+        del b, x
+        bf = SearchEngine(Reader.open(bf_path).vector_space("bf"), device=dev)
+        _p16_space(torch, dev, card, tally, bf, "phase 3 corpus as BFLOAT16",
+                   lambda r, n: r.integers(0, 256, (n, D_MAIN)).astype(np.float32), sizes)
+        del bf
+        torch.cuda.empty_cache()
+        for pipeline in (False, True):
+            _p16_serving(torch, dev, card, tally, sift_path, "sift", pipeline, None)
+        torch.cuda.empty_cache()
+        assign0 = ivf.cells[np.maximum(ivf.row_bucket_host[: ivf.num_vectors], 0)]
+        _p16_facade(torch, dev, card, tally, tmp.name, pq8, ivf, assign0.astype(np.int32),
+                    P16_HNSW_N, 256)
+        torch.cuda.empty_cache()
+    finally:
+        tmp.cleanup()
+    for name, idx in (("sift1m-pq4", pq4), ("sift1m-pq", pq8)):
+        _p16_pq(torch, dev, card, tally, idx, name, (P16_PQ_APPEND, P16_DELETE, 256))
+        torch.cuda.empty_cache()
+    _p16_ivfpq(torch, dev, card, tally, ivf,
+               (P16_IVF_APPEND, P16_DELETE, IVF_KERNEL_BATCHES, P16_IVF_CENTERS))
+    torch.cuda.synchronize(dev)  # no launch of the phase faulted
+    missing = [k for k in P16_KERNELS if not tally.counts.get(k)]
+    if missing:
+        raise AssertionError(f"phase 16: no launch of {missing} on its main path")
+    seconds = time.perf_counter() - t_phase
+    say(f"  phase 16 times: add_rows {times['grow_ms']:.2f} ms at a growth step "
+        f"(1M -> 1.05M rows of 128 f32), {times['within_ms']:.2f} ms within capacity; "
+        f"search() p50 batch 256 k=10 {times['p50'][0]:.4f} ms before growth, "
+        f"{times['p50'][1]:.4f} ms after; the phase {seconds:.1f} s | {card}")
+    say(f"phase 16 mutation and the facade: ok (launches "
+        + ", ".join(f"{k} {tally.counts.get(k, 0)}" for k in P16_KERNELS) + ")")
+    return {"launches": tally.counts, "times": times, "seconds": seconds}
+
+
 def time_parent(parent: str, files: str, card: str) -> None:
     """K1-K4 of another checkout (the parent commit, unpacked by the caller)
     at the kernels-line points, and its search() p50 on this run's dense
@@ -4277,7 +4997,7 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
         phase_serving(engine)
         adc_err, _ = phase_adc_vs_plain(torch, dev)
         gather_err, rescore_err = phase_gather_vs_plain(torch, dev)
-        pq_launches, pq_times, pq4 = phase_pq_path(torch, dev, card, keep_dir)
+        pq_launches, pq_times, pq4, pq8 = phase_pq_path(torch, dev, card, keep_dir)
         phase_any_k(torch, dev, card, engine, pq4)
         dense = engine.space  # the phase 3 corpus stays for phase 15
         del engine  # phase 8's pq4 index stays for phase 14
@@ -4289,6 +5009,8 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
         high = phase_high_path(torch, dev, card, sift_path)
         torch.cuda.empty_cache()
         quant = phase_quantized(torch, dev, card, sift_path, pq4)
+        quant16 = quant.pop("keep16")  # phase 14's spaces, for phase 16
+        pq4_idx = pq4[0]
         del pq4
         lookup = pq_times["int8_lookup"]
         quant["int8_lut"] = {"launches": lookup["launches"], "max_err": 0.0,
@@ -4296,7 +5018,10 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
         torch.cuda.empty_cache()
         quant.update(phase_presampled(torch, dev, card, dense, quant.pop("keep"),
                                       high.pop("keep"), ivf_keep, counters))
-        del dense, ivf_keep
+        torch.cuda.empty_cache()
+        p16 = phase_mutation(torch, dev, card, sift_path, dense, quant16, pq4_idx, pq8,
+                             ivf_keep["idx"])
+        del dense, ivf_keep, pq4_idx, pq8, quant16
     finally:
         tmp.cleanup()
 
@@ -4340,7 +5065,7 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
             time_parent(parent, keep_dir, card)
         finally:
             keep.cleanup()
-    say(json.dumps({"kernels": [
+    kernels = [
         {"name": "fused_topk", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches,
          "max_abs_err": max_err, "ms": kms, "plain_ms": pms,
@@ -4415,7 +5140,10 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
              "metrovector_tpu/ops/topk_kernel.py:1040"),
             ("fused_adc_topk[group_rows]", "group_rows", CSRC + "adc_bucket_kernel.cu",
              "metrovector_tpu/ops/adc_kernel.py:248"))
-    ]}))
+    ]
+    for row in kernels:  # each path's launches: phases 3-15, then phase 16's
+        row["launches"] += p16["launches"].get(row["name"], 0)
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name,
         "count": torch.cuda.device_count(),

@@ -6,7 +6,9 @@ Self-contained: the port carries its own copy of every host layer it uses
 packages read and write the same MVT bytes (``tests/test_torch_format.py``).
 Every line of device code is owned here: the dense engine, the PQ, IVF and
 IVF-PQ indexes and the sparse engine run on a ``torch.device`` and their searches go through
-hand-written CUDA kernels for Hopper (``ops/csrc``).
+hand-written CUDA kernels for Hopper (``ops/csrc``); HNSW runs on the host,
+and the ``Database`` facade opens a file and routes each space to one of
+them.
 
 Module names mirror the JAX package, so each module's counterpart sits at
 the same path. The compute-path names below import lazily, so
@@ -40,6 +42,8 @@ from .vectors import (
 )
 
 _LAZY = {
+    "Database": "metrovector_tpu_torch.database",
+    "HNSWIndex": "metrovector_tpu_torch.index.hnsw",
     "SearchEngine": "metrovector_tpu_torch.engine",
     "DeviceSpace": "metrovector_tpu_torch.engine",
     "SearchResult": "metrovector_tpu_torch.engine",
@@ -80,9 +84,11 @@ __all__ = [
     "BuiltFile",
     "CompressionAlgorithm",
     "DataType",
+    "Database",
     "DeviceSpace",
     "DimensionSlice",
     "DistanceMetric",
+    "HNSWIndex",
     "IVFIndex",
     "IVFPQIndex",
     "IndexKind",

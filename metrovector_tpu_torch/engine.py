@@ -23,7 +23,9 @@ For these three dtypes the precision changes nothing, as in the reference.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -34,7 +36,12 @@ from .errors import (
     InvalidVectorTypeError,
     VectorIdNotFoundError,
 )
-from .format.constants import DataType, DistanceMetric
+from .format.constants import (
+    DataType,
+    DistanceMetric,
+    padded_rows_for,
+    sublane_multiple,
+)
 from .format.reader import Reader
 from .utils.filters import checked_prepared_mask, padded_filter_plane
 from .vectors.space import VectorSpace
@@ -222,12 +229,97 @@ class PreparedQueries:
     const: np.ndarray | None = None  # per-query additive dot constant C(q)
 
 
+def grow_rows(old: torch.Tensor, num_valid: int, new: torch.Tensor,
+              cap: int, fill=0) -> torch.Tensor:
+    """``old`` with rows ``[num_valid, num_valid + len(new))`` set to
+    ``new`` (a tensor on ``old``'s device), by copies on the current stream.
+    Within ``old``'s rows the copy is in place and ``old`` itself comes
+    back: a search in flight bounds its rows by its own, smaller row count,
+    so it never reads them. Beyond, a new tensor of ``cap`` rows takes
+    ``old[:num_valid]`` by a copy on the device, then ``new``, then
+    ``fill``."""
+    total = num_valid + int(new.shape[0])
+    if total <= old.shape[0]:
+        old[num_valid:total].copy_(new)
+        return old
+    out = torch.empty((cap,) + tuple(old.shape[1:]), dtype=old.dtype,
+                      device=old.device)
+    out[:num_valid].copy_(old[:num_valid])
+    out[num_valid:total].copy_(new)
+    out[total:].fill_(fill)
+    return out
+
+
+def publish(obj, **changes) -> None:
+    """Give ``obj`` new attribute values in one assignment of a new
+    ``__dict__``: a reader that took :func:`pinned` before sees none of
+    ``changes``, one after sees all of them. The published dict is never
+    changed in place."""
+    obj.__dict__ = {**obj.__dict__, **changes}
+
+
+def pinned(obj):
+    """A shallow copy of ``obj`` as it was published last (its one
+    ``__dict__``), for a reader that reads several attributes."""
+    return copy.copy(obj)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpaceSnapshot:
+    """What one search reads of a :class:`DeviceSpace`, published as one
+    object: the padded block, its norms, the validity mask and uint8 code
+    sums, the logical row count and the host ID column. Its fields never
+    change once published (an append within capacity writes rows past its
+    ``num_valid``, which a search of it never reads); ``norm_bounds`` and
+    the ID → row map are cached on it."""
+
+    data: torch.Tensor
+    norms: torch.Tensor
+    num_valid: int
+    valid_mask: torch.Tensor | None = None
+    rowsums: torch.Tensor | None = None
+    host_ids: np.ndarray | None = None
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def padded_rows(self) -> int:
+        return int(self.data.shape[0])
+
+    def norm_bounds(self) -> tuple[float, float]:
+        """(max, min) squared L2 norm over the logical rows."""
+        if "norm_bounds" not in self._cache:
+            nrm = self.norms[: self.num_valid]
+            self._cache["norm_bounds"] = (float(nrm.max()), float(nrm.min()))
+        return self._cache["norm_bounds"]
+
+    def live(self):
+        """``(data, norms, valid_mask, rowsums)`` cut to the ``num_valid``
+        logical rows (views): a scan reads these, not the capacity an
+        append left behind them."""
+        nv = self.num_valid
+        return (self.data[:nv], self.norms[:nv],
+                None if self.valid_mask is None else self.valid_mask[:nv],
+                None if self.rowsums is None else self.rowsums[:nv])
+
+    def id_lut(self) -> dict:
+        """Stable ID → row position (``host_ids`` is set)."""
+        if "id_lut" not in self._cache:
+            self._cache["id_lut"] = {int(v): i for i, v in enumerate(self.host_ids)}
+        return self._cache["id_lut"]
+
+
 class DeviceSpace:
     """One vector space resident on one device: the padded corpus block,
     its dequantized squared norms and an optional validity mask, as tensors
     ready for :func:`~.ops.topk_kernel.fused_topk`; for a quantized space
     its ``scale`` and ``zero_point``, and for uint8 the per-row sums of the
-    recentred codes (``rowsums``, Σ(c − 128) over the logical dims)."""
+    recentred codes (``rowsums``, Σ(c − 128) over the logical dims).
+
+    The tensors, the row count and the ID column live in one
+    :class:`SpaceSnapshot` (:attr:`snapshot`); :meth:`add_rows` and
+    :meth:`delete_rows` publish a new one in one assignment, and a search
+    takes it once, so it never pairs one step's row count with another's
+    tensors."""
 
     def __init__(
         self,
@@ -246,26 +338,52 @@ class DeviceSpace:
         rowsums: torch.Tensor | None = None,
     ):
         _check_supported(DataType(dtype), precision)
-        self.data = data
-        self.norms = norms
-        self.num_valid = int(num_valid)
         self.dim = int(dim)
         self.metric = DistanceMetric(metric)
-        self.valid_mask = valid_mask
         self.scale = float(scale)
         self.zero_point = float(zero_point)
         self.dtype = DataType(dtype)
         self.name = name
-        self.rowsums = rowsums
         self.precision = precision
-        # Host-side stable ID column (u64), only to translate result rows.
-        self.host_ids = host_ids
-        self._id_lut: dict | None = None  # lazy id → row map (delete_rows)
-        self._norm_bounds: tuple[float, float] | None = None
+        # host_ids: the stable ID column (u64), only to translate result rows
+        self._snap = SpaceSnapshot(data=data, norms=norms,
+                                   num_valid=int(num_valid),
+                                   valid_mask=valid_mask, rowsums=rowsums,
+                                   host_ids=host_ids)
+        self._write_lock = threading.Lock()  # one writer at a time
+
+    @property
+    def snapshot(self) -> SpaceSnapshot:
+        """The state the next search reads."""
+        return self._snap
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self._snap.data
+
+    @property
+    def norms(self) -> torch.Tensor:
+        return self._snap.norms
+
+    @property
+    def num_valid(self) -> int:
+        return self._snap.num_valid
+
+    @property
+    def valid_mask(self) -> torch.Tensor | None:
+        return self._snap.valid_mask
+
+    @property
+    def rowsums(self) -> torch.Tensor | None:
+        return self._snap.rowsums
+
+    @property
+    def host_ids(self) -> np.ndarray | None:
+        return self._snap.host_ids
 
     @property
     def device(self) -> torch.device:
-        return self.data.device
+        return self._snap.data.device
 
     # -- construction ---------------------------------------------------------
 
@@ -365,59 +483,155 @@ class DeviceSpace:
 
     # -- online mutation ------------------------------------------------------
 
+    def _encode_rows(self, rows: np.ndarray):
+        """Appended rows as the block stores them: ``(rows [n, padded_dim]
+        f32 or int8, squared norms [n] f32, code sums [n] f32 or None)``,
+        on the host. The reference's arithmetic: float rows of an int8 or
+        uint8 space are quantized with the stored calibration and their
+        norms are those of the dequantized codes; a float space takes the
+        norms of the f32 input, before it is rounded to the block's
+        storage."""
+        rows_f = rows.astype(np.float32)
+        new_norms = np.einsum(
+            "ij,ij->i", rows_f, rows_f, dtype=np.float64
+        ).astype(np.float32)
+        pad_d = self.padded_dim - self.dim
+        new_bias = None
+        if self.dtype == DataType.UINT8:
+            if np.issubdtype(rows.dtype, np.floating):
+                codes = np.clip(np.rint(rows_f / self.scale + self.zero_point), 0, 255)
+            else:
+                codes = rows_f
+            deq = (codes - self.zero_point) * self.scale
+            new_norms = np.einsum("ij,ij->i", deq, deq, dtype=np.float64).astype(np.float32)
+            shifted = codes.astype(np.int16) - 128  # padding columns stay 0
+            new_bias = shifted.sum(axis=1, dtype=np.int32).astype(np.float32)
+            block = np.pad(shifted.astype(np.int8), ((0, 0), (0, pad_d)))
+        elif self.dtype == DataType.INT8:
+            if np.issubdtype(rows.dtype, np.floating):
+                codes = np.clip(np.rint(rows_f / self.scale), -128, 127)
+            else:
+                codes = rows_f
+            deq = codes * self.scale
+            new_norms = np.einsum("ij,ij->i", deq, deq, dtype=np.float64).astype(np.float32)
+            block = np.pad(codes.astype(np.int8), ((0, 0), (0, pad_d)))
+        else:
+            block = np.pad(rows_f, ((0, 0), (0, pad_d)))
+        return block, new_norms, new_bias
+
     def add_rows(self, rows, ids=None, reserve: float = 1.5) -> None:
-        raise NotImplementedError(
-            "add_rows is not ported yet (ROADMAP A2 mutation: capacity steps and the "
-            "one-snapshot mutation contract)"
-        )
+        """Append rows to the live device corpus without touching disk.
+
+        Appends carry ``ids`` iff the space has an ID column
+        (:func:`merged_append_ids`). Float rows of an int8 or uint8 space
+        are quantized with the stored ``scale`` (and ``zero_point``); rows
+        of a float space take the block's storage (bf16 for a bf16 space
+        or at ``"default"``, f16 for an f16 space, rounded to nearest
+        even), while their norms are those of the f32 input, as in the
+        reference. An f16 space keeps its block in f16 where the reference
+        holds f32, so rows that f16 cannot represent are rounded here and
+        not there.
+
+        Capacity is the reference's: when the rows no longer fit
+        ``padded_rows``, it becomes ``max(padded_rows_for(total),
+        ⌈padded_rows·reserve⌉)`` rounded to the dtype's row multiple.
+        Within capacity the rows are copied into rows ``[num_valid,
+        total)`` of the live tensors (``data.data_ptr()`` is unchanged);
+        beyond, new tensors are filled by a copy on the device, so the
+        corpus never goes through the host.
+
+        Every copy runs on the current stream of the space's device, the
+        stream the kernels launch on, so a search launched before the
+        append has read the old rows before they are written or freed; no
+        side stream is used. The new :class:`SpaceSnapshot` is published
+        after the copies, in one assignment: a search sees the rows before
+        or after the append, never a mix."""
+        rows = np.asarray(rows)
+        if rows.ndim == 1:
+            rows = rows[None, :]
+        if rows.ndim != 2 or rows.shape[1] != self.dim:
+            raise DimensionMismatchError(expected=self.dim, actual=int(rows.shape[-1]))
+        with self._write_lock:
+            old = self._snap
+            nv, n_new = old.num_valid, int(rows.shape[0])
+            merged_ids = merged_append_ids(old.host_ids, ids, n_new, nv)
+            if n_new == 0:
+                return
+            block, new_norms, new_bias = self._encode_rows(rows)
+            total = nv + n_new
+            cap = old.padded_rows
+            if total > cap:
+                sub = sublane_multiple(self.dtype)
+                cap = max(padded_rows_for(total, self.dtype),
+                          -(-int(cap * reserve) // sub) * sub)
+            dev = self.device
+
+            def put(host, like):
+                return torch.from_numpy(np.ascontiguousarray(host)).to(dev).to(like.dtype)
+
+            data = grow_rows(old.data, nv, put(block, old.data), cap)
+            norms = grow_rows(old.norms, nv, put(new_norms, old.norms), cap)
+            rowsums = old.rowsums
+            if rowsums is not None:
+                rowsums = grow_rows(rowsums, nv, put(new_bias, rowsums), cap)
+            mask = old.valid_mask
+            if mask is not None:
+                mask = grow_rows(mask, nv, torch.ones(n_new, dtype=mask.dtype,
+                                                      device=dev), cap, fill=1.0)
+            self._snap = SpaceSnapshot(
+                data=data, norms=norms, num_valid=total, valid_mask=mask,
+                rowsums=rowsums,
+                host_ids=merged_ids if merged_ids is not None else old.host_ids,
+            )
 
     def delete_rows(self, rows=None, ids=None) -> None:
         """Tombstone rows on the live device corpus (by position or by
-        stable ID). Deleted rows never surface in results."""
-        idx = []
-        if rows is not None:
-            for r in np.atleast_1d(rows):
-                r = int(r)
-                if r < 0 or r >= self.num_valid:
-                    raise IndexOutOfBoundsError(r, self.num_valid)
-                idx.append(r)
-        if ids is not None:
-            if self.host_ids is None:
-                idx.extend(int(i) for i in np.atleast_1d(ids))
-                for r in idx:
-                    if r < 0 or r >= self.num_valid:
-                        raise IndexOutOfBoundsError(r, self.num_valid)
-            else:
-                if self._id_lut is None:
-                    self._id_lut = {
-                        int(v): i for i, v in enumerate(self.host_ids)
-                    }
-                for i in np.atleast_1d(ids):
-                    try:
-                        idx.append(self._id_lut[int(i)])
-                    except KeyError:
-                        raise VectorIdNotFoundError(int(i)) from None
-        if not idx:
-            return
-        mask = (
-            self.valid_mask.clone()
-            if self.valid_mask is not None
-            else torch.ones(self.padded_rows, dtype=torch.float32,
-                            device=self.device)
-        )
-        mask[torch.as_tensor(idx, dtype=torch.int64, device=self.device)] = 0.0
-        self.valid_mask = mask  # one reference swap: searches see old or new
+        stable ID). Deleted rows never surface in results. The mask is
+        copied, changed and published with the rest of the snapshot."""
+        with self._write_lock:
+            old = self._snap
+            nv = old.num_valid
+            idx = []
+            if rows is not None:
+                for r in np.atleast_1d(rows):
+                    r = int(r)
+                    if r < 0 or r >= nv:
+                        raise IndexOutOfBoundsError(r, nv)
+                    idx.append(r)
+            if ids is not None:
+                if old.host_ids is None:
+                    idx.extend(int(i) for i in np.atleast_1d(ids))
+                    for r in idx:
+                        if r < 0 or r >= nv:
+                            raise IndexOutOfBoundsError(r, nv)
+                else:
+                    lut = old.id_lut()
+                    for i in np.atleast_1d(ids):
+                        try:
+                            idx.append(lut[int(i)])
+                        except KeyError:
+                            raise VectorIdNotFoundError(int(i)) from None
+            if not idx:
+                return
+            mask = (
+                old.valid_mask.clone()
+                if old.valid_mask is not None
+                else torch.ones(old.padded_rows, dtype=torch.float32,
+                                device=self.device)
+            )
+            mask[torch.as_tensor(idx, dtype=torch.int64, device=self.device)] = 0.0
+            self._snap = dataclasses.replace(old, valid_mask=mask,
+                                             _cache=dict(old._cache))
 
     def norm_bounds(self) -> tuple[float, float]:
-        """(max, min) squared L2 norm over the logical rows, cached."""
-        if self._norm_bounds is None:
-            nrm = self.norms[: self.num_valid]
-            self._norm_bounds = (float(nrm.max()), float(nrm.min()))
-        return self._norm_bounds
+        """(max, min) squared L2 norm over the logical rows, cached on the
+        snapshot (so an append resets it; a delete keeps it, which stays
+        a conservative bound)."""
+        return self._snap.norm_bounds()
 
     @property
     def padded_rows(self) -> int:
-        return int(self.data.shape[0])
+        return self._snap.padded_rows
 
     @property
     def padded_dim(self) -> int:
@@ -425,8 +639,9 @@ class DeviceSpace:
 
     @property
     def nbytes(self) -> int:
-        n = self.data.nbytes + self.norms.nbytes
-        for extra in (self.valid_mask, self.rowsums):
+        snap = self._snap
+        n = snap.data.nbytes + snap.norms.nbytes
+        for extra in (snap.valid_mask, snap.rowsums):
             if extra is not None:
                 n += extra.nbytes
         return n
@@ -559,9 +774,10 @@ class SearchEngine:
         """Every row within ``radius`` (L2: distance ≤ radius; cosine/IP:
         similarity ≥ radius), best first, through a capped top-k pass;
         ``truncated`` flags queries that filled the cap."""
-        k = min(max_results, max(self.space.num_valid, 1))
-        res = self.search(queries, k=k, filter_mask=filter_mask)
-        return radius_from_topk(res, radius, k, self.space.num_valid)
+        snap = self.space.snapshot
+        k = min(max_results, max(snap.num_valid, 1))
+        res = self._finalize(self._launch(queries, k, filter_mask, snap=snap), k)
+        return radius_from_topk(res, radius, k, snap.num_valid)
 
     def autotune(self, *args, **kwargs):
         raise NotImplementedError(
@@ -572,10 +788,11 @@ class SearchEngine:
 
     def prepare_filter(self, filter_mask) -> PreparedFilter:
         """Upload a ``[num_vectors]`` predicate once for many searches."""
-        sp = self.space
-        full = padded_filter_plane(filter_mask, sp.num_valid, sp.padded_rows)
+        snap = self.space.snapshot
+        full = padded_filter_plane(filter_mask, snap.num_valid, snap.padded_rows)
         return PreparedFilter(
-            mask=torch.from_numpy(full).to(sp.device), num_valid=sp.num_valid
+            mask=torch.from_numpy(full).to(self.space.device),
+            num_valid=snap.num_valid,
         )
 
     def search_pipelined(self, query_batches, k: int = 10):
@@ -591,35 +808,37 @@ class SearchEngine:
         if pending is not None:
             yield self._finalize(pending, k)
 
-    def _launch(self, queries, k: int, filter_mask=None):
+    def _launch(self, queries, k: int, filter_mask=None, snap=None):
         """Upload and launch without waiting for the device. Returns a
-        pending tuple for :meth:`_finalize`."""
+        pending tuple for :meth:`_finalize`, which carries the
+        :class:`SpaceSnapshot` the launch read (taken once, here, unless
+        given), so that the whole search reads one state of the space."""
         sp = self.space
+        if snap is None:
+            snap = sp.snapshot
         if sp.metric == DistanceMetric.CUSTOM:
             raise InvalidVectorTypeError(
                 "CUSTOM metric spaces need a user-provided score function; "
                 "use ops.distances directly"
             )
         prep = sp.prepare_queries(queries)
-        if sp.num_valid == 0:  # empty space: all-sentinel results
-            return (None, None, prep, 0, None)
-        k_eff = min(k, sp.num_valid)
-        eff_mask = sp.valid_mask
+        nv = snap.num_valid
+        if nv == 0:  # empty space: all-sentinel results
+            return (None, None, prep, 0, None, snap)
+        k_eff = min(k, nv)
+        data, norms, eff_mask, rowsums = snap.live()
         if filter_mask is not None:
             if isinstance(filter_mask, PreparedFilter):
-                fdev = checked_prepared_mask(
-                    filter_mask, sp.num_valid, sp.padded_rows
-                )
+                fdev = checked_prepared_mask(filter_mask, nv, snap.padded_rows)[:nv]
             else:
                 fdev = torch.from_numpy(
-                    padded_filter_plane(filter_mask, sp.num_valid, sp.padded_rows)
-                ).to(sp.device)
+                    padded_filter_plane(filter_mask, nv, nv)).to(sp.device)
             eff_mask = fdev if eff_mask is None else eff_mask * fdev
         if sp.dtype in (DataType.INT8, DataType.UINT8):
             if sp.dtype == DataType.UINT8 and sp.metric == DistanceMetric.COSINE:
                 # f32 queries over the codes read as (c' + 128 − zp)·scale
                 scores, idx = fused_topk(
-                    prep.qdev, sp.data, sp.norms, sp.num_valid, k_eff,
+                    prep.qdev, data, norms, nv, k_eff,
                     sp.metric, valid_mask=eff_mask,
                     affine=(128.0 - sp.zero_point, sp.scale),
                 )
@@ -628,11 +847,11 @@ class SearchEngine:
                 # padded row
                 d = sp.dim
                 scores, idx = fused_topk(
-                    prep.qdev[:, :d], sp.data[:, :d], sp.norms, sp.num_valid, k_eff,
+                    prep.qdev[:, :d], data[:, :d], norms, nv, k_eff,
                     sp.metric, valid_mask=eff_mask, scale=prep.dot_scale,
-                    bias_row=sp.rowsums, bias_scale=prep.bias_scale,
+                    bias_row=rowsums, bias_scale=prep.bias_scale,
                 )
-            return (scores, idx, prep, k_eff, None)
+            return (scores, idx, prep, k_eff, None, snap)
         # "high" and "high_verified" split f32 spaces only; f16 and bf16 run
         # "highest".
         f32 = sp.dtype == DataType.FLOAT32
@@ -640,9 +859,9 @@ class SearchEngine:
         verified = f32 and sp.precision == "high_verified"
         # high_verified: over-fetch a margin at bf16x3 cost, then re-score
         # just those candidates exactly (K3); _finalize certifies the result.
-        k_fetch = min(k_eff + self.verify_margin, sp.num_valid) if verified else k_eff
+        k_fetch = min(k_eff + self.verify_margin, nv) if verified else k_eff
         scores, idx = fused_topk(
-            prep.qdev, sp.data, sp.norms, sp.num_valid, k_fetch, sp.metric,
+            prep.qdev, data, norms, nv, k_fetch, sp.metric,
             valid_mask=eff_mask, precision="high" if high else "highest",
         )
         vcheck = None
@@ -650,13 +869,13 @@ class SearchEngine:
             # The k_fetch-th "high" score: every row not fetched lost to it,
             # so its exact score is at most boundary + eps.
             boundary = scores[:, -1]
-            scores, idx = rescore_topk(prep.qdev, sp.data, sp.norms, idx,
+            scores, idx = rescore_topk(prep.qdev, data, norms, idx,
                                        k_eff, sp.metric)
-            if k_fetch < sp.num_valid:  # else every valid row was re-scored
-                vcheck = (boundary, self._verify_eps(prep), eff_mask)
-        return (scores, idx, prep, k_eff, vcheck)
+            if k_fetch < nv:  # else every valid row was re-scored
+                vcheck = (boundary, self._verify_eps(prep, snap), eff_mask)
+        return (scores, idx, prep, k_eff, vcheck, snap)
 
-    def _verify_eps(self, prep) -> np.ndarray:
+    def _verify_eps(self, prep, snap: SpaceSnapshot | None = None) -> np.ndarray:
         """Per-query bound on |"high" score − exact f32 score| in the
         kernel's score space: the slack of ``high_verified``'s certificate.
         It bounds the port's arithmetic (``ops/csrc/topk_high_kernel.cu``
@@ -698,14 +917,16 @@ class SearchEngine:
         ·2⁻²⁵``. The result is :data:`VERIFY_SAFETY` times that raw bound,
         which covers the (1 + 2⁻⁶) factors, stored norms a few ulps off and
         the model of the tensor cores' adds. ``max‖x‖`` is
-        :meth:`DeviceSpace.norm_bounds`'s (conservative under deletes)."""
+        :meth:`DeviceSpace.norm_bounds`'s (conservative under deletes), of
+        ``snap`` (default: the current snapshot)."""
         sp = self.space
+        snap = snap or sp.snapshot
         c = sum(high_dot_bounds(sp.dim))
         if sp.metric == DistanceMetric.COSINE:
             raw = np.full(prep.sq_norms.shape, c + (sp.dim + 12) * 2.0**-25)
         else:
             qn = np.sqrt(prep.sq_norms.astype(np.float64))
-            xmax = float(np.sqrt(max(sp.norm_bounds()[0], 0.0)))
+            xmax = float(np.sqrt(max(snap.norm_bounds()[0], 0.0)))
             if sp.metric == DistanceMetric.L2:
                 raw = (2 * c * qn * xmax
                        + 2.0**-23 * (2 * qn * xmax + xmax * xmax))
@@ -718,9 +939,10 @@ class SearchEngine:
         ``high_verified`` launch, check the certificate and, where any query
         fails it (scores within the bf16x3 band across more than
         ``verify_margin`` rows at the boundary), re-run the batch at
-        ``"highest"`` so the result is exact whatever the data."""
+        ``"highest"`` so the result is exact whatever the data. The re-run
+        and the IDs read the snapshot that the launch read."""
         sp = self.space
-        scores, idx, prep, k_eff, vcheck = pending
+        scores, idx, prep, k_eff, vcheck, snap = pending
         nq = prep.qdev.shape[0]
         if k_eff == 0:  # empty space
             return SearchResult(
@@ -745,8 +967,9 @@ class SearchEngine:
             self.verify_stats["certified"] += int(ok.sum())
             if not ok.all():
                 self.verify_stats["fallbacks"] += int((~ok).sum())
+                data, norms, _, _ = snap.live()
                 scores, idx = fused_topk(
-                    prep.qdev, sp.data, sp.norms, sp.num_valid, k_eff,
+                    prep.qdev, data, norms, snap.num_valid, k_eff,
                     sp.metric, valid_mask=eff_mask,
                 )
                 scores = scores.cpu().numpy()
@@ -763,6 +986,6 @@ class SearchEngine:
             scores = np.pad(scores, pad, constant_values=-np.inf)
             dist = np.pad(dist, pad, constant_values=np.inf
                           if sp.metric == DistanceMetric.L2 else -np.inf)
-        ids = ids_for_rows(sp.host_ids, idx)
+        ids = ids_for_rows(snap.host_ids, idx)
         return SearchResult(indices=idx, scores=scores, distances=dist,
                             metric=sp.metric, ids=ids)

@@ -1,11 +1,12 @@
 """Index structures (counterpart of :mod:`metrovector_tpu.index`): PQ with
-exact re-rank, IVF and IVF-PQ and the k-means they train with; HNSW comes
-later (ROADMAP A10).
+exact re-rank, IVF and IVF-PQ and the k-means they train with, on the
+device, and HNSW on the host.
 
 The names import lazily, so ``import metrovector_tpu_torch.index`` loads
 no kernel module."""
 
 _LAZY = {
+    "HNSWIndex": "metrovector_tpu_torch.index.hnsw",
     "IVFIndex": "metrovector_tpu_torch.index.ivf",
     "bucket_layout": "metrovector_tpu_torch.index.ivf",
     "train_kmeans": "metrovector_tpu_torch.index.ivf",

@@ -17,22 +17,37 @@ and the coarse-quantized probe search of :mod:`metrovector_tpu.index.ivf`.
   rows scored and merged into a carried top-k in probe-rank order, with
   ties among equal scores kept by position as ``lax.top_k`` keeps them.
 
-``IVFIndex.add_rows`` is not ported (ROADMAP A2: the one-snapshot mutation
-contract).
+* **Mutation** (:meth:`IVFIndex.add_rows`, :meth:`IVFIndex.delete_rows`):
+  appended rows go to their nearest trained centroid, into the tail slots
+  of its buckets or new buckets (:func:`_plan_placements`); the changed
+  tensors are published together, as one state that a search reads whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
-from ..errors import IndexOutOfBoundsError, VectorIdNotFoundError
+from ..errors import (
+    DimensionMismatchError,
+    IndexOutOfBoundsError,
+    VectorIdNotFoundError,
+)
 from ..format.constants import DistanceMetric
 from ..utils.filters import checked_prepared_mask, padded_filter_plane
 
-from ..engine import PreparedFilter, SearchResult, ids_for_rows, resolve_device
+from ..engine import (
+    PreparedFilter,
+    SearchResult,
+    ids_for_rows,
+    merged_append_ids,
+    pinned,
+    publish,
+    resolve_device,
+)
 from ..ops.distances import carry_topk_ids, distances_np, full_f32_matmul
 
 
@@ -142,7 +157,7 @@ def _plan_placements(cells, fill, bucket_rows: int, assign_new):
     """Plan (bucket, slot) placements for appended rows: tail slots of the
     target cluster's existing buckets first, new buckets (sharing the
     cluster's centroid, as in :func:`bucket_layout` splitting) only on
-    overflow. The reference's code (``add_rows`` is not ported yet).
+    overflow. The reference's code.
 
     Returns ``(b_idx [n] i32, s_idx [n] i32, new_cells [list], fill',
     fills_new)`` where bucket ids ≥ ``len(cells)`` index ``new_cells`` in
@@ -268,6 +283,37 @@ def probe_steps(nq: int, nprobe: int, per_probe: int) -> list[tuple[int, int]]:
     return [(p0, min(nprobe, p0 + g)) for p0 in range(0, nprobe, g)]
 
 
+def _assign_host(vectors: np.ndarray, centroids: np.ndarray) -> np.ndarray:
+    """Nearest centroid of each appended row, int32: L2 in float64 on the
+    host, first minimum on ties (the reference's ``add_rows``)."""
+    cn = np.einsum("ij,ij->i", centroids, centroids, dtype=np.float64)
+    d2 = cn[None, :] - 2.0 * (
+        vectors.astype(np.float64) @ centroids.T.astype(np.float64))
+    return np.argmin(d2, axis=1).astype(np.int32)
+
+
+def _grown_buckets(index, new_cells: list):
+    """New copies of ``index``'s bucket tensors, ready for a scatter:
+    ``(buckets, bucket_ids, bucket_norms, probe_centroids, cells)`` with
+    one empty bucket appended per entry of ``new_cells`` (ids −1, zero rows
+    and norms, the cell's centroid). Copies on the device, so a
+    search that read the old tensors keeps them whole."""
+    b, ids, nrm = index.buckets, index.bucket_ids, index.bucket_norms
+    pc, cells = index.probe_centroids, index.cells
+    if not new_cells:
+        return b.clone(), ids.clone(), nrm.clone(), pc, cells
+    nbn, bsz, dev = len(new_cells), b.shape[1], b.device
+    nc = np.asarray(new_cells, np.int32)
+    return (
+        torch.cat([b, torch.zeros((nbn, bsz) + tuple(b.shape[2:]), dtype=b.dtype,
+                                  device=dev)]),
+        torch.cat([ids, torch.full((nbn, bsz), -1, dtype=ids.dtype, device=dev)]),
+        torch.cat([nrm, torch.zeros((nbn, bsz), dtype=nrm.dtype, device=dev)]),
+        torch.cat([pc, _to(index.centroids[nc], dev, np.float32)]),
+        np.concatenate([cells, nc]),
+    )
+
+
 def _to(arr, dev, dtype) -> torch.Tensor:
     """A device tensor from a copy of ``arr`` (which may be a read-only
     view of the mapped file)."""
@@ -285,7 +331,10 @@ class IVFIndex:
     ``centroids``: host ``[C, D]``; ``probe_centroids``: ``[C', D]`` per
     bucket (duplicated for split cells); ``cells``: host ``[C']`` bucket →
     cluster; ``fill``: host ``[C']`` rows per bucket; ``row_bucket`` /
-    ``row_slot``: host ``[N]`` placement of each row (−1: none)."""
+    ``row_slot``: host ``[N]`` placement of each row (−1: none).
+
+    Mutations publish every changed field at once (:func:`~..engine.publish`)
+    and a search reads one published state (:func:`~..engine.pinned`)."""
 
     centroids: np.ndarray
     probe_centroids: torch.Tensor
@@ -300,6 +349,9 @@ class IVFIndex:
     num_vectors: int = 0
     row_bucket: np.ndarray | None = None
     row_slot: np.ndarray | None = None
+
+    def __post_init__(self):
+        self._write_lock = threading.Lock()  # one writer at a time
 
     @property
     def device(self) -> torch.device:
@@ -425,54 +477,97 @@ class IVFIndex:
     # -- online mutation ------------------------------------------------------
 
     def add_rows(self, vectors, ids=None) -> None:
-        raise NotImplementedError(
-            "IVFIndex.add_rows is not ported yet (ROADMAP A2 mutation: "
-            "capacity steps and the one-snapshot mutation contract)"
-        )
+        """Append rows to the live index, the reference's
+        ``IVFIndex.add_rows``: each row goes to its nearest trained
+        centroid (L2 in float64 on the host, as at build; no retraining),
+        into the tail slots of that cluster's buckets, or into new buckets
+        (sharing the cluster's centroid) when they are full. Appends carry
+        ``ids`` iff the index has an ID column. The bucket tensors are
+        copied on the device (or grown by new buckets) before the scatter,
+        so a search in flight keeps the ones it read; the new tensors,
+        ``fill``, the row placements and the row count are published
+        together."""
+        vectors = np.ascontiguousarray(vectors, dtype=np.float32)
+        if vectors.ndim == 1:
+            vectors = vectors[None]
+        if vectors.shape[1] != self.dim:
+            raise DimensionMismatchError(expected=self.dim,
+                                         actual=int(vectors.shape[1]))
+        with self._write_lock:
+            n_new = int(vectors.shape[0])
+            if n_new == 0:
+                return
+            nv = self.num_vectors
+            merged_ids = merged_append_ids(self.host_ids, ids, n_new, nv)
+            assign_new = _assign_host(vectors, self.centroids)
+            v64 = vectors.astype(np.float64)
+            norms_new = np.einsum("ij,ij->i", v64, v64).astype(np.float32)
+            b_idx, s_idx, new_cells, fill, fills_new = _plan_placements(
+                self.cells, self.fill, self.bucket_rows, assign_new)
+            dev = self.device
+            buckets, bids, bnorms, pcents, cells = _grown_buckets(self, new_cells)
+            bi = torch.from_numpy(b_idx.astype(np.int64)).to(dev)
+            si = torch.from_numpy(s_idx.astype(np.int64)).to(dev)
+            buckets[bi, si] = _to(vectors, dev, np.float32)
+            bids[bi, si] = torch.arange(nv, nv + n_new, dtype=torch.int32, device=dev)
+            bnorms[bi, si] = _to(norms_new, dev, np.float32)
+            changes = dict(
+                buckets=buckets, bucket_ids=bids, bucket_norms=bnorms,
+                probe_centroids=pcents, cells=cells,
+                fill=np.concatenate([fill, fills_new]),
+                row_bucket=np.concatenate([self.row_bucket, b_idx]),
+                row_slot=np.concatenate([self.row_slot, s_idx]),
+                num_vectors=nv + n_new,
+            )
+            if merged_ids is not None:
+                changes["host_ids"] = merged_ids
+            publish(self, **changes)
 
     def delete_rows(self, rows=None, ids=None) -> None:
         """Tombstone rows (by position or stable ID): their bucket slots get
-        id −1, so they never surface. Publishes a new ``bucket_ids`` (one
-        reference swap); slots are not reclaimed."""
-        idx = []
-        if rows is not None:
-            idx.extend(int(r) for r in np.atleast_1d(rows))
-        if ids is not None:
-            if self.host_ids is None:
-                idx.extend(int(i) for i in np.atleast_1d(ids))
-            else:
-                lut = {int(v): i for i, v in enumerate(self.host_ids)}
-                for i in np.atleast_1d(ids):
-                    try:
-                        idx.append(lut[int(i)])
-                    except KeyError:
-                        raise VectorIdNotFoundError(int(i)) from None
-        for r in idx:
-            if r < 0 or r >= self.num_vectors:
-                raise IndexOutOfBoundsError(r, self.num_vectors)
-        if not idx:
-            return
-        sel = np.asarray(idx, np.int64)
-        placed = sel[self.row_bucket[sel] >= 0]
-        if placed.size:
-            bids = self.bucket_ids.clone()
-            bi = torch.from_numpy(self.row_bucket[placed].astype(np.int64))
-            si = torch.from_numpy(self.row_slot[placed].astype(np.int64))
-            bids[bi.to(self.device), si.to(self.device)] = -1
-            self.bucket_ids = bids
-        self.row_bucket = self.row_bucket.copy()
-        self.row_slot = self.row_slot.copy()
-        self.row_bucket[sel] = -1
-        self.row_slot[sel] = -1
+        id −1, so they never surface. Publishes a new ``bucket_ids`` with
+        the placements; slots are not reclaimed."""
+        with self._write_lock:
+            idx = []
+            if rows is not None:
+                idx.extend(int(r) for r in np.atleast_1d(rows))
+            if ids is not None:
+                if self.host_ids is None:
+                    idx.extend(int(i) for i in np.atleast_1d(ids))
+                else:
+                    lut = {int(v): i for i, v in enumerate(self.host_ids)}
+                    for i in np.atleast_1d(ids):
+                        try:
+                            idx.append(lut[int(i)])
+                        except KeyError:
+                            raise VectorIdNotFoundError(int(i)) from None
+            for r in idx:
+                if r < 0 or r >= self.num_vectors:
+                    raise IndexOutOfBoundsError(r, self.num_vectors)
+            if not idx:
+                return
+            sel = np.asarray(idx, np.int64)
+            placed = sel[self.row_bucket[sel] >= 0]
+            changes = {}
+            if placed.size:
+                bids = self.bucket_ids.clone()
+                bi = torch.from_numpy(self.row_bucket[placed].astype(np.int64))
+                si = torch.from_numpy(self.row_slot[placed].astype(np.int64))
+                bids[bi.to(self.device), si.to(self.device)] = -1
+                changes["bucket_ids"] = bids
+            row_bucket, row_slot = self.row_bucket.copy(), self.row_slot.copy()
+            row_bucket[sel] = -1
+            row_slot[sel] = -1
+            publish(self, row_bucket=row_bucket, row_slot=row_slot, **changes)
 
     def prepare_filter(self, filter_mask) -> PreparedFilter:
         """Upload a ``[num_vectors]`` boolean/int row predicate once for
         many :meth:`search` calls; indexed by original row position (bucket
         row ids)."""
-        full = padded_filter_plane(filter_mask, self.num_vectors,
-                                   self.num_vectors)
+        nv = self.num_vectors
+        full = padded_filter_plane(filter_mask, nv, nv)
         return PreparedFilter(mask=torch.from_numpy(full).to(self.device),
-                              num_valid=self.num_vectors)
+                              num_valid=nv)
 
     def _filter_device(self, filter_mask):
         """A raw array or PreparedFilter → the ``[num_vectors]`` device
@@ -490,32 +585,33 @@ class IVFIndex:
         num_buckets`` is exact search. ``filter_mask``: ``[num_vectors]``
         predicate or a :meth:`prepare_filter` result, applied inside the
         probe."""
+        ix = pinned(self)  # one published state for the whole search
         q = np.asarray(queries, np.float32)
         if q.ndim == 1:
             q = q[None]
         qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
         qn = q
-        if self.metric == DistanceMetric.COSINE:
+        if ix.metric == DistanceMetric.COSINE:
             qn = q / np.maximum(np.sqrt(qnorms)[:, None], 1e-30)
-        nprobe = min(nprobe, self.num_buckets)
+        nprobe = min(nprobe, ix.num_buckets)
         s, i = _ivf_search(
-            torch.from_numpy(np.ascontiguousarray(qn)).to(self.device),
-            self.probe_centroids, self.buckets, self.bucket_ids,
-            self.bucket_norms, k=min(k, self.bucket_rows * nprobe),
-            nprobe=nprobe, metric=self.metric,
-            row_filter=self._filter_device(filter_mask),
+            torch.from_numpy(np.ascontiguousarray(qn)).to(ix.device),
+            ix.probe_centroids, ix.buckets, ix.bucket_ids,
+            ix.bucket_norms, k=min(k, ix.bucket_rows * nprobe),
+            nprobe=nprobe, metric=ix.metric,
+            row_filter=ix._filter_device(filter_mask),
         )
         s, i = s.cpu().numpy(), i.cpu().numpy()
-        bad_fill = np.inf if self.metric == DistanceMetric.L2 else -np.inf
-        dist = np.where(i >= 0, distances_np(s, self.metric, qnorms), bad_fill)
+        bad_fill = np.inf if ix.metric == DistanceMetric.L2 else -np.inf
+        dist = np.where(i >= 0, distances_np(s, ix.metric, qnorms), bad_fill)
         if s.shape[1] < k:
             pad = ((0, 0), (0, k - s.shape[1]))
             i = np.pad(i, pad, constant_values=-1)
             s = np.pad(s, pad, constant_values=-np.inf)
             dist = np.pad(dist, pad, constant_values=bad_fill)
         return SearchResult(indices=i, scores=s, distances=dist,
-                            metric=self.metric,
-                            ids=ids_for_rows(self.host_ids, i))
+                            metric=ix.metric,
+                            ids=ids_for_rows(ix.host_ids, i))
 
 
 def _ivf_search(q, centroids, buckets, bucket_ids, bucket_norms, k: int,

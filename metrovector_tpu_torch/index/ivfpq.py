@@ -27,16 +27,21 @@ product-quantized residuals, the counterpart of
   original rows through :func:`~..ops.gather_kernel.rescore_candidates`,
   ties to the candidate's position.
 
+* **Mutation** (:meth:`IVFPQIndex.add_rows`): rows are coarse-assigned,
+  their residuals encoded, and both layouts (the buckets, with the device
+  fill ``bucket_fill`` that the scan's kernel reads, and the row-order
+  planes) are published together, as one state that a search reads whole.
+
 Files round-trip through the shared format (``Builder.set_ivf_index`` and
-``set_pq_index(residual=True)``). Not ported: ``add_rows`` (ROADMAP A2, the
-one-snapshot mutation contract) and ``autotune`` (the kernel has no tile
-knob; the persisted ``"ivfpq"`` ``block_rows`` hint is a Mosaic tile and is
-not read).
+``set_pq_index(residual=True)``). Not ported: ``autotune`` (ROADMAP
+autotune: the kernel has no tile knob; the persisted ``"ivfpq"``
+``block_rows`` hint is a Mosaic tile and is not read).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -45,12 +50,24 @@ from ..errors import DimensionMismatchError, IndexOutOfBoundsError
 from ..format.constants import DistanceMetric
 from ..utils.filters import checked_prepared_mask, padded_filter_plane
 
-from ..engine import PreparedFilter, SearchResult, ids_for_rows, resolve_device
+from ..engine import (
+    PreparedFilter,
+    SearchResult,
+    grow_rows,
+    ids_for_rows,
+    merged_append_ids,
+    pinned,
+    publish,
+    resolve_device,
+)
 from ..ops.adc_kernel import adc_lut, fused_adc_topk, unpack_nibbles
 from ..ops.distances import carry_topk_ids, distances_np
 from ..ops.gather_kernel import rescore_candidates
 from ..utils.transfer import put_chunked
 from .ivf import (
+    _assign_host,
+    _grown_buckets,
+    _plan_placements,
     _to,
     bucket_layout,
     coarse_scores,
@@ -167,7 +184,12 @@ class IVFPQIndex:
     ``codebooks`` ``[m, ksub, dsub]``, ``fill`` (and on the device
     ``bucket_fill``, int32, which the scan's kernel reads), and each row's
     ``row_bucket_host`` / ``row_slot_host``. ``db`` / ``db_norms``: the
-    original rows, for re-ranking."""
+    original rows, for re-ranking. The row-order planes may hold more rows
+    than ``num_vectors`` (the capacity of :meth:`add_rows`); the rows past
+    it are never read.
+
+    Mutations publish every changed field at once (:func:`~..engine.publish`)
+    and a search reads one published state (:func:`~..engine.pinned`)."""
 
     centroids: np.ndarray
     probe_centroids: torch.Tensor
@@ -199,6 +221,7 @@ class IVFPQIndex:
         self.codebooks = np.array(self.codebooks, np.float32)
         self._books = torch.from_numpy(self.codebooks).to(self.device)
         self.bucket_fill = _to(self.fill, self.device, np.int32)
+        self._write_lock = threading.Lock()  # one writer at a time
 
     @property
     def device(self) -> torch.device:
@@ -399,9 +422,9 @@ class IVFPQIndex:
 
     def _rebuild_layouts(self, codes_all, rnorms_all, cluster_of_row, keep):
         """Re-derive both serving layouts (buckets and row order) from
-        per-row state. Row ids are positions in the row-order arrays and
-        are never renumbered: a deleted row keeps its slot with
-        ``row_valid = 0`` and drops out of the buckets."""
+        per-row state, and publish them together. Row ids are positions in
+        the row-order arrays and are never renumbered: a deleted row keeps
+        its slot with ``row_valid = 0`` and drops out of the buckets."""
         dev = self.device
         n = codes_all.shape[0]
         cells, row_lists, bucket_rows = bucket_layout(
@@ -409,40 +432,115 @@ class IVFPQIndex:
             keep & (cluster_of_row >= 0), self.num_clusters)
         bcodes, bids, bnorms, b_of_row, s_of_row = fill_buckets(
             row_lists, bucket_rows, n, codes_all, rnorms_all)
-        self.row_bucket_host = b_of_row
-        self.row_slot_host = s_of_row
-        self.cells = cells
-        self.fill = np.asarray([len(r) for r in row_lists])
-        self.bucket_fill = _to(self.fill, dev, np.int32)
-        self.probe_centroids = _to(self.centroids[cells], dev, np.float32)
-        self.buckets = _to(bcodes, dev, np.uint8)
-        self.bucket_ids = _to(bids, dev, np.int32)
-        self.bucket_norms = _to(bnorms, dev, np.float32)
-        self.codes_row = _to(codes_all, dev, np.uint8)
-        self.rnorms_row = _to(rnorms_all, dev, np.float32)
-        self.row_bucket = _to(b_of_row, dev, np.int32)
-        self.row_valid = _to(b_of_row >= 0, dev, np.float32)
-        self.num_vectors = n
+        fill = np.asarray([len(r) for r in row_lists])
+        publish(
+            self,
+            row_bucket_host=b_of_row,
+            row_slot_host=s_of_row,
+            cells=cells,
+            fill=fill,
+            bucket_fill=_to(fill, dev, np.int32),
+            probe_centroids=_to(self.centroids[cells], dev, np.float32),
+            buckets=_to(bcodes, dev, np.uint8),
+            bucket_ids=_to(bids, dev, np.int32),
+            bucket_norms=_to(bnorms, dev, np.float32),
+            codes_row=_to(codes_all, dev, np.uint8),
+            rnorms_row=_to(rnorms_all, dev, np.float32),
+            row_bucket=_to(b_of_row, dev, np.int32),
+            row_valid=_to(b_of_row >= 0, dev, np.float32),
+            num_vectors=n,
+        )
 
     def _host_row_state(self):
         """``(codes [N, cols], recon norms [N], cluster of each row [N]
         (−1: deleted), kept [N])`` read back from the device."""
-        codes_all = self.codes_row[: self.num_vectors].cpu().numpy()
-        rnorms_all = self.rnorms_row[: self.num_vectors].cpu().numpy()
-        rb = self.row_bucket[: self.num_vectors].cpu().numpy()
-        cluster_of_row = np.where(rb >= 0, self.cells[np.maximum(rb, 0)], -1)
+        ix = pinned(self)
+        codes_all = ix.codes_row[: ix.num_vectors].cpu().numpy()
+        rnorms_all = ix.rnorms_row[: ix.num_vectors].cpu().numpy()
+        rb = ix.row_bucket[: ix.num_vectors].cpu().numpy()
+        cluster_of_row = np.where(rb >= 0, ix.cells[np.maximum(rb, 0)], -1)
         return codes_all, rnorms_all, cluster_of_row.astype(np.int32), rb >= 0
 
     def rebuild(self) -> None:
         """Re-derive both serving layouts from per-row state, reclaiming
         deleted slots and re-balancing the buckets (O(N) host work)."""
-        self._rebuild_layouts(*self._host_row_state())
+        with self._write_lock:
+            self._rebuild_layouts(*self._host_row_state())
 
     def add_rows(self, vectors, ids=None, reserve: float = 1.5) -> None:
-        raise NotImplementedError(
-            "IVFPQIndex.add_rows is not ported yet (ROADMAP A2 mutation: "
-            "capacity steps and the one-snapshot mutation contract)"
-        )
+        """Append rows to the live index, the reference's
+        ``IVFPQIndex.add_rows``: each row goes to its nearest trained
+        centroid (L2 in float64 on the host), its residual is encoded with
+        the trained codebooks on the device (no retraining), and it is
+        scattered into the tail slots of its cluster's buckets, or new
+        buckets when they are full. Appends carry ``ids`` iff the index
+        has an ID column.
+
+        Both layouts change. The bucket tensors are copied on the device
+        (or grown by new buckets, which widen the scan's bias to the new
+        bucket count) before the scatter; the row-order planes grow in
+        capacity steps of 128 rows (:func:`~..engine.grow_rows`, in place
+        within capacity). The buckets, ``fill`` and its device copy
+        ``bucket_fill`` (each bucket's row count for the scan's kernel),
+        the row-order planes and the row count are published together, so
+        the scan and the probe see the same rows."""
+        vectors = np.ascontiguousarray(vectors, dtype=np.float32)
+        if vectors.ndim == 1:
+            vectors = vectors[None]
+        if vectors.shape[1] != self.dim:
+            raise DimensionMismatchError(expected=self.dim,
+                                         actual=int(vectors.shape[1]))
+        with self._write_lock:
+            n_new = int(vectors.shape[0])
+            if n_new == 0:
+                return
+            nv = self.num_vectors
+            merged_ids = merged_append_ids(self.host_ids, ids, n_new, nv)
+            dev = self.device
+            assign_new = _assign_host(vectors, self.centroids)
+            residuals = vectors - self.centroids[assign_new]
+            codes_new = encode_pq(residuals, self.codebooks, device=dev)
+            rn_new = _sq_norms64(reconstruct_pq(codes_new, self.codebooks)
+                                 + self.centroids[assign_new])
+            if self.packed4:
+                codes_new = pack_codes4(codes_new)
+            b_idx, s_idx, new_cells, fill, fills_new = _plan_placements(
+                self.cells, self.fill, self.bucket_rows, assign_new)
+            buckets, bids, bnorms, pcents, cells = _grown_buckets(self, new_cells)
+            bi = torch.from_numpy(b_idx.astype(np.int64)).to(dev)
+            si = torch.from_numpy(s_idx.astype(np.int64)).to(dev)
+            codes_dev = _to(codes_new, dev, np.uint8)
+            rn_dev = _to(rn_new, dev, np.float32)
+            b_dev = _to(b_idx, dev, np.int32)
+            buckets[bi, si] = codes_dev
+            bids[bi, si] = torch.arange(nv, nv + n_new, dtype=torch.int32, device=dev)
+            bnorms[bi, si] = rn_dev
+            fill = np.concatenate([fill, fills_new])
+            total = nv + n_new
+            cap = int(self.codes_row.shape[0])
+            if total > cap:
+                cap = max(-(-total // 128) * 128, -(-int(cap * reserve) // 128) * 128)
+            changes = dict(
+                buckets=buckets, bucket_ids=bids, bucket_norms=bnorms,
+                probe_centroids=pcents, cells=cells, fill=fill,
+                bucket_fill=_to(fill, dev, np.int32),
+                codes_row=grow_rows(self.codes_row, nv, codes_dev, cap),
+                rnorms_row=grow_rows(self.rnorms_row, nv, rn_dev, cap),
+                row_bucket=grow_rows(self.row_bucket, nv, b_dev, cap, fill=-1),
+                row_valid=grow_rows(self.row_valid, nv,
+                                    torch.ones(n_new, dtype=torch.float32, device=dev),
+                                    cap, fill=0.0),
+                row_bucket_host=np.concatenate([self.row_bucket_host[:nv], b_idx]),
+                row_slot_host=np.concatenate([self.row_slot_host[:nv], s_idx]),
+                num_vectors=total,
+            )
+            if self.db is not None:
+                changes["db"] = grow_rows(self.db, nv, _to(vectors, dev, np.float32), cap)
+                changes["db_norms"] = grow_rows(
+                    self.db_norms, nv, _to(_sq_norms64(vectors), dev, np.float32), cap)
+            if merged_ids is not None:
+                changes["host_ids"] = merged_ids
+            publish(self, **changes)
 
     def autotune(self, *args, **kwargs):
         raise NotImplementedError(
@@ -453,42 +551,47 @@ class IVFPQIndex:
 
     def delete_rows(self, rows) -> None:
         """Tombstone rows by position: their bucket slots get id −1 and
-        their row-order validity 0, published as new tensors (one reference
-        swap each); row positions are never renumbered, slots not
-        reclaimed (:meth:`rebuild` does)."""
-        idx = [int(r) for r in np.atleast_1d(rows)]
-        for r in idx:
-            if r < 0 or r >= self.num_vectors:
-                raise IndexOutOfBoundsError(r, self.num_vectors)
-        if not idx:
-            return
-        sel = np.asarray(idx, np.int64)
-        placed = sel[self.row_bucket_host[sel] >= 0]
-        dev = self.device
-        if placed.size:
-            bids = self.bucket_ids.clone()
-            bi = torch.from_numpy(self.row_bucket_host[placed].astype(np.int64))
-            si = torch.from_numpy(self.row_slot_host[placed].astype(np.int64))
-            bids[bi.to(dev), si.to(dev)] = -1
-            self.bucket_ids = bids
-        seld = torch.from_numpy(sel).to(dev)
-        row_bucket, row_valid = self.row_bucket.clone(), self.row_valid.clone()
-        row_bucket[seld] = -1
-        row_valid[seld] = 0.0
-        self.row_bucket, self.row_valid = row_bucket, row_valid
-        self.row_bucket_host = self.row_bucket_host.copy()
-        self.row_slot_host = self.row_slot_host.copy()
-        self.row_bucket_host[sel] = -1
-        self.row_slot_host[sel] = -1
+        their row-order validity 0, published together as new tensors; row
+        positions are never renumbered, slots not reclaimed
+        (:meth:`rebuild` does)."""
+        with self._write_lock:
+            idx = [int(r) for r in np.atleast_1d(rows)]
+            for r in idx:
+                if r < 0 or r >= self.num_vectors:
+                    raise IndexOutOfBoundsError(r, self.num_vectors)
+            if not idx:
+                return
+            sel = np.asarray(idx, np.int64)
+            placed = sel[self.row_bucket_host[sel] >= 0]
+            dev = self.device
+            changes = {}
+            if placed.size:
+                bids = self.bucket_ids.clone()
+                bi = torch.from_numpy(self.row_bucket_host[placed].astype(np.int64))
+                si = torch.from_numpy(self.row_slot_host[placed].astype(np.int64))
+                bids[bi.to(dev), si.to(dev)] = -1
+                changes["bucket_ids"] = bids
+            seld = torch.from_numpy(sel).to(dev)
+            row_bucket, row_valid = self.row_bucket.clone(), self.row_valid.clone()
+            row_bucket[seld] = -1
+            row_valid[seld] = 0.0
+            row_bucket_host = self.row_bucket_host.copy()
+            row_slot_host = self.row_slot_host.copy()
+            row_bucket_host[sel] = -1
+            row_slot_host[sel] = -1
+            publish(self, row_bucket=row_bucket, row_valid=row_valid,
+                    row_bucket_host=row_bucket_host, row_slot_host=row_slot_host,
+                    **changes)
 
     def prepare_filter(self, filter_mask) -> PreparedFilter:
         """Upload a ``[num_vectors]`` boolean/int row predicate once for
         many :meth:`search` calls (both modes read it by original row
         id)."""
-        full = padded_filter_plane(filter_mask, self.num_vectors,
-                                   self.codes_row.shape[0])
-        return PreparedFilter(mask=torch.from_numpy(full).to(self.device),
-                              num_valid=self.num_vectors)
+        ix = pinned(self)
+        full = padded_filter_plane(filter_mask, ix.num_vectors,
+                                   ix.codes_row.shape[0])
+        return PreparedFilter(mask=torch.from_numpy(full).to(ix.device),
+                              num_valid=ix.num_vectors)
 
     def _filter_device(self, filter_mask):
         """A raw array or PreparedFilter → the ``[N]`` f32 device plane
@@ -528,15 +631,15 @@ class IVFPQIndex:
         back to the scores (mult 2 for L2, 1 for IP). No host
         synchronization."""
         bias, b0 = self._scan_bias(qdev, nprobe)
-        eff_valid = self.row_valid
+        n = self.num_vectors  # the logical rows, not the planes' capacity
+        eff_valid = self.row_valid[:n]
         if row_filter is not None:
-            eff_valid = eff_valid * row_filter
-        n = self.codes_row.shape[0]
+            eff_valid = eff_valid * row_filter[:n]
         s, i = fused_adc_topk(
-            qdev, self.codes_row, self._books, self.rnorms_row,
-            self.num_vectors, min(fetch, n), self.metric, valid_mask=eff_valid,
+            qdev, self.codes_row[:n], self._books, self.rnorms_row[:n],
+            n, min(fetch, n), self.metric, valid_mask=eff_valid,
             exact_lut=exact_lut, packed4=self.packed4, group_bias=bias,
-            group_ids=self.row_bucket,
+            group_ids=self.row_bucket[:n],
             buckets=(self.buckets, self.bucket_ids, self.bucket_norms, self.bucket_fill),
         )
         if fetch > n:  # more slots than rows: the rest stay unfilled
@@ -598,51 +701,52 @@ class IVFPQIndex:
         On a CUDA device the scan is one launch of the ADC kernel's bucket
         form over the probed buckets, the probe plain PyTorch, and a
         re-rank one launch of the rescore kernel."""
+        ix = pinned(self)  # one published state for the whole search
         q = np.ascontiguousarray(queries, np.float32)
         if q.ndim == 1:
             q = q[None]
-        if q.shape[1] != self.dim:
-            raise DimensionMismatchError(expected=self.dim, actual=int(q.shape[1]))
+        if q.shape[1] != ix.dim:
+            raise DimensionMismatchError(expected=ix.dim, actual=int(q.shape[1]))
         qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
-        if self.metric == DistanceMetric.COSINE:
+        if ix.metric == DistanceMetric.COSINE:
             q = q / np.maximum(np.sqrt(qnorms)[:, None], 1e-30)
-        nprobe = min(nprobe, self.num_buckets)
+        nprobe = min(nprobe, ix.num_buckets)
         fetch = max(k, rerank) if rerank else k
-        fetch = min(fetch, self.bucket_rows * nprobe) or 1
+        fetch = min(fetch, ix.bucket_rows * nprobe) or 1
         if mode not in _MODES:
             raise ValueError(
                 f"unknown search mode {mode!r}; expected 'auto', 'scan' or 'probe'"
             )
         if mode == "auto":
-            mode = "scan" if q.shape[0] >= self.SCAN_CROSSOVER_BATCH else "probe"
-        if rerank and self.db is None:
+            mode = "scan" if q.shape[0] >= ix.SCAN_CROSSOVER_BATCH else "probe"
+        if rerank and ix.db is None:
             raise ValueError(
                 "rerank requires the original vectors (build with keep_vectors=True)"
             )
-        qdev = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
-        row_filter = self._filter_device(filter_mask)
+        qdev = torch.from_numpy(np.ascontiguousarray(q)).to(ix.device)
+        row_filter = ix._filter_device(filter_mask)
         if mode == "scan":
-            s, i = self._masked_scan(qdev, fetch, nprobe, exact_lut=exact_lut,
+            s, i = ix._masked_scan(qdev, fetch, nprobe, exact_lut=exact_lut,
                                      row_filter=row_filter)
         else:
             s, i = _ivfpq_search(
-                qdev, self.probe_centroids, self.buckets, self.bucket_ids,
-                self.bucket_norms, self._books, k=fetch, nprobe=nprobe,
-                metric=self.metric, packed4=self.packed4, row_filter=row_filter,
+                qdev, ix.probe_centroids, ix.buckets, ix.bucket_ids,
+                ix.bucket_norms, ix._books, k=fetch, nprobe=nprobe,
+                metric=ix.metric, packed4=ix.packed4, row_filter=row_filter,
             )
         if rerank:
-            s, i = rescore_candidates(qdev, self.db, self.db_norms, i,
-                                      min(k, fetch), self.metric, tie="position")
+            s, i = rescore_candidates(qdev, ix.db, ix.db_norms, i,
+                                      min(k, fetch), ix.metric, tie="position")
         else:
             s, i = s[:, :k], i[:, :k]
         s, i = s.cpu().numpy(), i.cpu().numpy()
-        bad_fill = np.inf if self.metric == DistanceMetric.L2 else -np.inf
-        dist = np.where(i >= 0, distances_np(s, self.metric, qnorms), bad_fill)
+        bad_fill = np.inf if ix.metric == DistanceMetric.L2 else -np.inf
+        dist = np.where(i >= 0, distances_np(s, ix.metric, qnorms), bad_fill)
         if s.shape[1] < k:
             pad = ((0, 0), (0, k - s.shape[1]))
             i = np.pad(i, pad, constant_values=-1)
             s = np.pad(s, pad, constant_values=-np.inf)
             dist = np.pad(dist, pad, constant_values=bad_fill)
         return SearchResult(indices=i, scores=s, distances=dist,
-                            metric=self.metric,
-                            ids=ids_for_rows(self.host_ids, i))
+                            metric=ix.metric,
+                            ids=ids_for_rows(ix.host_ids, i))

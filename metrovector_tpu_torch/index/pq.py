@@ -16,14 +16,16 @@ The counterpart of :mod:`metrovector_tpu.index.pq`:
 
 Files round-trip through the shared format: ``Builder.set_pq_index`` writes
 the sidecar and :meth:`PQIndex.from_space` opens it without retraining.
-``add_rows`` and ``autotune`` are not ported (ROADMAP A2 mutation,
-autotune); the persisted ``adc`` tuning hint is a Mosaic tile and is not
-read.
+:meth:`PQIndex.add_rows` encodes appended rows with the trained codebooks
+and publishes the grown planes as one snapshot. ``autotune`` is not ported
+(ROADMAP autotune); the persisted ``adc`` tuning hint is a Mosaic tile and
+is not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -32,7 +34,16 @@ from ..errors import DimensionMismatchError, IndexOutOfBoundsError
 from ..format.constants import DistanceMetric
 from ..utils.filters import checked_prepared_mask, padded_filter_plane
 
-from ..engine import PreparedFilter, SearchResult, ids_for_rows, resolve_device
+from ..engine import (
+    PreparedFilter,
+    SearchResult,
+    grow_rows,
+    ids_for_rows,
+    merged_append_ids,
+    pinned,
+    publish,
+    resolve_device,
+)
 from ..ops.adc_kernel import fused_adc_topk
 from ..ops.distances import distances_np, full_f32_matmul
 from ..ops.gather_kernel import rescore_candidates
@@ -146,7 +157,12 @@ class PQIndex:
     or nibble-packed ``[N, ⌈m/2⌉]`` when ``packed4``; ``recon_norms``:
     ``[N]`` f32 squared norms of the reconstructed rows; ``db``/``db_norms``:
     the original rows and their squared norms, for exact re-ranking;
-    ``valid``: ``[N]`` f32, 0 for a tombstoned row."""
+    ``valid``: ``[N]`` f32, 0 for a tombstoned row. The device planes may
+    hold more rows than ``num_vectors`` (the capacity of :meth:`add_rows`);
+    the rows past it are never read.
+
+    Mutations publish every changed field at once (:func:`~..engine.publish`)
+    and a search reads one published state (:func:`~..engine.pinned`)."""
 
     codebooks: np.ndarray
     codes: torch.Tensor
@@ -163,6 +179,7 @@ class PQIndex:
     def __post_init__(self):
         self.codebooks = np.array(self.codebooks, np.float32)
         self._books = torch.from_numpy(self.codebooks).to(self.device)
+        self._write_lock = threading.Lock()  # one writer at a time
 
     @property
     def device(self) -> torch.device:
@@ -330,10 +347,52 @@ class PQIndex:
     # -- online mutation ------------------------------------------------------
 
     def add_rows(self, vectors, ids=None, reserve: float = 1.5) -> None:
-        raise NotImplementedError(
-            "PQIndex.add_rows is not ported yet (ROADMAP A2 mutation: capacity "
-            "steps and the one-snapshot mutation contract)"
-        )
+        """Encode new rows with the existing codebooks (no retraining) on
+        the device and append them, the reference's
+        ``PQIndex.add_rows``: appends carry ``ids`` iff the index has an ID
+        column, and the planes grow in capacity steps of 128 rows (to
+        ``max(⌈total⌉, ⌈capacity·reserve⌉)``). Within capacity the rows
+        are copied into the live planes past ``num_vectors``; beyond, new
+        planes are filled by a copy on the device (:func:`~..engine.
+        grow_rows`), all on the current stream. The grown planes, the ID
+        column and the row count are published together."""
+        vectors = np.ascontiguousarray(vectors, dtype=np.float32)
+        if vectors.ndim == 1:
+            vectors = vectors[None]
+        if vectors.shape[1] != self.dim:
+            raise DimensionMismatchError(expected=self.dim,
+                                         actual=int(vectors.shape[1]))
+        with self._write_lock:
+            nv, n_new = self.num_vectors, int(vectors.shape[0])
+            merged_ids = merged_append_ids(self.host_ids, ids, n_new, nv)
+            if n_new == 0:
+                return
+            dev = self.device
+            codes_new = encode_pq(vectors, self.codebooks, device=dev)
+            rn_new = _sq_norms64(reconstruct_pq(codes_new, self.codebooks))
+            if self.packed4:
+                codes_new = pack_codes4(codes_new)
+            total = nv + n_new
+            cap = int(self.codes.shape[0])
+            if total > cap:
+                cap = max(-(-total // 128) * 128, -(-int(cap * reserve) // 128) * 128)
+            changes = dict(
+                codes=grow_rows(self.codes, nv, _to(codes_new, dev, np.uint8), cap),
+                recon_norms=grow_rows(self.recon_norms, nv,
+                                      _to(rn_new, dev, np.float32), cap),
+                num_vectors=total,
+            )
+            if self.db is not None:
+                changes["db"] = grow_rows(self.db, nv, _to(vectors, dev, np.float32), cap)
+                changes["db_norms"] = grow_rows(
+                    self.db_norms, nv, _to(_sq_norms64(vectors), dev, np.float32), cap)
+            if self.valid is not None:
+                changes["valid"] = grow_rows(
+                    self.valid, nv, torch.ones(n_new, dtype=torch.float32, device=dev),
+                    cap, fill=1.0)
+            if merged_ids is not None:
+                changes["host_ids"] = merged_ids
+            publish(self, **changes)
 
     def autotune(self, *args, **kwargs):
         raise NotImplementedError(
@@ -343,16 +402,17 @@ class PQIndex:
 
     def delete_rows(self, rows) -> None:
         """Tombstone rows by position; they never surface in results
-        afterwards. Publishes a new plane (one reference swap)."""
-        idx = [int(r) for r in np.atleast_1d(rows)]
-        for r in idx:
-            if r < 0 or r >= self.num_vectors:
-                raise IndexOutOfBoundsError(r, self.num_vectors)
-        valid = (self.valid.clone() if self.valid is not None
-                 else torch.ones(self.codes.shape[0], dtype=torch.float32,
-                                 device=self.device))
-        valid[torch.as_tensor(idx, dtype=torch.int64, device=self.device)] = 0.0
-        self.valid = valid
+        afterwards. Publishes a new plane."""
+        with self._write_lock:
+            idx = [int(r) for r in np.atleast_1d(rows)]
+            for r in idx:
+                if r < 0 or r >= self.num_vectors:
+                    raise IndexOutOfBoundsError(r, self.num_vectors)
+            valid = (self.valid.clone() if self.valid is not None
+                     else torch.ones(self.codes.shape[0], dtype=torch.float32,
+                                     device=self.device))
+            valid[torch.as_tensor(idx, dtype=torch.int64, device=self.device)] = 0.0
+            publish(self, valid=valid)
 
     def recommended_rerank(self, k: int = 10, recall_target: float = 1.0) -> int:
         """Rerank depth expected to reach ``recall_target`` at this ``k``:
@@ -378,10 +438,11 @@ class PQIndex:
     def prepare_filter(self, filter_mask) -> PreparedFilter:
         """Upload a ``[num_vectors]`` boolean/int row predicate once for
         many :meth:`search` calls; composed with the tombstones at launch."""
-        full = padded_filter_plane(filter_mask, self.num_vectors,
-                                   self.codes.shape[0])
-        return PreparedFilter(mask=torch.from_numpy(full).to(self.device),
-                              num_valid=self.num_vectors)
+        ix = pinned(self)
+        full = padded_filter_plane(filter_mask, ix.num_vectors,
+                                   ix.codes.shape[0])
+        return PreparedFilter(mask=torch.from_numpy(full).to(ix.device),
+                              num_valid=ix.num_vectors)
 
     def _effective_mask(self, filter_mask):
         """The user predicate (raw or prepared) times the tombstone plane."""
@@ -420,6 +481,7 @@ class PQIndex:
         with ``rerank``, one of the rescore kernel, at any fetch up to the
         whole corpus: the reference's route, with its ties by candidate
         position, even for a re-rank of every row."""
+        ix = pinned(self)  # one published state for the whole search
         if backend != "auto":
             raise ValueError(
                 f"backend={backend!r}: the port has one backend, 'auto' "
@@ -428,37 +490,39 @@ class PQIndex:
         q = np.ascontiguousarray(queries, np.float32)
         if q.ndim == 1:
             q = q[None]
-        if q.shape[1] != self.dim:
-            raise DimensionMismatchError(expected=self.dim, actual=int(q.shape[1]))
-        if rerank and self.db is None:
+        if q.shape[1] != ix.dim:
+            raise DimensionMismatchError(expected=ix.dim, actual=int(q.shape[1]))
+        if rerank and ix.db is None:
             raise ValueError(
                 "rerank requires the original vectors (build with "
                 "keep_vectors=True)"
             )
         qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
-        qdev = torch.from_numpy(q).to(self.device)
-        eff_valid = self._effective_mask(filter_mask)
+        qdev = torch.from_numpy(q).to(ix.device)
+        eff_valid = ix._effective_mask(filter_mask)
         fetch = max(k, rerank) if rerank else k
-        fetch = min(fetch, self.num_vectors) or 1
+        fetch = min(fetch, ix.num_vectors) or 1
         qk = qdev
-        if self.metric == DistanceMetric.COSINE:
+        if ix.metric == DistanceMetric.COSINE:
             qk = qdev * (1.0 / torch.sqrt(torch.clamp(
                 (qdev * qdev).sum(1, keepdim=True), min=1e-30)))
+        nv = ix.num_vectors  # the scan reads the logical rows, not the capacity
         s, i = fused_adc_topk(
-            qk, self.codes, self._books, self.recon_norms,
-            self.num_vectors, fetch, self.metric, valid_mask=eff_valid,
-            exact_lut=exact_lut and not int8_lut, packed4=self.packed4,
+            qk, ix.codes[:nv], ix._books, ix.recon_norms[:nv],
+            nv, fetch, ix.metric,
+            valid_mask=None if eff_valid is None else eff_valid[:nv],
+            exact_lut=exact_lut and not int8_lut, packed4=ix.packed4,
             int8_lut=int8_lut,
         )
         if rerank:
-            s, i = rescore_candidates(qdev, self.db, self.db_norms, i,
-                                      min(k, fetch), self.metric,
+            s, i = rescore_candidates(qdev, ix.db, ix.db_norms, i,
+                                      min(k, fetch), ix.metric,
                                       tie="position")
         else:
             s, i = s[:, :k], i[:, :k]
         s, i = s.cpu().numpy(), i.cpu().numpy()
-        dist = distances_np(s, self.metric, qnorms)
-        bad_fill = np.inf if self.metric == DistanceMetric.L2 else -np.inf
+        dist = distances_np(s, ix.metric, qnorms)
+        bad_fill = np.inf if ix.metric == DistanceMetric.L2 else -np.inf
         dist = np.where(i >= 0, dist, bad_fill)
         if s.shape[1] < k:
             pad = ((0, 0), (0, k - s.shape[1]))
@@ -466,5 +530,5 @@ class PQIndex:
             s = np.pad(s, pad, constant_values=-np.inf)
             dist = np.pad(dist, pad, constant_values=bad_fill)
         return SearchResult(indices=i, scores=s, distances=dist,
-                            metric=self.metric,
-                            ids=ids_for_rows(self.host_ids, i))
+                            metric=ix.metric,
+                            ids=ids_for_rows(ix.host_ids, i))

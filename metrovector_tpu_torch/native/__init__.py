@@ -1,11 +1,12 @@
-"""ctypes loader for the native MVT codec.
+"""ctypes loaders for the native MVT codec and the native HNSW graph.
 
-Compiles ``codec.cpp`` on first use with the system ``g++`` into
+Compiles ``codec.cpp`` (and ``hnsw.cpp``, the JAX package's HNSW library,
+ABI version 3) on first use with the system ``g++`` into
 ``build/metrovector_tpu_torch/native/`` under the repository root (a
 git-ignored tree; the source directory stays read-only), then exposes typed
 wrappers. Everything here is optional: if the toolchain is missing or
 ``MVT_NO_NATIVE=1`` is set, callers use the numpy implementations in
-:mod:`..format.packing` — identical semantics, verified by tests that run
+:mod:`..format.packing` and :mod:`..index.hnsw` — identical semantics, verified by tests that run
 both paths. This is host code with one file format either way, not a device
 fallback.
 """
@@ -261,3 +262,209 @@ def prep_u8_offset(
         n, dimp, dim, nvalid, out_rows,
     )
     return codes, bias
+
+
+# ----------------------------------------------------------- native HNSW ---
+
+_HNSW_SRC = os.path.join(_HERE, "hnsw.cpp")
+_HNSW_SO = os.path.join(_BUILD, "libmvthnsw.so")
+_hnsw_lib = None
+_hnsw_tried = False
+
+
+def _build_hnsw() -> str | None:
+    """Compile ``hnsw.cpp`` into ``build/`` (private name, then rename, as
+    :func:`_build`), with OpenMP or, failing that, without it."""
+    if os.path.exists(_HNSW_SO) and os.path.getmtime(
+        _HNSW_SO
+    ) >= os.path.getmtime(_HNSW_SRC):
+        return _HNSW_SO
+    tmp = f"{_HNSW_SO}.{os.getpid()}.tmp"
+    cmd = [
+        "g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+        "-fopenmp", _HNSW_SRC, "-o", tmp,
+    ]
+    try:
+        os.makedirs(_BUILD, exist_ok=True)
+    except OSError:
+        return None
+    for attempt in (cmd, [c for c in cmd if c != "-fopenmp"]):
+        try:
+            subprocess.run(attempt, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, _HNSW_SO)
+            return _HNSW_SO
+        except (OSError, subprocess.SubprocessError):
+            continue  # retry without OpenMP (single-threaded batch search)
+    return None
+
+
+def load_hnsw():
+    """The loaded native-HNSW library, or None when unavailable/disabled."""
+    global _hnsw_lib, _hnsw_tried
+    if _hnsw_lib is not None:
+        return _hnsw_lib
+    if _hnsw_tried or os.environ.get("MVT_NO_NATIVE") == "1":
+        return None
+    with _lock:
+        if _hnsw_lib is not None or _hnsw_tried:
+            return _hnsw_lib
+        _hnsw_tried = True
+        so = _build_hnsw()
+        if so is None:
+            return None
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError:
+            return None
+        f32p = ctypes.POINTER(ctypes.c_float)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.mvt_hnsw_abi_version.restype = ctypes.c_int
+        if lib.mvt_hnsw_abi_version() != 3:
+            return None
+        lib.mvt_hnsw_build.restype = ctypes.c_void_p
+        lib.mvt_hnsw_build.argtypes = [
+            f32p, ctypes.c_int64, ctypes.c_int32, f32p, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_uint64, i64p,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ]
+        lib.mvt_hnsw_new.restype = ctypes.c_void_p
+        lib.mvt_hnsw_new.argtypes = [
+            f32p, ctypes.c_int64, ctypes.c_int32, f32p, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32,
+        ]
+        lib.mvt_hnsw_add_layer.restype = None
+        lib.mvt_hnsw_add_layer.argtypes = [
+            ctypes.c_void_p, i32p, ctypes.c_int64, i32p, ctypes.c_int32,
+        ]
+        lib.mvt_hnsw_set_entry.restype = None
+        lib.mvt_hnsw_set_entry.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.mvt_hnsw_n_layers.restype = ctypes.c_int32
+        lib.mvt_hnsw_n_layers.argtypes = [ctypes.c_void_p]
+        lib.mvt_hnsw_layer_size.restype = ctypes.c_int64
+        lib.mvt_hnsw_layer_size.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        lib.mvt_hnsw_layer_width.restype = ctypes.c_int32
+        lib.mvt_hnsw_layer_width.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        lib.mvt_hnsw_entry.restype = ctypes.c_int64
+        lib.mvt_hnsw_entry.argtypes = [ctypes.c_void_p]
+        lib.mvt_hnsw_export_layer.restype = None
+        lib.mvt_hnsw_export_layer.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, i32p, i32p,
+        ]
+        lib.mvt_hnsw_search.restype = None
+        lib.mvt_hnsw_search.argtypes = [
+            ctypes.c_void_p, f32p, ctypes.c_int64, ctypes.c_int32, i32p,
+            f32p,
+        ]
+        lib.mvt_hnsw_free.restype = None
+        lib.mvt_hnsw_free.argtypes = [ctypes.c_void_p]
+        _hnsw_lib = lib
+        return _hnsw_lib
+
+
+def hnsw_available() -> bool:
+    return load_hnsw() is not None
+
+
+def _f32p(arr):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _i32p(arr):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+class NativeHNSW:
+    """Owned handle over the C++ HNSW graph. BORROWS the row/norm arrays
+    (held via ``_keep`` for lifetime); freed on GC."""
+
+    def __init__(self, lib, handle, keep):
+        self._lib = lib
+        self._handle = handle
+        self._keep = keep
+
+    def __del__(self):
+        lib, h = getattr(self, "_lib", None), getattr(self, "_handle", None)
+        if lib is not None and h:
+            lib.mvt_hnsw_free(h)
+            self._handle = None
+
+    @classmethod
+    def build(cls, rows, norms, use_norms, m, ef_construction, seed, live,
+              threads: int = 0, heuristic: bool = True):
+        """Build by incremental insertion over the ``live`` row ids.
+        ``threads``: parallel insertion workers (hnswlib-style per-node
+        locking; 0 = the OpenMP default, 1 = deterministic sequential).
+        ``heuristic``: diversifying neighbor selection (False = plain
+        closest-M). Returns None when the native library is unavailable."""
+        lib = load_hnsw()
+        if lib is None:
+            return None
+        rows = np.ascontiguousarray(rows, np.float32)
+        norms = np.ascontiguousarray(norms, np.float32)
+        live = np.ascontiguousarray(live, np.int64)
+        h = lib.mvt_hnsw_build(
+            _f32p(rows), rows.shape[0], rows.shape[1], _f32p(norms),
+            int(use_norms), int(m), int(ef_construction),
+            ctypes.c_uint64(int(seed) & (2**64 - 1)),
+            live.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            live.shape[0], int(threads), int(bool(heuristic)),
+        )
+        if not h:
+            return None
+        return cls(lib, h, (rows, norms))
+
+    @classmethod
+    def adopt(cls, rows, norms, use_norms, m, ef_construction, layers,
+              entry):
+        """Wrap an existing frozen graph (persisted or Python-built)
+        without copying the row data."""
+        lib = load_hnsw()
+        if lib is None:
+            return None
+        rows = np.ascontiguousarray(rows, np.float32)
+        norms = np.ascontiguousarray(norms, np.float32)
+        h = lib.mvt_hnsw_new(
+            _f32p(rows), rows.shape[0], rows.shape[1], _f32p(norms),
+            int(use_norms), int(m), int(ef_construction),
+        )
+        keep = [rows, norms]
+        for ids, adj in layers:
+            ids = np.ascontiguousarray(ids, np.int32)
+            adj = np.ascontiguousarray(adj, np.int32)
+            lib.mvt_hnsw_add_layer(
+                h, _i32p(ids), ids.shape[0], _i32p(adj), adj.shape[1]
+            )
+            keep.extend((ids, adj))
+        lib.mvt_hnsw_set_entry(h, int(entry))
+        return cls(lib, h, tuple(keep))
+
+    @property
+    def entry(self) -> int:
+        return int(self._lib.mvt_hnsw_entry(self._handle))
+
+    def export_layers(self):
+        """Frozen (ids, adj) per layer, bottom-up — the Python layout."""
+        out = []
+        for layer in range(int(self._lib.mvt_hnsw_n_layers(self._handle))):
+            n = int(self._lib.mvt_hnsw_layer_size(self._handle, layer))
+            w = int(self._lib.mvt_hnsw_layer_width(self._handle, layer))
+            ids = np.empty(n, np.int32)
+            adj = np.empty((n, w), np.int32)
+            self._lib.mvt_hnsw_export_layer(
+                self._handle, layer, _i32p(ids), _i32p(adj)
+            )
+            out.append((ids, adj))
+        return out
+
+    def search(self, queries, ef: int):
+        """Batched beam search: ``(ids [nq, ef] i32, scores [nq, ef] f32)``
+        best-first, −1/−inf padded. Thread-parallel over queries."""
+        q = np.ascontiguousarray(queries, np.float32)
+        nq = q.shape[0]
+        ids = np.empty((nq, ef), np.int32)
+        scores = np.empty((nq, ef), np.float32)
+        self._lib.mvt_hnsw_search(
+            self._handle, _f32p(q), nq, int(ef), _i32p(ids), _f32p(scores)
+        )
+        return ids, scores

@@ -219,7 +219,8 @@ def test_from_state_of_reference_device_space(tmp_path, dtype, precision):
 
 
 def test_unported_modes_raise(tmp_path):
-    """add_rows still raises; int8 spaces now open and search
+    """add_rows serves (tests/test_torch_mutation.py holds it against the
+    reference); int8 spaces open and search
     (tests/test_torch_quantized.py holds them against the reference); "high"
     and "high_verified" run, and on an f16 space (which the reference
     upcasts but keeps as FLOAT16) they run "highest": no over-fetch, no
@@ -238,8 +239,10 @@ def test_unported_modes_raise(tmp_path):
     _assert_same(ver.search(q, k=5), highest)
     assert ver.verify_stats == {"certified": 0, "fallbacks": 0}
     eng = SearchEngine.open(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.space.add_rows(np.zeros((1, D), np.float32))
+    n0 = eng.space.num_valid
+    eng.space.add_rows(x[:1] + 1000)
+    assert eng.space.num_valid == n0 + 1
+    assert eng.search(x[:1] + 1000, k=1).indices[0, 0] == n0
 
 
 def test_autotune_not_ported_names_its_roadmap_item(tmp_path):

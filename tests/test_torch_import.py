@@ -1,5 +1,6 @@
 """The port stands alone: ``import metrovector_tpu_torch`` and a dense, a
-PQ, an IVF-PQ (both modes) and a sparse search on its CPU path load no module of the JAX package
+PQ, an IVF-PQ (both modes), a sparse, a ``Database`` and an HNSW search on
+its CPU path load no module of the JAX package
 (``metrovector_tpu`` or ``metrovector_tpu.*``), no JAX, no ``ml_dtypes`` and
 no Triton. Checked in a fresh interpreter, because the pytest process
 imported JAX at start; once as installed and once with ``ml_dtypes`` made
@@ -21,8 +22,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "metrovector_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "triton")
 # Top-level names of the JAX package that the port does not have yet: the
-# Database (ROADMAP A5), HNSW (A10) and the multi-chip layer (A7).
-UNPORTED = {"Database", "HNSWIndex", "StreamingSearcher", "DistributedSearcher",
+# multi-chip layer (ROADMAP A7).
+UNPORTED = {"StreamingSearcher", "DistributedSearcher",
             "ShardedDeviceSpace", "make_mesh", "sharded_topk"}
 
 _SCRIPT = r"""
@@ -53,12 +54,18 @@ ivfpq = mvt.IVFPQIndex.from_space(reader.vector_space("v"), num_clusters=2, m=2,
                                   ksub=4, iters=2, device="cpu")
 ivfpq_top = [ivfpq.search(np.ones((1, 8), np.float32), k=3, nprobe=2, rerank=8,
                           mode=mode).indices.tolist() for mode in ("scan", "probe")]
+db_top = mvt.Database.open(path, device="cpu").search(
+    "v", np.ones((1, 8), np.float32), k=3).indices
+hnsw = mvt.HNSWIndex.from_space(reader.vector_space("v"), m=4, ef_construction=16)
+hnsw_top = hnsw.search(np.ones((1, 8), np.float32), k=3).indices
 print(json.dumps({{
     "loaded": sorted(m for m in sys.modules if sys.modules[m] is not None),
     "top": res.indices.tolist(),
     "pq_top": pq_top.tolist(),
     "sp_top": sp_top.tolist(),
     "ivfpq_top": ivfpq_top,
+    "db_top": db_top.tolist(),
+    "hnsw_top": hnsw_top.tolist(),
 }}))
 """
 
@@ -81,6 +88,8 @@ def test_port_imports_no_jax(block_ml_dtypes):
     assert got["pq_top"] == [[0, 1, 2]]
     assert got["sp_top"] == [[7, 6, 5]]
     assert got["ivfpq_top"] == [[[0, 1, 2]], [[0, 1, 2]]]
+    assert got["db_top"] == [[0, 1, 2]]
+    assert got["hnsw_top"] == [[0, 1, 2]]
     loaded = set(got["loaded"])
     jax_package = {m for m in loaded
                    if m == "metrovector_tpu" or m.startswith("metrovector_tpu.")}
@@ -100,7 +109,9 @@ def test_port_sources_import_no_jax():
     assert {"metrovector_tpu_torch/index/pq.py", "metrovector_tpu_torch/sparse.py",
             "metrovector_tpu_torch/index/ivf.py", "metrovector_tpu_torch/index/ivfpq.py",
             "metrovector_tpu_torch/ops/sparse_kernel.py",
-            "metrovector_tpu_torch/format/constants.py", "chip_smoke.py"} <= scanned
+            "metrovector_tpu_torch/format/constants.py", "chip_smoke.py",
+            "metrovector_tpu_torch/database.py",
+            "metrovector_tpu_torch/index/hnsw.py"} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -165,15 +165,16 @@ def test_from_state_search_matches_reference(metric, skew, nprobe):
 def test_delete_rows_errors_match_reference():
     ref, *_ = _ref_index(DistanceMetric.L2, ids=np.arange(600, dtype=np.uint64) + 5)
     port = IVFIndex.from_state(state_of(ref), device="cpu")
-    from metrovector_tpu_torch.errors import (IndexOutOfBoundsError,
+    from metrovector_tpu_torch.errors import (DimensionMismatchError,
+                                              IndexOutOfBoundsError,
                                               VectorIdNotFoundError)
     with pytest.raises(IndexOutOfBoundsError):
         port.delete_rows([600])
     with pytest.raises(VectorIdNotFoundError):
         port.delete_rows(ids=[1])
     port.delete_rows([])  # nothing to do
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.add_rows(np.zeros((1, 16), np.float32))
+    with pytest.raises(DimensionMismatchError):  # add_rows serves now
+        port.add_rows(np.zeros((1, 8), np.float32))
 
 
 # ------------------------------------------------ tests/test_ivf.py ---

@@ -4,9 +4,10 @@ both in both serving modes (the JAX scan runs its Pallas kernel in
 interpret mode, as its own tests run it), over 3 metrics × uint8/packed4
 codes × rerank 0/R × f32/bf16 LUT, with filters, tombstones, ids, and
 cells split into buckets whose coarse scores tie; then the cases of
-``tests/test_ivfpq.py`` (without the ``add_rows`` steps: the port's
-``add_rows`` raises), and the IVF-PQ cases of ``tests/test_index_filters.py``
-and ``tests/test_index_ids.py`` on the port's own files.
+``tests/test_ivfpq.py`` (its ``add_rows`` steps against the reference are in
+``tests/test_torch_mutation.py``), and the IVF-PQ cases of
+``tests/test_index_filters.py`` and ``tests/test_index_ids.py`` on the
+port's own files.
 
 Tolerance. Parity searches use integer-valued rows, queries, centroids
 (trained ones rounded) and codebooks, every intermediate below 2^24: every
@@ -30,7 +31,11 @@ from metrovector_tpu.index import ivfpq as jax_ivfpq
 from metrovector_tpu.index import pq as jax_pq
 from metrovector_tpu.ops import numpy_oracle
 from metrovector_tpu_torch import Builder, Reader
-from metrovector_tpu_torch.errors import BuildError, DimensionMismatchError
+from metrovector_tpu_torch.errors import (
+    BuildError,
+    DimensionMismatchError,
+    InvalidVectorTypeError,
+)
 from metrovector_tpu_torch.format.compact import compact
 from metrovector_tpu_torch.index import ivf, pq
 from metrovector_tpu_torch.index.ivfpq import IVFPQIndex, train_ivfpq
@@ -208,8 +213,8 @@ def test_search_errors_and_unported():
         port.search(q[:, :8])
     with pytest.raises(DimensionMismatchError):
         port.search(q, filter_mask=np.ones(3, bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.add_rows(q)
+    with pytest.raises(DimensionMismatchError):  # add_rows serves now
+        port.add_rows(q[:, :8])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.autotune()
     bare = IVFPQIndex.build(data, DistanceMetric.L2, 8, m=M, ksub=KSUB, iters=2,
@@ -474,10 +479,12 @@ def test_ivfpq_packed4_both_modes_and_lifecycle(tmp_path, rng):
     idx = IVFPQIndex.from_space(sp, device="cpu")
     assert idx.packed4 and idx.codes_row.shape[1] == 2
     assert np.array_equal(idx.search(q, k=5, nprobe=6, rerank=240).indices, oi)
-    # online mutation: appends wait for the mutation contract; deletes work
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.add_rows(data[:7] + 0.01)
-    r3 = idx.search(data[:2], k=1, nprobe=6, rerank=60)
+    # online mutation keeps the packed layout and stays searchable
+    new = data[:7] + 0.01
+    idx.add_rows(new)
+    assert idx.codes_row.shape[1] == 2
+    r3 = idx.search(new[:2], k=1, nprobe=6, rerank=60)
+    assert (r3.distances[:, 0] < 0.1).all()
     idx.delete_rows([int(r3.indices[0, 0])])
     r4 = idx.search(data[:1], k=1, nprobe=6, rerank=60)
     assert r4.indices[0, 0] != r3.indices[0, 0]
@@ -594,8 +601,12 @@ def test_ivfpq_ids_on_both_modes(tmp_path, rng, deleted):
                                 num_clusters=4, m=4, ksub=16, device="cpu")
     for mode in ("scan", "probe"):
         _check_ids(idx.search(data[keep][:3], k=5, mode=mode), ids[keep])
-    with pytest.raises(NotImplementedError):  # appends wait for item 5
-        idx.add_rows(data[:2], ids=ids[:2] + 10_000)
+    with pytest.raises(InvalidVectorTypeError):  # appends carry ids
+        idx.add_rows(data[:2])
+    idx.add_rows(data[:2] + 0.01, ids=ids[:2] + 10_000)
+    for mode in ("scan", "probe"):
+        _check_ids(idx.search(data[:2] + 0.01, k=5, mode=mode, rerank=40),
+                   np.concatenate([ids[keep], ids[:2] + 10_000]))
 
 
 def test_ivfpq_ids_default_positions(tmp_path, rng):

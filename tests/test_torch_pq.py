@@ -339,8 +339,8 @@ def test_unported_options_raise(rng):
     idx = PQIndex.build(data, DistanceMetric.L2, m=2, ksub=8, device="cpu")
     # the int8 LUT serves now (tests/test_torch_adc_int8.py holds it)
     assert idx.search(data[:1], k=3, int8_lut=True).indices.shape == (1, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2 mutation"):
-        idx.add_rows(data[:1])
+    with pytest.raises(DimensionMismatchError):  # add_rows serves now
+        idx.add_rows(data[:1, :4])
     with pytest.raises(NotImplementedError, match="ROADMAP autotune"):
         idx.autotune()
     with pytest.raises(ValueError, match="backend"):
