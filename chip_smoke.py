@@ -236,6 +236,40 @@ Phases, one line each; any failure exits non-zero:
    IVF flat over the same rows and quantizer, the same overflow. Every
    kernel of the slice must have launched on this path; its launches are
    added to the kernels line's.
+17. autotune and the CLI, on copies of earlier phases' files (kept as each
+   phase wrote them): (a) ``autotune(persist=True)`` of ``SearchEngine``
+   on phase 3's file and on deep10m (batch 128, k = 10), ``PQIndex`` on
+   ``sift1m-pq4`` with the f32 LUT and with ``int8_lut=True`` (batch 256,
+   rerank 400), ``IVFPQIndex`` on ``sift1m-ivfpq4`` in the scan mode
+   (batches 8 and 256, fetch 400) and ``SparseSearchEngine`` on
+   ``sparse1m`` (batch 256, k = 10), over the launch grid (waves 0.5, 1, 2
+   and 4 of one wave of scan blocks; K2's lookup scan and K4 also their
+   query tiles): every measured candidate's answer identical to the
+   default plan's, the winner applied, a fresh open adopting it and
+   searching identically; each report printed beside the default's time;
+   a PQ grid of tile 32 tuned at k = 10 with the bf16 LUT, adopted, serving
+   rerank 400 with the f32 LUT (where tile 32 does not fit) identically;
+   the bucket kernel's own device time at each waves (batches 8 and 256);
+   (b) ``python -m metrovector_tpu_torch`` in six subprocesses at once:
+   ``info``, ``validate --checksum``, ``search -k 10`` on phase 3's file
+   and on ``sparse1m`` (JSON lines equal to the library's answer), ``tune
+   --save`` and ``tune --index --save`` on copies, whose saved grids a
+   fresh ``Database`` adopts (a round-trip check: those tunings share the
+   card with the other subprocesses, so their winners are no tuning
+   result).
+18. streaming (``StreamingSearcher``: pinned staging buffers, the copy of
+   chunk j+1 on a side stream under K1's scan of chunk j), each case
+   identical to the resident ``SearchEngine`` on the same file: (a)
+   ``benchmarks/suite.py``'s stream cell, 1M x 768 f16 N(0, 1) of seed 5,
+   16 queries, k = 10, chunks of 262,144 rows, with its recall gate against
+   a float64 oracle on a subsample; (b) phase 3's file at batches 32 and 256,
+   k = 10 and 100, chunks of 131,072 and 100,000 rows; (c) the same rows
+   with phase 4's deletion among 1,000 tombstones and a filter of a tenth
+   of the rows; (d) deep10m (int8 IP, batch 128), (e) sift1m-u8 (uint8 L2,
+   batch 256) and (f) its uint8 cosine space (the affine load), at the
+   default chunk; for each, the streamed wall p50, the bytes shipped, one
+   chunk's pinned-to-device ``copy_`` bandwidth and the bound it sets,
+   K1's per-chunk CUDA-event times, and the resident p50.
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
@@ -250,6 +284,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1328,6 +1363,8 @@ def phase_pq_path(torch, dev, card, keep=None):
             b.set_pq_index("sift", books, stored, packed4=packed)
             b.build().save(path)
             t_save = time.perf_counter() - t0
+            if packed:
+                _keep_for_p17(name, path)
             t0 = time.perf_counter()
             idx = PQIndex.from_space(Reader.open(path).vector_space("sift"),
                                      device="cuda")
@@ -1993,6 +2030,7 @@ def phase_sparse_path(torch, dev, card):
         b.add_sparse_vectors("splade", zip(cols.reshape(SPARSE_N, SPARSE_NNZ),
                                            vals.reshape(SPARSE_N, SPARSE_NNZ)))
         b.build().save(path)
+        _keep_for_p17("sparse1m", path)
         t_build = time.perf_counter() - t0
         t0 = time.perf_counter()
         space = Reader.open(path).vector_space("splade")
@@ -2530,6 +2568,8 @@ def phase_ivfpq_path(torch, dev, card):
             b.set_pq_index("sift", books, stored, residual=True, packed4=packed)
             b.build().save(path)
             t_save = time.perf_counter() - t0
+            if packed:
+                _keep_for_p17(name, path)
             t0 = time.perf_counter()
             idx = IVFPQIndex.from_space(Reader.open(path).vector_space("sift"),
                                         device="cuda")
@@ -3560,6 +3600,7 @@ def _deep10m(torch, dev, card, tmpdir) -> dict:
     for c0 in range(0, N_DEEP, 1_000_000):
         b.add_vectors("deep", codes[c0 : c0 + 1_000_000])
     b.build().save(path)
+    _keep_for_p17("deep10m", path)
     del b, codes
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3661,6 +3702,7 @@ def _sift1m_u8(torch, dev, card, tmpdir) -> dict:
                        metric=cos).with_quantization(*U8_COS_QUANT)
     b.add_vectors("u8cos", u8)
     b.build().save(path)
+    _keep_for_p17("sift1m_u8", path)
     del b
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4263,6 +4305,7 @@ def _launch_counts() -> dict:
     """Each kernels-line wrapper's count, by the kernels line's names."""
     from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk as a
     from metrovector_tpu_torch.ops.gather_kernel import gather_rows, rescore_candidates
+    from metrovector_tpu_torch.ops.sparse_kernel import ell_topk, query_postings
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk as t
 
     return {"fused_topk": t.launches, "fused_topk[high]": t.launches_high,
@@ -4274,12 +4317,14 @@ def _launch_counts() -> dict:
             "fused_adc_topk[group_bias]": a.group_launches - a.group_rows_launches,
             "fused_adc_topk[group_rows]": a.group_rows_launches,
             "gather_rows": gather_rows.launches,
-            "rescore_candidates": rescore_candidates.launches}
+            "rescore_candidates": rescore_candidates.launches,
+            "ell_topk": ell_topk.launches, "query_postings": query_postings.launches}
 
 
 def _zero_counts() -> None:
     from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk as a
     from metrovector_tpu_torch.ops.gather_kernel import gather_rows, rescore_candidates
+    from metrovector_tpu_torch.ops.sparse_kernel import ell_topk, query_postings
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk as t
 
     for name in ("launches", "launches_high", "launches_int", "launches_affine",
@@ -4289,6 +4334,7 @@ def _zero_counts() -> None:
                  "group_rows_launches"):
         setattr(a, name, 0)
     gather_rows.launches = rescore_candidates.launches = 0
+    ell_topk.launches = query_postings.launches = 0
 
 
 class _Tally:
@@ -4324,13 +4370,16 @@ def plain_versions():
     from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates_reference
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk_reference
 
-    def adc(*args, buckets=None, **kw):  # the plain scan reads the rows in order
+    def adc(*args, buckets=None, grid=None, **kw):  # the rows in order; no grid
         return fused_adc_topk_reference(*args, **kw)
+
+    def topk(*args, grid=None, **kw):  # the plain version has no grid
+        return fused_topk_reference(*args, **kw)
 
     def rescore_rows(q, db, norms, cand, k, metric):
         return rescore_candidates_reference(q, db, norms, cand, k, metric, tie="row")
 
-    swaps = ((eng_mod, "fused_topk", fused_topk_reference),
+    swaps = ((eng_mod, "fused_topk", topk),
              (eng_mod, "rescore_topk", rescore_rows),
              (pq_mod, "fused_adc_topk", adc),
              (pq_mod, "rescore_candidates", rescore_candidates_reference),
@@ -4916,6 +4965,499 @@ def phase_mutation(torch, dev, card, sift_path, dense, quant16, pq4, pq8, ivf) -
     return {"launches": tally.counts, "times": times, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 17 ---
+
+P17_KERNELS = ("fused_topk", "fused_topk[int8]", "fused_adc_topk",
+               "fused_adc_topk[int8_mma]", "fused_adc_topk[group_bias]",
+               "rescore_candidates", "ell_topk", "query_postings")
+P17_DIR: str | None = None  # copies of earlier phases' files, set by _main
+P17_FILES: dict[str, str] = {}
+P17_FETCH, P17_IVF_BATCHES = 400, (8, 256)
+P17_ITERS = 10  # timings a candidate after its warm-up, best of
+
+
+def _keep_for_p17(name: str, path: str) -> None:
+    """Copy an earlier phase's file for phases 17 and 18, which persist
+    tuned grids into their copies (never into a file another phase or
+    ``--parent`` reads)."""
+    if P17_DIR is not None:
+        dst = os.path.join(P17_DIR, name + ".mvt")
+        shutil.copyfile(path, dst)
+        P17_FILES[name] = dst
+
+
+def _identical_result(got, ref, what) -> None:
+    if not (np.array_equal(got.indices, ref.indices)
+            and np.array_equal(got.scores, ref.scores)
+            and np.array_equal(got.ids, ref.ids)):
+        raise AssertionError(f"{what}: not identical")
+
+
+def _p17_tune(card, tally, label, owner, reopen, search, queries, **autotune_kw) -> dict:
+    """(a) for one engine ``owner``, opened from its file's copy:
+    ``search(owner, q, grid)`` runs one search (grid None: the owner's).
+    The owner's grid is cleared (a grid persisted by an earlier tuning of
+    the copy), the default plan's answer taken, then
+    ``autotune(persist=True)`` (counted), every measured candidate's answer
+    identical to the default's, the winner applied, a fresh ``reopen()``
+    adopting it and searching identically again (counted)."""
+    from metrovector_tpu_torch.ops.grid import Grid
+
+    owner.grid = None
+    default = search(owner, queries, None)
+    report = tally(owner.autotune, queries=queries, persist=True, iters=P17_ITERS,
+                   **autotune_kw)
+    measured = [r for r in report if "skipped" not in r and np.isfinite(r["ms"])]
+    for row in measured:
+        _identical_result(search(owner, queries, Grid(row["waves"], row["tile"])), default,
+                          f"{label} waves {row['waves']} tile {row['tile']}")
+    winner = Grid(report[0]["waves"], report[0]["tile"])
+    if owner.grid != winner:
+        raise AssertionError(f"{label}: the winner {winner} was not applied")
+    fresh = reopen()
+    if fresh.grid != winner:
+        raise AssertionError(f"{label}: a fresh open adopted {fresh.grid}, not {winner}")
+    _identical_result(tally(search, fresh, queries, None), default,
+                      f"{label} with the adopted grid")
+    base = next(r["ms"] for r in report if r["waves"] == 1.0 and r["tile"] is None)
+    failed = [r for r in report if "error" in r]
+    say(f"  (a) {label}: " + ", ".join(
+        f"waves {r['waves']:g} tile {r['tile'] if r['tile'] is not None else 'auto'} "
+        + ("skipped" if "skipped" in r else f"{r['ms']:.4f} ms") for r in report)
+        + f"; default (waves 1, auto) {base:.4f} ms, winner waves {winner.waves:g} tile "
+        f"{winner.tile} at {report[0]['ms'] / base:.3f}x of it; {len(measured)} candidates "
+        f"identical to the default, {len(failed)} failed"
+        + (f" ({failed[0]['error'][:80]})" if failed else "")
+        + f"; persisted and adopted | {card}")
+    return {"label": label, "default_ms": base, "winner": winner,
+            "ratio": report[0]["ms"] / base, "report": report}
+
+
+def _p17_tile_cap(card, tally, owner, reopen, queries) -> None:
+    """(a) a PQ grid tuned where its tile fits and adopted where it does
+    not: tile 32, persisted by ``autotune`` at k = 10 with the bf16 LUT
+    (the CLI's defaults), serves a fresh index's search at rerank 400 with
+    the f32 LUT (where tile 32 does not fit shared memory) through a
+    smaller tile, identical to the default plan; the same tile passed for
+    one search still raises."""
+    from metrovector_tpu_torch.ops.grid import Grid
+
+    report = owner.autotune(queries=queries, k=10, waves_candidates=(1.0,),
+                            tile_candidates=(32,), iters=1, persist=True,
+                            exact_lut=False)
+    fresh = reopen()
+    if fresh.grid != Grid(1.0, 32):
+        raise AssertionError(f"tile cap: a fresh open adopted {fresh.grid}, not tile 32")
+    want = owner.search(queries, k=10, rerank=RERANK, exact_lut=True, grid=Grid())
+    _identical_result(tally(fresh.search, queries, k=10, rerank=RERANK, exact_lut=True),
+                      want, "tile cap: the adopted tile 32 at rerank 400, f32 LUT")
+    try:
+        fresh.search(queries, k=10, rerank=RERANK, exact_lut=True, grid=Grid(1.0, 32))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("tile cap: an explicit tile 32 at rerank 400, f32 LUT ran")
+    say(f"  (a) PQIndex sift1m-pq4 tile cap: tile 32 tuned at k 10 with the bf16 LUT "
+        f"({report[0]['ms']:.4f} ms), persisted and adopted, serves rerank {RERANK} with "
+        f"the f32 LUT identically to the default plan; passed for one search it raises "
+        f"| {card}")
+
+
+def _p17_bucket_kernel(torch, dev, card, idx, queries) -> dict:
+    """The bucket kernel itself (IVF-PQ's scan at fetch 400, the bf16 LUT)
+    at each waves candidate, by device time, each identical to one wave."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk
+    from metrovector_tpu_torch.ops.grid import WAVES, Grid
+    from metrovector_tpu_torch.utils.timing import device_ms
+
+    out = {}
+    bk = (idx.buckets, idx.bucket_ids, idx.bucket_norms, idx.bucket_fill)
+    for bsz, q in queries.items():
+        pins = []
+        for r in range(10):
+            qd = torch.from_numpy(np.roll(q, r, axis=0)).to(dev)
+            pins.append((qd, idx._scan_bias(qd, IVF_NPROBE)[0]))
+
+        def run(p, grid):
+            return fused_adc_topk(p[0], idx.codes_row, idx._books, idx.rnorms_row,
+                                  idx.num_vectors, P17_FETCH, DistanceMetric.L2,
+                                  idx.row_valid, False, idx.packed4, p[1], idx.row_bucket,
+                                  buckets=bk, grid=grid)
+
+        ref = run(pins[0], None)
+        times = {}
+        for w in WAVES:
+            g = Grid(w)
+            _identical(torch, run(pins[0], g), ref, f"bucket kernel batch {bsz} waves {w}")
+            times[w] = device_ms(lambda p, g=g: run(p, g), pins, dev)
+        times[None] = device_ms(lambda p: run(p, None), pins, dev)
+        out[bsz] = times
+        say(f"  (a) sift1m-ivfpq4 bucket kernel batch {bsz}, fetch {P17_FETCH}, device ms: "
+            + ", ".join(f"waves {w:g} {times[w]:.4f}" for w in WAVES)
+            + f"; no grid {times[None]:.4f} | {card}")
+    return out
+
+
+def _cli(args: list[str]) -> subprocess.CompletedProcess:
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run([sys.executable, "-m", "metrovector_tpu_torch"] + args,
+                          capture_output=True, text=True, cwd=here, timeout=900)
+
+
+def _p17_cli(torch, dev, card, tmpdir) -> None:
+    """(b) the CLI in subprocesses on the card, all at once: info and
+    validate --checksum, search on the dense and the sparse file (JSON
+    lines equal to the library's answer), tune --save and tune --index
+    --save on copies whose saved hints a fresh Database adopts. The two
+    tunings are timed beside four other processes on the card, so the
+    grids they save check the round trip only: they are no tuning
+    result."""
+    from metrovector_tpu_torch import Database, Reader, SearchEngine, SparseSearchEngine
+    from metrovector_tpu_torch.ops.grid import Grid
+
+    rng = np.random.default_rng(SEED + 17)
+    dense, sparse = P17_FILES["sift"], P17_FILES["sparse1m"]
+    qd = os.path.join(tmpdir, "q_dense.npy")
+    np.save(qd, rng.integers(0, 256, (16, D_MAIN)).astype(np.float32))
+    qs = os.path.join(tmpdir, "q_sparse.npy")
+    np.save(qs, _splade_queries(rng, 16))
+    tune_dense = os.path.join(tmpdir, "cli_dense.mvt")
+    tune_pq = os.path.join(tmpdir, "cli_pq4.mvt")
+    shutil.copyfile(dense, tune_dense)
+    shutil.copyfile(P17_FILES["sift1m-pq4"], tune_pq)
+    jobs = {"info": ["info", dense], "validate": ["validate", dense, "--checksum"],
+            "search dense": ["search", dense, "-q", qd, "-k", "10"],
+            "search sparse": ["search", sparse, "-q", qs, "-k", "10"],
+            "tune": ["tune", tune_dense, "--save"],
+            "tune --index": ["tune", tune_pq, "--index", "--save"]}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        runs = dict(zip(jobs, pool.map(_cli, jobs.values())))
+    wall = time.perf_counter() - t0
+    for name, run in runs.items():
+        if run.returncode != 0:
+            raise AssertionError(f"CLI {name}: rc {run.returncode}: {run.stderr[-2000:]}")
+    if "1 space(s)" not in runs["info"].stdout or \
+            runs["validate"].stdout.strip() != "OK (checksums verified)":
+        raise AssertionError(f"CLI info/validate: {runs['info'].stdout!r} "
+                             f"{runs['validate'].stdout!r}")
+    for name, path, q, engine in (
+            ("search dense", dense, qd, lambda sp: SearchEngine(sp, device=dev)),
+            ("search sparse", sparse, qs, lambda sp: SparseSearchEngine(sp, device=dev))):
+        reader = Reader.open(path)
+        res = engine(reader.vector_space(reader.vector_space_names[0])).search(
+            np.load(q), k=10)
+        want = [{"query": qi, "results": [
+            {"row": int(i), "id": int(res.ids[qi, j]), "distance": float(res.distances[qi, j])}
+            for j, i in enumerate(res.indices[qi]) if i >= 0]} for qi in range(16)]
+        got = [json.loads(line) for line in runs[name].stdout.strip().splitlines()]
+        if got != want:
+            raise AssertionError(f"CLI {name}: its JSON lines differ from the library's")
+        del res
+    adopted = {}
+    for name, path, reopen in (
+            ("tune", tune_dense, lambda db: db.engine("sift", mode="exact")),
+            ("tune --index", tune_pq, lambda db: db.pq_index("sift"))):
+        lines = [json.loads(x) for x in runs[name].stdout.strip().splitlines()]
+        applied = lines[-1]
+        if not applied.get("saved") or len(lines) < 5:
+            raise AssertionError(f"CLI {name}: {lines}")
+        grid = reopen(Database.open(path, device=dev)).grid
+        if grid != Grid(**applied["applied"]):
+            raise AssertionError(f"CLI {name}: a fresh Database adopted {grid}, saved "
+                                 f"{applied['applied']}")
+        adopted[name] = (grid, len(lines) - 1)
+        torch.cuda.empty_cache()
+    say(f"  (b) CLI, six subprocesses at once on the card in {wall:.1f} s: info, validate "
+        f"--checksum ok; search -k 10 on the dense and the sparse1m files equal to the "
+        f"library's answer (16 queries each); " + ", ".join(
+            f"{n} --save: {c} candidates, saved waves {g.waves:g} tile {g.tile}, adopted by "
+            f"a fresh Database" for n, (g, c) in adopted.items()) + f" | {card}")
+
+
+def phase_tune_cli(torch, dev, card, sift_path) -> dict:
+    """Phase 17 (module docstring). Returns its launches by kernels-line
+    name, its reports and its seconds."""
+    from metrovector_tpu_torch import (
+        IVFPQIndex, PQIndex, Reader, SearchEngine, SparseSearchEngine,
+    )
+
+    t_phase = time.perf_counter()
+    _keep_for_p17("sift", sift_path)
+    tally = _Tally()
+    rng = np.random.default_rng(SEED + 17)
+
+    def space(name, key):
+        return Reader.open(P17_FILES[key]).vector_space(name)
+
+    def dense_search(owner, q, grid):
+        return owner.search(q, k=10) if grid is None else owner._finalize(
+            owner._launch(q, 10, grid=grid), 10)
+
+    reports = []
+    for label, name, key, q in (
+            ("phase 3's 1M x 128 f32", "sift", "sift",
+             rng.integers(0, 256, (128, D_MAIN)).astype(np.float32)),
+            ("deep10m int8 IP", "deep", "deep10m",
+             rng.integers(-128, 128, (128, D_DEEP)).astype(np.float32))):
+        def dense(name=name, key=key):
+            return SearchEngine(space(name, key), device=dev)
+
+        reports.append(_p17_tune(card, tally, f"SearchEngine, {label}, batch 128, k 10",
+                                 dense(), dense, dense_search, q, k=10))
+        torch.cuda.empty_cache()
+
+    def pq():
+        return PQIndex.from_space(space("sift", "sift1m-pq4"), device=dev)
+
+    owner = pq()
+    pq_q = _pq_queries(rng, space("sift", "sift1m-pq4").to_numpy(), 256)
+    for label, kw in (("f32 LUT", {"exact_lut": True}), ("int8 LUT", {"int8_lut": True})):
+        def pq_search(owner, q, grid, kw=kw):
+            return owner.search(q, k=10, rerank=RERANK, grid=grid, **kw)
+
+        reports.append(_p17_tune(
+            card, tally, f"PQIndex sift1m-pq4, {label}, batch 256, rerank {RERANK}",
+            owner, pq, pq_search, pq_q, k=10, rerank=RERANK, **kw))
+        torch.cuda.empty_cache()
+    _p17_tile_cap(card, tally, owner, pq, pq_q)
+
+    def ivfpq():
+        return IVFPQIndex.from_space(space("sift", "sift1m-ivfpq4"), device=dev)
+
+    def ivf_search(owner, q, grid):
+        return owner.search(q, k=10, nprobe=IVF_NPROBE, rerank=P17_FETCH, mode="scan",
+                            grid=grid)
+
+    owner = ivfpq()
+    ivf_rows = space("sift", "sift1m-ivfpq4").to_numpy()
+    ivf_q = {b: _pq_queries(rng, ivf_rows, b) for b in P17_IVF_BATCHES}
+    for bsz in P17_IVF_BATCHES:  # the last (256) stays persisted in the copy
+        reports.append(_p17_tune(
+            card, tally, f"IVFPQIndex sift1m-ivfpq4, scan, batch {bsz}, fetch {P17_FETCH}",
+            owner, ivfpq, ivf_search, ivf_q[bsz], k=10, nprobe=IVF_NPROBE,
+            rerank=P17_FETCH))
+    bucket = _p17_bucket_kernel(torch, dev, card, owner, ivf_q)
+    del owner, ivf_rows
+    torch.cuda.empty_cache()
+
+    def sparse():
+        return SparseSearchEngine(space("splade", "sparse1m"), device=dev)
+
+    reports.append(_p17_tune(
+        card, tally, "SparseSearchEngine sparse1m, batch 256, k 10", sparse(), sparse,
+        lambda owner, q, grid: owner.search(q, k=10, grid=grid),
+        _splade_queries(rng, 256), k=10))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    missing = [k for k in P17_KERNELS if not tally.counts.get(k)]
+    if missing:
+        raise AssertionError(f"phase 17: no launch of {missing} on its main path")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        _p17_cli(torch, dev, card, tmpdir)
+    seconds = time.perf_counter() - t_phase
+    say(f"phase 17 autotune and the CLI: ok ({len(reports)} tunings persisted and "
+        f"adopted, every candidate identical to the default plan; launches "
+        + ", ".join(f"{k} {tally.counts.get(k, 0)}" for k in P17_KERNELS)
+        + f"; {seconds:.1f} s) | {card}")
+    return {"launches": tally.counts, "reports": reports, "bucket": bucket,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------- phase 18 ---
+
+P18_F16 = (1_000_000, 768, 5, 16, 262_144)  # suite.py's stream: n, d, seed, batch, chunk
+P18_CHUNKS = (131_072, 100_000)
+P18_RUNS = 5
+P18_TOMBSTONES = 1_000
+
+
+def _copy_gbps(torch, dev, nbytes: int) -> float:
+    """Pinned-to-device bandwidth of one chunk's ``copy_`` alone, GB/s."""
+    from metrovector_tpu_torch.utils.timing import cuda_ms
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host.fill_(1)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dst.copy_(host, non_blocking=True)
+    ms = cuda_ms(lambda _: dst.copy_(host, non_blocking=True), range(5), dev)
+    del host, dst
+    return nbytes / ms / 1e6
+
+
+def _p18_case(torch, dev, card, tally, label, space, queries, ks, chunks, filter_mask=None,
+              resident=None) -> list[dict]:
+    """One streamed case: for each chunk size, batch and k, the streamed
+    search identical to the resident ``SearchEngine``'s (each counted
+    once), then the streamed wall p50 of P18_RUNS runs after a warm-up,
+    the bytes shipped, one chunk's copy bandwidth, the bound (bytes over
+    it), the last run's trace (K1's per-chunk CUDA-event times and the
+    copies', the share of the copies' time under a scan, the card's busy
+    time, the host's fill time), and the resident p50."""
+    from metrovector_tpu_torch import SearchEngine, StreamingSearcher
+
+    resident = resident or SearchEngine(space, device=dev)
+    rows = []
+    for cr in chunks:
+        s = StreamingSearcher(space, chunk_rows=cr, device=dev)
+        chunk_bytes = s.chunk_rows * space.padded_dim * np.dtype(
+            space.padded_array().dtype).itemsize
+        gbps = _copy_gbps(torch, dev, chunk_bytes)
+        for q in queries:
+            for k in ks:
+                what = f"{label}, chunk {s.chunk_rows}, batch {q.shape[0]}, k {k}"
+                got = tally(s.search, q, k=k, filter_mask=filter_mask)
+                ref = tally(resident.search, q, k=k, filter_mask=filter_mask)
+                _identical_result(got, ref, what + ": streamed vs resident")
+                wall = [sync_time_s(torch, dev, s.search, q, k=k, filter_mask=filter_mask)
+                        for _ in range(P18_RUNS)]
+                res_p50 = np.median([sync_time_s(torch, dev, resident.search, q, k=k,
+                                                 filter_mask=filter_mask)
+                                     for _ in range(P18_RUNS)])
+                tr, traced = dict(s.last_trace), wall[-1]
+                p50 = float(np.median(wall))
+                bound = tr["bytes"] / gbps / 1e6
+                hidden = tr["hidden"]  # the share of the copies' time under a scan
+                idle = 1.0 - tr["card_ms"] / traced
+                row = {"label": what, "p50_ms": p50, "bytes": tr["bytes"],
+                       "gbps": tr["bytes"] / p50 / 1e6, "copy_gbps": gbps,
+                       "bound_ms": bound, "scan_ms": tr["scan_ms"],
+                       "copy_ms": tr["copy_ms"], "fill_ms": tr["fill_ms"],
+                       "host_ms": tr["host_ms"], "wait_ms": tr["wait_ms"],
+                       "traced_ms": traced, "card_ms": tr["card_ms"], "idle": idle,
+                       "chunks": tr["chunks"], "resident_ms": float(res_p50),
+                       "hidden": hidden}
+                rows.append(row)
+                say(f"  {what}: identical to resident; streamed p50 {p50:.3f} ms "
+                    f"({P18_RUNS} runs), {tr['bytes'] / 1e6:.1f} MB in {tr['chunks']} "
+                    f"chunks, {row['gbps']:.2f} GB/s; one chunk's copy_ {gbps:.2f} GB/s, "
+                    f"bound {bound:.3f} ms, wall/bound {p50 / bound:.3f}; K1 per-chunk sum "
+                    f"{tr['scan_ms']:.3f} ms, copies {tr['copy_ms']:.3f} ms; host fill "
+                    f"{tr['fill_ms']:.3f} ms of {tr['host_ms']:.3f} ms busy in the loop, "
+                    f"{tr['wait_ms']:.3f} ms waiting on a copy; a scan ran under {hidden:.1%} "
+                    f"of the copies' time; the card busy {tr['card_ms']:.3f} ms of the last "
+                    f"run's {traced:.3f} ms (idle {idle:.1%}); resident p50 {res_p50:.4f} ms "
+                    f"| {card}")
+        del s
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sync_time_s(torch, dev, fn, *args, **kw) -> float:
+    """ms of one call, the device synchronized before and after."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn(*args, **kw)
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _p18_f16(torch, dev, card, tally, tmpdir) -> list[dict]:
+    """(a) benchmarks/suite.py's stream cell, uncut: 1M x 768 f16 N(0, 1) of
+    seed 5 (drawn in row blocks: the same values as one draw), 16 queries,
+    k = 10, chunks of 262,144 rows, with the suite's recall gate against a
+    float64 oracle over a subsample of 50,000 rows and the answers' rows."""
+    from metrovector_tpu_torch import Builder, DataType, Reader
+
+    n, d, seed, nq, chunk = P18_F16
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    data = np.empty((n, d), np.float16)
+    for r0 in range(0, n, 100_000):
+        data[r0:r0 + 100_000] = rng.standard_normal((min(100_000, n - r0), d))
+    path = os.path.join(tmpdir, "stream.mvt")
+    b = Builder()
+    b.add_vector_space("s", dim=d, dtype=DataType.FLOAT16)
+    b.add_vectors("s", data)
+    b.build().save(path)
+    del b
+    queries = rng.standard_normal((nq, d)).astype(np.float32)
+    say(f"  (a) stream {n}x{d} f16 N(0, 1) (seed {seed}) drawn and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    space = Reader.open(path).vector_space("s")
+    rows = _p18_case(torch, dev, card, tally, "(a) stream f16", space, [queries], (10,),
+                     (chunk,))
+    from metrovector_tpu_torch import StreamingSearcher
+
+    res = StreamingSearcher(space, chunk_rows=chunk, device=dev).search(queries, k=10)
+    sub = np.unique(np.concatenate([res.indices.ravel(), rng.integers(0, n, 50_000)]))
+    x64 = torch.from_numpy(data[sub].astype(np.float64)).to(dev)
+    q64 = torch.from_numpy(queries.astype(np.float64)).to(dev)
+    dist = (x64 * x64).sum(1)[None, :] - 2.0 * q64 @ x64.T
+    want = sub[torch.sort(dist, dim=1, stable=True).indices[:, :10].cpu().numpy()]
+    recall = np.mean([len(set(res.indices[i]) & set(want[i])) / 10 for i in range(nq)])
+    if recall < 0.99:
+        raise AssertionError(f"(a) stream: recall@10 {recall} < 0.99")
+    say(f"  (a) stream recall@10 {recall:.4f} against the float64 oracle over "
+        f"{sub.size} rows (the suite's gate) | {card}")
+    del data, x64, q64, dist
+    rows[0]["recall"] = float(recall)
+    return rows
+
+
+def phase_streaming(torch, dev, card, sift_path) -> dict:
+    """Phase 18 (module docstring). Returns its launches by kernels-line
+    name, its rows and its seconds."""
+    from metrovector_tpu_torch import Builder, Reader
+
+    t_phase = time.perf_counter()
+    tally = _Tally()
+    rng = np.random.default_rng(SEED + 18)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        rows["a"] = _p18_f16(torch, dev, card, tally, tmpdir)
+        torch.cuda.empty_cache()
+        space = Reader.open(sift_path).vector_space("sift")
+        qs = [rng.integers(0, 256, (b, D_MAIN)).astype(np.float32) for b in (32, 256)]
+        rows["b"] = _p18_case(torch, dev, card, tally, "(b) 1M x 128 f32", space, qs,
+                              (10, 100), P18_CHUNKS)
+        # (c) the same rows with phase 4's deletion (the top-1 of a query)
+        # among 1,000 tombstones, and a filter of phase 4's kind (that row's
+        # neighbour) widened to a tenth of the rows
+        x = space.to_numpy()
+        top1 = int(np.argmin(((x - qs[0][0]) ** 2).sum(1)))
+        dead = np.unique(np.concatenate([[top1], rng.choice(N_MAIN, P18_TOMBSTONES - 1,
+                                                            replace=False)]))
+        path = os.path.join(tmpdir, "sift_tombstoned.mvt")
+        b = Builder()
+        b.add_vector_space("sift", dim=D_MAIN)
+        b.add_vectors("sift", x)
+        for r in dead:
+            b.delete_vector("sift", int(r))
+        b.build().save(path)
+        del b, x
+        keep = rng.random(N_MAIN) >= 0.1
+        tomb = Reader.open(path).vector_space("sift")
+        rows["c"] = _p18_case(torch, dev, card, tally, "(c) with tombstones and a filter",
+                              tomb, qs, (10, 100), P18_CHUNKS, filter_mask=keep)
+        torch.cuda.empty_cache()
+    deep = Reader.open(P17_FILES["deep10m"]).vector_space("deep")
+    rows["d"] = _p18_case(torch, dev, card, tally, "(d) deep10m int8 IP", deep,
+                          [rng.integers(-128, 128, (DEEP_BATCH, D_DEEP)).astype(np.float32)],
+                          (10,), (None,))
+    torch.cuda.empty_cache()
+    u8r = Reader.open(P17_FILES["sift1m_u8"])
+    q8 = [rng.integers(0, 256, (U8_BATCH, D_MAIN)).astype(np.float32)]
+    rows["e"] = _p18_case(torch, dev, card, tally, "(e) sift1m-u8 uint8 L2",
+                          u8r.vector_space("u8"), q8, (10,), (None,))
+    rows["f"] = _p18_case(torch, dev, card, tally, "(f) uint8 cosine (affine load)",
+                          u8r.vector_space("u8cos"), q8, (10,), (None,))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    missing = [k for k in P18_KERNELS if not tally.counts.get(k)]
+    if missing:
+        raise AssertionError(f"phase 18: no launch of {missing} on its main path")
+    seconds = time.perf_counter() - t_phase
+    say(f"phase 18 streaming: ok (every case identical to the resident search; "
+        f"launches " + ", ".join(f"{k} {tally.counts.get(k, 0)}" for k in P18_KERNELS)
+        + f"; {seconds:.1f} s) | {card}")
+    return {"launches": tally.counts, "rows": rows, "seconds": seconds}
+
+
+P18_KERNELS = ("fused_topk", "fused_topk[int8]", "fused_topk[affine]")
+
+
 def time_parent(parent: str, files: str, card: str) -> None:
     """K1-K4 of another checkout (the parent commit, unpacked by the caller)
     at the kernels-line points, and its search() p50 on this run's dense
@@ -4985,6 +5527,10 @@ def main() -> int:
 
 
 def _main(torch, card_name, card, dev, parent, counters) -> int:
+    global P17_DIR
+    # Phases 17 and 18 tune and stream copies of earlier phases' files.
+    p17_dir = tempfile.TemporaryDirectory()
+    P17_DIR = p17_dir.name
     # With --parent, the dense and PQ files stay for the parent's search().
     keep = tempfile.TemporaryDirectory() if parent is not None else None
     keep_dir = keep.name if keep is not None else None
@@ -5022,8 +5568,13 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
         p16 = phase_mutation(torch, dev, card, sift_path, dense, quant16, pq4_idx, pq8,
                              ivf_keep["idx"])
         del dense, ivf_keep, pq4_idx, pq8, quant16
+        torch.cuda.empty_cache()
+        p17 = phase_tune_cli(torch, dev, card, sift_path)
+        torch.cuda.empty_cache()
+        p18 = phase_streaming(torch, dev, card, sift_path)
     finally:
         tmp.cleanup()
+        p17_dir.cleanup()
 
     # The kernels line: each kernel at the main path's timed point, its
     # bound from this run's shapes (module docstring).
@@ -5141,8 +5692,8 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
             ("fused_adc_topk[group_rows]", "group_rows", CSRC + "adc_bucket_kernel.cu",
              "metrovector_tpu/ops/adc_kernel.py:248"))
     ]
-    for row in kernels:  # each path's launches: phases 3-15, then phase 16's
-        row["launches"] += p16["launches"].get(row["name"], 0)
+    for row in kernels:  # each path's launches: phases 3-15, then 16's, 17's, 18's
+        row["launches"] += sum(p["launches"].get(row["name"], 0) for p in (p16, p17, p18))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name,

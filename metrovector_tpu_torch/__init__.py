@@ -6,9 +6,10 @@ Self-contained: the port carries its own copy of every host layer it uses
 packages read and write the same MVT bytes (``tests/test_torch_format.py``).
 Every line of device code is owned here: the dense engine, the PQ, IVF and
 IVF-PQ indexes and the sparse engine run on a ``torch.device`` and their searches go through
-hand-written CUDA kernels for Hopper (``ops/csrc``); HNSW runs on the host,
-and the ``Database`` facade opens a file and routes each space to one of
-them.
+hand-written CUDA kernels for Hopper (``ops/csrc``); ``StreamingSearcher``
+streams a host-resident corpus through the dense kernel; HNSW runs on the
+host, and the ``Database`` facade opens a file and routes each space to one
+of them.
 
 Module names mirror the JAX package, so each module's counterpart sits at
 the same path. The compute-path names below import lazily, so
@@ -62,6 +63,7 @@ _LAZY = {
     "unpack_codes4": "metrovector_tpu_torch.index.pq",
     "reconstruct_pq": "metrovector_tpu_torch.index.pq",
     "SparseSearchEngine": "metrovector_tpu_torch.sparse",
+    "StreamingSearcher": "metrovector_tpu_torch.parallel.streaming",
     # the batcher: duck-typed on the engine's _launch / _finalize /
     # prepare_filter / space.dim
     "MicroBatcher": "metrovector_tpu_torch.serving",
@@ -102,6 +104,7 @@ __all__ = [
     "SearchEngine",
     "SearchResult",
     "SparseSearchEngine",
+    "StreamingSearcher",
     "TombstoneFormat",
     "Vector",
     "VectorChunkIterator",

@@ -127,7 +127,7 @@ class Database:
 
         ``engine_kwargs``: keyword arguments for every dense
         :class:`~.engine.SearchEngine` the facade builds (``precision``,
-        ``verify_margin``). Sparse spaces and indexes ignore them."""
+        ``verify_margin``, ``grid``). Sparse spaces and indexes ignore them."""
         return cls(Reader.open(path), device=device, hbm_budget=hbm_budget,
                    engine_kwargs=engine_kwargs)
 

@@ -47,8 +47,10 @@ from .utils.filters import checked_prepared_mask, padded_filter_plane
 from .vectors.space import VectorSpace
 
 from .ops.distances import distances_np, rescore_topk
+from .ops.grid import check_grid
 from .ops.topk_kernel import fused_topk
 from .utils.transfer import put_chunked
+from .utils.tune import tune_grid, tuned_grid
 
 PRECISIONS = ("highest", "high", "high_verified", "default")
 _SUPPORTED_DTYPES = (DataType.FLOAT32, DataType.FLOAT16, DataType.BFLOAT16,
@@ -732,7 +734,7 @@ class SearchEngine:
     """
 
     def __init__(self, space: VectorSpace | DeviceSpace, device="cuda",
-                 precision: str = "highest", verify_margin: int = 8):
+                 precision: str = "highest", verify_margin: int = 8, grid=None):
         """``space``: a host :class:`VectorSpace` (uploaded to ``device`` at
         ``precision``) or a :class:`DeviceSpace` already resident.
 
@@ -744,11 +746,20 @@ class SearchEngine:
         returns the top k, and a certificate (:meth:`_verify_eps`) proves it
         exact or the batch re-runs at ``"highest"``; ``"default"``, bf16
         storage. ``verify_stats`` counts certified queries and those that
-        fell back."""
+        fell back.
+
+        ``grid``: the kernels' launch grid (:class:`~.ops.grid.Grid` or a
+        mapping with its ``waves``); None adopts the grid that
+        :meth:`autotune` persisted in the file, if any, else one wave."""
+        self._host_space = None  # the file-backed origin, for persist
         if not isinstance(space, DeviceSpace):
+            self._host_space = space
+            if grid is None:
+                grid = tuned_grid(space, "dense")
             space = DeviceSpace.from_space(space, device=device,
                                            precision=precision)
         self.space = space
+        self.grid = check_grid(grid, (), "SearchEngine")
         if verify_margin < 1:
             raise ValueError(f"verify_margin must be >= 1, got {verify_margin}")
         self.verify_margin = int(verify_margin)
@@ -779,12 +790,35 @@ class SearchEngine:
         res = self._finalize(self._launch(queries, k, filter_mask, snap=snap), k)
         return radius_from_topk(res, radius, k, snap.num_valid)
 
-    def autotune(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SearchEngine.autotune is not ported yet (ROADMAP autotune: K1 "
-            "sizes its grid from the runtime's occupancy; the JAX package "
-            "tuned block_rows and query_tile)"
-        )
+    def autotune(self, queries=None, k: int = 10, batch: int = 128,
+                 waves_candidates=None, iters: int = 3, apply: bool = True,
+                 persist: bool = False) -> list[dict]:
+        """Time K1's launch grid for this space with single-launch
+        timings (one search and its readback a measurement) and, with
+        ``apply``, set the fastest as :attr:`grid`.
+
+        ``queries``: the sample batch (``[batch, dim]`` drawn N(0, 1) if
+        omitted). ``waves_candidates`` (default :data:`~.ops.grid.WAVES`):
+        multiples of one wave of scan blocks; K1's library holds one block
+        tile, so the tile is not a candidate. Returns a row
+        ``{"waves", "tile", "ms"}`` for each candidate, fastest first
+        (``ms`` the best of ``iters`` timings after a warm-up; a candidate
+        that fails gets ``inf`` and an ``error``). ``persist=True`` also
+        writes the winner into the file
+        (``hints["tuned"][space]["dense"]["cuda"]``), where a later
+        ``SearchEngine`` of the file adopts it; it needs an engine built from
+        a file-backed ``VectorSpace`` and a finite winner. CUDA engines only:
+        on the CPU the plain version runs and ``ValueError`` is raised."""
+        def run_with(q, grid):
+            return lambda: self._finalize(self._launch(q, k, grid=grid), k)
+
+        return tune_grid(self, "dense", run_with, queries=queries, batch=batch,
+                         dim=self.space.dim, waves=waves_candidates, tiles=(None,),
+                         iters=iters, apply=apply, persist=persist)
+
+    @property
+    def device(self) -> torch.device:
+        return self.space.device
 
     def prepare_filter(self, filter_mask) -> PreparedFilter:
         """Upload a ``[num_vectors]`` predicate once for many searches."""
@@ -808,12 +842,14 @@ class SearchEngine:
         if pending is not None:
             yield self._finalize(pending, k)
 
-    def _launch(self, queries, k: int, filter_mask=None, snap=None):
+    def _launch(self, queries, k: int, filter_mask=None, snap=None, grid=None):
         """Upload and launch without waiting for the device. Returns a
         pending tuple for :meth:`_finalize`, which carries the
         :class:`SpaceSnapshot` the launch read (taken once, here, unless
-        given), so that the whole search reads one state of the space."""
+        given), so that the whole search reads one state of the space.
+        ``grid``: the launch grid (default :attr:`grid`)."""
         sp = self.space
+        grid = self.grid if grid is None else grid
         if snap is None:
             snap = sp.snapshot
         if sp.metric == DistanceMetric.CUSTOM:
@@ -840,7 +876,7 @@ class SearchEngine:
                 scores, idx = fused_topk(
                     prep.qdev, data, norms, nv, k_eff,
                     sp.metric, valid_mask=eff_mask,
-                    affine=(128.0 - sp.zero_point, sp.scale),
+                    affine=(128.0 - sp.zero_point, sp.scale), grid=grid,
                 )
             else:
                 # the integer kernel reads the first dim bytes of each
@@ -849,7 +885,7 @@ class SearchEngine:
                 scores, idx = fused_topk(
                     prep.qdev[:, :d], data[:, :d], norms, nv, k_eff,
                     sp.metric, valid_mask=eff_mask, scale=prep.dot_scale,
-                    bias_row=rowsums, bias_scale=prep.bias_scale,
+                    bias_row=rowsums, bias_scale=prep.bias_scale, grid=grid,
                 )
             return (scores, idx, prep, k_eff, None, snap)
         # "high" and "high_verified" split f32 spaces only; f16 and bf16 run
@@ -863,6 +899,7 @@ class SearchEngine:
         scores, idx = fused_topk(
             prep.qdev, data, norms, nv, k_fetch, sp.metric,
             valid_mask=eff_mask, precision="high" if high else "highest",
+            grid=grid,
         )
         vcheck = None
         if verified:
@@ -970,7 +1007,7 @@ class SearchEngine:
                 data, norms, _, _ = snap.live()
                 scores, idx = fused_topk(
                     prep.qdev, data, norms, snap.num_valid, k_eff,
-                    sp.metric, valid_mask=eff_mask,
+                    sp.metric, valid_mask=eff_mask, grid=self.grid,
                 )
                 scores = scores.cpu().numpy()
                 idx = idx.cpu().numpy()

@@ -33,9 +33,11 @@ product-quantized residuals, the counterpart of
   planes) are published together, as one state that a search reads whole.
 
 Files round-trip through the shared format (``Builder.set_ivf_index`` and
-``set_pq_index(residual=True)``). Not ported: ``autotune`` (ROADMAP
-autotune: the kernel has no tile knob; the persisted ``"ivfpq"``
-``block_rows`` hint is a Mosaic tile and is not read).
+``set_pq_index(residual=True)``). :meth:`IVFPQIndex.autotune` times the
+scan's launch grid (the bucket kernel's waves) and persists the winner in
+the file's ``"ivfpq"`` hints, where :meth:`IVFPQIndex.from_space` adopts
+it; the JAX package's ``block_rows`` there is a Mosaic tile and is not
+read.
 """
 
 from __future__ import annotations
@@ -63,7 +65,9 @@ from ..engine import (
 from ..ops.adc_kernel import adc_lut, fused_adc_topk, unpack_nibbles
 from ..ops.distances import carry_topk_ids, distances_np
 from ..ops.gather_kernel import rescore_candidates
+from ..ops.grid import check_grid
 from ..utils.transfer import put_chunked
+from ..utils.tune import tune_grid, tuned_grid
 from .ivf import (
     _assign_host,
     _grown_buckets,
@@ -215,12 +219,15 @@ class IVFPQIndex:
     row_bucket_host: np.ndarray | None = None
     row_slot_host: np.ndarray | None = None
     packed4: bool = False
+    grid: object = None  # the scan's launch grid (ops.grid.Grid); None: one wave
     bucket_fill: torch.Tensor | None = dataclasses.field(default=None, init=False)
 
     def __post_init__(self):
         self.codebooks = np.array(self.codebooks, np.float32)
         self._books = torch.from_numpy(self.codebooks).to(self.device)
         self.bucket_fill = _to(self.fill, self.device, np.int32)
+        self.grid = check_grid(self.grid, (), "IVFPQIndex")
+        self._host_space = None  # the file-backed origin, for persist
         self._write_lock = threading.Lock()  # one writer at a time
 
     @property
@@ -341,7 +348,8 @@ class IVFPQIndex:
         :class:`~metrovector_tpu_torch.vectors.space.VectorSpace` on
         ``device``, reusing the persisted coarse quantizer (IVF blocks) and
         residual PQ sidecar when both are present: no retraining, no
-        re-encoding. ``pack4`` defaults to the sidecar's packing."""
+        re-encoding. ``pack4`` defaults to the sidecar's packing. The grid
+        persisted by :meth:`autotune` is adopted."""
         stored_ivf = space.ivf_arrays()
         centroids = assignments = codebooks = codes = recon_norms = None
         if stored_ivf is not None:
@@ -358,13 +366,16 @@ class IVFPQIndex:
         q = space.quantization
         if q is not None:
             vectors = (vectors - q.zero_point) * q.scale
-        return cls.build(
+        idx = cls.build(
             vectors, space.metric, num_clusters, m=m, ksub=ksub, iters=iters,
             seed=seed, centroids=centroids, assignments=assignments,
             codebooks=codebooks, codes=codes, recon_norms=recon_norms,
             keep_vectors=keep_vectors, valid_mask=space.tombstone_mask(),
             ids=space.ids(), pack4=pack4, device=device,
         )
+        idx._host_space = space
+        idx.grid = check_grid(tuned_grid(space, "ivfpq"), (), "IVFPQIndex")
+        return idx
 
     @classmethod
     def from_state(cls, state: dict, device="cuda") -> "IVFPQIndex":
@@ -542,12 +553,26 @@ class IVFPQIndex:
                 changes["host_ids"] = merged_ids
             publish(self, **changes)
 
-    def autotune(self, *args, **kwargs):
-        raise NotImplementedError(
-            "IVFPQIndex.autotune is not ported yet (ROADMAP autotune: "
-            "the ADC kernel has no tile knob; it sizes its grid from the "
-            "runtime's occupancy)"
-        )
+    def autotune(self, queries=None, k: int = 10, batch: int = 128,
+                 nprobe: int = 16, waves_candidates=None, iters: int = 3,
+                 apply: bool = True, persist: bool = False,
+                 **search_kw) -> list[dict]:
+        """Time the scan mode's launch grid (the bucket kernel's waves; its
+        library holds one query tile) with single-launch timings of
+        ``search(mode="scan")``, which this knob alone serves, also at a
+        batch below :attr:`SCAN_CROSSOVER_BATCH`. ``**search_kw`` reach
+        :meth:`search` (``rerank=``, ``exact_lut=``). The report, ``apply``
+        and ``persist`` (into ``hints["tuned"][space]["ivfpq"]["cuda"]``,
+        for an index built by :meth:`from_space` on a file-backed space)
+        follow :meth:`~..engine.SearchEngine.autotune`; on the CPU it
+        raises ``ValueError``."""
+        def run_with(q, grid):
+            return lambda: self.search(q, k=k, nprobe=nprobe, mode="scan", grid=grid,
+                                       **search_kw)
+
+        return tune_grid(self, "ivfpq", run_with, queries=queries, batch=batch,
+                         dim=self.dim, waves=waves_candidates, tiles=(None,),
+                         iters=iters, apply=apply, persist=persist)
 
     def delete_rows(self, rows) -> None:
         """Tombstone rows by position: their bucket slots get id −1 and
@@ -623,13 +648,13 @@ class IVFPQIndex:
         return torch.where(sel, shifted, -1e30), b0
 
     def _masked_scan(self, qdev, fetch: int, nprobe: int,
-                     exact_lut: bool = False, row_filter=None):
+                     exact_lut: bool = False, row_filter=None, grid=None):
         """The scan mode: ADC with the bucket bias of :meth:`_scan_bias`,
         one launch of the ADC kernel's bucket form, which reads the probed
         buckets from the bucket layout (the plain version scans the rows in
         original order; the same answer); for L2/IP ``mult·b0`` is added
-        back to the scores (mult 2 for L2, 1 for IP). No host
-        synchronization."""
+        back to the scores (mult 2 for L2, 1 for IP). ``grid``: the launch
+        grid (default :attr:`grid`). No host synchronization."""
         bias, b0 = self._scan_bias(qdev, nprobe)
         n = self.num_vectors  # the logical rows, not the planes' capacity
         eff_valid = self.row_valid[:n]
@@ -641,6 +666,7 @@ class IVFPQIndex:
             exact_lut=exact_lut, packed4=self.packed4, group_bias=bias,
             group_ids=self.row_bucket[:n],
             buckets=(self.buckets, self.bucket_ids, self.bucket_norms, self.bucket_fill),
+            grid=self.grid if grid is None else grid,
         )
         if fetch > n:  # more slots than rows: the rest stay unfilled
             pad = fetch - n
@@ -683,6 +709,7 @@ class IVFPQIndex:
         exact_lut: bool = False,
         block_rows: int | None = None,
         filter_mask=None,
+        grid=None,
     ) -> SearchResult:
         """Approximate top-k: ADC over the ``nprobe`` best-scoring buckets'
         residual codes (split cells count one bucket each); ``rerank=R``
@@ -696,7 +723,8 @@ class IVFPQIndex:
         :meth:`prepare_filter` result, composed with the tombstones before
         the re-rank. Cosine queries are normalized on the host first.
         ``interpret`` and ``block_rows`` are accepted and ignored (the
-        tensors' device decides; the kernel has no tile knob).
+        tensors' device decides; the Mosaic tile has no counterpart).
+        ``grid``: the scan's launch grid (default :attr:`grid`).
 
         On a CUDA device the scan is one launch of the ADC kernel's bucket
         form over the probed buckets, the probe plain PyTorch, and a
@@ -727,7 +755,7 @@ class IVFPQIndex:
         row_filter = ix._filter_device(filter_mask)
         if mode == "scan":
             s, i = ix._masked_scan(qdev, fetch, nprobe, exact_lut=exact_lut,
-                                     row_filter=row_filter)
+                                   row_filter=row_filter, grid=grid)
         else:
             s, i = _ivfpq_search(
                 qdev, ix.probe_centroids, ix.buckets, ix.bucket_ids,

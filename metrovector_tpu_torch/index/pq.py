@@ -17,9 +17,10 @@ The counterpart of :mod:`metrovector_tpu.index.pq`:
 Files round-trip through the shared format: ``Builder.set_pq_index`` writes
 the sidecar and :meth:`PQIndex.from_space` opens it without retraining.
 :meth:`PQIndex.add_rows` encodes appended rows with the trained codebooks
-and publishes the grown planes as one snapshot. ``autotune`` is not ported
-(ROADMAP autotune); the persisted ``adc`` tuning hint is a Mosaic tile and
-is not read.
+and publishes the grown planes as one snapshot. :meth:`PQIndex.autotune`
+times the ADC kernel's launch grid and persists the winner in the file's
+``adc`` hints, where :meth:`PQIndex.from_space` adopts it (the JAX
+package's Mosaic tile in the same hints is not read).
 """
 
 from __future__ import annotations
@@ -44,10 +45,12 @@ from ..engine import (
     publish,
     resolve_device,
 )
-from ..ops.adc_kernel import fused_adc_topk
+from ..ops.adc_kernel import QUERY_TILES, fused_adc_topk, int8_lut_route
 from ..ops.distances import distances_np, full_f32_matmul
 from ..ops.gather_kernel import rescore_candidates
+from ..ops.grid import check_grid
 from ..utils.transfer import put_chunked
+from ..utils.tune import tune_grid, tuned_grid
 from .ivf import _to, train_kmeans
 
 # ------------------------------------------------------------- training ---
@@ -159,7 +162,8 @@ class PQIndex:
     the original rows and their squared norms, for exact re-ranking;
     ``valid``: ``[N]`` f32, 0 for a tombstoned row. The device planes may
     hold more rows than ``num_vectors`` (the capacity of :meth:`add_rows`);
-    the rows past it are never read.
+    the rows past it are never read. ``grid``: the ADC kernel's launch grid
+    (:class:`~..ops.grid.Grid`), None for one wave.
 
     Mutations publish every changed field at once (:func:`~..engine.publish`)
     and a search reads one published state (:func:`~..engine.pinned`)."""
@@ -175,11 +179,21 @@ class PQIndex:
     valid: torch.Tensor | None = None
     packed4: bool = False
     host_ids: np.ndarray | None = None
+    grid: object = None
 
     def __post_init__(self):
         self.codebooks = np.array(self.codebooks, np.float32)
         self._books = torch.from_numpy(self.codebooks).to(self.device)
+        self.grid = check_grid(self.grid, QUERY_TILES, "PQIndex")
+        self._host_space = None  # the file-backed origin, for persist
         self._write_lock = threading.Lock()  # one writer at a time
+
+    def _adopt(self, space) -> "PQIndex":
+        """Remember the file-backed origin and adopt the grid that
+        :meth:`autotune` persisted there, if any."""
+        self._host_space = space
+        self.grid = check_grid(tuned_grid(space, "adc"), QUERY_TILES, "PQIndex")
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -272,7 +286,8 @@ class PQIndex:
         """The search-ready index of a host
         :class:`~metrovector_tpu_torch.vectors.space.VectorSpace` on ``device``,
         reusing the codebooks and codes persisted in the file when present
-        (no retraining, no re-encoding). Tombstoned rows are masked."""
+        (no retraining, no re-encoding). Tombstoned rows are masked. The
+        grid persisted by :meth:`autotune` is adopted."""
         dev = resolve_device(device)
         stored = space.pq_arrays()
         codebooks = codes = stored_rnorms = None
@@ -294,7 +309,7 @@ class PQIndex:
                 valid=None if mask is None else _to(~mask, dev, np.float32),
                 host_ids=space.ids(),
                 packed4=bool(space.info.pq.packed4),
-            )
+            )._adopt(space)
         vectors = np.asarray(space.to_numpy(), dtype=np.float32)
         q = space.quantization
         if q is not None:
@@ -304,7 +319,7 @@ class PQIndex:
             codebooks=codebooks, codes=codes, recon_norms=stored_rnorms,
             keep_vectors=keep_vectors, valid_mask=space.tombstone_mask(),
             ids=space.ids(), device=dev,
-        )
+        )._adopt(space)
 
     @classmethod
     def from_state(cls, state: dict, device="cuda") -> "PQIndex":
@@ -394,11 +409,39 @@ class PQIndex:
                 changes["host_ids"] = merged_ids
             publish(self, **changes)
 
-    def autotune(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PQIndex.autotune is not ported yet (ROADMAP autotune: the ADC "
-            "kernel sizes its grid from the runtime's occupancy)"
-        )
+    def autotune(self, queries=None, k: int = 10, batch: int = 128,
+                 waves_candidates=None, tile_candidates=None, iters: int = 3,
+                 apply: bool = True, persist: bool = False,
+                 **search_kw) -> list[dict]:
+        """Time the ADC kernel's launch grid with single-launch timings
+        (one :meth:`search` and its readback a measurement) and, with
+        ``apply``, set the fastest as :attr:`grid`. ``**search_kw`` reach
+        :meth:`search` (``rerank=``, ``exact_lut=``, ``int8_lut=``), so the
+        route timed is the one served: the lookup scan (f32 or bf16 LUT, or
+        an int8 LUT at ksub > 16) or the int8 LUT's tensor-core product.
+
+        Candidates: ``waves_candidates`` (default
+        :data:`~..ops.grid.WAVES`) times ``tile_candidates`` (default: None,
+        the kernel's own pick, and each of the lookup scan's
+        :data:`~..ops.adc_kernel.QUERY_TILES`; the product has one tile, so
+        None alone). A tile above the batch is reported ``skipped``; one
+        that does not fit shared memory fails with ``inf`` and its
+        ``error``. The report, fastest first, and ``persist`` (into
+        ``hints["tuned"][space]["adc"]["cuda"]``, for an index built by
+        :meth:`from_space` on a file-backed space) follow
+        :meth:`~..engine.SearchEngine.autotune`; on the CPU it raises
+        ``ValueError``."""
+        if tile_candidates is None:
+            mma = search_kw.get("int8_lut") and int8_lut_route(
+                self.ksub, self.m, self.code_bytes_per_vector) == "mma"
+            tile_candidates = (None,) if mma else (None,) + QUERY_TILES
+
+        def run_with(q, grid):
+            return lambda: self.search(q, k=k, grid=grid, **search_kw)
+
+        return tune_grid(self, "adc", run_with, queries=queries, batch=batch, dim=self.dim,
+                         waves=waves_candidates, tiles=tile_candidates, iters=iters,
+                         apply=apply, persist=persist)
 
     def delete_rows(self, rows) -> None:
         """Tombstone rows by position; they never surface in results
@@ -467,6 +510,7 @@ class PQIndex:
         backend: str = "auto",
         int8_lut: bool = False,
         filter_mask=None,
+        grid=None,
     ) -> SearchResult:
         """Approximate top-k by ADC over the codes; ``rerank=R`` (R ≥ k)
         rescores the top-R ADC candidates exactly against the original
@@ -475,7 +519,10 @@ class PQIndex:
         overrides ``exact_lut``, as in the reference). ``filter_mask``: ``[num_vectors]`` predicate or a
         :meth:`prepare_filter` result, applied inside the scan together
         with the tombstones. ``backend`` takes only ``"auto"`` (the device
-        decides); ``block_rows`` is accepted and ignored.
+        decides); ``block_rows`` is accepted and ignored. ``grid``: the ADC
+        kernel's launch grid for this search; by default :attr:`grid`, whose
+        tile is a cap: a smaller tile runs where it does not fit this
+        search's fetch and LUT (:mod:`~..ops.grid`).
 
         On a CUDA device each search is one launch of the ADC kernel and,
         with ``rerank``, one of the rescore kernel, at any fetch up to the
@@ -507,12 +554,14 @@ class PQIndex:
             qk = qdev * (1.0 / torch.sqrt(torch.clamp(
                 (qdev * qdev).sum(1, keepdim=True), min=1e-30)))
         nv = ix.num_vectors  # the scan reads the logical rows, not the capacity
+        if grid is None and ix.grid is not None:
+            grid = ix.grid._replace(cap=True)
         s, i = fused_adc_topk(
             qk, ix.codes[:nv], ix._books, ix.recon_norms[:nv],
             nv, fetch, ix.metric,
             valid_mask=None if eff_valid is None else eff_valid[:nv],
             exact_lut=exact_lut and not int8_lut, packed4=ix.packed4,
-            int8_lut=int8_lut,
+            int8_lut=int8_lut, grid=grid,
         )
         if rerank:
             s, i = rescore_candidates(qdev, ix.db, ix.db_norms, i,

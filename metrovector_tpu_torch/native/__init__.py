@@ -94,16 +94,6 @@ def load():
         lib.mvt_lz4_decompress.argtypes = [u8p, ctypes.c_size_t, u8p,
                                            ctypes.c_size_t]
         i8p = ctypes.POINTER(ctypes.c_int8)
-        u16p = ctypes.POINTER(ctypes.c_uint16)
-        lib.mvt_prep_f16_to_f32.restype = None
-        lib.mvt_prep_f16_to_f32.argtypes = [
-            u16p, f32p, ctypes.c_size_t, ctypes.c_size_t,
-        ]
-        lib.mvt_prep_u8_dequant.restype = None
-        lib.mvt_prep_u8_dequant.argtypes = [
-            u8p, f32p, ctypes.c_float, ctypes.c_float,
-            ctypes.c_size_t, ctypes.c_size_t,
-        ]
         lib.mvt_prep_u8_offset.restype = None
         lib.mvt_prep_u8_offset.argtypes = [
             u8p, i8p, f32p, ctypes.c_size_t, ctypes.c_size_t,
@@ -202,59 +192,32 @@ def pack_block_fused(
     return block, norms, int(crc)
 
 
-def prep_f16_to_f32(src: np.ndarray, out_rows: int) -> np.ndarray | None:
-    """Streaming chunk prep: exact f16→f32 upcast of a ``[n, dimp]`` chunk
-    into a zero-padded ``[out_rows, dimp]`` f32 array in ONE native pass
-    (F16C + OpenMP) — the numpy twin costs an astype temp plus an np.pad
-    copy. None when the codec is unavailable."""
-    lib = load()
-    if lib is None:
-        return None
-    src = np.ascontiguousarray(src)
-    n, dimp = src.shape
-    out = np.empty((out_rows, dimp), np.float32)
-    lib.mvt_prep_f16_to_f32(
-        src.view(np.uint16).ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        n * dimp, out_rows * dimp,
-    )
-    return out
-
-
-def prep_u8_dequant(
-    src: np.ndarray, out_rows: int, scale: float, zero_point: float
-) -> np.ndarray | None:
-    """Streaming chunk prep: dequantize a ``[n, dimp]`` u8 chunk to
-    ``(c − zp)·scale`` f32 (numpy-matching f32 arithmetic) into a
-    zero-padded ``[out_rows, dimp]`` array in one native pass."""
-    lib = load()
-    if lib is None:
-        return None
-    src = np.ascontiguousarray(src, np.uint8)
-    n, dimp = src.shape
-    out = np.empty((out_rows, dimp), np.float32)
-    lib.mvt_prep_u8_dequant(
-        _u8(src), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        ctypes.c_float(scale), ctypes.c_float(zero_point),
-        n * dimp, out_rows * dimp,
-    )
+def _out(out, shape, dtype):
+    """``out`` checked as a C-contiguous array of ``shape`` and ``dtype``
+    (a pinned staging buffer's view), or a new one."""
+    if out is None:
+        return np.empty(shape, dtype)
+    if out.shape != shape or out.dtype != dtype or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous {shape} {np.dtype(dtype)} array")
     return out
 
 
 def prep_u8_offset(
-    src: np.ndarray, out_rows: int, dim: int, nvalid: int
+    src: np.ndarray, out_rows: int, dim: int, nvalid: int,
+    out: tuple[np.ndarray, np.ndarray] | None = None,
 ) -> tuple[np.ndarray, np.ndarray] | None:
     """Streaming chunk prep for the offset-u8 kernel path: recenter a
     ``[n, dimp]`` u8 chunk to int8 ``c − 128`` over the logical ``dim``
     columns and emit the per-row code-sum bias, zeroing rows ≥ ``nvalid``
-    and the pad tail, in one native pass. Returns ``(codes, bias)``."""
+    and the pad tail, in one native pass, into ``out = (codes, bias)`` or
+    new arrays. Returns ``(codes, bias)``."""
     lib = load()
     if lib is None:
         return None
     src = np.ascontiguousarray(src, np.uint8)
     n, dimp = src.shape
-    codes = np.empty((out_rows, dimp), np.int8)
-    bias = np.empty(out_rows, np.float32)
+    codes = _out(None if out is None else out[0], (out_rows, dimp), np.int8)
+    bias = _out(None if out is None else out[1], (out_rows,), np.float32)
     lib.mvt_prep_u8_offset(
         _u8(src),
         codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),

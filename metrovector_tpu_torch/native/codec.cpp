@@ -321,45 +321,12 @@ size_t mvt_lz4_decompress(const uint8_t* src, size_t n, uint8_t* dst,
 
 // ----------------------------------------------------------- chunk prep ---
 //
-// Fused host-side chunk preparation for the >HBM streaming searcher
-// (parallel/streaming.py slice_chunk). The numpy twin needs 3-5 full
-// passes per chunk (astype temp, recenter, zero, rowsum, np.pad copy) on
-// one thread; these do one cache-hot pass each, write directly into the
-// PADDED destination (so no np.pad copy exists at all) and parallelize
-// across rows with OpenMP on multi-core hosts. Reference analog: chunked
-// iteration src/vectors/iterator.rs:62-81 (which only yields raw bytes —
-// the prep itself has no reference counterpart).
-
-// f16 -> f32 upcast of n elements; dst[n..n_out) is zero-filled.
-// Exact IEEE conversion (F16C hardware when available, else the same
-// software path mvt_sq_norms uses) — bit-identical to numpy's astype.
-void mvt_prep_f16_to_f32(const uint16_t* __restrict src,
-                         float* __restrict dst, size_t n, size_t n_out) {
-    size_t i = 0;
-#ifdef __F16C__
-#pragma omp parallel for schedule(static)
-    for (ptrdiff_t b = 0; b < (ptrdiff_t)(n / 8); b++) {
-        __m128i h = _mm_loadu_si128((const __m128i*)(src + b * 8));
-        _mm256_storeu_ps(dst + b * 8, _mm256_cvtph_ps(h));
-    }
-    i = (n / 8) * 8;
-#endif
-    for (; i < n; i++) dst[i] = half_to_float(src[i]);
-    std::memset(dst + n, 0, (n_out - n) * sizeof(float));
-}
-
-// u8 -> (c - zp) * scale in f32 (numpy-matching f32 arithmetic order);
-// dst[n..n_out) is zero-filled.
-// __restrict: u8 (char-family) pointers otherwise legally alias the f32
-// output, which blocks auto-vectorization (measured 11x slower).
-void mvt_prep_u8_dequant(const uint8_t* __restrict src,
-                         float* __restrict dst, float scale, float zp,
-                         size_t n, size_t n_out) {
-#pragma omp parallel for schedule(static)
-    for (ptrdiff_t i = 0; i < (ptrdiff_t)n; i++)
-        dst[i] = ((float)src[i] - zp) * scale;
-    std::memset(dst + n, 0, (n_out - n) * sizeof(float));
-}
+// Host-side chunk preparation for the streaming searcher
+// (parallel/streaming.py): fills one pinned staging buffer in one pass,
+// parallel across rows with OpenMP, where the numpy twin takes several
+// passes on one thread. Reference analog: chunked iteration
+// src/vectors/iterator.rs:62-81 (which only yields raw bytes — the prep
+// itself has no reference counterpart).
 
 // offset-u8 path: per-row recenter c' = c - 128 over the logical dim
 // columns into int8 plus the per-row code sum as f32 bias. src is

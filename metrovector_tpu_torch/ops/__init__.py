@@ -1,6 +1,7 @@
 """Device compute: the fused distance + top-k, ADC + top-k, gather +
 rescore and sparse ELL scan + top-k kernels and their plain PyTorch
-versions (counterpart of :mod:`metrovector_tpu.ops`). Importing builds
+versions (counterpart of :mod:`metrovector_tpu.ops`), and the launch grid
+the kernels' wrappers take (:class:`.grid.Grid`). Importing builds
 nothing: the kernels are compiled at their first launch."""
 
 from .adc_kernel import fused_adc_topk, fused_adc_topk_reference
@@ -13,6 +14,7 @@ from .distances import (
     scores_to_distances,
     split_bf16x3,
 )
+from .grid import Grid
 from .gather_kernel import (
     gather_rows,
     gather_rows_reference,
@@ -28,6 +30,7 @@ from .topk_kernel import (
 )
 
 __all__ = [
+    "Grid",
     "distances_np",
     "ell_dots",
     "ell_dots_reference",

@@ -53,7 +53,12 @@ and ``group_rows`` a multiple of 128, which the port does not ask.) On
 CUDA it runs the bucket kernel over the rows as they stand: bucket g's
 slots start at g·group_rows, the tail past G·group_rows is bucket G, and a
 slot is its own row (no argsort, no copy). Not ported: the Mosaic knobs
-(``block_rows``, ``query_tile``, ``vmem_retry``). Any ``1 ≤ k ≤ N``: above
+(``block_rows``, ``query_tile``, ``vmem_retry``); ``grid``
+(:class:`.grid.Grid`) moves the one-wave split count of every route and
+picks the lookup scan's query tile (:data:`QUERY_TILES`; the int8 product
+and the bucket kernel are built with one tile each and take its waves
+alone); a tile that does not fit raises, unless the grid has ``cap``
+(:func:`_grid_tile`). Any ``1 ≤ k ≤ N``: above
 k = 1024 the per-split lists live in device memory and a merge tree folds
 them (:mod:`.select`).
 """
@@ -69,6 +74,7 @@ import torch
 from ..format.constants import DistanceMetric
 
 from . import select
+from .grid import check_grid, wave_blocks
 from .distances import carry_topk, empty_topk, finish_topk, full_f32_matmul, mask_scores
 from .topk_kernel import (
     MIN_STAGES, SCAN_ROWS, SMEM_LIMIT, ScanShape, _scan_smem, _tile_nw,
@@ -79,6 +85,7 @@ from .topk_kernel import _plan as _scan_plan
 SMEM_K = 1024  # lists in shared memory up to this k
 # Shape constants of csrc/adc_scan.cuh
 _QUERY_TILES = (1, 2, 4, 8, 16, 32)
+QUERY_TILES = _QUERY_TILES  # the lookup scan's tiles, grid.tile candidates
 _ROW_TILE = 256
 _BUFFER = 64
 # Scan blocks an SM should hold at once. Fewer leave the shared-memory
@@ -248,6 +255,17 @@ def _fitting_tiles(mk: int, k: int, exact_lut: bool,
     return [t for t in _QUERY_TILES
             if _shared_bytes(t, mk, k, exact_lut, lists_in_smem, gw, int8_lut)
             <= SMEM_LIMIT]
+
+
+def _grid_tile(grid, occupancy: dict[int, int], own: int) -> int:
+    """The lookup scan's query tile under ``grid``: ``own`` (the wrapper's
+    pick) without a tile; its tile; or with ``grid.cap`` the largest tile
+    that fits (``occupancy``) and is no larger (``own`` if none is)."""
+    if grid is None or grid.tile is None:
+        return own
+    if not grid.cap:
+        return grid.tile
+    return max((t for t in occupancy if t <= grid.tile), default=own)
 
 
 def _query_tile(nq: int, occupancy: dict[int, int]) -> int:
@@ -579,6 +597,7 @@ def fused_adc_topk(
     buckets: tuple[torch.Tensor, ...] | None = None,
     int8_lut: bool = False,
     group_rows: int = 0,
+    grid=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ADC top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
     over PQ ``codes`` (uint8 ``[N, m]``, or ``[N, ⌈m/2⌉]`` with
@@ -598,10 +617,13 @@ def fused_adc_topk(
     ``int8_lut``: the LUT quantized per query (:func:`quantize_lut`);
     neither ``exact_lut`` nor a bucket bias goes with it. ``group_rows``
     (with ``group_bias``, instead of ``group_ids``): row r is in bucket
-    ``r // group_rows`` (module docstring)."""
+    ``r // group_rows`` (module docstring). ``grid``: a
+    :class:`.grid.Grid` (module docstring), or None for one wave and the
+    tile :func:`_query_tile` picks; the plain version ignores it."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
+    grid = check_grid(grid, QUERY_TILES, "fused_adc_topk")
     if int8_lut and (exact_lut or group_bias is not None):
         raise ValueError(INT8_LUT_EXCLUSIVE)
     _check_shapes(queries, codes, codebooks, packed4, group_bias, group_ids, buckets,
@@ -636,16 +658,20 @@ def fused_adc_topk(
     with torch.cuda.device(dev):
         if int8_lut and int8_lut_route(ksub, m, codes.shape[1]) == "mma":
             _launch_int8_mma(lib, lut, sq, codes, recon_norms, valid_mask, num_valid, k,
-                             metric, packed4, m, ksub, out_s, out_i)
+                             metric, packed4, m, ksub, out_s, out_i, grid=grid)
             fused_adc_topk.int8_launches += 1
             fused_adc_topk.int8_mma_launches += 1
         elif group_bias is None:
             occupancy = dict(_occupancy(dev.index, lut_code, int(packed4), m, ksub,
                                         min(k, SMEM_K + 1), True))
-            qt = _query_tile(nq, occupancy)
+            qt = _grid_tile(grid, occupancy, _query_tile(nq, occupancy))
+            if qt not in occupancy:
+                raise ValueError(
+                    f"fused_adc_topk: tile={qt} does not fit shared memory at "
+                    f"m*ksub={m * ksub}, k={k} (tiles that fit: {sorted(occupancy)})")
             _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
                     packed4, m, ksub, qt, k <= SMEM_K, occupancy[qt], out_s, out_i,
-                    lut_scale=sq)
+                    lut_scale=sq, grid=grid)
             if int8_lut:
                 fused_adc_topk.int8_launches += 1
         else:
@@ -660,7 +686,8 @@ def fused_adc_topk(
                                      (BUCKET_QT,)))[BUCKET_QT]
             _launch_buckets(lib, lut, lut_bias(group_bias, exact_lut), layout,
                             valid_mask, min(int(num_valid), n), k, metric, packed4,
-                            m, ksub, BUCKET_QT, k <= SMEM_K, per_sm, out_s, out_i)
+                            m, ksub, BUCKET_QT, k <= SMEM_K, per_sm, out_s, out_i,
+                            grid=grid)
             fused_adc_topk.group_launches += 1
             if group_rows:
                 fused_adc_topk.group_rows_launches += 1
@@ -707,12 +734,12 @@ def _bucket_layout(buckets):
 
 def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
             packed4, m, ksub, qt, lists_in_smem, blocks_per_sm, out_s, out_i,
-            splits=None, lut_scale=None) -> None:
+            splits=None, lut_scale=None, grid=None) -> None:
     """One launch of the scan and the merge for checked inputs and a LUT
     ``[Q, m·ksub]`` (f32, bf16, or int8 with its ``lut_scale [Q]`` f32)
     with query tile ``qt``, the lists in shared memory or not, into
     ``out_s``/``out_i``; ``splits`` (default: one wave of ``blocks_per_sm``
-    blocks on every SM) sets the row splits."""
+    blocks on every SM, times ``grid``'s waves) sets the row splits."""
     from ._build import raise_for
 
     nq = lut.shape[0]
@@ -720,7 +747,7 @@ def _launch(lib, lut, codes, recon_norms, valid_mask, num_valid, k, metric,
     dev = lut.device
     if splits is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = max(1, sms * max(1, blocks_per_sm) // -(-nq // qt))
+        splits = max(1, wave_blocks(sms * max(1, blocks_per_sm), grid) // -(-nq // qt))
     splits, rows_per_split, length = select.row_splits(
         n, _ROW_TILE, splits, nq, k, lists_in_smem=lists_in_smem)
     tree = select.merge_by_tree(splits, k, lists_in_smem)
@@ -750,12 +777,13 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_int8_mma(lib, lut8, sq, codes, recon_norms, valid_mask, num_valid, k,
-                     metric, packed4, m, ksub, out_s, out_i, splits=None) -> None:
+                     metric, packed4, m, ksub, out_s, out_i, splits=None,
+                     grid=None) -> None:
     """One launch of the tensor-core int8-LUT scan and the merge for checked
     inputs: ``lut8 [Q, m·ksub]`` int8 with its scales ``sq [Q]``, each
     subspace widened to 16 columns with zeros where ksub < 16, the shape of
-    :func:`int8_mma_shape`, one wave of scan blocks (``splits`` overrides
-    it, as :func:`.topk_kernel._plan`)."""
+    :func:`int8_mma_shape`, one wave of scan blocks times ``grid``'s waves
+    (``splits`` overrides it, as :func:`.topk_kernel._plan`)."""
     from ._build import raise_for
 
     nq = lut8.shape[0]
@@ -770,7 +798,8 @@ def _launch_int8_mma(lib, lut8, sq, codes, recon_norms, valid_mask, num_valid, k
         dev, nq, n, k, 0 if shape.big else k,
         (2 * shape.nw, SCAN_ROWS * _mma_row_blocks(shape.nw)),
         _scan_occupancy(lib, lib.mvt_adc_int8_mma_occupancy, "fused_adc_topk[int8_mma]",
-                        shape.nw, int(packed4), m, cols, shape.stages), splits)
+                        shape.nw, int(packed4), m, cols, shape.stages), splits,
+        grid=grid)
     codes, recon_norms = _aligned16(codes), _aligned16(recon_norms)
     if valid_mask is not None:
         valid_mask = _aligned16(valid_mask)
@@ -788,11 +817,11 @@ def _launch_int8_mma(lib, lut8, sq, codes, recon_norms, valid_mask, num_valid, k
 
 def _launch_buckets(lib, lut, gbias, layout, valid_mask, num_valid, k, metric,
                     packed4, m, ksub, qt, lists_in_smem, blocks_per_sm, out_s,
-                    out_i, splits=None, tree=None) -> None:
+                    out_i, splits=None, tree=None, grid=None) -> None:
     """One launch of the bucket kernel and the merge: ``gbias [Q, G]`` as
     the kernel adds it, ``layout`` as :func:`_group_layout` or
     :func:`_bucket_layout` give it; ``splits`` (default
-    :func:`bucket_splits`) sets the row splits and ``tree`` (default
+    :func:`bucket_splits` of one wave times ``grid``'s waves) sets the row splits and ``tree`` (default
     :func:`bucket_merge_by_tree`) whether the merge tree folds them; the
     rest as :func:`_launch`."""
     from ._build import raise_for
@@ -802,7 +831,8 @@ def _launch_buckets(lib, lut, gbias, layout, valid_mask, num_valid, k, metric,
     dev = lut.device
     if splits is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = bucket_splits(nq, qt, sms * max(1, blocks_per_sm), k, lists_in_smem)
+        splits = bucket_splits(nq, qt, wave_blocks(sms * max(1, blocks_per_sm), grid),
+                               k, lists_in_smem)
     if tree is None:
         tree = bucket_merge_by_tree(splits, k, lists_in_smem)
     tree = tree or not lists_in_smem

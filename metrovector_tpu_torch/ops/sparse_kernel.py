@@ -40,9 +40,11 @@ import torch
 from ..format.constants import DistanceMetric
 from . import select
 from .distances import carry_topk, empty_topk, finish_topk
+from .grid import check_grid, wave_blocks
 
 # Shape constants of csrc/sparse_kernel.cu
 _QUERY_GROUPS = (1, 2, 4, 8)  # a block covers 32 x QG queries
+QUERY_TILES = tuple(32 * g for g in _QUERY_GROUPS)  # grid.tile candidates
 # ell_topk's rows a score tile, by QG: the shapes the kernel is built with
 _TILE_ROWS = {1: 32, 2: 32, 4: 32, 8: 16}
 _SMEM_LIST_K = 16  # ell_topk keeps lists of k up to this in shared memory
@@ -143,12 +145,14 @@ def ell_topk_reference(
     return finish_topk(best, k)
 
 
-def _tile_shape(nq: int) -> tuple[int, int]:
+def _tile_shape(nq: int, tile: int | None = None) -> tuple[int, int]:
     """``(qg, rows)`` of an ell_topk score tile for a batch of ``nq``: the
     fewest query groups (32 queries each, at most 8) that hold the batch,
-    and the rows a tile for that width (16 or 32: at most half a 64-entry
-    buffer; chosen by measurement, PERF.md). ell_dots and the postings use
-    the same query groups."""
+    or ``tile // 32`` of them, and the rows a tile for that width (16 or
+    32: at most half a 64-entry buffer; chosen by measurement, PERF.md).
+    ell_dots and the postings use the same query groups."""
+    if tile is not None:
+        return tile // 32, _TILE_ROWS[tile // 32]
     qg = next((g for g in _QUERY_GROUPS if 32 * g >= nq), _QUERY_GROUPS[-1])
     return qg, _TILE_ROWS[qg]
 
@@ -327,6 +331,7 @@ def ell_topk(
     k: int,
     metric,
     valid_mask: torch.Tensor | None = None,
+    grid=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of ``qt [dim, Q]`` f32 (columns pre-normalized for
     cosine) over the ELL rows ``cols``/``vals`` ``[n, R]`` plus their
@@ -335,10 +340,14 @@ def ell_topk(
     rows ≥ ``num_rows`` and rows where ``valid_mask [n]`` (f32) is 0 never
     enter. Returns ``(scores [Q, k] f32, rows [Q, k] int32)`` by (score
     descending, row ascending); unfilled slots hold (−inf, −1). On CUDA
-    ``1 ≤ k ≤ n``."""
+    ``1 ≤ k ≤ n``. ``grid``: a :class:`.grid.Grid` whose ``waves`` multiply
+    the one-wave split count and whose ``tile`` (:data:`QUERY_TILES`) is a
+    block's queries, or None for one wave and :func:`_tile_shape`'s tile;
+    the plain version ignores it."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
+    grid = check_grid(grid, QUERY_TILES, "ell_topk")
     if qt.device.type == "cpu":
         return ell_topk_reference(qt, cols, vals, ovf_ptr, ovf_cols, ovf_vals,
                                   norms, num_rows, k, metric, valid_mask)
@@ -363,16 +372,19 @@ def ell_topk(
     for q0, q1 in _query_chunks(dim, nq):
         qc = qt if q1 - q0 == nq else qt[:, q0:q1].contiguous()
         _ell_topk_launch(qc, cols, vals, ovf_ptr, ovf_cols, ovf_vals, norms,
-                         num_rows, k, metric, valid_mask, _tile_shape(q1 - q0),
-                         out_s[q0:q1], out_i[q0:q1])
+                         num_rows, k, metric, valid_mask,
+                         _tile_shape(q1 - q0, None if grid is None else grid.tile),
+                         out_s[q0:q1], out_i[q0:q1], grid)
     return out_s, out_i
 
 
 def _ell_topk_launch(qt, cols, vals, ovf_ptr, ovf_cols, ovf_vals, norms,
-                     num_rows, k, metric, valid_mask, shape, out_s, out_i) -> None:
+                     num_rows, k, metric, valid_mask, shape, out_s, out_i,
+                     grid=None) -> None:
     """One launch of :func:`ell_topk`'s postings build, scan and merge for
     the checked inputs, with score tiles of ``shape`` = (qg, rows) (a shape
-    the library was built with), into ``out_s``/``out_i`` ``[Q, k]``."""
+    the library was built with), into ``out_s``/``out_i`` ``[Q, k]``, with
+    one wave of scan blocks times ``grid``'s waves."""
     from ._build import load, raise_for
 
     lib = load()
@@ -384,7 +396,7 @@ def _ell_topk_launch(qt, cols, vals, ovf_ptr, ovf_cols, ovf_vals, norms,
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         per_sm = _blocks_per_sm(dev.index, qg, rows, min(k, n))
-        want = max(1, sms * per_sm // -(-nq // (32 * qg)))
+        want = max(1, wave_blocks(sms * per_sm, grid) // -(-nq // (32 * qg)))
         splits, rows_per_split, length = select.row_splits(
             n, rows, want, nq, k, lists_in_smem=False)
         tree = not (length == k and k <= _MERGE_MAX_K

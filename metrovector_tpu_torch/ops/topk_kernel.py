@@ -26,7 +26,8 @@ per-split lists move from shared memory into device memory and a merge
 tree folds them (:mod:`.select`); queries and corpus are staged 16 dims at
 a time, so any D takes the same kernel. The Mosaic/VMEM tuning knobs of the TPU
 kernel (``block_rows``, ``query_tile``, ``merge``, ``vmem_retry``) have no
-counterpart here.
+counterpart here; ``grid`` (:class:`.grid.Grid`) moves the one-wave split
+count of every route (the library holds one block tile, so no ``tile``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 from ..format.constants import DistanceMetric
 
 from . import select
+from .grid import check_grid, wave_blocks
 from .distances import (
     deferred_scale, exact_topk, exact_topk_int, f32_scalar, finish_topk,
 )
@@ -348,6 +350,7 @@ def fused_topk(
     exclude_stride: int | None = None,
     raw_scores: bool = False,
     *,
+    grid=None,
     _seed_stride: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
@@ -381,11 +384,16 @@ def fused_topk(
     ``exclude_stride`` leaves the rows ``r % exclude_stride == 0`` out of
     the scan; the result is the k best of both. ``_seed_stride``
     (:func:`fused_topk_presampled`'s phase 2): ``seed_i`` counts rows of
-    ``db[::_seed_stride]``, multiplied as the kernel reads them."""
+    ``db[::_seed_stride]``, multiplied as the kernel reads them.
+
+    ``grid``: a :class:`.grid.Grid` of ``waves`` (the multiple of one wave
+    of scan blocks; no ``tile``), or None for one wave. The plain version
+    ignores it; the answer is the same."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
     _check_precision(precision, db)
+    grid = check_grid(grid, (), "fused_topk")
     if (seed_s is None) != (seed_i is None):
         raise ValueError("seed_s and seed_i come together")
     if queries.device.type == "cpu":
@@ -399,7 +407,7 @@ def fused_topk(
     seed = None if seed_s is None else (seed_s, seed_i, _seed_stride)
     return _fused_topk_cuda(queries, db, db_norms, num_valid, k, metric,
                             valid_mask, precision, scale, bias_row, bias_scale,
-                            affine, seed, exclude_stride, raw_scores)
+                            affine, seed, exclude_stride, raw_scores, grid)
 
 
 def _check_seed(seed, nq: int, k: int, dev) -> None:
@@ -416,9 +424,9 @@ def _check_seed(seed, nq: int, k: int, dev) -> None:
 
 def _fused_topk_cuda(queries, db, db_norms, num_valid, k, metric, valid_mask,
                      precision, scale, bias_row, bias_scale, affine, seed,
-                     exclude_stride, raw_scores):
+                     exclude_stride, raw_scores, grid=None):
     """:func:`fused_topk` on CUDA; ``seed``: ``(seed_s, seed_i, mul)``, the
-    seed's indices times ``mul``, or None."""
+    seed's indices times ``mul``, or None; ``grid`` checked."""
     if queries.device.type != "cuda":
         raise ValueError(f"fused_topk runs on CUDA or CPU, not {queries.device}")
     _check(queries, db, db_norms, k, valid_mask, bias_row, affine, precision)
@@ -445,16 +453,16 @@ def _fused_topk_cuda(queries, db, db_norms, num_valid, k, metric, valid_mask,
             _launch_int(lib, queries, db, db_norms, valid_mask, bias_row,
                         num_valid, k, metric, scale, bias_scale,
                         deferred_scale(db, metric, bias_row, scale), out_s, out_i,
-                        seed=seed, excl=excl, raw=raw_scores)
+                        seed=seed, excl=excl, raw=raw_scores, grid=grid)
             fused_topk.launches_int += 1
         elif precision == "high":
             _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k,
-                         metric, out_s, out_i, seed=seed, excl=excl)
+                         metric, out_s, out_i, seed=seed, excl=excl, grid=grid)
             fused_topk.launches_high += 1
         else:
             _launch(lib, queries, db, db_norms, valid_mask, num_valid, k,
                     metric, _TILE, out_s, out_i, affine=affine, seed=seed,
-                    excl=excl)
+                    excl=excl, grid=grid)
             if affine is None:
                 fused_topk.launches += 1
             else:
@@ -494,6 +502,7 @@ def fused_topk_presampled(
     precision: str = "highest",
     valid_mask: torch.Tensor | None = None,
     sub: tuple[torch.Tensor, torch.Tensor] | None = None,
+    grid=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-phase exact top-k, identical to :func:`fused_topk` (the
     reference's ``fused_topk_presampled``, ``topk_kernel.py:1040``): phase 1
@@ -509,9 +518,10 @@ def fused_topk_presampled(
     reads row strides (int8 queries; ``"high"``), else one contiguous copy
     (the FFMA kernel). The arguments are :func:`fused_topk`'s; the
     reference's TPU knobs (``block_rows``, ``query_tile``, ``merge``,
-    ``interpret``) have no counterpart here. A CPU tensor goes to
-    :func:`fused_topk_presampled_reference`."""
+    ``interpret``) have no counterpart here; ``grid`` goes to both phases.
+    A CPU tensor goes to :func:`fused_topk_presampled_reference`."""
     metric = DistanceMetric(metric)
+    grid = check_grid(grid, (), "fused_topk_presampled")
     if queries.device.type == "cpu":
         _check_precision(precision, db)
         _check_dtypes(queries, db, None, None)
@@ -520,15 +530,15 @@ def fused_topk_presampled(
                                                valid_mask, sub)
     if db.shape[0] <= 4 * stride:
         return fused_topk(queries, db, db_norms, num_valid, k, metric, valid_mask,
-                          precision, scale)
+                          precision, scale, grid=grid)
     _check_precision(precision, db)
     db_sub, norms_sub, nv_sub, mask_sub, k_sub = _subsample(
         queries, db, db_norms, num_valid, k, stride, precision, valid_mask, sub)
     seed_s, seed_i = fused_topk(queries, db_sub, norms_sub, nv_sub, k_sub, metric,
-                                mask_sub, precision, scale, raw_scores=True)
+                                mask_sub, precision, scale, raw_scores=True, grid=grid)
     out = fused_topk(queries, db, db_norms, num_valid, k, metric, valid_mask, precision,
                      scale, seed_s=seed_s, seed_i=seed_i, exclude_stride=stride,
-                     _seed_stride=stride)
+                     grid=grid, _seed_stride=stride)
     fused_topk.launches_presampled += 1
     return out
 
@@ -564,13 +574,14 @@ def fused_topk_presampled_reference(
                                 seed_i=seed_i, exclude_stride=stride)
 
 
-def _plan(dev, nq, n, k, smem_k, tile, occupancy, splits=None, seed_k=0):
+def _plan(dev, nq, n, k, smem_k, tile, occupancy, splits=None, seed_k=0, grid=None):
     """The host plan of one launch: ``(splits, rows_per_split, length,
     tree, part_s, part_i, tmp_s, tmp_i, slots, seed_lists)`` for a kernel
     whose blocks take ``tile = (queries, rows)`` and keep lists of up to
     ``smem_k`` in shared memory. ``occupancy(k_smem, big)`` returns the
     scan blocks that fit on one SM; ``splits`` (default: one wave, as many
-    scan blocks as fit on the card at once) sets the row splits, fewer
+    scan blocks as fit on the card at once, times ``grid``'s waves,
+    :func:`.grid.wave_blocks`) sets the row splits, fewer
     above ``smem_k`` if the lists would pass the scratch bound. A seed of
     ``seed_k`` entries takes ``seed_lists`` lists of ``length`` after the
     splits' (:func:`.select.seed_lists`), and leaves room for one beside
@@ -579,7 +590,7 @@ def _plan(dev, nq, n, k, smem_k, tile, occupancy, splits=None, seed_k=0):
     if splits is None:
         per_sm = occupancy(min(k, smem_k), int(big))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = max(1, sms * max(1, per_sm) // -(-nq // tile[0]))
+        splits = max(1, wave_blocks(sms * max(1, per_sm), grid) // -(-nq // tile[0]))
     if seed_k:
         splits = min(splits, select.MAX_SPLITS - 1)
     splits, rows_per_split, length = select.row_splits(
@@ -621,12 +632,12 @@ def _occupancy(lib, entry, what, *args):
 
 
 def _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
-                 out_s, out_i, seed=None, excl=0) -> None:
+                 out_s, out_i, seed=None, excl=0, grid=None) -> None:
     """One launch of the query split, the bf16x3 scan and the merge for
     checked inputs into ``out_s``/``out_i``, with one wave of scan blocks
     (as :func:`_launch`) of the shape :func:`_high_shape` picks. A corpus
     whose rows TMA cannot read goes over as :func:`_tma_rows`' copy.
-    ``seed`` and ``excl`` as in :func:`_launch`."""
+    ``seed``, ``excl`` and ``grid`` as in :func:`_launch`."""
     from ._build import raise_for
 
     nq, d = queries.shape
@@ -637,7 +648,7 @@ def _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
         dev, nq, n, k, 0 if shape.big else k, (2 * shape.nw, SCAN_ROWS),
         _occupancy(lib, lib.mvt_fused_topk_high_occupancy, "fused_topk[high]",
                    shape.nw, shape.stages),
-        seed_k=0 if seed is None else seed[0].shape[1])
+        seed_k=0 if seed is None else seed[0].shape[1], grid=grid)
     # The split queries: per tile of 2 nw queries and chunk of 32 dims, the
     # stage's image of their hi and lo halves (128 bytes a query).
     tiles = -(-nq // (2 * shape.nw))
@@ -661,15 +672,15 @@ def _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
 
 def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
                 k, metric, scale, bias_scale, defer, out_s, out_i, seed=None,
-                excl=0, raw=False) -> None:
+                excl=0, raw=False, grid=None) -> None:
     """One launch of the integer scan, the merge and (``defer``, unless
     ``raw``) the scale for checked inputs into ``out_s``/``out_i``, with
     one wave of scan blocks (as :func:`_launch`) of the shape
     :func:`_int_shape` picks. TMA reads the first D bytes of each row of
     queries and corpus: each goes over as it is where its row stride and
     base are 16-byte multiples (the engine's padded blocks), else as
-    :func:`_tma_rows`' copy. ``seed`` and ``excl`` as in :func:`_launch`;
-    in deferred mode the seed's scores are raw dots."""
+    :func:`_tma_rows`' copy. ``seed``, ``excl`` and ``grid`` as in
+    :func:`_launch`; in deferred mode the seed's scores are raw dots."""
     from ._build import raise_for
 
     nq, d = queries.shape
@@ -680,7 +691,7 @@ def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
         dev, nq, n, k, 0 if shape.big else k, (2 * shape.nw, SCAN_ROWS),
         _occupancy(lib, lib.mvt_fused_topk_int_occupancy, "fused_topk[int8]",
                    shape.nw, -(-d // INT_CHUNK), shape.stages, int(shape.resident)),
-        seed_k=0 if seed is None else seed[0].shape[1])
+        seed_k=0 if seed is None else seed[0].shape[1], grid=grid)
     queries, db = _tma_rows(queries), _tma_rows(db)
     err = lib.mvt_fused_topk_int(
         queries.data_ptr(), queries.stride(0), db.data_ptr(), db.stride(0),
@@ -701,14 +712,14 @@ def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
 
 def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
             tile, out_s, out_i, splits=None, affine=None, seed=None,
-            excl=0) -> None:
+            excl=0, grid=None) -> None:
     """One launch of the scan and the merge for checked inputs with block
     tile ``tile`` (a tile the library was built with) into
     ``out_s``/``out_i``. ``splits`` as in :func:`_plan`; ``affine = (off,
     scale)``: an int8 ``db`` dequantized as it is staged; ``seed = (seed_s,
     seed_i, mul)``: the seed (its indices times ``mul``) that starts the
     bars and joins the merge; ``excl`` > 0: rows ``r % excl == 0`` are
-    left out."""
+    left out; ``grid``: the waves of :func:`_plan`."""
     from ._build import raise_for
 
     nq, d = queries.shape
@@ -719,7 +730,7 @@ def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
     splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots, nseed = _plan(
         dev, nq, n, k, SMEM_K, _TILES[tile],
         _occupancy(lib, lib.mvt_fused_topk_occupancy, "fused_topk", code, tile),
-        splits, seed_k=0 if seed is None else seed[0].shape[1])
+        splits, seed_k=0 if seed is None else seed[0].shape[1], grid=grid)
     err = lib.mvt_fused_topk(
         queries.data_ptr(), db.data_ptr(), code, float(off), float(sc),
         db_norms.data_ptr(),

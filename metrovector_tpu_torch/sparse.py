@@ -31,10 +31,11 @@ from .engine import SearchResult, ids_for_rows, radius_from_topk, resolve_device
 from .errors import DimensionMismatchError, InvalidVectorTypeError
 from .format.constants import DistanceMetric, VectorType
 from .ops.distances import distances_np
-from .ops.sparse_kernel import ell_topk, row_scores
+from .ops.grid import check_grid
+from .ops.sparse_kernel import QUERY_TILES, ell_topk, row_scores
 from .utils.filters import padded_filter_plane
 from .utils.transfer import put_chunked
-from .utils.tune import tuned_hints
+from .utils.tune import tune_grid, tuned_grid
 
 ELL_ROW_PAD = 8192  # ELL row count padded to a multiple
 
@@ -116,12 +117,16 @@ class SparseSearchEngine:
     overflow through the fused kernel by default, or the CSR segment-sum
     scan with ``formulation="coo"``.
 
-    ``block_rows`` is accepted and ignored (an XLA scan tile in the JAX
-    package, read from the file's tuning hints there too); the kernel
-    sizes its grid from the runtime's occupancy."""
+    ``grid``: the ELL kernel's launch grid (:class:`~.ops.grid.Grid`: its
+    waves, and its tile of 32, 64, 128 or 256 queries a block); None adopts
+    the grid :meth:`autotune` persisted in the file, if any, else one wave
+    and the tile that holds the batch. The JAX package's ``block_rows`` hint
+    is the tile of its XLA gather and belongs to neither formulation here:
+    the CSR scan's chunking is ``nnz_chunk``, a memory bound, so it is not
+    read."""
 
     def __init__(self, space, nnz_chunk: int = 1 << 20, device="cuda",
-                 formulation: str = "auto"):
+                 formulation: str = "auto", grid=None):
         if space.info.vector_type != VectorType.SPARSE:
             raise InvalidVectorTypeError(
                 f"space {space.name!r} is dense; use SearchEngine"
@@ -158,7 +163,10 @@ class SparseSearchEngine:
             state["valid"] = valid
         self._load(state, resolve_device(device))
         self.name = space.name
-        self.block_rows: int | None = tuned_hints(space, "sparse").get("block_rows")
+        self._host_space = space  # the file-backed origin, for persist
+        if grid is None:
+            grid = tuned_grid(space, "sparse")
+        self.grid = check_grid(grid, QUERY_TILES, "SparseSearchEngine")
 
     @classmethod
     def from_state(cls, state: dict, device="cuda") -> "SparseSearchEngine":
@@ -195,7 +203,7 @@ class SparseSearchEngine:
         eng = cls.__new__(cls)
         eng._load(s, resolve_device(device))
         eng.name = str(state.get("name", ""))
-        eng.block_rows = None
+        eng._host_space = eng.grid = None
         return eng
 
     def _load(self, state: dict, dev: torch.device) -> None:
@@ -254,11 +262,12 @@ class SparseSearchEngine:
         res = self.search(queries, k=k, filter_mask=filter_mask)
         return radius_from_topk(res, radius, k, self.num_valid)
 
-    def search(self, queries, k: int = 10, filter_mask=None) -> SearchResult:
+    def search(self, queries, k: int = 10, filter_mask=None, grid=None) -> SearchResult:
         """Batched exact top-k over the sparse corpus. ``queries`` are dense
         ``[Q, dim]`` float vectors (or a single vector). ``filter_mask``:
         optional ``[num_vectors]`` boolean/int row predicate, composed with
-        tombstones; short results pad with ``-1``."""
+        tombstones; short results pad with ``-1``. ``grid``: the ELL
+        kernel's launch grid for this search (default :attr:`grid`)."""
         q = np.asarray(queries, np.float32)
         if q.ndim == 1:
             q = q[None]
@@ -302,6 +311,7 @@ class SparseSearchEngine:
                 self._ovf_cols if self._has_ovf else None,
                 self._ovf_vals if self._has_ovf else None,
                 self._norms, self.num_vectors, k_eff, self.metric, eff_valid,
+                self.grid if grid is None else grid,
             )
         else:
             s, i = coo_topk(qdev, self._cols, self._rows,
@@ -319,9 +329,27 @@ class SparseSearchEngine:
                             metric=self.metric,
                             ids=ids_for_rows(self.host_ids, i))
 
-    def autotune(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SparseSearchEngine.autotune is not ported yet (ROADMAP autotune: the "
-            "ELL kernel sizes its grid from the runtime's occupancy; the JAX "
-            "package tuned an XLA scan tile)"
-        )
+    def autotune(self, queries=None, k: int = 10, batch: int = 128,
+                 waves_candidates=None, tile_candidates=None, iters: int = 3,
+                 apply: bool = True, persist: bool = False) -> list[dict]:
+        """Time the ELL kernel's launch grid with single-launch timings of
+        :meth:`search` and, with ``apply``, set the fastest as
+        :attr:`grid`. ELL formulation only (the CSR scan is plain PyTorch
+        and has no grid). Candidates: ``waves_candidates`` (default
+        :data:`~.ops.grid.WAVES`) times ``tile_candidates`` (default: None,
+        the tile that holds the batch, and each of
+        :data:`~.ops.sparse_kernel.QUERY_TILES`; a tile above the batch is
+        reported ``skipped``). The report and ``persist`` (into
+        ``hints["tuned"][space]["sparse"]["cuda"]``) follow
+        :meth:`~.engine.SearchEngine.autotune`; on the CPU it raises
+        ``ValueError``."""
+        if self.formulation != "ell":
+            raise ValueError("autotune applies to the ELL formulation only")
+        def run_with(q, grid):
+            return lambda: self.search(q, k=k, grid=grid)
+
+        return tune_grid(self, "sparse", run_with, queries=queries, batch=batch,
+                         dim=self.dim, waves=waves_candidates,
+                         tiles=(None,) + QUERY_TILES if tile_candidates is None
+                         else tile_candidates,
+                         iters=iters, apply=apply, persist=persist)

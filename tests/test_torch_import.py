@@ -1,6 +1,7 @@
 """The port stands alone: ``import metrovector_tpu_torch`` and a dense, a
-PQ, an IVF-PQ (both modes), a sparse, a ``Database`` and an HNSW search on
-its CPU path load no module of the JAX package
+PQ, an IVF-PQ (both modes), a sparse, a ``Database``, an HNSW and a
+streamed search on its CPU path, and its CLI's ``info``, load no module of
+the JAX package
 (``metrovector_tpu`` or ``metrovector_tpu.*``), no JAX, no ``ml_dtypes`` and
 no Triton. Checked in a fresh interpreter, because the pytest process
 imported JAX at start; once as installed and once with ``ml_dtypes`` made
@@ -22,9 +23,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "metrovector_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "triton")
 # Top-level names of the JAX package that the port does not have yet: the
-# multi-chip layer (ROADMAP A7).
-UNPORTED = {"StreamingSearcher", "DistributedSearcher",
-            "ShardedDeviceSpace", "make_mesh", "sharded_topk"}
+# multi-device layer (ROADMAP A13).
+UNPORTED = {"DistributedSearcher", "ShardedDeviceSpace", "make_mesh", "sharded_topk"}
 
 _SCRIPT = r"""
 import json, os, sys, tempfile
@@ -58,6 +58,13 @@ db_top = mvt.Database.open(path, device="cpu").search(
     "v", np.ones((1, 8), np.float32), k=3).indices
 hnsw = mvt.HNSWIndex.from_space(reader.vector_space("v"), m=4, ef_construction=16)
 hnsw_top = hnsw.search(np.ones((1, 8), np.float32), k=3).indices
+stream_top = mvt.StreamingSearcher(reader.vector_space("v"), chunk_rows=8,
+                                   device="cpu").search(np.ones((1, 8), np.float32), k=3).indices
+import contextlib, io
+from metrovector_tpu_torch.__main__ import main as cli
+info = io.StringIO()
+with contextlib.redirect_stdout(info):
+    rc = cli(["info", path])
 print(json.dumps({{
     "loaded": sorted(m for m in sys.modules if sys.modules[m] is not None),
     "top": res.indices.tolist(),
@@ -66,6 +73,8 @@ print(json.dumps({{
     "ivfpq_top": ivfpq_top,
     "db_top": db_top.tolist(),
     "hnsw_top": hnsw_top.tolist(),
+    "stream_top": stream_top.tolist(),
+    "info": [rc, info.getvalue()],
 }}))
 """
 
@@ -90,6 +99,8 @@ def test_port_imports_no_jax(block_ml_dtypes):
     assert got["ivfpq_top"] == [[[0, 1, 2]], [[0, 1, 2]]]
     assert got["db_top"] == [[0, 1, 2]]
     assert got["hnsw_top"] == [[0, 1, 2]]
+    assert got["stream_top"] == [[0, 1, 2]]
+    assert got["info"][0] == 0 and "2 space(s)" in got["info"][1]
     loaded = set(got["loaded"])
     jax_package = {m for m in loaded
                    if m == "metrovector_tpu" or m.startswith("metrovector_tpu.")}
@@ -111,7 +122,8 @@ def test_port_sources_import_no_jax():
             "metrovector_tpu_torch/ops/sparse_kernel.py",
             "metrovector_tpu_torch/format/constants.py", "chip_smoke.py",
             "metrovector_tpu_torch/database.py",
-            "metrovector_tpu_torch/index/hnsw.py"} <= scanned
+            "metrovector_tpu_torch/index/hnsw.py", "metrovector_tpu_torch/__main__.py",
+            "metrovector_tpu_torch/parallel/streaming.py"} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -431,7 +431,7 @@ def test_search_through_the_kernel_order_matches_reference(metric, packed4):
 
     def kernel(q_, codes, books, rnorms, num_valid, k, metric_, valid_mask=None,
                exact_lut=False, packed4=False, group_bias=None, group_ids=None,
-               buckets=None):
+               buckets=None, grid=None):
         seen.append(buckets is not None)
         return _emulate(q_, books, _bucket_layout(buckets), group_bias, num_valid, k,
                         metric_, valid_mask, exact_lut, packed4, 2, 3)

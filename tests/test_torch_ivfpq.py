@@ -215,7 +215,7 @@ def test_search_errors_and_unported():
         port.search(q, filter_mask=np.ones(3, bool))
     with pytest.raises(DimensionMismatchError):  # add_rows serves now
         port.add_rows(q[:, :8])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="CUDA kernels"):  # the CPU has no grid
         port.autotune()
     bare = IVFPQIndex.build(data, DistanceMetric.L2, 8, m=M, ksub=KSUB, iters=2,
                             keep_vectors=False, device="cpu")

@@ -341,7 +341,7 @@ def test_unported_options_raise(rng):
     assert idx.search(data[:1], k=3, int8_lut=True).indices.shape == (1, 3)
     with pytest.raises(DimensionMismatchError):  # add_rows serves now
         idx.add_rows(data[:1, :4])
-    with pytest.raises(NotImplementedError, match="ROADMAP autotune"):
+    with pytest.raises(ValueError, match="CUDA kernels"):  # the CPU has no grid
         idx.autotune()
     with pytest.raises(ValueError, match="backend"):
         idx.search(data[:1], k=3, backend="pallas")
