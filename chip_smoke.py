@@ -270,6 +270,24 @@ Phases, one line each; any failure exits non-zero:
    default chunk; for each, the streamed wall p50, the bytes shipped, one
    chunk's pinned-to-device ``copy_`` bandwidth and the bound it sets,
    K1's per-chunk CUDA-event times, and the resident p50.
+19. sharding (the ``parallel`` package): 4 shards, a card each on a
+   machine with 4 cards, else all resident on cuda:0, over the files that
+   phases 17-18 keep; each case against its resident search of the same
+   run, sharded p50 beside resident p50: (a) phase 3's file through
+   ``ShardedDeviceSpace`` at batch 256, k = 10 and 32, k = 100, identical;
+   ``grid_sharded_topk`` on 2 x 2 and ``query_sharded_topk`` on 4,
+   identical; ``dim_sharded_topk`` on 4, rank-identical; phase 18's
+   tombstoned copy with a 30 % filter, raw and prepared, identical; (b)
+   deep10m, sift1m-u8 and uint8 cosine (within phase 14's band);
+   (c) ``sharded_pq_topk`` on sift1m-pq4, rerank 400, batch 256, f32 then
+   int8 LUT: recall@10 >= 0.99, identical to the plain sharded version;
+   (d) ``ShardedSparseSearchEngine`` on sparse1m, batch 256 (near-ties
+   excused); (e) ``ShardedStreamingSearcher`` on phase 18's f16 stream
+   file and the tombstoned file with the filter, bit-identical to the
+   resident sharded search; (f) ``DistributedSearcher`` in a world of one
+   NCCL rank, then in two gloo ranks (this script with ``--p19-rank``,
+   a timeout each) sharing cuda:0, 2 shards each, each holding only its
+   rows; every answer identical to (a).
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
@@ -4366,8 +4384,11 @@ def plain_versions():
     import metrovector_tpu_torch.engine as eng_mod
     import metrovector_tpu_torch.index.ivfpq as ivfpq_mod
     import metrovector_tpu_torch.index.pq as pq_mod
+    import metrovector_tpu_torch.parallel.sharded_search as sharded_mod
+    import metrovector_tpu_torch.parallel.sparse_sharded as sparse_sharded_mod
     from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk_reference
     from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates_reference
+    from metrovector_tpu_torch.ops.sparse_kernel import ell_topk_reference
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk_reference
 
     def adc(*args, buckets=None, grid=None, **kw):  # the rows in order; no grid
@@ -4384,7 +4405,12 @@ def plain_versions():
              (pq_mod, "fused_adc_topk", adc),
              (pq_mod, "rescore_candidates", rescore_candidates_reference),
              (ivfpq_mod, "fused_adc_topk", adc),
-             (ivfpq_mod, "rescore_candidates", rescore_candidates_reference))
+             (ivfpq_mod, "rescore_candidates", rescore_candidates_reference),
+             (sharded_mod, "fused_topk", topk),
+             (sharded_mod, "fused_adc_topk", adc),
+             (sharded_mod, "rescore_candidates", rescore_candidates_reference),
+             (sparse_sharded_mod, "ell_topk",
+              lambda *args: ell_topk_reference(*args[:11])))  # no grid
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -5372,6 +5398,7 @@ def _p18_f16(torch, dev, card, tally, tmpdir) -> list[dict]:
     b.add_vectors("s", data)
     b.build().save(path)
     del b
+    _keep_for_p17("stream", path)  # for phase 19
     queries = rng.standard_normal((nq, d)).astype(np.float32)
     say(f"  (a) stream {n}x{d} f16 N(0, 1) (seed {seed}) drawn and written in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5427,6 +5454,7 @@ def phase_streaming(torch, dev, card, sift_path) -> dict:
             b.delete_vector("sift", int(r))
         b.build().save(path)
         del b, x
+        _keep_for_p17("sift_tombstoned", path)  # for phase 19
         keep = rng.random(N_MAIN) >= 0.1
         tomb = Reader.open(path).vector_space("sift")
         rows["c"] = _p18_case(torch, dev, card, tally, "(c) with tombstones and a filter",
@@ -5456,6 +5484,450 @@ def phase_streaming(torch, dev, card, sift_path) -> dict:
 
 
 P18_KERNELS = ("fused_topk", "fused_topk[int8]", "fused_topk[affine]")
+
+
+# ---------------------------------------------------------------- phase 19 ---
+
+P19_SHARDS = 4
+P19_RUNS = 5
+P19_FILTER = 0.3  # the share of rows the filter of (a) and (e) leaves out
+P19_WORKER_TIMEOUT = 300  # seconds a gloo rank may take, start-up included
+P19_KERNELS = ("fused_topk", "fused_topk[int8]", "fused_topk[affine]", "fused_adc_topk",
+               "fused_adc_topk[int8_mma]", "rescore_candidates", "ell_topk",
+               "query_postings")
+
+
+def _p19_mesh(torch):
+    """P19_SHARDS shards: a card each where there are that many cards,
+    else all on cuda:0 (an explicit layout: their launches queue on one
+    stream)."""
+    from metrovector_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() >= P19_SHARDS:
+        return make_mesh(P19_SHARDS)
+    return make_mesh(devices=[torch.device("cuda", 0)] * P19_SHARDS)
+
+
+def _p19_p50(torch, dev, fn, *args, **kw) -> float:
+    """p50 ms of P19_RUNS synchronized calls after a warm-up."""
+    fn(*args, **kw)
+    return float(np.median([sync_time_s(torch, dev, fn, *args, **kw)
+                            for _ in range(P19_RUNS)]))
+
+
+def _p19_case(torch, dev, card, tally, label, sharded, resident, q, k, band=False,
+              **kw) -> dict:
+    """One sharded search (counted) against the resident one on the same
+    batch: identical (``band``: indices and ids identical, scores within 4
+    f32 ulps, phase 14's cosine band), then both p50s."""
+    got = tally(sharded, q, k=k, **kw)
+    ref = tally(resident, q, k=k, **kw)
+    if band:
+        if not (np.array_equal(got.indices, ref.indices) and np.array_equal(got.ids, ref.ids)
+                and np.allclose(got.scores, ref.scores, rtol=4 * 2.0**-24, atol=0)):
+            raise AssertionError(f"{label}: outside the band of the resident search")
+    else:
+        _identical_result(got, ref, label + ": sharded vs resident")
+    row = {"label": label, "sharded_ms": _p19_p50(torch, dev, sharded, q, k=k, **kw),
+           "resident_ms": _p19_p50(torch, dev, resident, q, k=k, **kw)}
+    say(f"  {label}: {'within the band of' if band else 'identical to'} the resident "
+        f"search; sharded p50 {row['sharded_ms']:.4f} ms, resident p50 "
+        f"{row['resident_ms']:.4f} ms | {card}")
+    return row
+
+
+def _p19_topk_case(torch, dev, card, tally, label, fn, args, ref, ref_p50, ranks_only=False):
+    """A low-level sharded top-k ``fn(*args)`` (counted) against the
+    resident search's answer ``ref``: indices identical, scores too unless
+    ``ranks_only``."""
+    s, i = tally(fn, *args)
+    if not np.array_equal(i.cpu().numpy(), ref.indices) or (
+            not ranks_only and not np.array_equal(s.cpu().numpy(), ref.scores)):
+        raise AssertionError(f"{label}: differs from the resident search")
+    p50 = _p19_p50(torch, dev, fn, *args)
+    say(f"  {label}: {'rank-identical' if ranks_only else 'identical'} to the resident "
+        f"search; p50 {p50:.4f} ms, resident p50 {ref_p50:.4f} ms | {card}")
+    return {"label": label, "sharded_ms": p50, "resident_ms": ref_p50}
+
+
+def _p19_split(torch, dev, card, label, whole, shards, inputs) -> dict:
+    """Device ms of one call's kernel over every row (``whole``) beside the
+    same call as the shards' launches back to back (``shards``), each
+    warmed up, the device asleep until the host has queued both calls
+    (``utils/timing.py::device_ms``): what splitting the rows costs the
+    card, apart from the host. Not main-path launches: not counted."""
+    from metrovector_tpu_torch.utils.timing import device_ms
+
+    whole(inputs[0])
+    shards(inputs[0])
+    w, sh = device_ms(whole, inputs, dev), device_ms(shards, inputs, dev)
+    say(f"    {label}: the kernel over every row {w:.4f} ms, the {P19_SHARDS} shards' "
+        f"launches {sh:.4f} ms ({sh / w:.2f}x), device time | {card}")
+    return {"whole_ms": w, "shards_ms": sh}
+
+
+def _p19_dense(torch, dev, card, tally, mesh, rng) -> tuple[list, dict]:
+    """(a) phase 3's file over the mesh through ShardedDeviceSpace; the
+    tombstoned copy of phase 18 with a filter (raw and prepared); the 2-D
+    and query meshes and dimension sharding over the same positions.
+    Returns the rows and, for (f), the batch and its resident answer."""
+    from metrovector_tpu_torch import DistanceMetric, Reader, SearchEngine
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+    from metrovector_tpu_torch.parallel import (
+        ShardedDeviceSpace, dim_sharded_topk, grid_sharded_topk, make_mesh, make_mesh_2d,
+        query_sharded_topk, shard_rows,
+    )
+
+    L2 = DistanceMetric.L2
+    space = Reader.open(P17_FILES["sift"]).vector_space("sift")
+    resident = SearchEngine(space, device=dev)
+    sds = ShardedDeviceSpace(space, mesh)
+    q256 = rng.integers(0, 256, (256, D_MAIN)).astype(np.float32)
+    q32 = rng.integers(0, 256, (32, D_MAIN)).astype(np.float32)
+    rows = [_p19_case(torch, dev, card, tally, "(a) 1M x 128 f32 L2, 4 shards, batch 256, k 10",
+                      sds.search, resident.search, q256, 10),
+            _p19_case(torch, dev, card, tally, "(a) batch 32, k 100", sds.search,
+                      resident.search, q32, 100)]
+    ref = resident.search(q256, k=10)
+    ref_p50 = rows[0]["resident_ms"]
+    data, norms = resident.space.data, resident.space.norms
+    qdev = torch.from_numpy(q256).to(dev)
+    per = sds.rows_per_shard
+    rows[0].update(_p19_split(
+        torch, dev, card, "(a) K1 at batch 256, k 10",
+        lambda q: fused_topk(q, data, norms, N_MAIN, 10, L2),
+        lambda q: [fused_topk(q, x[:per], n[:per], per, 10, L2)
+                   for x, n in zip(sds.data, sds.norms)], [qdev, qdev]))
+    grid = make_mesh_2d(2, 2, devices=mesh.devices)  # the same four positions
+    g_db, g_norms = shard_rows(data, grid), shard_rows(norms, grid)
+    rows.append(_p19_topk_case(torch, dev, card, tally, "(a) grid_sharded_topk on 2 x 2",
+                               grid_sharded_topk, (qdev, g_db, g_norms, N_MAIN, 10, L2, grid),
+                               ref, ref_p50))
+    del g_db, g_norms
+    qmesh = make_mesh(devices=mesh.devices, axis="query")
+    rows.append(_p19_topk_case(torch, dev, card, tally, "(a) query_sharded_topk on 4",
+                               query_sharded_topk, (qdev, data, norms, N_MAIN, 10, L2, qmesh),
+                               ref, ref_p50))
+    w = D_MAIN // P19_SHARDS
+    cols = [data[:, c * w:(c + 1) * w].contiguous() for c in range(P19_SHARDS)]
+    qcols = [qdev[:, c * w:(c + 1) * w].contiguous() for c in range(P19_SHARDS)]
+    rows.append(_p19_topk_case(torch, dev, card, tally,
+                               "(a) dim_sharded_topk on 4 (torch.matmul, TF32 off)",
+                               dim_sharded_topk, (qcols, cols, norms, N_MAIN, 10, L2, mesh),
+                               ref, ref_p50, ranks_only=True))
+    del cols, qcols, resident, sds
+    torch.cuda.empty_cache()
+    tomb = Reader.open(P17_FILES["sift_tombstoned"]).vector_space("sift")
+    res_t, sds_t = SearchEngine(tomb, device=dev), ShardedDeviceSpace(tomb, mesh)
+    keep = rng.random(N_MAIN) >= P19_FILTER
+    rows.append(_p19_case(torch, dev, card, tally,
+                          "(a) 1,000 tombstones and a 30 % filter, 256, k 10", sds_t.search,
+                          res_t.search, q256, 10, filter_mask=keep))
+    prepared = tally(sds_t.prepare_filter, keep)
+    _identical_result(tally(sds_t.search, q256, k=10, filter_mask=prepared),
+                      res_t.search(q256, k=10, filter_mask=keep), "(a) prepared filter")
+    del res_t, sds_t
+    torch.cuda.empty_cache()
+    return rows, {"q": q256, "ref": ref, "keep": keep}
+
+
+def _p19_quantized(torch, dev, card, tally, mesh, rng) -> list:
+    """(b) deep10m (int8 IP), sift1m-u8 (uint8 L2) and its uint8 cosine
+    space over the mesh: K1's integer route (deferred scale, offset sums)
+    and the affine read, each against its resident search."""
+    from metrovector_tpu_torch import DistanceMetric, Reader, SearchEngine
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+    from metrovector_tpu_torch.parallel import ShardedDeviceSpace
+
+    rows = []
+    deep = Reader.open(P17_FILES["deep10m"]).vector_space("deep")
+    qd = rng.integers(-128, 128, (DEEP_BATCH, D_DEEP)).astype(np.float32)
+    sds, resident = ShardedDeviceSpace(deep, mesh), SearchEngine(deep, device=dev)
+    rows.append(_p19_case(torch, dev, card, tally, "(b) deep10m int8 IP, batch 128, k 10",
+                          sds.search, resident.search, qd, 10))
+    prep, d, per = resident.space.prepare_queries(qd), D_DEEP, sds.rows_per_shard
+    ip, nv = DistanceMetric.INNER_PRODUCT, resident.space.num_valid
+    data, norms = resident.space.data, resident.space.norms
+    rows[-1].update(_p19_split(
+        torch, dev, card, "(b) K1's integer scan at deep10m, batch 128, k 10",
+        lambda q: fused_topk(q, data[:nv, :d], norms[:nv], nv, 10, ip, scale=prep.dot_scale),
+        lambda q: [fused_topk(q, x[:per, :d], n[:per], per, 10, ip, scale=prep.dot_scale,
+                              raw_scores=True) for x, n in zip(sds.data, sds.norms)],
+        [prep.qdev[:, :d]] * 2))
+    del sds, resident, data, norms
+    torch.cuda.empty_cache()
+    u8r = Reader.open(P17_FILES["sift1m_u8"])
+    q8 = rng.integers(0, 256, (U8_BATCH, D_MAIN)).astype(np.float32)
+    for name, label, band in (("u8", "(b) sift1m-u8 uint8 L2, batch 256, k 10", False),
+                              ("u8cos", "(b) uint8 cosine (affine), batch 256, k 10", True)):
+        sp = u8r.vector_space(name)
+        rows.append(_p19_case(torch, dev, card, tally, label,
+                              ShardedDeviceSpace(sp, mesh).search,
+                              SearchEngine(sp, device=dev).search, q8, 10, band=band))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _p19_pq(torch, dev, card, tally, mesh, rng) -> list:
+    """(c) sharded_pq_topk over phase 8's sift1m-pq4 file (codes, the rows
+    for the re-rank, the norms sharded; the codebooks once per device),
+    rerank 400, batch 256, f32 LUT then int8 LUT: recall@10 against the
+    float64 oracle, indices identical to the plain sharded version on the
+    card, p50 beside the resident PQIndex's."""
+    from metrovector_tpu_torch import DistanceMetric, PQIndex, Reader
+    from metrovector_tpu_torch.parallel import replicate, shard_rows, sharded_pq_topk
+
+    L2 = DistanceMetric.L2
+    sp = Reader.open(P17_FILES["sift1m-pq4"]).vector_space("sift")
+    books, codes, rnorms = sp.pq_arrays()
+    x = np.ascontiguousarray(sp.to_numpy(), np.float32)
+    n = x.shape[0]
+    dnorms = np.einsum("ij,ij->i", x.astype(np.float64), x.astype(np.float64)).astype(
+        np.float32)
+    args = (shard_rows(codes, mesh), replicate(books, mesh), shard_rows(rnorms, mesh), n,
+            K_PQ, L2, mesh)
+    shards = dict(db=shard_rows(x, mesh), db_norms=shard_rows(dnorms, mesh), rerank=RERANK,
+                  packed4=True)
+    resident = PQIndex.from_space(sp, device=dev)
+    x64 = torch.from_numpy(x).to(dev, torch.float64)
+    norms64 = (x64 * x64).sum(1)
+    q = _pq_queries(rng, x, 256)
+    qdev = torch.from_numpy(q).to(dev)
+    rows = []
+    for lut in ("f32", "int8"):
+        kw = dict(shards, exact_lut=lut == "f32", int8_lut=lut == "int8")
+        s, i = tally(sharded_pq_topk, qdev, *args, **kw)
+        with plain_versions():
+            ps, pi = sharded_pq_topk(qdev, *args, **kw)
+        if not torch.equal(i, pi):
+            raise AssertionError(f"(c) {lut} LUT: differs from the plain sharded version")
+        recall = _recall_on_card(torch, x64, norms64, q, i.cpu().numpy(), K_PQ)
+        if recall < 0.99:
+            raise AssertionError(f"(c) {lut} LUT: recall@10 {recall} < 0.99")
+        tally(resident.search, q, k=K_PQ, rerank=RERANK, exact_lut=lut == "f32",
+              int8_lut=lut == "int8")
+        p50 = _p19_p50(torch, dev, sharded_pq_topk, qdev, *args, **kw)
+        r50 = _p19_p50(torch, dev, resident.search, q, k=K_PQ, rerank=RERANK,
+                       exact_lut=lut == "f32", int8_lut=lut == "int8")
+        label = f"(c) sift1m-pq4 {lut} LUT, rerank 400, batch 256"
+        say(f"  {label}: recall@10 {recall:.4f}, identical to the plain sharded version; "
+            f"sharded p50 {p50:.4f} ms, resident PQIndex p50 {r50:.4f} ms | {card}")
+        rows.append({"label": label, "sharded_ms": p50, "resident_ms": r50,
+                     "recall": recall})
+    del x64, norms64, resident, args, shards
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _p19_sparse(torch, dev, card, tally, mesh, rng) -> list:
+    """(d) sparse1m over the mesh (ShardedSparseSearchEngine) against the
+    resident SparseSearchEngine at batch 256: identical, f32 near-ties
+    excused as in phase 11 (a differing row's exact score within the f32
+    band of the k-th)."""
+    from metrovector_tpu_torch import DistanceMetric, Reader, SparseSearchEngine
+    from metrovector_tpu_torch.ops.sparse_kernel import ell_topk
+    from metrovector_tpu_torch.parallel import ShardedSparseSearchEngine
+
+    sp = Reader.open(P17_FILES["sparse1m"]).vector_space("splade")
+    sharded, resident = ShardedSparseSearchEngine(sp, mesh), SparseSearchEngine(sp, device=dev)
+    q = _splade_queries(rng, 256)
+    ip, sh, per = DistanceMetric.INNER_PRODUCT, sharded._shards, sharded.rows_per
+    qt = torch.from_numpy(np.ascontiguousarray(q.T)).to(dev)
+    split = _p19_split(
+        torch, dev, card, "(d) K4 (postings and scan) at sparse1m, batch 256, k 10",
+        lambda x: ell_topk(x, resident._cols_ell, resident._vals_ell, None, None, None,
+                           resident._norms, SPARSE_N, 10, ip),
+        lambda x: [ell_topk(x, c, v, None, None, None, n, per, 10, ip)
+                   for c, v, n in zip(sh["cols_ell"], sh["vals_ell"], sh["norms"])],
+        [qt, qt])
+    got, ref = tally(sharded.search, q, k=10), tally(resident.search, q, k=10)
+    if not np.array_equal(got.indices, ref.indices):
+        _, fcols, fvals = sp.sparse_csr()
+        cols_d = torch.from_numpy(np.array(fcols, np.int32)).to(dev)
+        vals_d = torch.from_numpy(np.array(fvals, np.float32)).to(dev)
+        if _sparse_recall(torch, cols_d, vals_d, q, got.indices, 10) != 1.0:
+            raise AssertionError("(d) sparse1m: differs from the resident search "
+                                 "outside the f32 band")
+        say("  (d) sparse1m: differs from the resident search only at near-ties")
+    p50 = _p19_p50(torch, dev, sharded.search, q, k=10)
+    r50 = _p19_p50(torch, dev, resident.search, q, k=10)
+    say(f"  (d) sparse1m, 4 shards, batch 256, k 10: sharded p50 {p50:.4f} ms, resident "
+        f"p50 {r50:.4f} ms | {card}")
+    del sharded, resident, qt
+    torch.cuda.empty_cache()
+    return [{"label": "(d) sparse1m, batch 256, k 10", "sharded_ms": p50, "resident_ms": r50,
+             **split}]
+
+
+def _p19_stream(torch, dev, card, tally, mesh, rng, dense) -> list:
+    """(e) ShardedStreamingSearcher: phase 18's f16 stream file (chunks of
+    131,072, 16 queries) and its tombstoned 1M x 128 file with (a)'s
+    filter (batch 256), each bit-identical to the resident sharded
+    search."""
+    from metrovector_tpu_torch import Reader
+    from metrovector_tpu_torch.parallel import ShardedDeviceSpace, ShardedStreamingSearcher
+
+    rows = []
+    cases = (("stream", "s", "(e) stream 1M x 768 f16, 16 queries, k 10",
+              rng.standard_normal((16, P18_F16[1])).astype(np.float32), None),
+             ("sift_tombstoned", "sift", "(e) 1M x 128 f32, tombstones and the filter, 256",
+              dense["q"], dense["keep"]))
+    for key, name, label, q, keep in cases:
+        sp = Reader.open(P17_FILES[key]).vector_space(name)
+        streamer = ShardedStreamingSearcher(sp, mesh, chunk_rows=P18_CHUNKS[0])
+        row = _p19_case(torch, dev, card, tally, label + ", chunks of 131,072",
+                        streamer.search, ShardedDeviceSpace(sp, mesh).search, q, 10,
+                        filter_mask=keep)
+        tr = streamer.last_trace
+        say(f"    {tr['chunks']} chunks, {tr['bytes'] / 1e6:.1f} MB; K1 per-chunk sum "
+            f"{tr['scan_ms']:.3f} ms, copies {tr['copy_ms']:.3f} ms, host fill "
+            f"{tr['fill_ms']:.3f} ms; the card busy {tr['card_ms']:.3f} ms | {card}")
+        rows.append(dict(row, chunks=tr["chunks"], bytes=tr["bytes"]))
+        del streamer
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _p19_rank(argv: list[str]) -> int:
+    """One gloo rank of (f), in a process of its own: ``coordinator rank
+    path queries.npy out.npz device``. Owns 2 of the 4 shards, both on
+    ``device``, checks that they hold exactly its rows, searches the batch
+    and writes its answer and p50."""
+    import torch
+
+    from metrovector_tpu_torch import Reader
+    from metrovector_tpu_torch.parallel import distributed as dist
+
+    coord, rank, path, qpath, out, device = argv
+    dist.initialize(coord, 2, int(rank), backend="gloo")
+    try:
+        dev = torch.device(device)
+        mesh = dist.global_mesh(devices=[dev] * (P19_SHARDS // 2))
+        space = Reader.open(path).vector_space("sift")
+        ds = dist.DistributedSearcher(space, mesh)
+        block, per = space.padded_array(), ds.rows_per_shard
+        owned = []
+        for j, shard in enumerate(ds.data):
+            s = mesh.first_shard() + j
+            rows = torch.from_numpy(np.ascontiguousarray(block[s * per:(s + 1) * per])).to(dev)
+            if not torch.equal(shard[:rows.shape[0]], rows) or shard[rows.shape[0]:].any():
+                raise AssertionError(f"rank {rank}: shard {s} is not its own rows")
+            owned.append(s)
+        q = np.load(qpath)
+        res = ds.search(q, k=10)
+        p50 = _p19_p50(torch, dev, ds.search, q, k=10)
+        np.savez(out, indices=res.indices, scores=res.scores, ids=res.ids,
+                 shards=np.asarray(owned), p50=p50)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _p19_distributed(torch, dev, card, tally, mesh, dense, tmpdir) -> list:
+    """(f) DistributedSearcher over phase 3's file: a world of one NCCL
+    rank in this process, then two gloo ranks in processes of their own
+    on the mesh's first device (cuda:0; 2 of the 4 shards each); every
+    answer identical to (a)'s resident one."""
+    from metrovector_tpu_torch import Reader
+    from metrovector_tpu_torch.parallel import distributed as dist
+
+    rows = []
+    space = Reader.open(P17_FILES["sift"]).vector_space("sift")
+    # One host: NCCL's bootstrap and gloo's pairs stay on the loopback.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"(f) one rank: backend {backend}, not nccl")
+        ds = dist.DistributedSearcher(space, dist.global_mesh(devices=mesh.devices))
+        _identical_result(tally(ds.search, dense["q"], k=10), dense["ref"],
+                          "(f) NCCL world of one")
+        p50 = _p19_p50(torch, dev, ds.search, dense["q"], k=10)
+        del ds
+    finally:
+        torch.distributed.destroy_process_group()
+    say(f"  (f) DistributedSearcher, a world of one NCCL rank, 4 shards: identical to "
+        f"(a); p50 {p50:.4f} ms | {card}")
+    rows.append({"label": "(f) NCCL world of one", "sharded_ms": p50})
+    torch.cuda.empty_cache()
+
+    qpath = os.path.join(tmpdir, "p19_queries.npy")
+    np.save(qpath, dense["q"])
+    coord = f"127.0.0.1:{_free_port()}"
+    outs = [os.path.join(tmpdir, f"p19_rank{r}.npz") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--p19-rank", coord,
+                               str(r), P17_FILES["sift"], qpath, outs[r],
+                               str(mesh.devices[0])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=P19_WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"(f) gloo rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    got = [np.load(o) for o in outs]
+    if [g["shards"].tolist() for g in got] != [[0, 1], [2, 3]]:
+        raise AssertionError("(f) gloo ranks do not own shards 0-1 and 2-3")
+    for r, g in enumerate(got):
+        if not (np.array_equal(g["indices"], dense["ref"].indices)
+                and np.array_equal(g["scores"], dense["ref"].scores)
+                and np.array_equal(g["ids"], dense["ref"].ids)):
+            raise AssertionError(f"(f) gloo rank {r}: differs from (a)")
+    say(f"  (f) DistributedSearcher, two gloo ranks sharing cuda:0 (2 shards each, each "
+        f"holding only its rows): both identical to (a); p50 rank 0 "
+        f"{float(got[0]['p50']):.4f} ms, rank 1 {float(got[1]['p50']):.4f} ms (the ranks "
+        f"search at once on one card); {time.perf_counter() - t0:.1f} s with start-up "
+        f"| {card}")
+    rows.append({"label": "(f) two gloo ranks", "sharded_ms": float(got[0]["p50"]),
+                 "rank1_ms": float(got[1]["p50"])})
+    return rows
+
+
+def phase_sharded(torch, dev, card) -> dict:
+    """Phase 19 (module docstring). Returns its launches by kernels-line
+    name, its rows and its seconds."""
+    t_phase = time.perf_counter()
+    tally = _Tally()
+    rng = np.random.default_rng(SEED + 19)
+    mesh = _p19_mesh(torch)
+    say(f"  mesh: {P19_SHARDS} shards on {mesh.cards()} distinct card(s) "
+        f"({', '.join(str(d) for d in mesh.devices)})")
+    rows = {}
+    rows["a"], dense = _p19_dense(torch, dev, card, tally, mesh, rng)
+    rows["b"] = _p19_quantized(torch, dev, card, tally, mesh, rng)
+    rows["c"] = _p19_pq(torch, dev, card, tally, mesh, rng)
+    rows["d"] = _p19_sparse(torch, dev, card, tally, mesh, rng)
+    rows["e"] = _p19_stream(torch, dev, card, tally, mesh, rng, dense)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        rows["f"] = _p19_distributed(torch, dev, card, tally, mesh, dense, tmpdir)
+    torch.cuda.synchronize(dev)
+    missing = [k for k in P19_KERNELS if not tally.counts.get(k)]
+    if missing:
+        raise AssertionError(f"phase 19: no launch of {missing} on its main path")
+    seconds = time.perf_counter() - t_phase
+    say(f"phase 19 sharding: ok (every case identical to its resident search, the "
+        f"cosine one within its band; launches "
+        + ", ".join(f"{k} {tally.counts.get(k, 0)}" for k in P19_KERNELS)
+        + f"; {seconds:.1f} s) | {card}")
+    return {"launches": tally.counts, "rows": rows, "seconds": seconds}
 
 
 def time_parent(parent: str, files: str, card: str) -> None:
@@ -5513,6 +5985,8 @@ def time_parent(parent: str, files: str, card: str) -> None:
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 8 and sys.argv[1] == "--p19-rank":  # phase 19's gloo ranks
+        return _p19_rank(sys.argv[2:])
     parent = None
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         parent = sys.argv[2]
@@ -5572,6 +6046,8 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
         p17 = phase_tune_cli(torch, dev, card, sift_path)
         torch.cuda.empty_cache()
         p18 = phase_streaming(torch, dev, card, sift_path)
+        torch.cuda.empty_cache()
+        p19 = phase_sharded(torch, dev, card)
     finally:
         tmp.cleanup()
         p17_dir.cleanup()
@@ -5692,8 +6168,9 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
             ("fused_adc_topk[group_rows]", "group_rows", CSRC + "adc_bucket_kernel.cu",
              "metrovector_tpu/ops/adc_kernel.py:248"))
     ]
-    for row in kernels:  # each path's launches: phases 3-15, then 16's, 17's, 18's
-        row["launches"] += sum(p["launches"].get(row["name"], 0) for p in (p16, p17, p18))
+    for row in kernels:  # each path's launches: phases 3-15, then 16's, 17's, 18's, 19's
+        row["launches"] += sum(p["launches"].get(row["name"], 0)
+                               for p in (p16, p17, p18, p19))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name,

@@ -7,7 +7,9 @@ packages read and write the same MVT bytes (``tests/test_torch_format.py``).
 Every line of device code is owned here: the dense engine, the PQ, IVF and
 IVF-PQ indexes and the sparse engine run on a ``torch.device`` and their searches go through
 hand-written CUDA kernels for Hopper (``ops/csrc``); ``StreamingSearcher``
-streams a host-resident corpus through the dense kernel; HNSW runs on the
+streams a host-resident corpus through the dense kernel; the ``parallel``
+package shards the dense, PQ and sparse searches and the stream over a
+mesh of devices and over ``torch.distributed`` processes; HNSW runs on the
 host, and the ``Database`` facade opens a file and routes each space to one
 of them.
 
@@ -64,6 +66,10 @@ _LAZY = {
     "reconstruct_pq": "metrovector_tpu_torch.index.pq",
     "SparseSearchEngine": "metrovector_tpu_torch.sparse",
     "StreamingSearcher": "metrovector_tpu_torch.parallel.streaming",
+    "ShardedDeviceSpace": "metrovector_tpu_torch.parallel.sharded_search",
+    "DistributedSearcher": "metrovector_tpu_torch.parallel.distributed",
+    "make_mesh": "metrovector_tpu_torch.parallel.mesh",
+    "sharded_topk": "metrovector_tpu_torch.parallel.sharded_search",
     # the batcher: duck-typed on the engine's _launch / _finalize /
     # prepare_filter / space.dim
     "MicroBatcher": "metrovector_tpu_torch.serving",
@@ -89,6 +95,7 @@ __all__ = [
     "Database",
     "DeviceSpace",
     "DimensionSlice",
+    "DistributedSearcher",
     "DistanceMetric",
     "HNSWIndex",
     "IVFIndex",
@@ -103,6 +110,7 @@ __all__ = [
     "Reader",
     "SearchEngine",
     "SearchResult",
+    "ShardedDeviceSpace",
     "SparseSearchEngine",
     "StreamingSearcher",
     "TombstoneFormat",
@@ -117,9 +125,11 @@ __all__ = [
     "compact",
     "encode_pq",
     "errors",
+    "make_mesh",
     "pack_codes4",
     "reconstruct_pq",
     "rewrite_hints",
+    "sharded_topk",
     "train_ivfpq",
     "train_kmeans",
     "train_pq",

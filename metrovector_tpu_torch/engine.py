@@ -208,6 +208,39 @@ def ids_for_rows(host_ids, idx):
     return ids
 
 
+def empty_result(nq: int, k: int, metric: DistanceMetric) -> SearchResult:
+    """The answer over an empty space: every slot unfilled."""
+    return SearchResult(
+        indices=np.full((nq, k), -1, np.int32),
+        scores=np.full((nq, k), -np.inf, np.float32),
+        distances=np.full((nq, k), np.inf if metric == DistanceMetric.L2 else -np.inf,
+                          np.float32),
+        metric=metric,
+        ids=np.full((nq, k), SearchResult.ID_SENTINEL, np.uint64),
+    )
+
+
+def host_result(scores: np.ndarray, idx: np.ndarray, prep, k: int,
+                metric: DistanceMetric, host_ids) -> SearchResult:
+    """Read-back ``[Q, k_eff]`` scores and rows of a dense search → the
+    user-facing result: the per-query constant ``C(q)`` of ``prep``
+    restored, distances, sentinels out to ``k``, stable IDs."""
+    if prep.const is not None:
+        # restore the rank-neutral per-query constant C(q): scores and
+        # distances are absolute, not just rank-correct
+        mult = 2.0 if metric == DistanceMetric.L2 else 1.0
+        scores = scores + mult * prep.const[:, None]
+    dist = distances_np(scores, metric, prep.sq_norms)
+    if idx.shape[1] < k:  # pad out to the requested k with sentinels
+        pad = ((0, 0), (0, k - idx.shape[1]))
+        idx = np.pad(idx, pad, constant_values=-1)
+        scores = np.pad(scores, pad, constant_values=-np.inf)
+        dist = np.pad(dist, pad, constant_values=np.inf
+                      if metric == DistanceMetric.L2 else -np.inf)
+    return SearchResult(indices=idx, scores=scores, distances=dist,
+                        metric=metric, ids=ids_for_rows(host_ids, idx))
+
+
 @dataclasses.dataclass
 class PreparedFilter:
     """A row predicate uploaded once and reusable across searches (see
@@ -982,17 +1015,7 @@ class SearchEngine:
         scores, idx, prep, k_eff, vcheck, snap = pending
         nq = prep.qdev.shape[0]
         if k_eff == 0:  # empty space
-            return SearchResult(
-                indices=np.full((nq, k), -1, np.int32),
-                scores=np.full((nq, k), -np.inf, np.float32),
-                distances=np.full(
-                    (nq, k),
-                    np.inf if sp.metric == DistanceMetric.L2 else -np.inf,
-                    np.float32,
-                ),
-                metric=sp.metric,
-                ids=np.full((nq, k), SearchResult.ID_SENTINEL, np.uint64),
-            )
+            return empty_result(nq, k, sp.metric)
         scores = scores.cpu().numpy()
         idx = idx.cpu().numpy()
         if vcheck is not None:
@@ -1011,18 +1034,4 @@ class SearchEngine:
                 )
                 scores = scores.cpu().numpy()
                 idx = idx.cpu().numpy()
-        if prep.const is not None:
-            # restore the rank-neutral per-query constant C(q): scores and
-            # distances are absolute, not just rank-correct
-            mult = 2.0 if sp.metric == DistanceMetric.L2 else 1.0
-            scores = scores + mult * prep.const[:, None]
-        dist = distances_np(scores, sp.metric, prep.sq_norms)
-        if k_eff < k:  # pad out to the requested k with sentinels
-            pad = ((0, 0), (0, k - k_eff))
-            idx = np.pad(idx, pad, constant_values=-1)
-            scores = np.pad(scores, pad, constant_values=-np.inf)
-            dist = np.pad(dist, pad, constant_values=np.inf
-                          if sp.metric == DistanceMetric.L2 else -np.inf)
-        ids = ids_for_rows(snap.host_ids, idx)
-        return SearchResult(indices=idx, scores=scores, distances=dist,
-                            metric=sp.metric, ids=ids)
+        return host_result(scores, idx, prep, k, sp.metric, snap.host_ids)

@@ -139,6 +139,22 @@ def quantize_lut(lut: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 INT8_LUT_EXCLUSIVE = "int8_lut is mutually exclusive with exact_lut and group_bias"
 
 
+def adc_tables(queries: torch.Tensor, codebooks: torch.Tensor, exact_lut: bool,
+               int8_lut: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The LUT a search scans and its per-query scale: ``(int8 LUT, sq)``
+    with ``int8_lut``, else ``(f32 or bf16 LUT, None)``."""
+    if int8_lut:
+        return quantize_lut(adc_lut(queries, codebooks, True))
+    return adc_lut(queries, codebooks, exact_lut), None
+
+
+def _check_tables(lut, nq: int, codebooks: torch.Tensor) -> None:
+    m, ksub, _ = codebooks.shape
+    if tuple(lut[0].shape) != (nq, m * ksub):
+        raise ValueError(f"lut holds {tuple(lut[0].shape)} entries; these queries and "
+                         f"codebooks need ({nq}, {m * ksub})")
+
+
 def lut_bias(group_bias: torch.Tensor, exact_lut: bool) -> torch.Tensor:
     """The bucket bias as the kernel adds it: f32, rounded through bf16
     (to nearest even) unless ``exact_lut``, as the reference casts it with
@@ -175,23 +191,24 @@ def fused_adc_topk_reference(
     block_rows: int = 65536,
     int8_lut: bool = False,
     group_rows: int = 0,
+    lut: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`fused_adc_topk` (same results): the torch
     twin of ``_adc_search``, the LUT gathered by code per row block, with a
     carried candidate list (ties to the lowest row). ``int8_lut``: the
     quantized entries summed in int64, then ``f32(sum)·sq``.
-    ``group_rows``: the bias of ``group_ids = row // group_rows``."""
+    ``group_rows``: the bias of ``group_ids = row // group_rows``. ``lut``:
+    as :func:`fused_adc_topk`'s."""
     metric = DistanceMetric(metric)
     if group_rows:
         group_ids = torch.div(torch.arange(codes.shape[0], device=codes.device),
                               int(group_rows), rounding_mode="floor").to(torch.int32)
     m, ksub, _ = codebooks.shape
-    sq = None
-    if int8_lut:
-        lut, sq = quantize_lut(adc_lut(queries, codebooks, True))
-        lut = lut.long()
-    else:
-        lut = adc_lut(queries, codebooks, exact_lut).float()
+    if lut is None:
+        lut = adc_tables(queries, codebooks, exact_lut, int8_lut)
+    _check_tables(lut, queries.shape[0], codebooks)
+    lut, sq = lut
+    lut = lut.long() if int8_lut else lut.float()
     nq, n = lut.shape[0], codes.shape[0]
     gb = None if group_bias is None else lut_bias(group_bias, exact_lut)
     neg_inf = torch.tensor(float("-inf"), device=lut.device)
@@ -598,6 +615,7 @@ def fused_adc_topk(
     int8_lut: bool = False,
     group_rows: int = 0,
     grid=None,
+    lut: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ADC top-k of ``queries [Q, D]`` f32 (pre-normalized for cosine)
     over PQ ``codes`` (uint8 ``[N, m]``, or ``[N, ⌈m/2⌉]`` with
@@ -619,7 +637,10 @@ def fused_adc_topk(
     (with ``group_bias``, instead of ``group_ids``): row r is in bucket
     ``r // group_rows`` (module docstring). ``grid``: a
     :class:`.grid.Grid` (module docstring), or None for one wave and the
-    tile :func:`_query_tile` picks; the plain version ignores it."""
+    tile :func:`_query_tile` picks; the plain version ignores it. ``lut``:
+    :func:`adc_tables`' result for these queries and codebooks, built once
+    for several calls (a sharded search's shards on one device); None
+    builds it here."""
     metric = DistanceMetric(metric)
     if metric not in _METRICS:
         raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
@@ -632,7 +653,8 @@ def fused_adc_topk(
         return fused_adc_topk_reference(queries, codes, codebooks, recon_norms,
                                         num_valid, k, metric, valid_mask,
                                         exact_lut, packed4, group_bias, group_ids,
-                                        int8_lut=int8_lut, group_rows=group_rows)
+                                        int8_lut=int8_lut, group_rows=group_rows,
+                                        lut=lut)
     if queries.device.type != "cuda":
         raise ValueError(f"fused_adc_topk runs on CUDA or CPU, not {queries.device}")
     _check_cuda(queries, codes, codebooks, recon_norms, k, valid_mask,
@@ -648,13 +670,11 @@ def fused_adc_topk(
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0 or n == 0:  # nothing to scan: every slot stays unfilled
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
-    sq = None
-    if int8_lut:
-        lut, sq = quantize_lut(adc_lut(queries, codebooks, True))
-        lut_code = LUT_INT8
-    else:
-        lut = adc_lut(queries, codebooks, exact_lut)
-        lut_code = LUT_F32 if exact_lut else LUT_BF16
+    if lut is None:
+        lut = adc_tables(queries, codebooks, exact_lut, int8_lut)
+    _check_tables(lut, nq, codebooks)
+    lut, sq = lut
+    lut_code = LUT_INT8 if int8_lut else LUT_F32 if exact_lut else LUT_BF16
     with torch.cuda.device(dev):
         if int8_lut and int8_lut_route(ksub, m, codes.shape[1]) == "mma":
             _launch_int8_mma(lib, lut, sq, codes, recon_norms, valid_mask, num_valid, k,

@@ -33,6 +33,13 @@ codec's threads (``native.prep_u8_offset``), or its numpy twin when the
 codec is not built.
 
 On a CPU device the same loop runs the plain version, with no streams.
+
+:class:`ShardedStreamingSearcher` streams a row-sharded corpus: shard ``s``
+streams only its rows ``[s·per, (s+1)·per)`` through its device, each
+distinct device with its own two staging buffers and side stream (a
+*lane*); the lanes take turns chunk by chunk, so several cards scan at
+once while the host fills. Each shard carries its own list across its
+chunks, and the lists meet once at the end (:func:`.mesh.exchange_topk`).
 """
 
 from __future__ import annotations
@@ -49,14 +56,17 @@ from ..engine import (
     DeviceSpace,
     SearchResult,
     _check_supported,
-    ids_for_rows,
+    empty_result,
+    host_result,
     resolve_device,
 )
 from ..errors import InvalidVectorTypeError
 from ..format.constants import DataType, DistanceMetric, VectorType, sublane_multiple
-from ..ops.distances import deferred_scale, distances_np, f32_scalar
+from ..ops.distances import deferred_scale, f32_scalar
 from ..ops.topk_kernel import fused_topk
 from ..utils.filters import padded_filter_plane
+from .mesh import SHARD_AXIS, Mesh, exchange_topk, merge_topk, on_devices, unfilled
+from .sharded_search import local_valid
 
 DEFAULT_CHUNK_ROWS = 131_072
 # The device dtype each route ships (bf16 goes as its uint16 bits, viewed
@@ -64,18 +74,6 @@ DEFAULT_CHUNK_ROWS = 131_072
 _SHIP = {DataType.FLOAT32: torch.float32, DataType.FLOAT16: torch.float16,
          DataType.BFLOAT16: torch.int16, DataType.INT8: torch.int8,
          DataType.UINT8: torch.int8}
-
-
-def merge_topk(best_s: torch.Tensor, best_i: torch.Tensor, s: torch.Tensor,
-               i: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k best of the carried list ``(best_s, best_i)`` and a chunk's
-    ``(s, i)`` (global rows), by a stable descending sort of the
-    concatenation: equal scores keep the carried entry first, and within
-    each list K1's order (row ascending)."""
-    cand_s = torch.cat([best_s, s], dim=1)
-    cand_i = torch.cat([best_i, i], dim=1)
-    top, pos = torch.sort(cand_s, dim=1, descending=True, stable=True)
-    return top[:, :k].contiguous(), cand_i.gather(1, pos[:, :k])
 
 
 def _timing_event(stream):
@@ -125,6 +123,18 @@ class _Slot:
         self.masked = False  # whether that chunk carries a mask
 
 
+
+
+class _Lane:
+    """One device's two staging slots and its side stream, allocated at
+    the first search that uses the device and kept."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.slots: list[_Slot] | None = None
+        self.side = None
+
+
 class StreamingSearcher:
     """Exact top-k over a host-resident (mapped) dense space, streamed to
     ``device`` chunk by chunk (module docstring).
@@ -164,9 +174,8 @@ class StreamingSearcher:
         q = space.quantization
         self.scale = q.scale if q else 1.0
         self.zero_point = q.zero_point if q else 0.0
-        sub = sublane_multiple(self.dtype)
-        chunk_rows = min(int(chunk_rows), space.padded_rows)
-        self.chunk_rows = max(sub, chunk_rows // sub * sub)
+        self._sub = sublane_multiple(self.dtype)
+        self.chunk_rows = self._round_chunk(min(int(chunk_rows), space.padded_rows))
         self._block = space.padded_array()
         self._norms = np.asarray(space.norms(), dtype=np.float32)
         host_mask = space.tombstone_mask()
@@ -179,18 +188,24 @@ class StreamingSearcher:
         self._affine = u8 and self.metric == DistanceMetric.COSINE
         self._offset = u8 and not self._affine
         self.last_trace: dict = {}
-        self._slots: list[_Slot] | None = None
-        self._side = None
+        self._lanes: dict[torch.device, _Lane] = {}
         self._lock = threading.Lock()  # one search at a time owns the buffers
+
+    def _round_chunk(self, rows: int) -> int:
+        """``rows`` rounded down to the dtype's row multiple, at least one."""
+        return max(self._sub, rows // self._sub * self._sub)
 
     # -- chunk prep -----------------------------------------------------------
 
-    def _slots_for(self, masked: bool) -> list[_Slot]:
-        if self._slots is None or (self._slots[0].msk is None and masked):
+    def _slots_for(self, dev: torch.device, masked: bool) -> _Lane:
+        lane = self._lanes.setdefault(dev, _Lane(dev))
+        if lane.slots is None or (lane.slots[0].msk is None and masked):
             dtype = _SHIP[self.dtype]
-            self._slots = [_Slot(self.chunk_rows, self._block.shape[1], dtype, self.device,
-                                 masked, self._offset) for _ in range(2)]
-        return self._slots
+            lane.slots = [_Slot(self.chunk_rows, self._block.shape[1], dtype, dev,
+                                masked, self._offset) for _ in range(2)]
+        if dev.type == "cuda" and lane.side is None:
+            lane.side = torch.cuda.Stream(dev)
+        return lane
 
     def _fill(self, slot: _Slot, lo: int, hi: int, mask_host) -> int:
         """Write rows ``[lo, hi)`` as they ship into ``slot``'s staging
@@ -242,24 +257,123 @@ class StreamingSearcher:
         full = padded_filter_plane(filter_mask, sp.num_vectors, sp.padded_rows)
         return full if self._mask is None else self._mask * full
 
-    def _scan(self, prep, slot: _Slot, kc: int, defer: bool):
-        """K1 over the rows in ``slot``'s device buffers, as the resident
-        engine's ``_launch`` calls it for this dtype."""
+    def _scan(self, qdev, prep, slot: _Slot, kc: int, defer: bool):
+        """K1 over the rows in ``slot``'s device buffers for the queries
+        ``qdev`` on that device, as the resident engine's ``_launch``
+        calls it for this dtype."""
         n = slot.rows
         blk, nrm = slot.blk_dev[:n], slot.nrm_dev[:n]
         msk = slot.msk_dev[:n] if slot.masked else None
         if self.dtype == DataType.BFLOAT16:
             blk = blk.view(torch.bfloat16)
         if self._affine:
-            return fused_topk(prep.qdev, blk, nrm, n, kc, self.metric, valid_mask=msk,
+            return fused_topk(qdev, blk, nrm, n, kc, self.metric, valid_mask=msk,
                               affine=(128.0 - self.zero_point, self.scale))
         if self.dtype in (DataType.INT8, DataType.UINT8):
             d = self.dim
-            return fused_topk(prep.qdev[:, :d], blk[:, :d], nrm, n, kc, self.metric,
+            return fused_topk(qdev[:, :d], blk[:, :d], nrm, n, kc, self.metric,
                               valid_mask=msk, scale=prep.dot_scale,
                               bias_row=None if slot.bias_dev is None else slot.bias_dev[:n],
                               bias_scale=prep.bias_scale, raw_scores=defer)
-        return fused_topk(prep.qdev, blk, nrm, n, kc, self.metric, valid_mask=msk)
+        return fused_topk(qdev, blk, nrm, n, kc, self.metric, valid_mask=msk)
+
+    def _prepare(self, queries, dev: torch.device):
+        """The batch prepared as the resident engine prepares it, on ``dev``
+        (a :class:`~..engine.DeviceSpace` of no rows does it)."""
+        helper = DeviceSpace(
+            data=torch.empty((0, self._block.shape[1]), dtype=_SHIP[self.dtype],
+                             device=dev),
+            norms=torch.empty(0, dtype=torch.float32, device=dev),
+            num_valid=self.space.num_vectors, dim=self.space.dim, metric=self.metric,
+            dtype=self.dtype, scale=self.scale, zero_point=self.zero_point)
+        return helper.prepare_queries(queries)
+
+    def _deferred(self, prep) -> bool:
+        """Whether K1 ranks raw int8 dots here (they stay raw through the
+        merges and the merged k is scaled at the end)."""
+        return self.dtype == DataType.INT8 and deferred_scale(
+            torch.empty(0, dtype=torch.int8), self.metric, None, prep.dot_scale)
+
+    def _stream(self, prep, work, mask_host, defer: bool) -> dict:
+        """Stream ``work``: for each device, its row ranges ``(key, lo, hi,
+        width)`` in order. Every chunk of a range is scanned on its device
+        and merged into the range's carried list (``width`` wide, global
+        rows); the devices' lanes take turns chunk by chunk. Returns the
+        lists by key and sets :attr:`last_trace`."""
+        nq = prep.qdev.shape[0]
+        cr = self.chunk_rows
+        q_on = on_devices(prep.qdev, [dev for dev, _ in work])
+        trace = {"chunks": 0, "bytes": 0, "fill_ms": 0.0, "wait_ms": 0.0,
+                 "scan_ms": 0.0}
+        spans: dict = {}
+        best, width, lanes = {}, {}, []
+        for dev, ranges in work:
+            lane = self._slots_for(dev, mask_host is not None)
+            chunks = [(key, c, min(c + cr, hi)) for key, lo, hi, _ in ranges
+                      for c in range(lo, hi, cr)]
+            for key, _, _, w in ranges:
+                best[key], width[key] = unfilled(nq, w, dev), w
+            lanes.append((lane, chunks))
+            spans.setdefault(dev, {"copy": [], "scan": []})
+            trace["chunks"] += len(chunks)
+
+        def stage(lane, chunks, j):  # fill chunk j's staging buffers, start its copy
+            slot = lane.slots[j % 2]
+            t0 = time.perf_counter()
+            if lane.side is not None:
+                slot.copied.synchronize()  # the copy out of them has finished
+                trace["wait_ms"] += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            trace["bytes"] += self._fill(slot, *chunks[j][1:], mask_host)
+            trace["fill_ms"] += (time.perf_counter() - t0) * 1e3
+            if lane.side is not None:
+                self._ship(slot, lane.side, spans[lane.device]["copy"])
+
+        t_loop = time.perf_counter()
+        for lane, chunks in lanes:
+            if chunks:
+                stage(lane, chunks, 0)
+        for j in range(max((len(c) for _, c in lanes), default=0)):
+            for lane, chunks in lanes:
+                if j >= len(chunks):
+                    continue
+                key, lo, hi = chunks[j]
+                slot, dev = lane.slots[j % 2], lane.device
+                if lane.side is not None:
+                    compute = torch.cuda.current_stream(dev)
+                    compute.wait_event(slot.copied)
+                    e0 = _timing_event(compute)
+                t0 = time.perf_counter()
+                s, i = self._scan(q_on[dev], prep, slot, min(width[key], hi - lo), defer)
+                if lane.side is not None:
+                    slot.scanned.record(compute)
+                    spans[dev]["scan"].append((e0, _timing_event(compute)))
+                else:
+                    trace["scan_ms"] += (time.perf_counter() - t0) * 1e3
+                i = torch.where(i >= 0, i + lo, i)
+                best[key] = merge_topk(*best[key], s, i, width[key])
+                if j + 1 < len(chunks):
+                    stage(lane, chunks, j + 1)  # the host fills while the card scans
+        trace["host_ms"] = (time.perf_counter() - t_loop) * 1e3 - trace["wait_ms"]
+        cards = {}
+        for lane, chunks in lanes:
+            if lane.side is not None and chunks:
+                torch.cuda.current_stream(lane.device).synchronize()  # the last scan's
+                lane.side.synchronize()  # and the last copy's end events
+                cards[str(lane.device)] = _card_times(spans[lane.device])
+        if len(cards) == 1:
+            trace.update(next(iter(cards.values())))
+        elif cards:
+            trace["cards"] = cards
+            trace["scan_ms"] = sum(c["scan_ms"] for c in cards.values())
+        self.last_trace = trace
+        return best
+
+    def _answer(self, prep, s: torch.Tensor, i: torch.Tensor, k: int, defer: bool):
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        if defer:  # the raw dots' order was kept; scale as K1's epilogue does
+            s = (torch.from_numpy(s) * f32_scalar(prep.dot_scale, "cpu")).numpy()
+        return host_result(s, i, prep, k, self.metric, self._host_ids)
 
     def search(self, queries, k: int = 10, filter_mask=None) -> SearchResult:
         """Stream every chunk through K1 and return the exact top-k as a
@@ -272,89 +386,65 @@ class StreamingSearcher:
             return self._search(queries, k, filter_mask)
 
     def _search(self, queries, k, filter_mask) -> SearchResult:
-        sp, dev = self.space, self.device
-        helper = DeviceSpace(
-            data=torch.empty((0, self._block.shape[1]), dtype=_SHIP[self.dtype],
-                             device=dev),
-            norms=torch.empty(0, dtype=torch.float32, device=dev),
-            num_valid=sp.num_vectors, dim=sp.dim, metric=self.metric,
-            dtype=self.dtype, scale=self.scale, zero_point=self.zero_point)
-        prep = helper.prepare_queries(queries)
-        nq = prep.qdev.shape[0]
-        nv = sp.num_vectors
+        prep = self._prepare(queries, self.device)
+        nq, nv = prep.qdev.shape[0], self.space.num_vectors
         self.last_trace = {"chunks": 0, "bytes": 0}
         if nv == 0:
-            fill = np.inf if self.metric == DistanceMetric.L2 else -np.inf
-            return SearchResult(
-                indices=np.full((nq, k), -1, np.int32),
-                scores=np.full((nq, k), -np.inf, np.float32),
-                distances=np.full((nq, k), fill, np.float32), metric=self.metric,
-                ids=np.full((nq, k), SearchResult.ID_SENTINEL, np.uint64))
+            return empty_result(nq, k, self.metric)
         k_eff = min(k, nv)
-        mask_host = self._effective_mask(filter_mask)
-        slots = self._slots_for(mask_host is not None)
-        defer = (self.dtype == DataType.INT8
-                 and deferred_scale(slots[0].blk_dev, self.metric, None, prep.dot_scale))
-        cuda = dev.type == "cuda"
-        if cuda and self._side is None:
-            self._side = torch.cuda.Stream(dev)
-        compute = torch.cuda.current_stream(dev) if cuda else None
-        cr = self.chunk_rows
-        bounds = [(lo, min(lo + cr, nv)) for lo in range(0, nv, cr)]
-        trace = {"chunks": len(bounds), "bytes": 0, "fill_ms": 0.0, "wait_ms": 0.0,
-                 "scan_ms": 0.0}
-        spans = {"copy": [], "scan": []}
+        defer = self._deferred(prep)
+        best = self._stream(prep, [(self.device, [(0, 0, nv, k_eff)])],
+                            self._effective_mask(filter_mask), defer)
+        return self._answer(prep, *best[0], k, defer)
 
-        def stage(j):  # fill chunk j's staging buffers, then start its copy
-            slot = slots[j % 2]
-            t0 = time.perf_counter()
-            if cuda:
-                slot.copied.synchronize()  # the copy out of them has finished
-                trace["wait_ms"] += (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            trace["bytes"] += self._fill(slot, *bounds[j], mask_host)
-            trace["fill_ms"] += (time.perf_counter() - t0) * 1e3
-            if cuda:
-                self._ship(slot, self._side, spans["copy"])
 
-        best_s = torch.full((nq, k_eff), float("-inf"), dtype=torch.float32, device=dev)
-        best_i = torch.full((nq, k_eff), -1, dtype=torch.int32, device=dev)
-        t_loop = time.perf_counter()
-        stage(0)
-        for j, (lo, hi) in enumerate(bounds):
-            slot = slots[j % 2]
-            if cuda:
-                compute.wait_event(slot.copied)
-                e0 = _timing_event(compute)
-            t0 = time.perf_counter()
-            s, i = self._scan(prep, slot, min(k_eff, hi - lo), defer)
-            if cuda:
-                slot.scanned.record(compute)
-                spans["scan"].append((e0, _timing_event(compute)))
-            else:
-                trace["scan_ms"] += (time.perf_counter() - t0) * 1e3
-            i = torch.where(i >= 0, i + lo, i)
-            best_s, best_i = merge_topk(best_s, best_i, s, i, k_eff)
-            if j + 1 < len(bounds):
-                stage(j + 1)  # the host fills while the card scans chunk j
-        trace["host_ms"] = (time.perf_counter() - t_loop) * 1e3 - trace["wait_ms"]
-        s = best_s.cpu().numpy()
-        i = best_i.cpu().numpy()
-        if cuda:
-            self._side.synchronize()  # the last copy's end event
-            trace.update(_card_times(spans))
-        self.last_trace = trace
-        if defer:  # the raw dots' order was kept; scale as K1's epilogue does
-            s = (torch.from_numpy(s) * f32_scalar(prep.dot_scale, "cpu")).numpy()
-        if prep.const is not None:
-            mult = 2.0 if self.metric == DistanceMetric.L2 else 1.0
-            s = s + mult * prep.const[:, None]
-        dist = distances_np(s, self.metric, prep.sq_norms)
-        if k_eff < k:
-            pad = ((0, 0), (0, k - k_eff))
-            i = np.pad(i, pad, constant_values=-1)
-            s = np.pad(s, pad, constant_values=-np.inf)
-            dist = np.pad(dist, pad, constant_values=np.inf
-                          if self.metric == DistanceMetric.L2 else -np.inf)
-        return SearchResult(indices=i, scores=s, distances=dist, metric=self.metric,
-                            ids=ids_for_rows(self._host_ids, i))
+class ShardedStreamingSearcher(StreamingSearcher):
+    """Exact top-k over a host-resident dense space whose rows shard over
+    ``mesh`` (default :func:`.distributed.global_mesh`; under a process
+    group each rank streams only its own shards): shard ``s`` streams its
+    valid rows of ``[s·per, (s+1)·per)`` (``per`` as
+    :func:`.distributed.load_space_sharded` has it) through its device,
+    carries its list across its chunks, and the lists merge once at the
+    end. ``chunk_rows`` (default as :class:`StreamingSearcher`) is clamped
+    to ``per``. Results are the resident
+    :class:`~.sharded_search.ShardedDeviceSpace`'s, bit for bit, and so the
+    resident :class:`~..engine.SearchEngine`'s; :attr:`last_trace` as
+    :class:`StreamingSearcher`'s (the card's times under ``"cards"`` by
+    device when the shards span several)."""
+
+    def __init__(self, space, mesh: Mesh | None = None, axis: str | None = None,
+                 chunk_rows: int | None = None):
+        from .distributed import global_mesh
+        from .mesh import rows_per_shard
+
+        axis = axis or SHARD_AXIS
+        mesh = global_mesh(axis) if mesh is None else mesh
+        if len(mesh.axis_names) != 1:
+            raise ValueError(f"a 1-D mesh is needed, got axes {mesh.axis_names}")
+        super().__init__(space, chunk_rows=chunk_rows, device=mesh.lead)
+        self.mesh, self.axis = mesh, axis
+        self.per = rows_per_shard(space.padded_rows, mesh.size(axis), self._sub)
+        self.chunk_rows = self._round_chunk(min(self.chunk_rows, self.per))
+
+    def _search(self, queries, k, filter_mask) -> SearchResult:
+        prep = self._prepare(queries, self.mesh.lead)
+        nq, nv = prep.qdev.shape[0], self.space.num_vectors
+        self.last_trace = {"chunks": 0, "bytes": 0}
+        if nv == 0:
+            return empty_result(nq, k, self.metric)
+        k_eff = min(k, nv)
+        kl = min(k_eff, self.per)
+        defer = self._deferred(prep)
+        work: dict[torch.device, list] = {}
+        first = self.mesh.first_shard()
+        for j, dev in enumerate(self.mesh.devices):
+            lo = (first + j) * self.per
+            rows = local_valid(nv, first + j, self.per)
+            if rows:
+                work.setdefault(dev, []).append((j, lo, lo + rows, kl))
+        best = self._stream(prep, list(work.items()), self._effective_mask(filter_mask),
+                            defer)
+        lists = [best.get(j) or unfilled(nq, kl, dev)
+                 for j, dev in enumerate(self.mesh.devices)]
+        s, i = exchange_topk(lists, k_eff, self.mesh)
+        return self._answer(prep, s, i, k, defer)

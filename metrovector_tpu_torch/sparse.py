@@ -57,15 +57,17 @@ def choose_formulation(counts: np.ndarray, nnz: int) -> str:
 
 
 def ell_layout(indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
-               n: int) -> dict:
+               n: int, r_cap: int | None = None) -> dict:
     """Host arrays of the ELL layout of a CSR corpus: ``cols_ell`` /
     ``vals_ell`` ``[n_pad, R]`` and the overflow as a CSR tail
     (``ovf_ptr [n_pad + 1]``, ``ovf_cols``, ``ovf_vals``), entries in their
-    CSR order."""
-    ip = indptr.astype(np.int64)
+    CSR order. ``r_cap``: the width R (default :func:`ell_width` of these
+    rows; a shard takes its whole corpus's)."""
+    ip = indptr.astype(np.int64) - int(indptr[0])
     counts = np.diff(ip)
     nnz = int(cols.size)
-    r_cap = ell_width(counts) if nnz else 1
+    if r_cap is None:
+        r_cap = ell_width(counts) if nnz else 1
     n_pad = max(ELL_ROW_PAD, -(-max(n, 1) // ELL_ROW_PAD) * ELL_ROW_PAD)
     cols_ell = np.zeros((n_pad, r_cap), np.int32)
     vals_ell = np.zeros((n_pad, r_cap), np.float32)

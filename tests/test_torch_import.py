@@ -6,9 +6,10 @@ the JAX package
 no Triton. Checked in a fresh interpreter, because the pytest process
 imported JAX at start; once as installed and once with ``ml_dtypes`` made
 unimportable, as on a machine that does not have it. A scan of the sources
-holds every module of the port and ``chip_smoke.py`` to the same rule. The
-port exports every top-level name of the JAX package but the unported ones
-listed in :data:`UNPORTED`."""
+holds every module of the port and ``chip_smoke.py`` to the same rule.
+Importing the multi-device layer (``metrovector_tpu_torch.parallel``)
+starts no process group and touches no card. The port exports every
+top-level name of the JAX package; :data:`UNPORTED` lists none."""
 
 import json
 import os
@@ -22,16 +23,20 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "metrovector_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "triton")
-# Top-level names of the JAX package that the port does not have yet: the
-# multi-device layer (ROADMAP A13).
-UNPORTED = {"DistributedSearcher", "ShardedDeviceSpace", "make_mesh", "sharded_topk"}
+# Top-level names of the JAX package that the port does not have: none
+# since the multi-device layer was ported.
+UNPORTED: set[str] = set()
 
 _SCRIPT = r"""
 import json, os, sys, tempfile
 if {block_ml_dtypes}:
     sys.modules["ml_dtypes"] = None  # import ml_dtypes now raises
 import numpy as np
+import torch
 import metrovector_tpu_torch as mvt
+import metrovector_tpu_torch.parallel
+from metrovector_tpu_torch.parallel import distributed, mesh, sharded_search, sparse_sharded
+untouched = [torch.distributed.is_initialized(), torch.cuda.is_initialized()]
 from metrovector_tpu_torch.utils import timing, transfer
 from metrovector_tpu_torch.index import pq
 from metrovector_tpu_torch.ops import adc_kernel, gather_kernel, sparse_kernel
@@ -75,6 +80,7 @@ print(json.dumps({{
     "hnsw_top": hnsw_top.tolist(),
     "stream_top": stream_top.tolist(),
     "info": [rc, info.getvalue()],
+    "untouched": untouched,
 }}))
 """
 
@@ -101,6 +107,7 @@ def test_port_imports_no_jax(block_ml_dtypes):
     assert got["hnsw_top"] == [[0, 1, 2]]
     assert got["stream_top"] == [[0, 1, 2]]
     assert got["info"][0] == 0 and "2 space(s)" in got["info"][1]
+    assert got["untouched"] == [False, False]  # no process group, no CUDA context
     loaded = set(got["loaded"])
     jax_package = {m for m in loaded
                    if m == "metrovector_tpu" or m.startswith("metrovector_tpu.")}
@@ -123,7 +130,11 @@ def test_port_sources_import_no_jax():
             "metrovector_tpu_torch/format/constants.py", "chip_smoke.py",
             "metrovector_tpu_torch/database.py",
             "metrovector_tpu_torch/index/hnsw.py", "metrovector_tpu_torch/__main__.py",
-            "metrovector_tpu_torch/parallel/streaming.py"} <= scanned
+            "metrovector_tpu_torch/parallel/streaming.py",
+            "metrovector_tpu_torch/parallel/mesh.py",
+            "metrovector_tpu_torch/parallel/sharded_search.py",
+            "metrovector_tpu_torch/parallel/distributed.py",
+            "metrovector_tpu_torch/parallel/sparse_sharded.py"} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []
