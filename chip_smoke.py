@@ -288,6 +288,23 @@ Phases, one line each; any failure exits non-zero:
    NCCL rank, then in two gloo ranks (this script with ``--p19-rank``,
    a timeout each) sharing cuda:0, 2 shards each, each holding only its
    rows; every answer identical to (a).
+20. the examples (``examples/torch_*.py``), each through its ``main()`` on
+   the card (``sharded_search`` with 4 shards on cuda:0, ``multihost`` as
+   two gloo ranks of its own sharing the card), each count at 0 before
+   and read after, while the same examples run with ``--device cpu`` (the
+   kernels' plain versions) in a process of their own: every printed line
+   of the card's run equal to the CPU's once times, rates, paths and
+   device names are masked (``examples/_answer_lines.py``; the L2 values
+   within one unit of their last digit, the PQ and IVF-PQ lines within
+   ``P20_BAND``), every integer answer identical (but for the IVF index
+   that ``similarity_search`` trains on the card), and each example's wall
+   on both; ``large_dataset --size 2.5`` (873,813 x 768 f32, 2.68 GB on the
+   card, its phases timed by ``PhaseTimer``) with its top-10 held to
+   ``fused_topk_reference`` by phase 2's rule and its recall@10 (>= 0.99)
+   to a float64 oracle on the card, and one more search traced by
+   ``utils.device_trace`` (its kernels on the card in the Chrome trace);
+   then ``dryrun_multichip(4)`` on cuda:0 x 4 (seven checks against the
+   float64 oracle, two gloo ranks).
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
@@ -5930,6 +5947,205 @@ def phase_sharded(torch, dev, card) -> dict:
     return {"launches": tally.counts, "rows": rows, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 20 ---
+
+P20_EXAMPLES = ("simple", "data_types", "similarity_search", "online_updates",
+                "quantized_search", "sparse_and_filtered", "serving", "sharded_search",
+                "multihost")
+P20_ARGS = {"sharded_search": ["--shards", "4"]}
+P20_LARGE = ["--size", "2.5"]  # the reference's default: 873,813 x 768 f32
+P20_DRYRUN = 4
+P20_WORKER_TIMEOUT = 300  # seconds the CPU run of the examples may take
+P20_THREADS = 4  # the CPU run's threads: it shares the host with the card run
+# Card against CPU: the printed L2 values within one unit of their last
+# digit (an f32 ulp of the expanded form may round either way); the PQ and
+# IVF-PQ lines within a band, since their codebooks and quantizer are
+# trained by k-means on the card, whose float sums run in another order
+# than the host's: recalls and MB within 0.05, the scan mode's agreement
+# within 5 points. Every other character of every line identical.
+P20_BAND = (0.05, 5)
+# Integer answers held identical, but for the IVF index that
+# similarity_search trains on the card (its k-means, as above).
+P20_TRAINED = ("similarity_search/ivf",)
+P20_KERNELS = ("fused_topk", "fused_topk[int8]", "fused_adc_topk",
+               "fused_adc_topk[group_bias]", "rescore_candidates", "ell_topk",
+               "query_postings")
+
+
+def _answer_lines():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import _answer_lines
+
+    return _answer_lines
+
+
+def _int_answers(out, prefix: str) -> dict:
+    """Every integer array in an example's returned answers, by key path."""
+    found = {}
+    if isinstance(out, dict):
+        items = out.items()
+    elif isinstance(out, (list, tuple)):
+        items = enumerate(out)
+    else:
+        return found
+    for key, value in items:
+        path = f"{prefix}/{key}"
+        if isinstance(value, np.ndarray) and value.dtype.kind in "iu":
+            found[path] = value
+        else:
+            found.update(_int_answers(value, path))
+    return found
+
+
+def _p20_cpu(out_path: str) -> int:
+    """The examples of phase 20 with ``--device cpu`` (the kernels' plain
+    versions), in a process of its own: their printed lines, integer
+    answers and walls, written to ``out_path`` as JSON."""
+    import torch
+
+    torch.set_num_threads(P20_THREADS)
+    lines = _answer_lines()
+    runs = {}
+    for name in P20_EXAMPLES:
+        t0 = time.perf_counter()
+        out, printed = lines.captured(lines.load("torch_" + name).main,
+                                      ["--device", "cpu", *P20_ARGS.get(name, [])])
+        runs[name] = {"lines": printed, "wall": time.perf_counter() - t0,
+                      "answers": {k: v.tolist() for k, v in _int_answers(out, name).items()}}
+    with open(out_path, "w") as f:
+        json.dump(runs, f)
+    return 0
+
+
+def _p20_large(torch, dev, card, tally, lines) -> dict:
+    """``large_dataset --size 2.5`` on the card: its top-10 held to
+    ``fused_topk_reference`` on the same tensors (phase 2's rule for float
+    data) and its recall to a float64 oracle on the card."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk_reference
+    from metrovector_tpu_torch.utils import device_trace
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    out, printed = lines.captured(lines.load("torch_large_dataset").main, P20_LARGE)
+    tally.add()
+    wall = time.perf_counter() - t0
+    sp, q = out["engine"].space, out["queries"]
+    n, d = out["shape"]
+    qd = torch.zeros((q.shape[0], sp.data.shape[1]), device=dev)  # padded as stored
+    qd[:, :d] = torch.from_numpy(q).to(dev)
+    ref = fused_topk_reference(qd, sp.data, sp.norms, n, 10, DistanceMetric.L2)
+    x64 = sp.data[:n, :d].double()
+    norms64 = (x64 * x64).sum(1)
+    exact = (2.0 * (qd[:, :d].double() @ x64.T) - norms64[None, :]).cpu().numpy()
+    tol = 4 * d * 2.0**-24 * np.linalg.norm(q, axis=1) * float(norms64.max().sqrt())
+    got = (torch.from_numpy(out["scores"]), torch.from_numpy(out["indices"]))
+    err = _compare(got, ref, False, tol, exact, "large_dataset top-10 vs plain")
+    recall = _recall_on_card(torch, x64, norms64, q, out["indices"], 10)
+    del x64, norms64, exact
+    with tempfile.TemporaryDirectory() as tdir:  # one more search, traced (not counted)
+        with device_trace(tdir, device=dev) as path:
+            with torch.profiler.record_function("p20_search"):
+                out["engine"].search(q, k=10)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    on_card = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: -e.get("dur", 0))
+    if not on_card or not any(e.get("name") == "p20_search" for e in events):
+        raise AssertionError("device_trace recorded no kernel on the card or no span")
+    del out
+    torch.cuda.empty_cache()
+    if recall < 0.99:
+        raise AssertionError(f"large_dataset: recall@10 {recall:.4f} below 0.99")
+    report = printed[next(i for i, line in enumerate(printed)
+                          if line.startswith("fused search")):]
+    say(f"  large_dataset {' '.join(P20_LARGE)} ({n:,} x {d} f32, {n * d * 4 / 1e9:.2f} GB on the "
+        f"card): top-10 of {q.shape[0]} queries within the band of fused_topk_reference "
+        f"(max |diff| {err:.3g}), recall@10 {recall:.4f} against the float64 oracle; "
+        f"wall {wall:.1f} s | {card}")
+    for line in report:
+        if line.strip():
+            say("    " + line)
+    say(f"  device_trace of one more search: {len(on_card)} kernels on the card, the "
+        f"longest " + ", ".join(f"{e['name'][:48]} {e['dur'] / 1e3:.4f} ms"
+                                for e in on_card[:2]) + f" | {card}")
+    return {"wall": wall, "recall": recall, "max_err": err}
+
+
+def phase_examples(torch, dev, card) -> dict:
+    """Phase 20 (module docstring). Returns its launches by kernels-line
+    name, the walls and its seconds."""
+    from metrovector_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    lines = _answer_lines()
+    tally = _Tally()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        cpu_out = os.path.join(tmpdir, "p20_cpu.json")
+        cpu = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--p20-cpu",
+                                cpu_out], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+        try:
+            runs = {}
+            for name in P20_EXAMPLES:
+                argv = {"sharded_search": ["--device", f"cuda:{dev.index}"]}.get(name, [])
+                t0 = time.perf_counter()
+                _zero_counts()
+                out, printed = lines.captured(lines.load("torch_" + name).main,
+                                              argv + P20_ARGS.get(name, []))
+                tally.add()
+                runs[name] = {"lines": printed, "wall": time.perf_counter() - t0,
+                              "answers": _int_answers(out, name)}
+                del out
+            torch.cuda.synchronize(dev)
+            large = _p20_large(torch, dev, card, tally, lines)
+            t0 = time.perf_counter()
+            _zero_counts()
+            with contextlib.redirect_stdout(sys.stderr):
+                dry = dryrun_multichip(P20_DRYRUN, device="cuda")
+            tally.add()
+            dry_wall = time.perf_counter() - t0
+            log = cpu.communicate(timeout=P20_WORKER_TIMEOUT)[0]
+        finally:
+            if cpu.poll() is None:
+                cpu.kill()
+                cpu.communicate()
+        if cpu.returncode != 0:
+            raise AssertionError(f"the examples' CPU run exited {cpu.returncode}:\n"
+                                 f"{log[-3000:]}")
+        with open(cpu_out) as f:
+            host = json.load(f)
+    loose = ((r"L2=", lines.ULP), (r"^pq m=|^ivfpq nprobe=", P20_BAND))
+    for name in P20_EXAMPLES:
+        bad = lines.compare(runs[name]["lines"], host[name]["lines"], loose)
+        if bad:
+            raise AssertionError(f"{name}: the card's lines differ from the CPU's: {bad}")
+        same = not lines.compare(runs[name]["lines"], host[name]["lines"])
+        want = host[name]["answers"]
+        got = runs[name]["answers"]
+        if set(got) != set(want):
+            raise AssertionError(f"{name}: answers {sorted(got)} against {sorted(want)}")
+        for key, value in got.items():
+            if key not in P20_TRAINED and value.tolist() != want[key]:
+                raise AssertionError(f"{name}: {key} differs between the card and the CPU")
+        say(f"  {name}: answers on the card equal the CPU's (printed lines "
+            f"{'identical' if same else 'within the band'}); wall {runs[name]['wall']:.2f} "
+            f"s on the card, {host[name]['wall']:.2f} s on the CPU | {card}")
+    say(f"  dryrun_multichip({P20_DRYRUN}) on {', '.join(dry['devices'])}: "
+        f"{len(dry['checks'])} checks ok ({', '.join(dry['checks'])}); {dry_wall:.1f} s "
+        f"| {card}")
+    missing = [k for k in P20_KERNELS if not tally.counts.get(k)]
+    counts = ", ".join(f"{k} {v}" for k, v in sorted(tally.counts.items()) if v)
+    if missing:
+        raise AssertionError(f"phase 20: no launch of {missing} on its main path ({counts})")
+    seconds = time.perf_counter() - t_phase
+    say(f"phase 20 examples: ok ({len(P20_EXAMPLES)} examples on the card equal to the "
+        f"CPU, large_dataset at full width, the dry run on {P20_DRYRUN} shards; launches "
+        f"{counts}; {seconds:.1f} s) | {card}")
+    return {"launches": tally.counts, "large": large, "seconds": seconds,
+            "walls": {name: runs[name]["wall"] for name in P20_EXAMPLES}}
+
+
 def time_parent(parent: str, files: str, card: str) -> None:
     """K1-K4 of another checkout (the parent commit, unpacked by the caller)
     at the kernels-line points, and its search() p50 on this run's dense
@@ -5987,6 +6203,8 @@ def main() -> int:
 
     if len(sys.argv) == 8 and sys.argv[1] == "--p19-rank":  # phase 19's gloo ranks
         return _p19_rank(sys.argv[2:])
+    if len(sys.argv) == 3 and sys.argv[1] == "--p20-cpu":  # phase 20's CPU run
+        return _p20_cpu(sys.argv[2])
     parent = None
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         parent = sys.argv[2]
@@ -6048,6 +6266,8 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
         p18 = phase_streaming(torch, dev, card, sift_path)
         torch.cuda.empty_cache()
         p19 = phase_sharded(torch, dev, card)
+        torch.cuda.empty_cache()
+        p20 = phase_examples(torch, dev, card)
     finally:
         tmp.cleanup()
         p17_dir.cleanup()
@@ -6168,9 +6388,9 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
             ("fused_adc_topk[group_rows]", "group_rows", CSRC + "adc_bucket_kernel.cu",
              "metrovector_tpu/ops/adc_kernel.py:248"))
     ]
-    for row in kernels:  # each path's launches: phases 3-15, then 16's, 17's, 18's, 19's
+    for row in kernels:  # each path's launches: phases 3-15, then 16's to 20's
         row["launches"] += sum(p["launches"].get(row["name"], 0)
-                               for p in (p16, p17, p18, p19))
+                               for p in (p16, p17, p18, p19, p20))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name,

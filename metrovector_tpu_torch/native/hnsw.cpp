@@ -461,8 +461,10 @@ void* mvt_hnsw_build(const float* rows, int64_t n, int32_t d,
   std::mutex entry_mu;
 
 #ifdef _OPENMP
-  if (n_threads > 0) omp_set_num_threads(n_threads);
-#pragma omp parallel
+  // A num_threads clause, not omp_set_num_threads: the process's OpenMP
+  // default, which torch's CPU kernels share, stays as the caller left it.
+  const int team = n_threads > 0 ? n_threads : omp_get_max_threads();
+#pragma omp parallel num_threads(team)
 #endif
   {
     VisitedTable vt;

@@ -9,6 +9,7 @@ from .distances import (
     distances_np,
     exact_topk,
     mask_scores,
+    numpy_oracle,
     rescore_topk,
     scores_block,
     scores_to_distances,
@@ -46,6 +47,7 @@ __all__ = [
     "gather_rows",
     "gather_rows_reference",
     "mask_scores",
+    "numpy_oracle",
     "rescore_candidates",
     "rescore_candidates_reference",
     "rescore_topk",

@@ -350,3 +350,30 @@ def rescore_topk(
 
     return rescore_candidates(queries, db, db_norms, cand_idx, k, metric,
                               tie="row")
+
+
+def numpy_oracle(queries, db, k, metric, valid_mask=None):
+    """Brute force in NumPy with float64 sums, the reference's ground truth
+    (``metrovector_tpu.ops.distances.numpy_oracle``). Scores are ranked
+    after a cast to f32, so rows whose f64 scores differ below an f32 ulp
+    (BLAS blocking of duplicate rows) tie, and ties go to the lowest row.
+    Returns (scores [Q, k], indices [Q, k])."""
+    q = np.asarray(queries, dtype=np.float64)
+    x = np.asarray(db, dtype=np.float64)
+    metric = DistanceMetric(metric)
+    if metric == DistanceMetric.L2:
+        s = -((q[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+        s += (q * q).sum(-1)[:, None]
+    elif metric == DistanceMetric.COSINE:
+        s = (q @ x.T) / np.maximum(
+            np.linalg.norm(q, axis=1)[:, None] * np.linalg.norm(x, axis=1)[None, :],
+            1e-30)
+    elif metric == DistanceMetric.INNER_PRODUCT:
+        s = q @ x.T
+    else:
+        raise NotImplementedError(metric)
+    if valid_mask is not None:
+        s = np.where(np.asarray(valid_mask)[None, :] != 0, s, -np.inf)
+    s = s.astype(np.float32)
+    idx = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, idx, axis=1), idx

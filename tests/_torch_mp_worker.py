@@ -6,12 +6,14 @@ Run as::
     python tests/_torch_mp_worker.py <coordinator> <num_processes> <rank> \
         <mvt_path> <out_json> <local_devices>
 
-The rank holds ``local_devices`` CPU shards of the file's space ``v``,
-read from its own rows only, checks that they are exactly those rows,
-runs the same searches as every other rank (``DistributedSearcher``,
-``ShardedStreamingSearcher`` and ``dim_sharded_topk`` over the group) and
-writes its answers to ``out_json`` for the parent to compare across ranks
-and with the oracle.
+``coordinator`` is rank 0's ``host:port`` or a ``file://`` store that
+every rank can reach. The rank holds ``local_devices`` CPU shards of the
+file's space ``v``, read from its own rows only, checks that they are
+exactly those rows, runs the same searches as every other rank
+(``DistributedSearcher``, ``ShardedStreamingSearcher`` and
+``dim_sharded_topk`` over the group) and writes its answers, and the
+CPU thread count its f32 sums ran at, to ``out_json`` for the parent to
+compare across ranks and with the oracle.
 """
 
 import json
@@ -56,7 +58,8 @@ def main() -> None:
             torch.from_numpy(np.asarray(sp.norms()[:sp.num_vectors])), sp.num_vectors, 9,
             sp.metric, mesh, valid_mask=live)
         with open(out, "w") as f:
-            json.dump({"rank": rank, "shards": owned, "indices": res.indices.tolist(),
+            json.dump({"rank": rank, "shards": owned, "threads": torch.get_num_threads(),
+                       "indices": res.indices.tolist(),
                        "scores": res.scores.tolist(), "ids": res.ids.tolist(),
                        "streamed": streamed.indices.tolist(),
                        "streamed_scores": streamed.scores.tolist(),

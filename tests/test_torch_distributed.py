@@ -6,13 +6,14 @@ two gloo ranks (``tests/_torch_mp_worker.py``, which imports no JAX) of
 two CPU shards each over one file. The mirror of
 ``tests/test_distributed.py`` and ``tests/test_multiprocess.py``.
 
-The data is integer-valued, so every L2 score is exact in f32: the ranks'
-answers are identical to each other, to one process's four shards and to
-the float64 oracle with the tombstone left out."""
+The corpus is integer-valued and the queries are not, so the f32 scores
+depend on the order of the CPU's sums, which depends on its thread count:
+the ranks' answers are identical to each other and to one process's four
+shards at the ranks' thread count, and their rows to the float64
+oracle's with the tombstone left out."""
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -36,7 +37,10 @@ from metrovector_tpu_torch.parallel import (
 from metrovector_tpu_torch.parallel.distributed import global_mesh
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_mp_worker.py")
-WORKER_TIMEOUT = 60  # seconds: a hung rendezvous fails the test, not the suite
+# Seconds a rank may take, a cold start of torch under a loaded suite
+# included (the JAX twin's, tests/test_multiprocess.py): a hung rendezvous
+# fails the test, not the suite.
+WORKER_TIMEOUT = 240
 
 
 def cpu_mesh(n):
@@ -123,12 +127,6 @@ def test_distributed_searcher_matches_jax_and_oracle(space_file, rng):
     np.testing.assert_allclose(res.distances, want.distances, rtol=1e-6)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_two_gloo_processes_match_each_other_and_the_oracle(space_file, tmp_path):
     """Two ranks of two CPU shards each: every rank holds only its own
     rows (checked in the worker), and both return the whole answer, the
@@ -136,7 +134,9 @@ def test_two_gloo_processes_match_each_other_and_the_oracle(space_file, tmp_path
     stream and the dimension-sharded search (its partial dots summed by
     all_reduce) too."""
     path, data = space_file
-    coord = f"127.0.0.1:{_free_port()}"
+    # A file store: no port freed here and bound by rank 0 later, which any
+    # other process's bind or outgoing connection could take in between.
+    coord = "file://" + str(tmp_path / "rendezvous")
     outs = [tmp_path / f"rank{r}.json" for r in range(2)]
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK")}
@@ -164,8 +164,19 @@ def test_two_gloo_processes_match_each_other_and_the_oracle(space_file, tmp_path
     want = _oracle(queries, data, 9)
     for key in ("indices", "streamed", "dim_indices"):
         np.testing.assert_array_equal(np.asarray(got[0][key]), want)
-    one = ShardedDeviceSpace(PortReader.open(path).vector_space("v"), cpu_mesh(4)).search(
-        queries, k=9)
+    # One process's four shards at the ranks' thread count: the CPU's f32
+    # sums of these float queries depend on it (an ulp at 4 threads against
+    # 8), and a test earlier in this process may have changed it (a native
+    # OpenMP library's omp_set_num_threads is process-wide).
+    threads = {g["threads"] for g in got}
+    assert len(threads) == 1, threads
+    prev = torch.get_num_threads()
+    torch.set_num_threads(threads.pop())
+    try:
+        one = ShardedDeviceSpace(PortReader.open(path).vector_space("v"),
+                                 cpu_mesh(4)).search(queries, k=9)
+    finally:
+        torch.set_num_threads(prev)
     np.testing.assert_array_equal(np.asarray(got[0]["scores"], np.float32), one.scores)
     np.testing.assert_array_equal(np.asarray(got[0]["streamed_scores"], np.float32),
                                   one.scores)

@@ -308,15 +308,6 @@ def test_search_pipelined_matches_search(tmp_path):
         _assert_same(res, port.search(batch, k=4))
 
 
-def test_engine_doctest_runs():
-    import doctest
-
-    import metrovector_tpu_torch.engine as mod
-
-    results = doctest.testmod(mod, optionflags=doctest.ELLIPSIS)
-    assert results.attempted > 0 and results.failed == 0
-
-
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
 @pytest.mark.parametrize("chunk_rows", [1, 7, 64, 1000])
 def test_put_chunked_is_exact_across_chunk_edges(monkeypatch, chunk_rows, dtype):

@@ -266,6 +266,25 @@ def test_native_graph_survives_append_and_persistence(tmp_path):
                                   port.search(q, k=5, ef=64).indices)
 
 
+def test_parallel_build_leaves_the_process_thread_count():
+    """A build on four threads sizes its team with a ``num_threads`` clause:
+    the process's OpenMP default, which torch's CPU kernels share, stays as
+    it was (``omp_set_num_threads`` left torch on four threads, and its f32
+    sums then differ by an ulp from a process at eight)."""
+    import torch
+
+    assert port_native.hnsw_available()
+    data = np.random.default_rng(5).standard_normal((600, 16)).astype(np.float32)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        HNSWIndex.build(data, DistanceMetric.L2, m=8, ef_construction=40, seed=1,
+                        threads=4)
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(prev)
+
+
 def test_parallel_build_valid_graph():
     """A build on four threads is valid (every neighbor in range, no self
     loop) and searchable; its graph depends on the schedule, so it is

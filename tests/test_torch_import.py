@@ -116,13 +116,17 @@ def test_port_imports_no_jax(block_ml_dtypes):
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port, and not chip_smoke.py, names jax, ml_dtypes,
-    triton or the JAX package in an import."""
+    """No module of the port, not chip_smoke.py and not the port's examples
+    (``examples/torch_*.py`` and their ``_answer_lines.py``) names jax,
+    ml_dtypes, triton or the JAX package in an import."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(%s|metrovector_tpu(?!_torch))\b" % "|".join(FORBIDDEN),
         re.M,
     )
-    sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(examples) == 10
+    sources = (list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
+               + [REPO / "examples" / "_answer_lines.py"])
     scanned = {str(p.relative_to(REPO)) for p in sources}
     assert {"metrovector_tpu_torch/index/pq.py", "metrovector_tpu_torch/sparse.py",
             "metrovector_tpu_torch/index/ivf.py", "metrovector_tpu_torch/index/ivfpq.py",
@@ -134,7 +138,10 @@ def test_port_sources_import_no_jax():
             "metrovector_tpu_torch/parallel/mesh.py",
             "metrovector_tpu_torch/parallel/sharded_search.py",
             "metrovector_tpu_torch/parallel/distributed.py",
-            "metrovector_tpu_torch/parallel/sparse_sharded.py"} <= scanned
+            "metrovector_tpu_torch/parallel/sparse_sharded.py",
+            "metrovector_tpu_torch/parallel/dryrun.py",
+            "metrovector_tpu_torch/utils/timing.py",
+            "examples/torch_multihost.py", "examples/torch_large_dataset.py"} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []
