@@ -5,8 +5,10 @@
 
 With ``--parent DIR`` (another checkout of the port, such as the parent
 commit unpacked by ``git archive``) it also times that checkout's K1-K4
-and its ``search()`` p50 on this run's dense and PQ files beside this
-one's, one process each (``tools/scan_kernel_timing.py``).
+(K1 over bf16 rows too) and its ``search()`` p50 on this run's dense and
+PQ files beside this one's, one process each
+(``tools/scan_kernel_timing.py``), and K2's bucket kernel of both
+(``tools/adc_group_sweep.py``).
 
 Phases, one line each; any failure exits non-zero:
 
@@ -98,7 +100,9 @@ Phases, one line each; any failure exits non-zero:
    rerank 100 and 400 (one variant launch a scan, none a probe, one rescore
    a search), recall@10 against a float64 oracle on the card (>= 0.99 at
    rerank 400), at batches 1, 8 and 256 the bucket kernel at the main
-   path's inputs against its plain version (fetch 400), ``_masked_scan``
+   path's inputs against its plain version (fetch 400), its blocks per SM
+   from the runtime's occupancy calculator (the form with row ids; the run
+   fails below 4), ``_masked_scan``
    under ``torch.cuda.set_sync_debug_mode("error")`` (no host
    synchronization), the kernel's device time beside its plain version's
    and both bounds (every row's bytes; the probed work of this run), the
@@ -127,7 +131,14 @@ Phases, one line each; any failure exits non-zero:
    variant (beside the time of the ``mma.sync`` kernel it replaces, from
    ``PERF.md``),
    its plain version, K1 ``highest``, K3's re-score at R = 18 and
-   ``search()`` p50 at each precision;
+   ``search()`` p50 at each precision; then gist1m at ``"default"`` (bf16
+   rows and bf16-rounded queries, ``ops/csrc/topk_int_kernel.cu`` over bf16): one
+   counted search at batch 256 (one launch of the one-pass bf16 kernel, no
+   FFMA), recall@10 against the float64 oracle (reported, no gate: the
+   reference reorders near-ties at bf16 resolution too), and at batch 256
+   the kernel (within the band of its plain version) beside the FFMA kernel
+   over the same rows, its plain version, ``torch.mm`` of the bf16 product
+   and ``search()`` p50 at ``"default"``, ``"high"`` and ``"highest"``;
 14. quantized and bf16 spaces: (a) K1's integer variant
    (``ops/csrc/topk_int_kernel.cu``, ``wgmma`` s8 fed by TMA) against its
    plain version on 200,003 int8 rows with twins across splits, D in {96,
@@ -160,10 +171,28 @@ Phases, one line each; any failure exits non-zero:
    batches 256 and 32, recall@10 >= 0.99, one launch of the tensor-core
    product a search, its time beside the bf16 LUT's and both bounds (the
    CUDA cores' adds, the tensor cores' product); (e) the phase 3 corpus written as
-   BFLOAT16, identical to the f32 space; (f) CUDA-event times of each new
+   BFLOAT16, and the phase 3 f32 file at ``"default"``: each search one
+   launch of the one-pass bf16 kernel (no FFMA), identical to the f32
+   space at batches 32 and 256; the BFLOAT16 space through
+   ``StreamingSearcher``, ``ShardedStreamingSearcher``,
+   ``ShardedDeviceSpace`` (4 shards on cuda:0), identical to its resident
+   search; (f) CUDA-event times of each new
    kernel and its plain version, ``torch._int_mm`` of the batch's product
    as a yardstick for the integer scan, the times of the ``mma.sync``
-   kernel it replaces (from ``PERF.md``), and ``search()`` p50.
+   kernel it replaces (from ``PERF.md``), and ``search()`` p50; at batches
+   32 and 256 the one-pass bf16 kernel beside the FFMA kernel over the
+   same bf16 rows (the kernel it replaces), its plain version,
+   ``torch.mm`` of the bf16 product (f32 out) and ``search()`` p50 of the
+   BFLOAT16 space and of the f32 file at ``"default"`` and ``"highest"``;
+   (g) K1's one-pass bf16 variant (``ops/csrc/topk_int_kernel.cu``,
+   ``wgmma`` bf16 fed by TMA, precision ``"default"``) against its plain
+   version on phase 13 (a)'s case set over bf16 rows: 200,003 integer rows
+   with twins across splits, D in {100, 128, 960, 1536}, the three metrics,
+   batches 1, 33 and 255, k in {10, 100, 257}, num_valid and masks as in
+   phase 2, the scan tiles' edges (batches 8, 64, 128, 129 and 256 over
+   100,037 rows at D 128 and 960) (identical, twice; cosine within the
+   band), and N(0, 1) rows within the band of the accumulation terms of
+   ``engine.py::SearchEngine._verify_eps``.
 
 15. presampled and group_rows: the main path, counted: one
    ``fused_topk_presampled`` call (K1's two-phase scan: phase 1 over every
@@ -175,7 +204,8 @@ Phases, one line each; any failure exits non-zero:
    function against
    ``fused_topk``, ``fused_topk_reference`` and
    ``fused_topk_presampled_reference`` on 200,003 rows with twins across
-   splits, on the FFMA kernel (f32, f16, bf16), ``high``, int8 IP with a
+   splits, on the FFMA kernel (f32, f16, bf16), ``high``, ``default``
+   (the one-pass bf16 kernel), int8 IP with a
    deferred scale and int8 L2, strides 16, 64 and 1,000, k in {1, 10, 100,
    257, 1000, 1025}, batches 1, 33 and 255, num_valid inside a split and
    off the stride, a mask that kills every subsampled row, k above the
@@ -308,7 +338,8 @@ Phases, one line each; any failure exits non-zero:
 
 The second-to-last line is a JSON object describing each kernel (with its
 bound from the H100 SXM data sheet: 67 TFLOP/s f32, counting an FMA as two
-operations, 989 TFLOP/s dense bf16 for the bf16x3 variant, 1,979 TOP/s
+operations, 989 TFLOP/s dense bf16 for the bf16x3 and the one-pass bf16
+variants, 1,979 TOP/s
 dense int8 for the integer variant, and 3.35 TB/s; K2's int8 LUT the lesser
 of its CUDA-core and tensor-core bounds); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2248,6 +2279,9 @@ IVF_RERANKS = (100, 400)
 IVF_BATCHES = (8, 32, 256)
 IVF_CROSSOVER_BATCHES = (1, 4, 8, 16, 32, 64, 128, 256)
 IVF_KERNEL_BATCHES = (1, 8, 256)
+# The bucket kernel's least blocks per SM at the main path's form: at 3 a
+# wave runs half the splits and the scan takes 40 % longer (PERF.md).
+BUCKET_BLOCKS_PER_SM = 4
 
 
 def _group_bias_case(rng, nq, groups, kind):
@@ -2558,6 +2592,7 @@ def phase_ivfpq_path(torch, dev, card):
     from metrovector_tpu_torch import Builder, DistanceMetric, Reader
     from metrovector_tpu_torch.index.ivfpq import IVFPQIndex, train_ivfpq
     from metrovector_tpu_torch.index.pq import pack_codes4
+    from metrovector_tpu_torch.ops import adc_kernel as ak
     from metrovector_tpu_torch.ops.adc_kernel import fused_adc_topk, fused_adc_topk_reference
     from metrovector_tpu_torch.ops.gather_kernel import rescore_candidates
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk
@@ -2740,6 +2775,24 @@ def phase_ivfpq_path(torch, dev, card):
                     say(f"  {name} batch 256: the scan of every row without the bias "
                         f"{t_scan:.4f} ms; the bucket kernel with no bucket probed "
                         f"{t_dead:.4f} ms | {card}")
+            # The bucket kernel's blocks per SM at the main path's form (the
+            # layout's ids, the bf16 LUT, fetch 400 in shared memory) from
+            # the runtime's occupancy calculator: BUCKET_BLOCKS_PER_SM or
+            # more, or the run fails.
+            per_sm = dict(ak._occupancy(
+                dev.index, ak.LUT_BF16, int(packed), m, ksub, 400, True,
+                ak._group_words(idx.bucket_fill.shape[0]), (ak.BUCKET_QT,),
+                True))[ak.BUCKET_QT]
+            rows_sm = dict(ak._occupancy(
+                dev.index, ak.LUT_BF16, int(packed), m, ksub, 400, True,
+                ak._group_words(idx.bucket_fill.shape[0]), (ak.BUCKET_QT,),
+                False))[ak.BUCKET_QT]
+            say(f"  {name} bucket kernel blocks per SM (cudaOccupancyMaxActiveBlocks"
+                f"PerMultiprocessor, fetch 400, bf16 LUT): {per_sm} with row ids, "
+                f"{rows_sm} without (group_rows) | {card}")
+            if per_sm < BUCKET_BLOCKS_PER_SM:
+                raise AssertionError(f"{name}: the bucket kernel fits {per_sm} blocks "
+                                     f"per SM, below {BUCKET_BLOCKS_PER_SM}")
             for bsz in IVF_KERNEL_BATCHES:
                 host = [_pq_queries(rng, x, bsz) for _ in range(15)]
                 split = _ivfpq_host_split(torch, dev, idx, host)
@@ -3160,6 +3213,46 @@ def _time_high_cell(torch, dev, card, engines, name, batches, metric, qgen, exac
     return out, max_err
 
 
+def _gist_default(torch, dev, card, path, engines, g) -> dict:
+    """(c) gist1m at precision "default": the file reopened as bf16 rows with
+    bf16-rounded (normalized) queries, one search at batch 256 through the
+    public path, counted (one fused_topk[bf16] launch, no FFMA), its
+    recall@10 against the float64 oracle of the f32 rows and raw queries
+    (reported with no gate: the reference itself reorders near-ties at
+    bf16 resolution), then _bf16_times at batch 256 (within the band of
+    the plain version), search() p50 beside "high" and "highest"."""
+    from metrovector_tpu_torch import Reader, SearchEngine
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+
+    t0 = time.perf_counter()
+    dflt = SearchEngine(Reader.open(path).vector_space("gist"), device=dev,
+                        precision="default")
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    hosts = [g.standard_normal((256, D_GIST)).astype(np.float32) for _ in range(10)]
+    b0, f0 = fused_topk.launches_bf16, fused_topk.launches
+    res = dflt.search(hosts[0], k=HIGH_K)
+    nb, nf = fused_topk.launches_bf16 - b0, fused_topk.launches - f0
+    if nb != 1 or nf != 0 or dflt.space.data.dtype != torch.bfloat16:
+        raise AssertionError(f'gist1m at "default": fused_topk[bf16] {nb}, FFMA {nf} '
+                             "launches for one search")
+    x64 = engines["highest"].space.data.double()
+    inv64 = 1.0 / torch.sqrt((x64 ** 2).sum(1))
+    recall = _cosine_recall(torch, x64, inv64, hosts[0], res.indices, HIGH_K)
+    del x64, inv64
+    torch.cuda.empty_cache()
+    say(f'  (c) gist1m at "default": bf16 rows uploaded in {t_up:.2f} s '
+        f"({dflt.space.nbytes / 2**20:.0f} MiB on the card), one fused_topk[bf16] launch "
+        f"for one search, recall@10 batch 256 {recall:.4f} against the float64 oracle "
+        f"(reported, no gate)")
+    row = _bf16_times(torch, dev, card, '(c) gist1m "default"', dflt.space, hosts,
+                      {"default": dflt, "high": engines["high"],
+                       "highest": engines["highest"]}, k=HIGH_K, exact=False)
+    del dflt
+    torch.cuda.empty_cache()
+    return {"launches": nb, "recall": recall, "err": row["err"], "row": row}
+
+
 def phase_high_path(torch, dev, card, sift_path):
     """Phase 13 (module docstring). Returns the kernels-line figures of
     fused_topk[high]."""
@@ -3276,6 +3369,7 @@ def phase_high_path(torch, dev, card, sift_path):
             torch, dev, card, engines, "gist1m", (64, 256), cos,
             lambda nq: g.standard_normal((nq, D_GIST)).astype(np.float32), False)
         max_err = max(max_err, cell_err)
+        default = _gist_default(torch, dev, card, path, engines, g)
         sift_engines = {"highest": sift_h, "high_verified": sift_v}
         _time_high_cell(torch, dev, card, sift_engines, "phase 3 corpus", (32, 256),
                         DistanceMetric.L2,
@@ -3287,11 +3381,13 @@ def phase_high_path(torch, dev, card, sift_path):
         tmp.cleanup()
     say(f"phase 13 precision ladder: ok (fused_topk[high] launches {launches}, "
         f"recall@10 high_verified 1.0000, high "
-        f"{min(recall[('high', nq)] for nq in queries):.4f}; "
-        f"{time.perf_counter() - t_phase:.1f} s)")
+        f"{min(recall[('high', nq)] for nq in queries):.4f}, default "
+        f"{default['recall']:.4f} (no gate); fused_topk[bf16] launches "
+        f"{default['launches']}; {time.perf_counter() - t_phase:.1f} s)")
     top = cell[256]
     return {"launches": launches, "max_err": max_err, "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound": top["bound"],
+            "bf16": {"launches": default["launches"], "max_err": default["err"]},
             "keep": {"data": sp.data, "norms": sp.norms, "num_valid": sp.num_valid}}
 
 
@@ -3401,6 +3497,162 @@ def _int_cases(torch, dev, rng) -> int:
         del x, bias, norms
         torch.cuda.empty_cache()
     return cases
+
+
+BF16_SOURCE = INT_SOURCE  # the one-pass scan's bf16 instance (Bf16Op)
+# The reference's one-pass bf16 dot: the dot_general of _make_kernel at
+# precision "default" (_PRECISIONS, :556).
+BF16_REPLACES = "metrovector_tpu/ops/topk_kernel.py:638"
+
+
+def bf16_bound(nq: int, n: int, d: int, k: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of the one-pass bf16 variant: 2 Q N D operations
+    at the dense bf16 rate, or its bytes (the bf16 corpus and queries, the
+    f32 norms read once, the top k written once)."""
+    t_ops = 2 * nq * n * d / BF16_FLOPS * 1e3
+    t_bytes = (2 * (n * d + nq * d) + 4 * n + 8 * nq * k) / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _bf16_scores64(torch, q, x, norms, metric):
+    """The near-tie oracle of "default": ``score(r, rows)``, the float64
+    scores on the card of query ``r`` (rounded to bf16, as the kernel and
+    its plain version round it) against the bf16 ``rows``: the exact
+    products both sides sum in f32."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import bf16_queries
+
+    qb = bf16_queries(q).double()
+
+    def score(r, rows):
+        idx = torch.as_tensor(rows, dtype=torch.long, device=x.device)
+        dots = x[idx].double() @ qb[r]
+        n64 = norms[idx].double()
+        if metric == DistanceMetric.L2:
+            dots = 2.0 * dots - n64
+        elif metric == DistanceMetric.COSINE:
+            dots = dots / torch.sqrt(torch.clamp(n64, min=1e-30))
+        return dots.cpu().numpy()
+
+    return score
+
+
+def _default_band(torch, q, xmax: float, metric, d: int) -> np.ndarray:
+    """Per-query bound on |kernel - plain| at "default" on float data: both
+    sum the same exact products of bf16 values, the kernel on the tensor
+    cores (truncating 16-deep steps) and the plain version by an f32
+    matmul, so they differ by at most the accumulation terms of
+    engine.py::SearchEngine._verify_eps (engine.high_sum_bounds, both
+    routes, in units of S <= |q| |x|) of the bf16-rounded queries, with
+    _acc_band's epilogue roundings."""
+    from metrovector_tpu_torch.ops.topk_kernel import bf16_queries
+
+    return _acc_band(bf16_queries(torch.as_tensor(q)).numpy(), xmax, metric, d)
+
+
+def _bf16_cases(torch, dev, rng) -> tuple[int, float]:
+    """(g) fused_topk(precision="default") (csrc/topk_int_kernel.cu) against
+    its plain version on phase 13 (a)'s case set over bf16 rows: the three
+    metrics, batches 1, 33 and 255, k in {10, 100, 257} and D in {100, 128,
+    960, 1536} over 200,003 integer rows in [0, 16) with twins across
+    splits (num_valid ending inside a split, a mask that empties whole
+    splits), L2 and IP identical to the plain version and twice identical,
+    cosine (normalized queries, rounded to bf16 on both sides) twice
+    identical and within the band; the scan tiles' edges (batches 8, 64,
+    128, 129 and 256 over 100,037 rows, which end inside a 64-row stage, at
+    D 128 and 960); then 20,011 N(0, 1) rows (bf16) with a mask and
+    num_valid below N, within the band (_default_band). Returns (cases, max
+    |score diff| on float data)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_reference
+
+    metrics = (DistanceMetric.L2, DistanceMetric.INNER_PRODUCT, DistanceMetric.COSINE)
+
+    def kern(*args):
+        return fused_topk(*args, precision="default")
+
+    def plain(*args):
+        return fused_topk_reference(*args, precision="default")
+
+    def unit(q):
+        return (q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+                ).astype(np.float32)
+
+    cases, max_err = 0, 0.0
+    mask = np.ones(SPLIT_N, np.float32)
+    mask[40_000:120_000] = 0
+    mask_d = torch.from_numpy(mask).to(dev)
+    for d in (100, 128, 960, 1536):
+        x = torch.from_numpy(_twin_rows(rng, SPLIT_N, d, 16)).to(dev).to(torch.bfloat16)
+        norms = (x.double() ** 2).sum(1).float()
+        xmax = float(norms.max().sqrt())
+        q_int = rng.integers(0, 16, (255, d)).astype(np.float32)
+        for metric in metrics:
+            cosine = metric == DistanceMetric.COSINE
+            q_all = unit(q_int) if cosine else q_int
+            s64 = (_bf16_scores64(torch, torch.from_numpy(q_all).to(dev), x, norms, metric)
+                   if cosine else None)
+            for nq in (1, 33, 255):
+                q = torch.from_numpy(np.ascontiguousarray(q_all[:nq])).to(dev)
+                for k in (10, 100, 257):
+                    variant = (cases + cases // 4) % 4
+                    num_valid = SPLIT_N - 70_001 if variant & 1 else SPLIT_N
+                    args = (q, x, norms, num_valid, k, metric,
+                            mask_d if variant & 2 else None)
+                    what = (f"fused_topk[bf16] integer D={d} Q={nq} k={k} {metric.name} "
+                            f"num_valid={num_valid} mask={bool(variant & 2)}")
+                    if cosine:
+                        got = kern(*args)
+                        _identical(torch, kern(*args), got, what + " (run twice)")
+                        _compare_high(got, plain(*args),
+                                      _default_band(torch, q_all[:nq], xmax, metric, d),
+                                      s64, what)
+                    else:
+                        _twice_identical(torch, kern, args, plain(*args), what)
+                    cases += 1
+        if d in (128, 960):  # the wgmma tiles' edges, rows ending mid-stage
+            m = TILE_EDGE_N
+            q_edge = rng.integers(0, 16, (max(TILE_EDGE_BATCHES), d)).astype(np.float32)
+            for nq in TILE_EDGE_BATCHES:
+                q = torch.from_numpy(q_edge[:nq]).to(dev)
+                for metric in metrics[:2]:
+                    k = (10, 100, 257)[cases % 3]
+                    args = (q, x[:m], norms[:m], m - 29 if cases & 1 else m, k, metric,
+                            mask_d[:m] if cases & 2 else None)
+                    _twice_identical(torch, kern, args, plain(*args),
+                                     f"fused_topk[bf16] tile edge D={d} Q={nq} N={m} "
+                                     f"k={k} {metric.name}")
+                    cases += 1
+        del x, norms
+        torch.cuda.empty_cache()
+    n = 20_011
+    for d in (100, 128, 960, 1536):
+        x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+        norms = (x.double() ** 2).sum(1).float()
+        xmax = float(norms.max().sqrt())
+        q_f = rng.standard_normal((255, d)).astype(np.float32)
+        vm = torch.from_numpy((rng.random(n) > 0.2).astype(np.float32)).to(dev)
+        for metric in metrics:
+            q_all = unit(q_f) if metric == DistanceMetric.COSINE else q_f
+            q_d = torch.from_numpy(q_all).to(dev)
+            s64 = _bf16_scores64(torch, q_d, x, norms, metric)
+            for nq in (1, 33, 255):
+                for k in (10, 100, 257):
+                    variant = cases % 4
+                    args = (q_d[:nq].contiguous(), x, norms,
+                            n - 77 if variant & 1 else n, k, metric,
+                            vm if variant & 2 else None)
+                    max_err = max(max_err, _compare_high(
+                        kern(*args), plain(*args),
+                        _default_band(torch, q_all[:nq], xmax, metric, d), s64,
+                        f"fused_topk[bf16] normal D={d} Q={nq} k={k} {metric.name} "
+                        f"variant {variant}"))
+                    cases += 1
+        del x, norms
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return cases, max_err
 
 
 def _scan_smem_mirrors(torch) -> int:
@@ -3867,12 +4119,81 @@ def lut8_bounds(nq: int, n: int, m: int, ksub: int, cols: int, k: int) -> dict:
     return {"cuda_cores": cores, "tensor_cores": tensor, "least": min(cores, tensor)}
 
 
+def _bf16_times(torch, dev, card, label, sp, hosts, engines, k=10, exact=True) -> dict:
+    """One point of the one-pass bf16 kernel's timing: the kernel over
+    ``sp``'s bf16 rows, the FFMA kernel over the same rows (the kernel it
+    replaces), the plain version (on the first three query sets), torch.mm
+    of the bf16 product and search() p50 of ``engines``, by CUDA events in
+    one run (plain, kernel, kernel, plain; FFMA and torch.mm after). The
+    kernel is held to its plain version on the first set: identical where
+    the data is ``exact`` (small integers), else within the band
+    (_default_band). Returns the row."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops.topk_kernel import fused_topk, fused_topk_reference
+    from metrovector_tpu_torch.utils.timing import cuda_ms
+
+    metric = DistanceMetric(sp.metric)
+    nq = hosts[0].shape[0]
+    qs = [sp.prepare_queries(h).qdev for h in hosts]
+    qbs = [q.to(torch.bfloat16) for q in qs]
+    xb = sp.data
+
+    def kern(q):
+        return fused_topk(q, xb, sp.norms, sp.num_valid, k, metric, precision="default")
+
+    def plain(q):
+        return fused_topk_reference(q, xb, sp.norms, sp.num_valid, k, metric,
+                                    precision="default")
+
+    def ffma(q):
+        return fused_topk(q, xb, sp.norms, sp.num_valid, k, metric)
+
+    def mm(q):  # the yardstick: the batch's bf16 product, f32 out, no selection
+        return torch.mm(q, xb.T, out_dtype=torch.float32)
+
+    what = f"{label} batch {nq}: the timed inputs"
+    err = 0.0
+    if exact:
+        _identical(torch, kern(qs[0]), plain(qs[0]), what)
+    else:
+        err = _compare_high(kern(qs[0]), plain(qs[0]),
+                            _default_band(torch, qs[0].cpu().numpy(),
+                                          float(sp.norms.max().sqrt()), metric, sp.dim),
+                            _bf16_scores64(torch, qs[0], xb, sp.norms, metric), what)
+    ms, runs, plain_ms = _kernel_times(torch, dev, kern, plain, qs, qs[:3])
+    ffma(qs[0])
+    ffma_ms = cuda_ms(ffma, qs, dev)
+    mm(qbs[0])
+    mm_ms = cuda_ms(mm, qbs, dev)
+    p50 = {name: _p50(torch, e.search, hosts, dev, k=k) for name, e in engines.items()}
+    row = {"ms": ms, "runs": runs, "plain_ms": plain_ms, "ffma_ms": ffma_ms,
+           "library_ms": mm_ms, "p50": p50, "err": err,
+           "bound": bf16_bound(nq, sp.num_valid, sp.dim, k)}
+    say(f"  timing {label} batch={nq} k={k}: fused_topk[bf16] {ms:.4f} ms (runs "
+        f"{runs[0]:.4f}, {runs[1]:.4f}; bound {row['bound'][0]:.4f} ms by "
+        f"{row['bound'][1]}, {row['bound'][0] / ms:.1%}) | the FFMA kernel over the "
+        f"same bf16 rows (the kernel it replaces) {ffma_ms:.4f} | plain {plain_ms:.4f} "
+        f"| torch.mm of the bf16 product (f32 out) {mm_ms:.4f} | search() p50 "
+        + ", ".join(f"{n_} {v:.4f}" for n_, v in p50.items()) + f" ms | {card}")
+    return row
+
+
 def _bf16_storage(torch, dev, card, sift_path, tmpdir) -> dict:
     """(e) Phase 3's corpus written as BFLOAT16 (its integer values are
-    exact in bf16): search() identical to the f32 space at batches 32 and
-    256; K1 over the bf16 rows timed beside the f32 rows."""
+    exact in bf16), and phase 3's f32 file at precision "default" (bf16
+    rows, bf16-rounded queries): search() of each through the one-pass bf16
+    kernel (launches_bf16 one a search, no FFMA launch), identical to the
+    f32 space at batches 32 and 256; the BFLOAT16 space streamed
+    (StreamingSearcher, ShardedStreamingSearcher) and sharded 4 ways
+    (ShardedDeviceSpace) on cuda:0, identical to its
+    resident search; (f) the kernel timed beside the FFMA kernel over the
+    same rows, its plain version, torch.mm and search() p50 at both
+    batches (_bf16_times). Returns the kernels-line figures."""
     from metrovector_tpu_torch import Builder, DataType, DistanceMetric, Reader, SearchEngine
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk
+    from metrovector_tpu_torch.parallel import (
+        ShardedDeviceSpace, ShardedStreamingSearcher, StreamingSearcher, make_mesh,
+    )
 
     l2 = DistanceMetric.L2
     sift = Reader.open(sift_path).vector_space("sift")
@@ -3884,50 +4205,75 @@ def _bf16_storage(torch, dev, card, sift_path, tmpdir) -> dict:
     b.build().save(path)
     del b
     t_build = time.perf_counter() - t0
-    bf = SearchEngine(Reader.open(path).vector_space("sift"), device="cuda")
-    f32 = SearchEngine(sift, device="cuda")
+    bf_space = Reader.open(path).vector_space("sift")
+    bf = SearchEngine(bf_space, device=dev)
+    dflt = SearchEngine(sift, device=dev, precision="default")
+    f32 = SearchEngine(sift, device=dev)
     rng = np.random.default_rng(SEED + 15)
     hosts = {nq: [rng.integers(0, 256, (nq, D_MAIN)).astype(np.float32)
                   for _ in range(10)] for nq in (32, 256)}
-    fused_topk.launches = 0
-    res = {nq: bf.search(h[0], k=10) for nq, h in hosts.items()}
-    if fused_topk.launches != len(res) or bf.space.data.dtype != torch.bfloat16:
-        raise AssertionError("the bf16 space did not run K1 over bf16 rows")
-    for nq, r in res.items():
-        want = f32.search(hosts[nq][0], k=10)
-        if not (np.array_equal(r.indices, want.indices)
-                and np.array_equal(r.scores, want.scores)
-                and np.array_equal(r.distances, want.distances)):
-            raise AssertionError(f"bf16 space differs from the f32 space at batch {nq}")
-    from metrovector_tpu_torch.utils.timing import cuda_ms
-
-    times = {}
-    for nq in (32, 256):
-        qs = [torch.from_numpy(h).to(dev) for h in hosts[nq]]
-        ms = {}
-        for name, e in (("bf16", bf), ("f32", f32)):
-            s = e.space
-
-            def kern(q, s=s):
-                return fused_topk(q, s.data, s.norms, s.num_valid, 10, l2)
-
-            kern(qs[0])
-            ms[name] = cuda_ms(kern, qs, dev)
-        ms["p50"] = _p50(torch, bf.search, hosts[nq], dev, k=10)
-        times[nq] = ms
-        say(f"  (f) bf16 storage batch={nq}: K1 over bf16 rows {ms['bf16']:.4f} ms, "
-            f"over f32 rows {ms['f32']:.4f} ms | search() p50 {ms['p50']:.4f} ms | {card}")
+    launches = 0
+    for label, e in (("BFLOAT16 space", bf), ('f32 file at "default"', dflt)):
+        b0, f0 = fused_topk.launches_bf16, fused_topk.launches
+        res = {nq: e.search(h[0], k=10) for nq, h in hosts.items()}
+        nb, nf = fused_topk.launches_bf16 - b0, fused_topk.launches - f0
+        launches += nb
+        if nb != len(res) or nf != 0 or e.space.data.dtype != torch.bfloat16:
+            raise AssertionError(f"the {label} did not run the one-pass bf16 kernel "
+                                 f"(bf16 {nb}, FFMA {nf})")
+        for nq, r in res.items():
+            want = f32.search(hosts[nq][0], k=10)
+            if not (np.array_equal(r.indices, want.indices)
+                    and np.array_equal(r.scores, want.scores)
+                    and np.array_equal(r.distances, want.distances)):
+                raise AssertionError(f"the {label} differs from the f32 space at batch {nq}")
+    # The BFLOAT16 space streamed and sharded, against its resident search.
+    mesh = make_mesh(devices=[dev] * 4)
+    q = hosts[256][1]
+    want = bf.search(q, k=10)
+    b0, f0 = fused_topk.launches_bf16, fused_topk.launches
+    for name, searcher in (("StreamingSearcher", StreamingSearcher(bf_space, device=dev)),
+                           ("ShardedStreamingSearcher",
+                            ShardedStreamingSearcher(bf_space, mesh=mesh)),
+                           ("ShardedDeviceSpace", ShardedDeviceSpace(bf_space, mesh))):
+        got = searcher.search(q, k=10)
+        if not (np.array_equal(got.indices, want.indices)
+                and np.array_equal(got.scores, want.scores)):
+            raise AssertionError(f"BFLOAT16 space through {name} differs from resident")
+        del searcher
+    streamed = fused_topk.launches_bf16 - b0
+    if streamed == 0 or fused_topk.launches != f0:
+        raise AssertionError("the streamed and sharded bf16 searches did not run the "
+                             "one-pass bf16 kernel alone")
     say(f"  (e) phase 3 corpus as BFLOAT16 (file written in {t_build:.1f} s, "
-        f"{bf.space.nbytes / 2**20:.0f} MiB on the card): identical to the f32 space "
-        f"at batches 32 and 256")
-    del bf, f32
+        f"{bf.space.nbytes / 2**20:.0f} MiB on the card) and the f32 file at "
+        f'"default": identical to the f32 space at batches 32 and 256, one '
+        f"fused_topk[bf16] launch a search, no FFMA; streamed and sharded 4 ways "
+        f"on cuda:0: identical to resident ({streamed} launches)")
     torch.cuda.empty_cache()
-    return times
+    times = {}
+    engines = {"bf16 space": bf, "f32 default": dflt, "f32 highest": f32}
+    for nq in (32, 256):
+        times[nq] = _bf16_times(torch, dev, card, "(f) phase 3 corpus bf16", bf.space,
+                                hosts[nq], engines)
+        row = times[nq]
+        say(f"  (f) bf16 storage batch={nq}: K1 over bf16 rows, one pass on the tensor "
+            f"cores {row['ms']:.4f} ms, on the CUDA cores (FFMA) {row['ffma_ms']:.4f} ms "
+            f"| search() p50 BFLOAT16 {row['p50']['bf16 space']:.4f} ms, f32 at default "
+            f"{row['p50']['f32 default']:.4f}, f32 at highest "
+            f"{row['p50']['f32 highest']:.4f} | {card}")
+    del bf, dflt, f32
+    torch.cuda.empty_cache()
+    top = times[256]
+    return {"launches": launches, "max_err": 0.0, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound": top["bound"],
+            "library_ms": top["library_ms"], "ffma_ms": top["ffma_ms"]}
 
 
 def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
     """Phase 14 (module docstring). Returns the kernels-line figures of
-    fused_topk[int8], fused_topk[affine] and fused_adc_topk[int8_lut]."""
+    fused_topk[int8], fused_topk[affine], fused_adc_topk[int8_lut] and
+    fused_topk[bf16]."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 14)
     t0 = time.perf_counter()
@@ -3942,12 +4288,18 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
         f"{aff_err:.3g}); fused_adc_topk int8 LUT {lut_cases} cases identical twice "
         f"({mma_cases} by the tensor-core product, {lut_cases - mma_cases} by lookups) "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    bf16_cases, bf16_err = _bf16_cases(torch, dev, rng)
+    say(f"  (g) fused_topk[bf16] (precision \"default\", one pass on the tensor cores) "
+        f"vs plain: {bf16_cases} cases, integer data identical twice, cosine and N(0, 1) "
+        f"rows within the band (max |score diff| {bf16_err:.3g}) "
+        f"({time.perf_counter() - t0:.1f} s)")
     tmp = tempfile.TemporaryDirectory()
     try:
         deep = _deep10m(torch, dev, card, tmp.name)
         u8 = _sift1m_u8(torch, dev, card, tmp.name)
         lut = _int8_lut_searches(torch, dev, card, "(d) sift1m-pq4", "mma", *pq4)
-        _bf16_storage(torch, dev, card, sift_path, tmp.name)
+        bf16 = _bf16_storage(torch, dev, card, sift_path, tmp.name)
     finally:
         tmp.cleanup()
     say(f"phase 14 quantized and bf16 spaces: ok (deep10m recall@10 1.0000, "
@@ -3955,7 +4307,8 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
         f"{min(lut['recall'].values()):.4f}, bf16 identical to f32; launches "
         f"fused_topk[int8] {deep['launches'] + u8['int8']['launches']}, "
         f"fused_topk[affine] {u8['affine']['launches']}, fused_adc_topk[int8_mma] "
-        f"{lut['launches']}; {time.perf_counter() - t_phase:.1f} s)")
+        f"{lut['launches']}, fused_topk[bf16] {bf16['launches']}; "
+        f"{time.perf_counter() - t_phase:.1f} s)")
     top = deep["cell"][DEEP_BATCH]
     lut_top = lut["cell"][256]
     return {
@@ -3967,6 +4320,7 @@ def phase_quantized(torch, dev, card, sift_path, pq4) -> dict:
                    "bound": u8["affine"]["bound"]},
         "int8_mma": {"launches": lut["launches"], "max_err": 0.0, "ms": lut_top["ms"],
                      "plain_ms": lut_top["plain_ms"], "bound": lut_top["bound"]},
+        "bf16": dict(bf16, max_err=bf16_err),
         "keep": deep["keep"],
         "keep16": {"deep": deep["engine"], **u8["engines"]},
     }
@@ -3997,7 +4351,8 @@ PRE_KS = (1, 10, 100, 257, 1000, 1025)
 def _presampled_routes(torch, dev, rng, n, d):
     """The K1 routes of the exactness cases over 200,003 rows with twins
     across splits: (name, queries, db, norms, metric, kwargs) for FFMA
-    f32/f16/bf16, "high", int8 IP with a deferred scale and int8 L2."""
+    f32/f16/bf16, "high", "default" (the one-pass bf16 scan), int8 IP with
+    a deferred scale and int8 L2."""
     from metrovector_tpu_torch import DistanceMetric
 
     L2, IP = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT
@@ -4011,6 +4366,7 @@ def _presampled_routes(torch, dev, rng, n, d):
             ("f16", q, x.to(torch.float16), norms, IP, {}),
             ("bf16", q, x.to(torch.bfloat16), norms, L2, {}),
             ("high", q, x, norms, IP, {"precision": "high"}),
+            ("default", q, x.to(torch.bfloat16), norms, L2, {"precision": "default"}),
             ("int8 IP deferred", q8, c8, n8, IP, {"scale": 0.02}),
             ("int8 L2", q8, c8, n8, L2, {})]
 
@@ -4330,7 +4686,7 @@ P16_CLIENTS, P16_REQUESTS = 32, 2_000
 P16_PQ_APPEND, P16_IVF_APPEND, P16_IVF_CENTERS = 200_000, 100_000, 8
 P16_HNSW_N = 20_000  # the facade's HNSW space: a host build that fits the phase
 P16_GROUP = 250  # rows of one appended group in (d): the corpus's ~244 a center
-P16_KERNELS = ("fused_topk", "fused_topk[high]", "fused_topk[int8]",
+P16_KERNELS = ("fused_topk", "fused_topk[high]", "fused_topk[bf16]", "fused_topk[int8]",
                "fused_topk[affine]", "fused_adc_topk", "fused_adc_topk[int8_mma]",
                "fused_adc_topk[int8_lut]", "fused_adc_topk[group_bias]",
                "rescore_candidates")
@@ -4344,6 +4700,7 @@ def _launch_counts() -> dict:
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk as t
 
     return {"fused_topk": t.launches, "fused_topk[high]": t.launches_high,
+            "fused_topk[bf16]": t.launches_bf16,
             "fused_topk[int8]": t.launches_int, "fused_topk[affine]": t.launches_affine,
             "fused_topk_presampled": t.launches_presampled,
             "fused_adc_topk": a.launches - a.int8_launches - a.group_launches,
@@ -4362,8 +4719,8 @@ def _zero_counts() -> None:
     from metrovector_tpu_torch.ops.sparse_kernel import ell_topk, query_postings
     from metrovector_tpu_torch.ops.topk_kernel import fused_topk as t
 
-    for name in ("launches", "launches_high", "launches_int", "launches_affine",
-                 "launches_presampled"):
+    for name in ("launches", "launches_high", "launches_bf16", "launches_int",
+                 "launches_affine", "launches_presampled"):
         setattr(t, name, 0)
     for name in ("launches", "int8_launches", "int8_mma_launches", "group_launches",
                  "group_rows_launches"):
@@ -5967,7 +6324,7 @@ P20_BAND = (0.05, 5)
 # Integer answers held identical, but for the IVF index that
 # similarity_search trains on the card (its k-means, as above).
 P20_TRAINED = ("similarity_search/ivf",)
-P20_KERNELS = ("fused_topk", "fused_topk[int8]", "fused_adc_topk",
+P20_KERNELS = ("fused_topk", "fused_topk[bf16]", "fused_topk[int8]", "fused_adc_topk",
                "fused_adc_topk[group_bias]", "rescore_candidates", "ell_topk",
                "query_postings")
 
@@ -6154,7 +6511,10 @@ def time_parent(parent: str, files: str, card: str) -> None:
     (tools/scan_kernel_timing.py), beside this one's in the same process
     layout: parent, this tree, this tree, parent with the kernels, then
     three more pairs of search() alone in alternating order; the p50s'
-    medians and spreads (lowest, highest) close the comparison."""
+    medians and spreads (lowest, highest) close the comparison. Then K2's
+    bucket kernel at sift1m-ivfpq4's shape (tools/adc_group_sweep.py
+    --default-only, batches 8 and 256, fetch 400) in turns, parent, this,
+    this, parent, with each build's blocks per SM."""
     here = os.path.dirname(os.path.abspath(__file__))
     tool = os.path.join(here, "tools", "scan_kernel_timing.py")
     t0 = time.perf_counter()
@@ -6187,6 +6547,8 @@ def time_parent(parent: str, files: str, card: str) -> None:
                 f"batch={p} {v:.4f} ms" for p, v in got["k4"].items())
             + " | K1 variants " + ", ".join(
                 f"{p} {v:.4f} ms" for p, v in got.get("k1v", {}).items())
+            + f" | K1 over bf16 rows ({got.get('k1bf16_route', 'ffma')}) " + ", ".join(
+                f"{p} {v:.4f} ms" for p, v in got.get("k1bf16", {}).items())
             + " | search() p50 " + ", ".join(
                 f"{p} {v:.4f} ms" for p, v in got["e2e"].items()) + f" | {card}")
     for point in p50[here]:
@@ -6195,6 +6557,27 @@ def time_parent(parent: str, files: str, card: str) -> None:
         say(f"  {what} {point}, {len(a)} processes each: parent median "
             f"{np.median(a):.4f} ms ({a.min():.4f}-{a.max():.4f}), this tree "
             f"{np.median(b):.4f} ({b.min():.4f}-{b.max():.4f}) | {card}")
+    # K2's bucket kernel at sift1m-ivfpq4's shape, fetch 400, in turns, a
+    # process each (tools/adc_group_sweep.py, the default build alone).
+    sweep = os.path.join(here, "tools", "adc_group_sweep.py")
+    bucket = {parent: [], here: []}
+    for root in (parent, here, here, parent):
+        out = os.path.join(files, f"adc_group_sweep_{len(bucket[parent]) + len(bucket[here])}.json")
+        run = subprocess.run([sys.executable, sweep, "--root", root, "--default-only",
+                              "--out", out],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise RuntimeError(f"the bucket sweep of {root} failed: {run.stderr[-2000:]}")
+        with open(out) as f:
+            rows = json.load(f)["rows"]
+        bucket[root].append({(r["batch"], r["lut"]): (r["bucket_ms"], r["blocks_per_sm"])
+                             for r in rows if "bucket_ms" in r})
+    for point in bucket[here][0]:
+        a, b = ([run[point] for run in bucket[r]] for r in (parent, here))
+        say(f"  bucket kernel sift1m-ivfpq4 shape batch={point[0]} fetch=400 {point[1]} LUT "
+            f"(device ms, turns parent, this, this, parent): parent "
+            + ", ".join(f"{ms:.4f}" for ms, _ in a) + f" ({a[0][1]} blocks/SM), this tree "
+            + ", ".join(f"{ms:.4f}" for ms, _ in b) + f" ({b[0][1]} blocks/SM) | {card}")
     say(f"  timing both checkouts took {time.perf_counter() - t0:.1f} s")
 
 
@@ -6387,6 +6770,14 @@ def _main(torch, card_name, card, dev, parent, counters) -> int:
              "metrovector_tpu/ops/topk_kernel.py:1040"),
             ("fused_adc_topk[group_rows]", "group_rows", CSRC + "adc_bucket_kernel.cu",
              "metrovector_tpu/ops/adc_kernel.py:248"))
+    ] + [
+        {"name": "fused_topk[bf16]", "route": "cuda", "source": BF16_SOURCE,
+         "replaces": BF16_REPLACES,
+         "launches": quant["bf16"]["launches"] + high["bf16"]["launches"],
+         "max_abs_err": max(quant["bf16"]["max_err"], high["bf16"]["max_err"]),
+         "ms": quant["bf16"]["ms"], "plain_ms": quant["bf16"]["plain_ms"],
+         "bound_ms": quant["bf16"]["bound"][0], "bound_by": quant["bf16"]["bound"][1],
+         "library_ms": quant["bf16"]["library_ms"]},
     ]
     for row in kernels:  # each path's launches: phases 3-15, then 16's to 20's
         row["launches"] += sum(p["launches"].get(row["name"], 0)

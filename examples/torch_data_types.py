@@ -3,9 +3,10 @@
 The counterpart of ``examples/data_types.py``: the same four spaces (f32,
 f16, bf16 and quantized int8) with the same printed access modes and
 summary statistics, then each space searched by
-``metrovector_tpu_torch.SearchEngine`` on the card, where the f32, f16 and
-bf16 spaces run K1's FFMA scan and the int8 space its integer scan
-(``--device cpu`` runs their plain versions).
+``metrovector_tpu_torch.SearchEngine`` on the card, where the f32 and f16
+spaces run K1's FFMA scan, the bf16 space its one-pass bf16 scan on the
+tensor cores and the int8 space its integer scan (``--device cpu`` runs
+their plain versions).
 
 Run:  python examples/torch_data_types.py [--device cuda|cpu]
 """

@@ -7,14 +7,18 @@ one launch of the fused distance + top-k kernel
 PyTorch version runs instead. Asking for a CUDA device on a machine without
 CUDA raises: nothing falls back to the CPU.
 
-f32 spaces run at ``precision="highest"`` (exact f32), ``"high"`` (the
-bf16x3 split on the tensor cores), ``"high_verified"`` (``"high"``
-over-fetched, re-scored exactly and certified, else re-run at
-``"highest"``) and ``"default"`` (bf16 on the device). f16 spaces stay f16
+f32 spaces run at ``precision="highest"`` (exact f32, the FFMA kernel),
+``"high"`` (the bf16x3 split on the tensor cores), ``"high_verified"``
+(``"high"`` over-fetched, re-scored exactly and certified, else re-run at
+``"highest"``) and ``"default"`` (bf16 rows and bf16-rounded queries on the
+device, the one-pass bf16 kernel on the tensor cores). f16 spaces stay f16
 on the device (f16 ⊂ f32, so results equal the reference's f32 upcast;
 ``"high"`` and ``"high_verified"`` run ``"highest"`` there, as the
 reference does), or bf16 at ``"default"`` with f32 queries, as the
-reference keeps them. bf16 spaces go up as bf16 with bf16-rounded queries.
+reference keeps them, on the FFMA kernel. bf16 spaces go up as bf16 with
+bf16-rounded queries and run the one-pass bf16 kernel at any precision.
+:func:`~.ops.topk_kernel.kernel_precision` makes that choice for every
+call site.
 int8 spaces and uint8 spaces (recentred to int8 ``c − 128``, with per-row
 code sums) run the integer kernel on quantized queries; uint8 cosine
 spaces run the FFMA kernel over the codes dequantized as they are read.
@@ -48,7 +52,7 @@ from .vectors.space import VectorSpace
 
 from .ops.distances import distances_np, rescore_topk
 from .ops.grid import check_grid
-from .ops.topk_kernel import fused_topk
+from .ops.topk_kernel import fused_topk, kernel_precision
 from .utils.transfer import put_chunked
 from .utils.tune import tune_grid, tuned_grid
 
@@ -921,17 +925,16 @@ class SearchEngine:
                     bias_row=rowsums, bias_scale=prep.bias_scale, grid=grid,
                 )
             return (scores, idx, prep, k_eff, None, snap)
-        # "high" and "high_verified" split f32 spaces only; f16 and bf16 run
-        # "highest".
+        # "high" and "high_verified" split f32 spaces only; bf16 rows with
+        # bf16 queries run "default" (kernel_precision), f16 "highest".
         f32 = sp.dtype == DataType.FLOAT32
-        high = f32 and sp.precision in ("high", "high_verified")
         verified = f32 and sp.precision == "high_verified"
         # high_verified: over-fetch a margin at bf16x3 cost, then re-score
         # just those candidates exactly (K3); _finalize certifies the result.
         k_fetch = min(k_eff + self.verify_margin, nv) if verified else k_eff
         scores, idx = fused_topk(
             prep.qdev, data, norms, nv, k_fetch, sp.metric,
-            valid_mask=eff_mask, precision="high" if high else "highest",
+            valid_mask=eff_mask, precision=kernel_precision(sp.dtype, sp.precision),
             grid=grid,
         )
         vcheck = None
@@ -1027,6 +1030,8 @@ class SearchEngine:
             self.verify_stats["certified"] += int(ok.sum())
             if not ok.all():
                 self.verify_stats["fallbacks"] += int((~ok).sum())
+                # vcheck comes with high_verified, which f32 spaces alone
+                # run: f32 rows, so "highest" is the FFMA kernel's exact scan.
                 data, norms, _, _ = snap.live()
                 scores, idx = fused_topk(
                     prep.qdev, data, norms, snap.num_valid, k_eff,

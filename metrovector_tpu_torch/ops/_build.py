@@ -133,7 +133,8 @@ def load() -> ctypes.CDLL:
             lib.mvt_fused_topk_high_smem.argtypes = [i32, i32, i32]
             lib.mvt_fused_topk_high_smem.restype = ctypes.c_longlong
             lib.mvt_fused_topk_int.argtypes = [
-                p, i64, p, i64,           # q, qstride, db, ldb
+                i32,                      # bf16 (else int8) operands
+                p, i64, p, i64,           # q, qstride, db, ldb (in values)
                 p, p, p,                  # norms, mask, bias
                 f32, f32, i32,            # scale, bias_scale, defer
                 i64, i64, i64, i64,       # nq, n, d, num_valid
@@ -146,9 +147,9 @@ def load() -> ctypes.CDLL:
                 p,                        # stream
             ]
             lib.mvt_fused_topk_int.restype = i32
-            # nw, chunks, stages, resident, k_smem, big, out
+            # bf16, nw, chunks, stages, resident, k_smem, big, out
             lib.mvt_fused_topk_int_occupancy.argtypes = [i32, i32, i32, i32, i32,
-                                                         i32, p]
+                                                         i32, i32, p]
             lib.mvt_fused_topk_int_occupancy.restype = i32
             lib.mvt_fused_topk_int_smem.argtypes = [i32, i32, i32, i32, i32]
             lib.mvt_fused_topk_int_smem.restype = ctypes.c_longlong
@@ -198,8 +199,9 @@ def load() -> ctypes.CDLL:
                 p,                        # stream
             ]
             lib.mvt_adc_bucket_topk.restype = i32
+            # lut_dtype, packed4, qt, m, ksub, smem_k, gw, ids, out
             lib.mvt_adc_bucket_occupancy.argtypes = [i32, i32, i32, i32, i32,
-                                                     i32, i32, p]
+                                                     i32, i32, i32, p]
             lib.mvt_adc_bucket_occupancy.restype = i32
             lib.mvt_gather_rows.argtypes = [p, i64, i64, p, i32, i64, p, p]
             lib.mvt_gather_rows.restype = i32

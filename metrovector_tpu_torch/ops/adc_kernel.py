@@ -298,12 +298,14 @@ def _query_tile(nq: int, occupancy: dict[int, int]) -> int:
 @functools.lru_cache(maxsize=None)
 def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
                ksub: int, k: int, lists_in_smem: bool, gw: int = 0,
-               tiles: tuple[int, ...] = _QUERY_TILES) -> tuple[tuple[int, int], ...]:
+               tiles: tuple[int, ...] = _QUERY_TILES,
+               ids: bool = True) -> tuple[tuple[int, int], ...]:
     """(tile, scan blocks per SM) for each of ``tiles`` that fits, from the
     runtime's occupancy calculator on the current device, for the LUT type
     ``lut_code`` (:data:`LUT_F32`, :data:`LUT_BF16`, :data:`LUT_INT8`); ``gw`` > 0: the
     bucket kernel with that many words of bucket bits (built for
-    :data:`BUCKET_QT` alone unless ``-DMVT_K2B_ALL_TILES``)."""
+    :data:`BUCKET_QT` alone unless ``-DMVT_K2B_ALL_TILES``) over a layout
+    with row ids (``ids``) or without (``group_rows``), two forms of it."""
     from ._build import load, raise_for
 
     lib = load()
@@ -316,7 +318,7 @@ def _occupancy(device_index: int, lut_code: int, packed4: int, m: int,
         per_sm = ctypes.c_int(0)
         if gw:
             err = lib.mvt_adc_bucket_occupancy(lut_code, packed4, qt, m, ksub, smem_k,
-                                               gw, ctypes.byref(per_sm))
+                                               gw, int(ids), ctypes.byref(per_sm))
         else:
             err = lib.mvt_adc_topk_occupancy(lut_code, packed4, qt, m, ksub, smem_k,
                                              ctypes.byref(per_sm))
@@ -703,7 +705,7 @@ def fused_adc_topk(
             per_sm = dict(_occupancy(dev.index, lut_code, int(packed4), m, ksub,
                                      min(k, SMEM_K + 1), True,
                                      _group_words(layout[-1].shape[0]),
-                                     (BUCKET_QT,)))[BUCKET_QT]
+                                     (BUCKET_QT,), layout[1] is not None))[BUCKET_QT]
             _launch_buckets(lib, lut, lut_bias(group_bias, exact_lut), layout,
                             valid_mask, min(int(num_valid), n), k, metric, packed4,
                             m, ksub, BUCKET_QT, k <= SMEM_K, per_sm, out_s, out_i,

@@ -88,7 +88,7 @@ __device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
   return v;
 }
 
-template <int QT, bool PACKED, typename LT, bool GLOBAL>
+template <int QT, bool PACKED, typename LT, bool GLOBAL, bool IDS>
 __global__ void __launch_bounds__(kThreads)
     adc_bucket_kernel(const void* lut_raw, const uint8_t* __restrict__ codes,
                       int cols, const float* __restrict__ norms,
@@ -103,6 +103,9 @@ __global__ void __launch_bounds__(kThreads)
                       unsigned long long* __restrict__ slots) {
   // GLOBAL: each split's list (k entries) lives in part_* ([nq, splits, k])
   // instead of shared memory. slots ([nq, splits]): the group bars' keys.
+  // IDS: the layout holds row ids (else ids is null and a slot is its own
+  // row). A form of its own: a test on ids in every slot's load costs the
+  // ids form enough registers to lose its fourth block per SM (PERF.md).
   constexpr int kEntry = 8 / static_cast<int>(sizeof(LT));
   constexpr int GW = QT < kEntry ? QT : kEntry;
   constexpr int G = QT / GW;
@@ -257,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
     const int j = static_cast<int>(c - cur_c0) * kChunk + lane;
     if (j < cur_cnt) {
       s.at = cur_start + j;
-      s.row = ids != nullptr ? ids[s.at] : static_cast<int>(s.at);
+      s.row = IDS ? ids[s.at] : static_cast<int>(s.at);
       s.in = s.row >= 0 && s.row < num_valid;
     }
     if (s.in) {
@@ -392,41 +395,49 @@ __global__ void __launch_bounds__(kThreads)
 // The default build has the query tile of 1, the fastest at every batch
 // measured (PERF.md); -DMVT_K2B_ALL_TILES builds the others for
 // tools/adc_group_sweep.py.
-template <bool PACKED, typename LT, bool GLOBAL>
+template <bool PACKED, typename LT, bool GLOBAL, bool IDS>
 const void* pick_bucket_qt(int qt) {
   switch (qt) {
     case 1:
-      return reinterpret_cast<const void*>(adc_bucket_kernel<1, PACKED, LT, GLOBAL>);
+      return reinterpret_cast<const void*>(adc_bucket_kernel<1, PACKED, LT, GLOBAL, IDS>);
 #ifdef MVT_K2B_ALL_TILES
     case 2:
-      return reinterpret_cast<const void*>(adc_bucket_kernel<2, PACKED, LT, GLOBAL>);
+      return reinterpret_cast<const void*>(adc_bucket_kernel<2, PACKED, LT, GLOBAL, IDS>);
     case 4:
-      return reinterpret_cast<const void*>(adc_bucket_kernel<4, PACKED, LT, GLOBAL>);
+      return reinterpret_cast<const void*>(adc_bucket_kernel<4, PACKED, LT, GLOBAL, IDS>);
     case 8:
-      return reinterpret_cast<const void*>(adc_bucket_kernel<8, PACKED, LT, GLOBAL>);
+      return reinterpret_cast<const void*>(adc_bucket_kernel<8, PACKED, LT, GLOBAL, IDS>);
     case 16:
-      return reinterpret_cast<const void*>(adc_bucket_kernel<16, PACKED, LT, GLOBAL>);
+      return reinterpret_cast<const void*>(adc_bucket_kernel<16, PACKED, LT, GLOBAL, IDS>);
     case 32:
-      return reinterpret_cast<const void*>(adc_bucket_kernel<32, PACKED, LT, GLOBAL>);
+      return reinterpret_cast<const void*>(adc_bucket_kernel<32, PACKED, LT, GLOBAL, IDS>);
 #endif
     default:
       return nullptr;
   }
 }
 
-template <typename LT>
+template <typename LT, bool IDS>
 const void* pick_bucket_lt(int qt, int packed4, int global) {
   if (global) {
-    return packed4 ? pick_bucket_qt<true, LT, true>(qt)
-                   : pick_bucket_qt<false, LT, true>(qt);
+    return packed4 ? pick_bucket_qt<true, LT, true, IDS>(qt)
+                   : pick_bucket_qt<false, LT, true, IDS>(qt);
   }
-  return packed4 ? pick_bucket_qt<true, LT, false>(qt)
-                 : pick_bucket_qt<false, LT, false>(qt);
+  return packed4 ? pick_bucket_qt<true, LT, false, IDS>(qt)
+                 : pick_bucket_qt<false, LT, false, IDS>(qt);
 }
 
-const void* pick_bucket(int qt, int packed4, int lut_dtype, int global) {
-  if (lut_dtype == kLutF32) return pick_bucket_lt<float>(qt, packed4, global);
-  if (lut_dtype == kLutBF16) return pick_bucket_lt<__nv_bfloat16>(qt, packed4, global);
+template <typename LT>
+const void* pick_bucket_ids(int qt, int packed4, int global, int ids) {
+  return ids ? pick_bucket_lt<LT, true>(qt, packed4, global)
+             : pick_bucket_lt<LT, false>(qt, packed4, global);
+}
+
+const void* pick_bucket(int qt, int packed4, int lut_dtype, int global, int ids) {
+  if (lut_dtype == kLutF32) return pick_bucket_ids<float>(qt, packed4, global, ids);
+  if (lut_dtype == kLutBF16) {
+    return pick_bucket_ids<__nv_bfloat16>(qt, packed4, global, ids);
+  }
   return nullptr;
 }
 
@@ -464,7 +475,7 @@ int mvt_adc_bucket_topk(const void* lut, int lut_dtype, const uint8_t* codes,
                         int* tmp_i, float* out_s, int* out_i, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nb < 1 || ngroups < 1 || ngroups > nb) return cudaErrorInvalidValue;
-  const void* fn = pick_bucket(qt, packed4, lut_dtype, lists_global);
+  const void* fn = pick_bucket(qt, packed4, lut_dtype, lists_global, ids != nullptr);
   const int gw = (nb + 31) / 32;
   const size_t smem = bucket_smem_for(qt, lut_dtype, m * ksub, lists_global ? 0 : k, gw);
   cudaError_t err = prepare_bucket(fn, smem);
@@ -486,11 +497,13 @@ int mvt_adc_bucket_topk(const void* lut, int lut_dtype, const uint8_t* codes,
 }
 
 // Bucket-scan blocks that fit on one SM at once with lists of smem_k
-// entries in shared memory (0: in device memory) and gw words of bucket
-// bits, written to *blocks_per_sm; returns the cudaError_t.
+// entries in shared memory (0: in device memory), gw words of bucket bits
+// and a layout with row ids (ids) or without, written to *blocks_per_sm;
+// returns the cudaError_t.
 int mvt_adc_bucket_occupancy(int lut_dtype, int packed4, int qt, int m,
-                             int ksub, int smem_k, int gw, int* blocks_per_sm) {
-  const void* fn = pick_bucket(qt, packed4, lut_dtype, smem_k == 0);
+                             int ksub, int smem_k, int gw, int ids,
+                             int* blocks_per_sm) {
+  const void* fn = pick_bucket(qt, packed4, lut_dtype, smem_k == 0, ids);
   const size_t smem = bucket_smem_for(qt, lut_dtype, m * ksub, smem_k, gw);
   const cudaError_t err = prepare_bucket(fn, smem);
   if (err != cudaSuccess) return err;

@@ -1,7 +1,9 @@
-// Fused distance + top-k over an int8 corpus with int8 queries, for Hopper
-// (sm_90a): exact integer dots on the tensor cores.
+// Fused distance + top-k in one pass on the tensor cores, for Hopper
+// (sm_90a): int8 queries over an int8 corpus (exact integer dots), or bf16
+// queries over a bf16 corpus (exact products summed in f32). One kernel
+// body serves both, templated on its operand (S8Op, Bf16Op below).
 //
-// Replaces the integer path of the Pallas kernel
+// int8 replaces the integer path of the Pallas kernel
 // metrovector_tpu/ops/topk_kernel.py::fused_topk (`_make_kernel`,
 // `int_path`: :610-614, the static scale :646-648, the uint8 offset bias
 // :649-654, the deferred-scale inner product :696-705 and :722-736, chosen
@@ -20,7 +22,19 @@
 //   and only the k outputs are multiplied by scale, so of two raw dots that
 //   round to one scaled value the higher stays first.
 //
-// What bounds it on an H100: the corpus, one byte an element. At deep10m
+// bf16 replaces the single-pass branch of the same kernel (the dot_general
+// of :638-644 at precision "default", `_PRECISIONS` :550-557), which the
+// reference runs for every BFLOAT16 space and for f32 spaces at "default"
+// (bf16 storage, queries cast to bf16): dot(q, x) = sum_d q_d x_d, each
+// product exact in f32, summed in f32; the scores as above with scale 1,
+// no bias and no deferred mode. The FFMA kernel (topk_kernel.cu) ran this
+// branch before, issue-bound on the CUDA cores; its exact f32 products are
+// the tensor cores' for bf16 operands, so nothing of the contract is lost
+// (unlike at "highest", whose f32 operands bf16 cannot hold). Its bound at
+// 1M x 128, batch 256: 256 MB of rows + 4 MB of norms, 0.078 ms at 3.35
+// TB/s, against 6.6e10 operations, 0.066 ms at 989 TFLOP/s.
+//
+// What bounds the int8 scan on an H100: the corpus, one byte an element. At deep10m
 // (10M x 96 codes, batch 128) that is 0.96 GB, 0.29 ms at 3.35 TB/s,
 // against 2 Q N D = 0.25 T integer operations, 0.12 ms at the 1,979 TOPS
 // dense int8 rate. So the scan has about one instruction issue per score
@@ -31,18 +45,21 @@
 // (wgmma_scan.cuh has the pipeline):
 //
 // * One block per split of rows, a tile of QB = 2 NW queries (NW in 16,
-//   32, 64, 128: the whole batch up to 256 in one pass over the rows, from
-//   ops/topk_kernel.py::_int_shape). TMA loads each stage, 64 rows x 128
-//   bytes of dims, with the 128-byte swizzle that wgmma reads. The tensor
-//   map's inner extent is D, so TMA reads D bytes a row and fills the rest
-//   of the 128 with zeros: rows stored padded (the engine's blocks are 128
-//   bytes a row for D = 96; `ldb` is their stride) cost D bytes, and any D
-//   takes the same kernel. The queries' map is [nq, D] too, zeros past D
-//   and past nq. Where all chunks of QB queries fit (`resident`) they load
-//   once; else each stage carries its chunk of them.
-// * wgmma.m64nNk32.s32.s8.s8, rows as A (M = 64) and a consumer
-//   warpgroup's NW queries as B, both from shared memory. The int32 sums
-//   are exact for D < 2^17 (the wrapper checks).
+//   32, 64, 128: the whole batch up to 256 in one pass over the rows, one
+//   set of accumulators, from ops/topk_kernel.py::_int_shape). TMA loads
+//   each stage, 64 rows x 128 bytes of dims (128 int8 or 64 bf16), with
+//   the 128-byte swizzle that wgmma reads. The tensor map's inner extent
+//   is D, so TMA reads D values a row and fills the rest of the 128 bytes
+//   with zeros: rows stored padded (the engine's blocks are 128 bytes a row
+//   for int8 D = 96; `ldb` is their stride) cost D values, and any D takes
+//   the same kernel. The queries' map is [nq, D] too, zeros past D and past
+//   nq (the wrapper rounds f32 queries to bf16 once). Where all chunks of
+//   QB queries fit (`resident`) they load once; else each stage carries its
+//   chunk of them.
+// * wgmma.m64nNk32.s32.s8.s8 or wgmma.m64nNk16.f32.bf16.bf16, rows as A (M
+//   = 64) and a consumer warpgroup's NW queries as B, both from shared
+//   memory: four k steps of 32 bytes a stage. The int32 sums are exact for
+//   D < 2^17 (the wrapper checks).
 // * The epilogue. In deferred mode each raw int32 dot is compared with an
 //   int32 bar, the least dot whose f32 rounding reaches the query's bar
 //   (int_bar): one integer compare a score, no float work until a row
@@ -72,7 +89,7 @@
 
 namespace {
 
-constexpr int kChunk = 128;                     // dims (bytes) a stage
+constexpr int kChunk = 128;                     // bytes of a row in a stage
 constexpr int kRowTile = kScanRows * kChunk;    // bytes of a stage's rows
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };  // DistanceMetric values
@@ -83,6 +100,45 @@ __host__ __device__ constexpr int stage_bytes(int qb, int resident) {
 __host__ __device__ constexpr int q_bytes(int qb, int nch, int resident) {
   return resident ? nch * qb * kChunk : 0;
 }
+
+// The operands of a scan: the accumulator type, the values in a stage's
+// 128 bytes, the tensor maps' element type, the k step of 32 bytes, and
+// what the f32 epilogue reads from an accumulator (`dot`) and keeps in it
+// (`keep`, read back by `score`).
+struct S8Op {
+  using Acc = int;
+  static constexpr bool kInt = true;
+  static constexpr int kDims = kChunk;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  template <int NW>
+  static __device__ __forceinline__ void mma(int (&acc)[NW / 2], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    WgmmaS8<NW>::mma(acc, a, b, scale_d);
+  }
+  static __device__ __forceinline__ float dot(int a, float scale) {
+    return __fmul_rn(__int2float_rn(a), scale);
+  }
+  static __device__ __forceinline__ int keep(float s) { return __float_as_int(s); }
+  // In deferred mode the accumulator still holds the raw dot.
+  static __device__ __forceinline__ float score(int a, int defer) {
+    return defer ? __int2float_rn(a) : __int_as_float(a);
+  }
+};
+
+struct Bf16Op {
+  using Acc = float;
+  static constexpr bool kInt = false;
+  static constexpr int kDims = kChunk / 2;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  template <int NW>
+  static __device__ __forceinline__ void mma(float (&acc)[NW / 2], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    WgmmaBf16SS<NW>::mma(acc, a, b, scale_d);
+  }
+  static __device__ __forceinline__ float dot(float a, float) { return a; }  // no scale
+  static __device__ __forceinline__ float keep(float s) { return s; }
+  static __device__ __forceinline__ float score(float a, int) { return a; }
+};
 
 // The compare pass of the deferred form: bit i where element i's raw dot
 // reaches its query's int32 bar and its row scores (live bit h).
@@ -117,10 +173,11 @@ struct F {
 };
 
 // The compare pass of the f32 forms: element i's score, each step rounded
-// (f32(dot) * scale, + bias_scale * bias_row, the metric), replaces the dot
-// in acc (as f32 bits); bit i where it reaches its query's bar.
-template <int NW, int METRIC, bool BIAS>
-__device__ __forceinline__ unsigned long long float_pass(int (&acc)[NW / 2],
+// (f32(dot) * scale for int8, + bias_scale * bias_row, the metric),
+// replaces the dot in acc (Op::keep); bit i where it reaches its query's
+// bar.
+template <class Op, int NW, int METRIC, bool BIAS>
+__device__ __forceinline__ unsigned long long float_pass(typename Op::Acc (&acc)[NW / 2],
                                                          const F& f) {
   unsigned long long pass = 0;
 #pragma unroll
@@ -131,14 +188,14 @@ __device__ __forceinline__ unsigned long long float_pass(int (&acc)[NW / 2],
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * j + 2 * h + e;
-        float sv = __fmul_rn(__int2float_rn(acc[i]), f.scale);
+        float sv = Op::dot(acc[i], f.scale);
         if (BIAS) sv = __fadd_rn(sv, f.badd[h]);
         if (METRIC == kL2) {
           sv = __fsub_rn(__fmul_rn(2.0f, sv), f.nrm[h]);
         } else if (METRIC == kCosine) {
           sv = __fmul_rn(sv, f.inv[h]);
         }
-        acc[i] = __float_as_int(sv);
+        acc[i] = Op::keep(sv);
         if ((f.live >> h) & 1u) {
           pass |= static_cast<unsigned long long>(sv >= (e ? b2.y : b2.x)) << i;
         }
@@ -148,9 +205,19 @@ __device__ __forceinline__ unsigned long long float_pass(int (&acc)[NW / 2],
   return pass;
 }
 
-template <int NW>
+// float_pass with or without the bias term (int8 only: bf16 has none).
+template <class Op, int NW, int METRIC>
+__device__ __forceinline__ unsigned long long metric_pass(typename Op::Acc (&acc)[NW / 2],
+                                                          const F& f, bool bias) {
+  if constexpr (Op::kInt) {
+    if (bias) return float_pass<Op, NW, METRIC, true>(acc, f);
+  }
+  return float_pass<Op, NW, METRIC, false>(acc, f);
+}
+
+template <class Op, int NW>
 __global__ void __launch_bounds__(kScanThreads, 1)
-    int_scan_kernel(const __grid_constant__ CUtensorMap qmap,
+    scan_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap rmap,
                     const float* __restrict__ norms,
                     const float* __restrict__ mask,
@@ -198,7 +265,7 @@ __global__ void __launch_bounds__(kScanThreads, 1)
       if (resident) {
         mbar_expect_tx(sm.qbar, q_bytes(QB, nch, 1));
         for (int c = 0; c < nch; ++c) {
-          tma_load_2d(sm.qres + c * QB * kChunk, &qmap, sm.qbar, c * kChunk,
+          tma_load_2d(sm.qres + c * QB * kChunk, &qmap, sm.qbar, c * Op::kDims,
                       static_cast<int>(q0));
         }
       }
@@ -209,9 +276,9 @@ __global__ void __launch_bounds__(kScanThreads, 1)
           mbar_wait(sm.empty + s, static_cast<unsigned>((step / stages) & 1) ^ 1u);
           unsigned char* st = sm.ring + static_cast<size_t>(s) * sb;
           mbar_expect_tx(sm.full + s, sb);
-          tma_load_2d(st, &rmap, sm.full + s, c * kChunk, row_begin + t * kScanRows);
+          tma_load_2d(st, &rmap, sm.full + s, c * Op::kDims, row_begin + t * kScanRows);
           if (!resident) {
-            tma_load_2d(st + kRowTile, &qmap, sm.full + s, c * kChunk,
+            tma_load_2d(st + kRowTile, &qmap, sm.full + s, c * Op::kDims,
                         static_cast<int>(q0));
           }
         }
@@ -252,7 +319,7 @@ __global__ void __launch_bounds__(kScanThreads, 1)
   // 16 warp + g and r_lo + 8 with queries 8 j + 2 t + e: acc[4 j + 2 h + e].
   const int r_lo = 16 * warp + (lane >> 2);
   const int qoff = wg * NW * kChunk;  // the warpgroup's queries in a chunk
-  int acc[NW / 2];
+  typename Op::Acc acc[NW / 2];
   int64_t step = 0;
   for (int t = 0; t < tiles; ++t) {
     const int t0 = row_begin + t * kScanRows;
@@ -279,8 +346,8 @@ __global__ void __launch_bounds__(kScanThreads, 1)
       fence_regs(acc);
 #pragma unroll
       for (int kk = 0; kk < kChunk / 32; ++kk) {
-        WgmmaS8<NW>::mma(acc, smem_desc(st + 32 * kk, kChunk),
-                         smem_desc(qs + 32 * kk, kChunk), (c | kk) != 0);
+        Op::template mma<NW>(acc, smem_desc(st + 32 * kk, kChunk),
+                             smem_desc(qs + 32 * kk, kChunk), (c | kk) != 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -292,10 +359,13 @@ __global__ void __launch_bounds__(kScanThreads, 1)
     // Epilogue and masks: the compare pass (in deferred mode the raw dot
     // against the int32 bar, else the contract's f32 steps, the scores
     // kept in acc, against the float bar), then the offers of what passed.
-    unsigned long long pass;
-    if (defer) {
-      pass = defer_pass<NW>(acc, S.thr, lane, live);
-    } else {
+    unsigned long long pass = 0;
+    bool deferred = false;
+    if constexpr (Op::kInt) {
+      deferred = defer;
+      if (defer) pass = defer_pass<NW>(acc, S.thr, lane, live);
+    }
+    if (!deferred) {
       float inv[2], badd[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -304,17 +374,13 @@ __global__ void __launch_bounds__(kScanThreads, 1)
       }
       const F f{S.thr, lane, live, scale, {badd[0], badd[1]}, {nrm[0], nrm[1]},
                 {inv[0], inv[1]}};
-      if (metric == kL2) {
-        pass = bias ? float_pass<NW, kL2, true>(acc, f) : float_pass<NW, kL2, false>(acc, f);
-      } else if (metric == kCosine) {
-        pass = bias ? float_pass<NW, kCosine, true>(acc, f)
-                    : float_pass<NW, kCosine, false>(acc, f);
-      } else {
-        pass = bias ? float_pass<NW, kIP, true>(acc, f) : float_pass<NW, kIP, false>(acc, f);
-      }
+      const bool b = bias != nullptr;
+      pass = metric == kL2      ? metric_pass<Op, NW, kL2>(acc, f, b)
+             : metric == kCosine ? metric_pass<Op, NW, kCosine>(acc, f, b)
+                                 : metric_pass<Op, NW, kIP>(acc, f, b);
     }
     sel_epilogue<NW>(S, pass, warp, lane, t0 + r_lo, bar_id, [&](int i) {
-      return defer ? __int2float_rn(acc[i]) : __int_as_float(acc[i]);
+      return Op::score(acc[i], deferred);
     });
   }
   sel_finish(S, tw, bar_id);
@@ -327,18 +393,19 @@ __global__ void __launch_bounds__(256)
   if (e < count) out[e] = __fmul_rn(out[e], scale);
 }
 
-const void* int_kernel(int nw) {
+template <class Op>
+const void* kernel(int nw) {
   switch (nw) {
-    case 16: return reinterpret_cast<const void*>(int_scan_kernel<16>);
-    case 32: return reinterpret_cast<const void*>(int_scan_kernel<32>);
-    case 64: return reinterpret_cast<const void*>(int_scan_kernel<64>);
-    case 128: return reinterpret_cast<const void*>(int_scan_kernel<128>);
+    case 16: return reinterpret_cast<const void*>(scan_kernel<Op, 16>);
+    case 32: return reinterpret_cast<const void*>(scan_kernel<Op, 32>);
+    case 64: return reinterpret_cast<const void*>(scan_kernel<Op, 64>);
+    case 128: return reinterpret_cast<const void*>(scan_kernel<Op, 128>);
     default: return nullptr;
   }
 }
 
-Variant variant(int nw, int nch, int stages, int resident, int k_smem) {
-  return Variant{int_kernel(nw),
+Variant variant(int bf16, int nw, int nch, int stages, int resident, int k_smem) {
+  return Variant{bf16 ? kernel<Bf16Op>(nw) : kernel<S8Op>(nw),
                  scan_smem(stage_bytes(2 * nw, resident), stages,
                            q_bytes(2 * nw, nch, resident), nw, k_smem)};
 }
@@ -348,10 +415,11 @@ Variant variant(int nw, int nch, int stages, int resident, int k_smem) {
 extern "C" {
 
 // Launch the scan, the merge and (defer, unless raw) the scale on `stream`.
-// Returns the cudaError_t of the launches (0 on success). q is [nq][qstride] int8 and
-// db [n][ldb] int8, of which the first d of a row are read; both base
-// addresses and strides are multiples of 16 bytes. `mask` and `bias` may be
-// null. The tile takes 2 nw queries (nw in 16, 32, 64, 128) and a ring of
+// Returns the cudaError_t of the launches (0 on success). q is [nq][qstride]
+// and db [n][ldb], int8 or (bf16) bf16, strides in values, of which the
+// first d of a row are read; both base addresses and row strides are
+// multiples of 16 bytes. `mask` and `bias` may be null; bf16 takes neither
+// `bias` nor `scale` nor `defer`. The tile takes 2 nw queries (nw in 16, 32, 64, 128) and a ring of
 // `stages` stages; `resident`: the tile's queries load once. With `big` the
 // lists live in part_*, allocated as [nq, splits, list_len]; else in shared
 // memory, part_* as [nq, splits, k] (list_len = k). With `tree` (always
@@ -361,7 +429,7 @@ extern "C" {
 // group bars, select.cuh). out_* are [nq, k]. The seed and excl as for
 // mvt_fused_topk (part_* then hold splits + nseed lists); in deferred mode
 // its scores are raw dots, as the scan ranks them.
-int mvt_fused_topk_int(const int8_t* q, int64_t qstride, const int8_t* db,
+int mvt_fused_topk_int(int bf16, const void* q, int64_t qstride, const void* db,
                        int64_t ldb, const float* norms, const float* mask,
                        const float* bias, float scale, float bias_scale,
                        int defer, int64_t nq, int64_t n, int64_t d,
@@ -374,17 +442,20 @@ int mvt_fused_topk_int(const int8_t* q, int64_t qstride, const int8_t* db,
                        int excl, int raw, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int kl = big ? list_len : k;
-  int nch = static_cast<int>((d + kChunk - 1) / kChunk);
-  const Variant v = variant(nw, nch, stages, resident, big ? 0 : kl);
+  const int dims = bf16 ? Bf16Op::kDims : S8Op::kDims;  // a stage's values
+  const int vb = kChunk / dims;                          // bytes a value
+  int nch = static_cast<int>((d + dims - 1) / dims);
+  const Variant v = variant(bf16, nw, nch, stages, resident, big ? 0 : kl);
   cudaError_t err = prepare(v);
   if (err != cudaSuccess) return err;
   const int qb = 2 * nw;
+  const CUtensorMapDataType type = bf16 ? Bf16Op::kType : S8Op::kType;
   CUtensorMap qmap, rmap;
-  err = tensor_map_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, d, nq, qstride, kChunk,
-                      qb, CU_TENSOR_MAP_SWIZZLE_128B);
+  err = tensor_map_2d(&qmap, type, q, d, nq, vb * qstride, dims, qb,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  err = tensor_map_2d(&rmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, db, d, n, ldb, kChunk,
-                      kScanRows, CU_TENSOR_MAP_SWIZZLE_128B);
+  err = tensor_map_2d(&rmap, type, db, d, n, vb * ldb, dims, kScanRows,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   int lists = splits + (seed_s != nullptr ? nseed : 0);
   err = seed_lists(seed_s, seed_i, kseed, seed_mul, nq, lists, splits, kl, part_s,
@@ -417,17 +488,17 @@ int mvt_fused_topk_int(const int8_t* q, int64_t qstride, const int8_t* db,
 // Scan blocks of this shape that fit on one SM at once, written to
 // *blocks_per_sm (k_smem: the lists' length, in shared memory unless big);
 // returns the cudaError_t.
-int mvt_fused_topk_int_occupancy(int nw, int nch, int stages, int resident,
+int mvt_fused_topk_int_occupancy(int bf16, int nw, int nch, int stages, int resident,
                                  int k_smem, int big, int* blocks_per_sm) {
-  return occupancy(variant(nw, nch, stages, resident, big ? 0 : k_smem), kScanThreads,
-                   blocks_per_sm);
+  return occupancy(variant(bf16, nw, nch, stages, resident, big ? 0 : k_smem),
+                   kScanThreads, blocks_per_sm);
 }
 
-// Dynamic shared memory of a scan block of this shape, for the wrapper's
-// plan (ops/topk_kernel.py::_int_shape mirrors it).
+// Dynamic shared memory of a scan block of this shape, either operand, for
+// the wrapper's plan (ops/topk_kernel.py::_int_shape mirrors it).
 long long mvt_fused_topk_int_smem(int nw, int nch, int stages, int resident,
                                   int k_smem) {
-  return static_cast<long long>(variant(nw, nch, stages, resident, k_smem).smem);
+  return static_cast<long long>(variant(0, nw, nch, stages, resident, k_smem).smem);
 }
 
 }  // extern "C"

@@ -1,25 +1,29 @@
 """Fused distance + top-k: the wrappers of the Hopper kernels
-``csrc/topk_kernel.cu`` (precision ``"highest"``: f32 FFMA, also over int8
-codes dequantized as they are staged, ``affine``),
-``csrc/topk_high_kernel.cu`` (``"high"``: the bf16x3 split on the tensor
-cores) and ``csrc/topk_int_kernel.cu`` (int8 queries over an int8 corpus:
-exact integer dots on the tensor cores), and their plain PyTorch versions.
+``csrc/topk_kernel.cu`` (precision ``"highest"``: f32 FFMA over an f32, f16
+or bf16 corpus, also over int8 codes dequantized as they are staged,
+``affine``), ``csrc/topk_high_kernel.cu`` (``"high"``: the bf16x3 split on
+the tensor cores) and ``csrc/topk_int_kernel.cu`` (one pass on the tensor
+cores: int8 queries over an int8 corpus, exact integer dots; or, at
+``"default"``, bf16 queries over a bf16 corpus, exact products summed in
+f32), and their plain PyTorch versions.
+:func:`kernel_precision` names the precision that scans a space of a given
+dtype.
 
 Replaces ``metrovector_tpu/ops/topk_kernel.py::fused_topk`` and
 ``fused_topk_presampled``. A CUDA tensor goes to a kernel or the call
 raises; a CPU tensor goes to :func:`fused_topk_reference`.
 ``fused_topk.launches`` counts launches of the FFMA kernel over a float
 corpus, ``launches_affine`` over an affine int8 one, ``launches_high`` those
-of the bf16x3 kernel and ``launches_int`` those of the integer kernel (the
-passes of one call count once), ``launches_presampled`` the two-phase calls
-of :func:`fused_topk_presampled` (each of whose phases also counts on its
+of the bf16x3 kernel, ``launches_int`` those of the one-pass kernel over
+int8 and ``launches_bf16`` over bf16 (the passes of one call count once), ``launches_presampled`` the two-phase calls of
+:func:`fused_topk_presampled` (each of whose phases also counts on its
 route), so a run can show that its main path went through them.
 
 A seed (``seed_s``, ``seed_i``: the exact top-k of rows the scan leaves out,
 ``exclude_stride`` or a mask) starts every split's bar at the key of its
 k-th entry and enters the final merge once, as lists of its own
 (``csrc/select.cuh``'s ``seed_floor`` and ``seed_lists_kernel``), on all
-three kernels.
+four kernels.
 
 Like the TPU kernel it takes any ``1 ≤ k ≤ N`` and any D: above k = 256 the
 per-split lists move from shared memory into device memory and a merge
@@ -38,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..format.constants import DistanceMetric
+from ..format.constants import DataType, DistanceMetric
 
 from . import select
 from .grid import check_grid, wave_blocks
@@ -74,7 +78,7 @@ INT_NW, INT_CHUNK, INT_MAX_STAGES = (16, 32, 64, 128), 128, 8
 # split queries (128 bytes a query); tiles of up to 128 queries.
 HIGH_NW, HIGH_CHUNK, HIGH_MAX_STAGES = (16, 32, 64), 32, 6
 INT_MAX_D = 2**17  # int32 dots of int8 stay exact below this D
-_PRECISIONS = ("highest", "high")
+_PRECISIONS = ("highest", "high", "default")
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _AFFINE_CODE = 3  # an int8 corpus read as (c + off) * scale
@@ -105,7 +109,10 @@ def fused_topk_reference(
     :func:`~.distances.exact_topk` with the kernel's cosine epilogue, which
     takes queries as already normalized. At ``"high"`` the dots are
     :func:`~.distances.bf16x3_dots`: the kernel's products exactly, summed
-    in another order. int8 queries: :func:`~.distances.exact_topk_int`;
+    in another order; at ``"default"`` the queries are rounded to bf16
+    (:func:`bf16_queries`) and the dots are exact f32 matmuls of the bf16
+    values, the kernel's products summed in another order. int8 queries:
+    :func:`~.distances.exact_topk_int`;
     ``affine``: the int8 corpus dequantized a block at a time. The rows
     ``r % exclude_stride == 0`` are masked out of the scan, and the seed is
     merged with the scan's k best by (score descending, row ascending); in
@@ -125,6 +132,8 @@ def fused_topk_reference(
                               bias_row=bias_row, bias_scale=bias_scale,
                               raw_scores=True)
     else:
+        if precision == "default":
+            queries = bf16_queries(queries)
         inv_q = None
         if metric == DistanceMetric.COSINE:
             inv_q = torch.ones(queries.shape[0], device=queries.device)
@@ -136,6 +145,32 @@ def fused_topk_reference(
     if defer and not raw_scores:
         s = s * f32_scalar(scale, s.device)
     return s, i
+
+
+def bf16_queries(queries: torch.Tensor) -> torch.Tensor:
+    """f32 ``queries`` rounded to bf16 (to nearest, ties to even) and held
+    as f32, as ``"default"`` scans them: the identity on values bf16 holds,
+    so a second rounding changes nothing."""
+    return queries.to(torch.bfloat16).float()
+
+
+def kernel_precision(dtype, precision: str) -> str:
+    """The :func:`fused_topk` precision that scans a space of ``dtype``
+    (:class:`~..format.constants.DataType`) searched at ``precision`` (the
+    engine's: ``"highest"``, ``"high"``, ``"high_verified"`` or
+    ``"default"``): ``"default"`` (the one-pass bf16 kernel) for a BFLOAT16
+    space at any precision and an f32 space at ``"default"`` (bf16 rows and
+    bf16-rounded queries), ``"high"`` for an f32 space at ``"high"`` or
+    ``"high_verified"``, else ``"highest"``. An f16 space at ``"default"``
+    stays at ``"highest"``: its rows are bf16 but its queries f32, which
+    bf16 cannot hold (the FFMA kernel reads them as they are)."""
+    dtype = DataType(dtype)
+    if dtype == DataType.BFLOAT16 or (dtype == DataType.FLOAT32
+                                      and precision == "default"):
+        return "default"
+    if dtype == DataType.FLOAT32 and precision in ("high", "high_verified"):
+        return "high"
+    return "highest"
 
 
 def merge_seed(s: torch.Tensor, i: torch.Tensor, seed_s: torch.Tensor,
@@ -225,11 +260,12 @@ def _scan_shape(nq: int, k: int, choices, max_stages: int, stage_of,
 
 
 @functools.lru_cache(maxsize=512)
-def _int_shape(nq: int, d: int, k: int) -> ScanShape:
-    """The integer scan's shape (csrc/topk_int_kernel.cu): a stage is 64 rows
-    of a 128-byte chunk (plus the tile's chunk of queries unless they are
-    resident, ``ceil(D / 128)`` chunks of ``2 nw`` queries)."""
-    nch = -(-d // INT_CHUNK)
+def _int_shape(nq: int, row_bytes: int, k: int) -> ScanShape:
+    """The one-pass scan's shape (csrc/topk_int_kernel.cu) over rows of
+    ``row_bytes`` (D for int8, 2 D for bf16): a stage is 64 rows of a
+    128-byte chunk (plus the tile's chunk of queries unless they are
+    resident, ``ceil(row_bytes / 128)`` chunks of ``2 nw`` queries)."""
+    nch = -(-row_bytes // INT_CHUNK)
     return _scan_shape(
         nq, k, INT_NW, INT_MAX_STAGES,
         lambda qb, resident: SCAN_ROWS * INT_CHUNK + (0 if resident else qb * INT_CHUNK),
@@ -265,6 +301,10 @@ def _check_precision(precision: str, db: torch.Tensor) -> None:
     if precision == "high" and db.dtype != torch.float32:
         raise ValueError(
             f"precision='high' splits an f32 corpus into bf16 halves; db is {db.dtype}"
+        )
+    if precision == "default" and db.dtype != torch.bfloat16:
+        raise ValueError(
+            f"precision='default' scans a bf16 corpus in one pass; db is {db.dtype}"
         )
 
 
@@ -325,7 +365,7 @@ def _check(queries, db, db_norms, k, valid_mask, bias_row=None,
     # subsample is every stride-th row), the integer one the queries' too;
     # the rest must be contiguous.
     strided = ({"queries", "db"} if queries.dtype == torch.int8
-               else {"db"} if precision == "high" else set())
+               else {"db"} if precision in ("high", "default") else set())
     for name, t in [("queries", queries)] + named:
         if not (t.stride(-1) == 1 if name in strided else t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous"
@@ -360,10 +400,14 @@ def fused_topk(
     f32, indices [Q, k] int32)`` by (score descending, index ascending);
     unfilled slots hold (−inf, −1). On CUDA ``1 ≤ k ≤ N``, any D.
 
-    ``precision``: ``"highest"`` (f32 dots, the FFMA kernel) or ``"high"``
+    ``precision``: ``"highest"`` (f32 dots, the FFMA kernel), ``"high"``
     (an f32 ``db`` only: the reference's in-kernel bf16x3 split,
     ``q_hi·x_hi + q_hi·x_lo + q_lo·x_hi`` with exact products and f32
-    sums, on the tensor cores).
+    sums, on the tensor cores) or ``"default"`` (a bf16 ``db`` only: the
+    reference's one-pass bf16 dot; the queries are rounded to bf16 once,
+    :func:`bf16_queries`, and the exact products summed in f32 on the
+    tensor cores). A bf16 ``db`` at ``"highest"`` keeps its f32 queries
+    and the FFMA kernel.
 
     The reference's integer path: int8 ``queries`` over an int8 ``db``
     (D < 2¹⁷), exact int32 dots rounded to f32, times ``scale``, plus
@@ -373,7 +417,8 @@ def fused_topk(
     (:func:`~.distances.deferred_scale`; ``raw_scores`` leaves them
     raw). There ``queries`` and ``db`` may be row-strided views
     (``stride(1) == 1``), such as the first D columns of padded blocks: the
-    kernel reads D bytes a row; so may ``db`` at ``"high"``. ``affine =
+    kernel reads D bytes a row; so may ``db`` at ``"high"`` and
+    ``"default"``. ``affine =
     (off, scale)``: f32 queries over an int8 ``db`` read as ``(c +
     off)·scale`` in f32 (the uint8 cosine space), by the FFMA kernel.
 
@@ -455,6 +500,11 @@ def _fused_topk_cuda(queries, db, db_norms, num_valid, k, metric, valid_mask,
                         deferred_scale(db, metric, bias_row, scale), out_s, out_i,
                         seed=seed, excl=excl, raw=raw_scores, grid=grid)
             fused_topk.launches_int += 1
+        elif precision == "default":  # the same scan over bf16 operands
+            _launch_int(lib, queries.to(torch.bfloat16), db, db_norms, valid_mask,
+                        None, num_valid, k, metric, 1.0, 0.0, False, out_s, out_i,
+                        seed=seed, excl=excl, grid=grid)
+            fused_topk.launches_bf16 += 1
         elif precision == "high":
             _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k,
                          metric, out_s, out_i, seed=seed, excl=excl, grid=grid)
@@ -479,7 +529,7 @@ def _subsample(queries, db, db_norms, num_valid, k, stride, precision,
     if sub is None:
         db_sub = db[::stride]
         if (queries.device.type == "cuda" and queries.dtype != torch.int8
-                and precision != "high"):
+                and precision == "highest"):
             db_sub = db_sub.contiguous()  # the FFMA kernel reads whole rows
         sub = (db_sub, db_norms[::stride].contiguous())
     db_sub, norms_sub = sub
@@ -515,7 +565,7 @@ def fused_topk_presampled(
 
     ``sub``: the pre-sliced ``(db[::stride], db_norms[::stride])``. Without
     it the subsample is ``db[::stride]`` as a strided view where the route
-    reads row strides (int8 queries; ``"high"``), else one contiguous copy
+    reads row strides (int8 queries; ``"high"``, ``"default"``), else one contiguous copy
     (the FFMA kernel). The arguments are :func:`fused_topk`'s; the
     reference's TPU knobs (``block_rows``, ``query_tile``, ``merge``,
     ``interpret``) have no counterpart here; ``grid`` goes to both phases.
@@ -673,28 +723,33 @@ def _launch_high(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
 def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
                 k, metric, scale, bias_scale, defer, out_s, out_i, seed=None,
                 excl=0, raw=False, grid=None) -> None:
-    """One launch of the integer scan, the merge and (``defer``, unless
+    """One launch of the one-pass scan, the merge and (``defer``, unless
     ``raw``) the scale for checked inputs into ``out_s``/``out_i``, with
     one wave of scan blocks (as :func:`_launch`) of the shape
-    :func:`_int_shape` picks. TMA reads the first D bytes of each row of
-    queries and corpus: each goes over as it is where its row stride and
-    base are 16-byte multiples (the engine's padded blocks), else as
-    :func:`_tma_rows`' copy. ``seed``, ``excl`` and ``grid`` as in
-    :func:`_launch`; in deferred mode the seed's scores are raw dots."""
+    :func:`_int_shape` picks. The operands are int8, or bf16 (queries
+    already rounded, no bias, scale 1, no ``defer``) as ``db`` is. TMA
+    reads the first D values of each row of queries and corpus: each goes
+    over as it is where its row stride and base are 16-byte multiples (the
+    engine's padded blocks), else as :func:`_tma_rows`' copy. ``seed``,
+    ``excl`` and ``grid`` as in :func:`_launch`; in deferred mode the
+    seed's scores are raw dots."""
     from ._build import raise_for
 
     nq, d = queries.shape
     n = db.shape[0]
     dev = queries.device
-    shape = _int_shape(nq, d, k)
+    bf16 = db.dtype == torch.bfloat16
+    what = "fused_topk[bf16]" if bf16 else "fused_topk[int8]"
+    row_bytes = d * db.element_size()
+    shape = _int_shape(nq, row_bytes, k)
     splits, rows_per_split, length, tree, part_s, part_i, tmp_s, tmp_i, slots, nseed = _plan(
         dev, nq, n, k, 0 if shape.big else k, (2 * shape.nw, SCAN_ROWS),
-        _occupancy(lib, lib.mvt_fused_topk_int_occupancy, "fused_topk[int8]",
-                   shape.nw, -(-d // INT_CHUNK), shape.stages, int(shape.resident)),
+        _occupancy(lib, lib.mvt_fused_topk_int_occupancy, what, int(bf16), shape.nw,
+                   -(-row_bytes // INT_CHUNK), shape.stages, int(shape.resident)),
         seed_k=0 if seed is None else seed[0].shape[1], grid=grid)
     queries, db = _tma_rows(queries), _tma_rows(db)
     err = lib.mvt_fused_topk_int(
-        queries.data_ptr(), queries.stride(0), db.data_ptr(), db.stride(0),
+        int(bf16), queries.data_ptr(), queries.stride(0), db.data_ptr(), db.stride(0),
         db_norms.data_ptr(),
         None if valid_mask is None else valid_mask.data_ptr(),
         None if bias_row is None else bias_row.data_ptr(),
@@ -707,7 +762,7 @@ def _launch_int(lib, queries, db, db_norms, valid_mask, bias_row, num_valid,
         out_s.data_ptr(), out_i.data_ptr(), *_seed_args(seed, nseed, excl), int(raw),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    raise_for(lib, err, "fused_topk[int8]")
+    raise_for(lib, err, what)
 
 
 def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
@@ -749,5 +804,6 @@ def _launch(lib, queries, db, db_norms, valid_mask, num_valid, k, metric,
 fused_topk.launches = 0
 fused_topk.launches_affine = 0
 fused_topk.launches_high = 0
+fused_topk.launches_bf16 = 0
 fused_topk.launches_int = 0
 fused_topk.launches_presampled = 0

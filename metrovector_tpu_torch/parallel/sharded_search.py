@@ -57,7 +57,7 @@ from ..ops.distances import (
     mask_scores,
 )
 from ..ops.gather_kernel import rescore_candidates
-from ..ops.topk_kernel import fused_topk
+from ..ops.topk_kernel import fused_topk, kernel_precision
 from ..utils.filters import checked_prepared_mask, padded_filter_plane
 from .mesh import (
     QUERY_AXIS,
@@ -94,9 +94,10 @@ def _rows_per(db, mesh: Mesh, axis: str) -> int:
 
 
 def _dense_lists(queries, db, norms, num_valid, k, metric, devices, first, mask,
-                 scale, bias_row, bias_scale, affine, defer):
-    """K1 over each shard's valid rows: ``[(s, i)]`` in shard order, each
-    ``min(k, per)`` wide with global rows (raw dots where ``defer``)."""
+                 scale, bias_row, bias_scale, affine, defer, precision="highest"):
+    """K1 over each shard's valid rows at ``precision``: ``[(s, i)]`` in
+    shard order, each ``min(k, per)`` wide with global rows (raw dots where
+    ``defer``)."""
     per = int(db[0].shape[0])
     kl = min(k, per)
     q_on = on_devices(queries, devices)
@@ -112,21 +113,25 @@ def _dense_lists(queries, db, norms, num_valid, k, metric, devices, first, mask,
             q_on[dev], db[j][:nv], norms[j][:nv], nv, min(kl, nv), metric,
             valid_mask=None if mask is None else mask[j][:nv], scale=scale,
             bias_row=None if bias_row is None else bias_row[j][:nv],
-            bias_scale=bias_scale, affine=affine, raw_scores=defer)
+            bias_scale=bias_scale, affine=affine, raw_scores=defer,
+            precision=precision)
         lists.append(pad_list(sc, torch.where(ix >= 0, ix + s * per, ix), kl))
     return lists
 
 
 def sharded_topk(queries, db, db_norms, num_valid: int, k: int, metric, mesh: Mesh,
                  valid_mask=None, axis: str = SHARD_AXIS, scale: float = 1.0,
-                 bias_row=None, bias_scale: float = 0.0, affine=None):
+                 bias_row=None, bias_scale: float = 0.0, affine=None,
+                 precision: str = "highest"):
     """Exact global top-k of ``queries [Q, D]`` over a row-sharded corpus:
     ``db`` ``[S·per, D]`` (shards or a whole array), its squared norms
     ``db_norms`` and the optional ``valid_mask`` and ``bias_row`` (f32,
     sharded the same way), ``num_valid`` the global logical row count.
     ``scale``, ``bias_row``/``bias_scale`` and ``affine`` are K1's
     (:func:`~..ops.topk_kernel.fused_topk`): int8 queries over an int8
-    corpus, the uint8 offset correction, the affine uint8 read. Returns
+    corpus, the uint8 offset correction, the affine uint8 read; so is
+    ``precision`` (``"default"``: a bf16 corpus scanned in one pass, as
+    :func:`~..ops.topk_kernel.kernel_precision` gives a BFLOAT16 space). Returns
     ``(scores [Q, k] f32, rows [Q, k] int32)`` on the mesh's lead device,
     best first, ties to the lowest global row, unfilled slots (−inf, −1);
     under a process group every rank gets the whole answer."""
@@ -142,7 +147,7 @@ def sharded_topk(queries, db, db_norms, num_valid: int, k: int, metric, mesh: Me
     defer = q_dtype == torch.int8 and deferred_scale(db[0], metric, bias, scale)
     lists = _dense_lists(queries, db, db_norms, num_valid, k, metric, devices,
                          mesh.first_shard(), mask, scale, bias, bias_scale, affine,
-                         defer)
+                         defer, precision)
     s, i = exchange_topk(lists, k, mesh)
     if defer:  # the raw dots' order was kept; scale as K1's epilogue does
         s = s * f32_scalar(scale, s.device)
@@ -353,8 +358,9 @@ class ShardedDeviceSpace:
     codes, uint8 codes recentred to ``c − 128`` slice by slice with their
     per-row code sums (zero past ``num_valid``), tombstones as a validity
     plane. :meth:`search` runs :func:`sharded_topk` on K1's route for the
-    dtype (FFMA; the integer kernel with the offset sums; the affine load
-    for uint8 cosine) and answers as the resident
+    dtype (FFMA; the one-pass bf16 kernel for BFLOAT16; the integer kernel
+    with the offset sums; the affine load for uint8 cosine) and answers as
+    the resident
     :class:`~..engine.SearchEngine` does."""
 
     def __init__(self, space, mesh: Mesh, axis: str = SHARD_AXIS):
@@ -440,6 +446,8 @@ class ShardedDeviceSpace:
                                 bias_scale=prep.bias_scale, **common)
         else:
             s, i = sharded_topk(prep.qdev, self.data, self.norms, self.num_valid, k_eff,
-                                self.metric, self.mesh, **common)
+                                self.metric, self.mesh,
+                                precision=kernel_precision(self.dtype, "highest"),
+                                **common)
         return host_result(s.cpu().numpy(), i.cpu().numpy(), prep, k, self.metric,
                            self.host_ids)

@@ -63,7 +63,7 @@ from ..engine import (
 from ..errors import InvalidVectorTypeError
 from ..format.constants import DataType, DistanceMetric, VectorType, sublane_multiple
 from ..ops.distances import deferred_scale, f32_scalar
-from ..ops.topk_kernel import fused_topk
+from ..ops.topk_kernel import fused_topk, kernel_precision
 from ..utils.filters import padded_filter_plane
 from .mesh import SHARD_AXIS, Mesh, exchange_topk, merge_topk, on_devices, unfilled
 from .sharded_search import local_valid
@@ -275,7 +275,8 @@ class StreamingSearcher:
                               valid_mask=msk, scale=prep.dot_scale,
                               bias_row=None if slot.bias_dev is None else slot.bias_dev[:n],
                               bias_scale=prep.bias_scale, raw_scores=defer)
-        return fused_topk(qdev, blk, nrm, n, kc, self.metric, valid_mask=msk)
+        return fused_topk(qdev, blk, nrm, n, kc, self.metric, valid_mask=msk,
+                          precision=kernel_precision(self.dtype, "highest"))
 
     def _prepare(self, queries, dev: torch.device):
         """The batch prepared as the resident engine prepares it, on ``dev``

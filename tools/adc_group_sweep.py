@@ -3,6 +3,7 @@
 row and the call with no bucket probed, on one NVIDIA GPU.
 
     python3 tools/adc_group_sweep.py [--out build/adc_group_sweep.json]
+        [--root DIR] [--default-only]
 
 Builds the port's kernels from this checkout, the bucket kernel at every
 query tile (``-DMVT_K2B_ALL_TILES``; the default build has the tile of 1
@@ -19,7 +20,15 @@ k = 10 (what the k = 400 selection costs); the plain scan of every row
 without the bias; and the default call with no bucket probed (the fixed
 cost of a launch). Times are device times
 (``device_ms``: the device waits until the host has queued every call)
-over distinct inputs after a warm-up. Imports nothing of JAX.
+over distinct inputs after a warm-up. Each row carries the blocks per SM
+the runtime's occupancy calculator gives its tile.
+
+``--root`` names the checkout whose ``metrovector_tpu_torch`` is built and
+timed (default: this one), so that two commits can be timed in one call on
+one card, a process each. ``--default-only`` is the comparison of two
+commits: the default build (the tile of 1) at ivfpq4's shape, batches 8
+and 256, its default call alone beside the scan of every row and the call
+with no bucket probed. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,10 +40,10 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 N, G, NPROBE, K, ITERS = 1_000_000, 1163, 16, 400, 10
 BATCHES = (1, 8, 32, 256)
+DEFAULT_ONLY_BATCHES = (8, 256)
 SPLITS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
@@ -53,7 +62,7 @@ def _layout(torch, ak, stored, rn, gids, dev):
     return bc, bi, bn, counts.to(torch.int32).contiguous()
 
 
-def sweep(torch, lib, dev, device_ms) -> list[dict]:
+def sweep(torch, lib, dev, device_ms, default_only=False) -> list[dict]:
     from metrovector_tpu_torch import DistanceMetric
     from metrovector_tpu_torch.ops import adc_kernel as ak
 
@@ -63,6 +72,8 @@ def sweep(torch, lib, dev, device_ms) -> list[dict]:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for name, m, ksub, packed in (("ivfpq4", 32, 16, True), ("ivfpq", 16, 256, False)):
+        if default_only and name != "ivfpq4":
+            continue
         codes = torch.randint(0, ksub, (N, m), generator=g, device=dev, dtype=torch.uint8)
         stored = (codes[:, 0::2] | (codes[:, 1::2] << 4)).contiguous() if packed else codes
         books = torch.randint(0, 8, (m, ksub, 4), generator=g, device=dev).float()
@@ -72,7 +83,7 @@ def sweep(torch, lib, dev, device_ms) -> list[dict]:
         buckets = _layout(torch, ak, stored, rn, gids, dev)
         layout = ak._bucket_layout(buckets)
         gw = ak._group_words(G)
-        for nq in BATCHES:
+        for nq in DEFAULT_ONLY_BATCHES if default_only else BATCHES:
             qs, biases = [], []
             for _ in range(ITERS):
                 qs.append(torch.randint(0, 8, (nq, m * 4), generator=g, device=dev).float())
@@ -84,8 +95,9 @@ def sweep(torch, lib, dev, device_ms) -> list[dict]:
             for exact in (False, True):
                 luts = [ak.adc_lut(q, books, exact) for q in qs]
                 gbs = [ak.lut_bias(b, exact) for b in biases]
+                tiles = (ak.BUCKET_QT,) if default_only else ak._QUERY_TILES
                 occ = dict(ak._occupancy(dev.index, int(not exact), int(packed), m, ksub,
-                                         K, True, gw))
+                                         K, True, gw, tiles))
                 default_qt = ak.BUCKET_QT
                 default_splits = ak.bucket_splits(nq, default_qt, sms * occ[default_qt],
                                                   K, True)
@@ -93,7 +105,9 @@ def sweep(torch, lib, dev, device_ms) -> list[dict]:
                 points = [(qt, s_, ak.bucket_merge_by_tree(s_, K, True)) for qt, s_ in (
                     (qt, ak.bucket_splits(nq, qt, sms * max(1, occ[qt]), K, True))
                     for qt in sorted(occ))]
-                if not exact:  # the default tile at other split counts, both merges
+                if default_only:
+                    points = [(default_qt, default_splits, default_tree)]
+                elif not exact:  # the default tile at other split counts, both merges
                     points += [(default_qt, s_, t_) for s_ in SPLITS for t_ in (False, True)
                                if (s_, t_) != (default_splits, default_tree)]
                 for qt, splits, tree in points:
@@ -119,7 +133,7 @@ def sweep(torch, lib, dev, device_ms) -> list[dict]:
                           f"{', default' if row['default'] else ''}): "
                           f"bucket kernel {row['bucket_ms']:.4f} ms", flush=True)
 
-                if not exact:  # the selection's share: the default call at k = 10
+                if not exact and not default_only:  # the selection's share at k = 10
                     def k10(i):
                         return ak.fused_adc_topk(qs[i], stored, books, rn, N, 10, l2, valid,
                                                  exact, packed, biases[i], gids,
@@ -156,7 +170,11 @@ def sweep(torch, lib, dev, device_ms) -> list[dict]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/adc_group_sweep.json")
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--default-only", action="store_true")
     args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
     import torch
 
     if not torch.cuda.is_available():
@@ -165,14 +183,19 @@ def main() -> int:
     from metrovector_tpu_torch.ops import _build
     from metrovector_tpu_torch.utils.timing import device_ms
 
-    _build.NVCC_FLAGS.append("-DMVT_K2B_ALL_TILES")  # every query tile
+    if not _build.CSRC.is_relative_to(root):
+        print(f"metrovector_tpu_torch came from {_build.CSRC}, not {root}", file=sys.stderr)
+        return 1
+    if not args.default_only:
+        _build.NVCC_FLAGS.append("-DMVT_K2B_ALL_TILES")  # every query tile
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     lib = _build.load()
-    result = {"card": card, "rows": sweep(torch, lib, torch.device("cuda", 0), device_ms)}
+    result = {"card": card, "root": root, "rows": sweep(
+        torch, lib, torch.device("cuda", 0), device_ms, args.default_only)}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

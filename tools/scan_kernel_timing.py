@@ -3,7 +3,8 @@
 NVIDIA GPU, on inputs made on the card from fixed seeds.
 
     python3 tools/scan_kernel_timing.py [--root DIR] [--define FLAG ...]
-                                        [--profile] [--kernels k1,k1v,k2,k2i8,k3,k4]
+                                        [--profile]
+                                        [--kernels k1,k1v,k1bf16,k2,k2i8,k3,k4]
                                         [--files DIR] [--turns DIR] [--out FILE]
 
 ``--root`` names the checkout whose ``metrovector_tpu_torch`` is imported
@@ -21,8 +22,8 @@ Points (the kernels-line points of ``chip_smoke.py``):
   256, 128 and 32 at k=10, batch 32 at k=100; beside it one ``torch.mm`` of
   the batch-256 product in full f32 (TF32 off), a yardstick for the scan
   alone (it selects nothing);
-* K1's tensor-core variants (``k1v``, kernels ``int_scan_kernel`` and
-  ``high_scan_kernel``, the latter after ``split_queries_kernel``): the
+* K1's tensor-core variants (``k1v``, kernels ``scan_kernel<S8Op, NW>``
+  and ``high_scan_kernel``, the latter after ``split_queries_kernel``): the
   integer scan over 10M random int8 rows of 96 codes stored 128 bytes a
   row (``deep10m``'s shape: inner product, deferred scale 0.02, k=10) at
   batches 128 and 32, beside ``torch._int_mm`` of the batch-128 product
@@ -31,6 +32,13 @@ Points (the kernels-line points of ``chip_smoke.py``):
   ``bias_row``) at batch 256; the bf16x3 scan over 1M x 960 N(0, 1) rows
   (``gist1m``'s: cosine, unit queries, k=18) at batches 256 and 64, and
   over the K1 corpus at batch 32, k=10, beside K1 ``highest`` there;
+* K1 over bf16 rows (``k1bf16``): the K1 corpus as bf16 (L2, k=10) at
+  batches 256 and 32 and 1M x 960 N(0, 1) bf16 rows (cosine, unit
+  queries, k=10) at batch 256, with queries rounded to bf16, as a BFLOAT16
+  space hands them over. A checkout with ``precision="default"`` runs the
+  one-pass scan's bf16 instance (``scan_kernel<Bf16Op, NW>``); one without
+  it runs the FFMA kernel over the same rows and queries, which is what it
+  runs for a BFLOAT16 space (``k1bf16_route`` names which);
 * ``fused_adc_topk`` (K2) at k=400, L2, f32 LUT, over 1M random codes:
   4-bit m=32 (nibble-packed) and 8-bit m=16, batches 256 and 32;
 * K2's int8 LUT (``k2i8``) at the same points (random norms), beside the
@@ -101,7 +109,8 @@ def measure(profile: bool, kernels: set[str]) -> dict:
     l2, ip = DistanceMetric.L2, DistanceMetric.INNER_PRODUCT
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    out = {"k1": {}, "k1v": {}, "k2": {}, "k2i8": {}, "k3": {}, "k4": {}, "by_kernel": {}}
+    out = {"k1": {}, "k1v": {}, "k1bf16": {}, "k2": {}, "k2i8": {}, "k3": {}, "k4": {},
+           "by_kernel": {}}
 
     def timed(name, fn, inputs):
         fn(inputs[0])
@@ -207,6 +216,8 @@ def measure(profile: bool, kernels: set[str]) -> dict:
         k2i8_points(out, timed, torch, fused_adc_topk, dev)
     if "k1v" in kernels:
         k1v_points(out, timed, torch, fused_topk, dev, g)
+    if "k1bf16" in kernels:
+        k1bf16_points(out, timed, torch, fused_topk, dev)
     if "k4" not in kernels:
         return out
     n_pad = -(-N // 8192) * 8192
@@ -309,6 +320,44 @@ def k1v_points(out, timed, torch, fused_topk, dev, g) -> None:
     torch.cuda.empty_cache()
 
 
+def k1bf16_points(out, timed, torch, fused_topk, dev) -> None:
+    """K1 over bf16 rows (module docstring), on inputs of a generator of
+    their own (the same in every checkout)."""
+    from metrovector_tpu_torch import DistanceMetric
+    from metrovector_tpu_torch.ops import topk_kernel
+
+    l2, cos = DistanceMetric.L2, DistanceMetric.COSINE
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    # The one-pass kernel where the checkout has it, else the FFMA kernel.
+    route = "default" if "default" in topk_kernel._PRECISIONS else "ffma"
+    out["k1bf16_route"] = route
+    kw = {"precision": "default"} if route == "default" else {}
+    xb = torch.randint(0, 256, (N, D), generator=g, device=dev).to(torch.bfloat16)
+    nb = (xb.double() ** 2).sum(1).float()
+    for nq in (256, 32):
+        qs = [torch.randint(0, 256, (nq, D), generator=g, device=dev).float()
+              for _ in range(ITERS)]
+        ms = timed(f"bf16 1Mx128 {nq}", lambda q: fused_topk(q, xb, nb, N, 10, l2, **kw), qs)
+        out["k1bf16"][f"1Mx128,{nq}"] = ms
+        print(f"  K1 over bf16 rows ({route}) {N} x {D} batch={nq} k=10: {ms:.4f} ms",
+              flush=True)
+    del xb, nb
+    torch.cuda.empty_cache()
+    xg = torch.randn((N, K1V_GIST_D), generator=g, device=dev).to(torch.bfloat16)
+    gn = (xg.double() ** 2).sum(1).float()
+    qs = []
+    for _ in range(4):
+        q = torch.randn((256, K1V_GIST_D), generator=g, device=dev)
+        qs.append((q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16).float())
+    ms = timed("bf16 gist1m 256", lambda q: fused_topk(q, xg, gn, N, 10, cos, **kw), qs)
+    out["k1bf16"]["gist1m,256"] = ms
+    print(f"  K1 over bf16 rows ({route}) {N} x {K1V_GIST_D} cosine batch=256 k=10: "
+          f"{ms:.4f} ms", flush=True)
+    del xg, gn
+    torch.cuda.empty_cache()
+
+
 def search_p50(files: str) -> dict:
     """search() p50 in ms, k=10, at batches 32 and 256, over the files that
     chip_smoke.py wrote to ``files``: the dense 1M x 128 space
@@ -398,7 +447,7 @@ def turns(args) -> int:
         medians[root] = {
             part: {point: statistics.median(g[part][point] for g in got)
                    for point in got[0][part] if isinstance(got[0][part][point], float)}
-            for part in ("k1", "k1v", "k2", "k2i8", "k4") if got[0].get(part)}
+            for part in ("k1", "k1v", "k1bf16", "k2", "k2i8", "k4") if got[0].get(part)}
     result = {"turns": [other, ROOT, ROOT, other], "medians": medians}
     if args.out:
         with open(args.out, "w") as f:
@@ -412,8 +461,9 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--kernels", default="k1,k1v,k2,k3,k4",
-                    help="which of k1, k1v, k2, k2i8, k3, k4 to time (comma-separated)")
+    ap.add_argument("--kernels", default="k1,k1v,k1bf16,k2,k3,k4",
+                    help="which of k1, k1v, k1bf16, k2, k2i8, k3, k4 to time "
+                    "(comma-separated)")
     ap.add_argument("--turns", help="another checkout: time it and this one in "
                     "turns (DIR, this, this, DIR), a process each")
     ap.add_argument("--files", help="a directory of chip_smoke.py's files: "

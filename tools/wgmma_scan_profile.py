@@ -86,10 +86,12 @@ COUNTER_FIELDS = ("cycles", "refresh", "stage wait + MMA", "compare pass",
                   "offers, flushes, barriers", "-", "own passing scores",
                   "tiles with offer work")
 NO_EPILOGUE = [
-    (INT, "    unsigned long long pass;\n    if (defer) {",
-     "    unsigned long long pass = acc[0] == 0x7fffff01;\n    if (false) {"),
-    (INT, "    } else {\n      float inv[2], badd[2];",
-     "    } else if (false) {\n      float inv[2], badd[2];"),
+    (INT, "    unsigned long long pass = 0;\n    bool deferred = false;\n"
+          "    if constexpr (Op::kInt) {",
+     "    unsigned long long pass = acc[0] == 0x7fffff01;\n    bool deferred = false;\n"
+     "    if constexpr (false) {"),
+    (INT, "    if (!deferred) {\n      float inv[2], badd[2];",
+     "    if (false) {\n      float inv[2], badd[2];"),
     (HIGH, re.compile(r"    const unsigned long long pass =\n.*?;\n", re.S),
      "    const unsigned long long pass = acc[0] == 1234.5f && sml[0] == 3.25f;\n"),
 ]
