@@ -33,6 +33,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from .errors import (
     DimensionMismatchError,
@@ -53,6 +54,7 @@ from .vectors.space import VectorSpace
 from .ops.distances import distances_np, rescore_topk
 from .ops.grid import check_grid
 from .ops.topk_kernel import fused_topk, kernel_precision
+from .utils.timing import RECORDER
 from .utils.transfer import put_chunked
 from .utils.tune import tune_grid, tuned_grid
 
@@ -709,7 +711,8 @@ class DeviceSpace:
         in ``[o_q − 127, o_q + 127]`` quantize exactly; queries spanning
         0..255 do not (``o_q = 128`` leaves 128 on one side, so ``s_q =
         128/127``), as in the reference. uint8 cosine keeps f32 queries
-        for the dequantizing scan."""
+        for the dequantizing scan. The copy to the device is the span
+        ``engine.upload`` while a profiler runs."""
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -724,7 +727,12 @@ class DeviceSpace:
         def upload(arr):
             if self.padded_dim != self.dim:
                 arr = np.pad(arr, ((0, 0), (0, self.padded_dim - self.dim)))
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+            tok = (RECORDER.begin("engine.upload")
+                   if _profiler._is_profiler_enabled else None)
+            out = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+            if tok is not None:
+                RECORDER.end(tok)
+            return out
 
         if self.dtype == DataType.INT8:
             qscale = float(np.abs(q).max()) / 127.0 or 1.0
@@ -884,7 +892,22 @@ class SearchEngine:
         pending tuple for :meth:`_finalize`, which carries the
         :class:`SpaceSnapshot` the launch read (taken once, here, unless
         given), so that the whole search reads one state of the space.
-        ``grid``: the launch grid (default :attr:`grid`)."""
+        ``grid``: the launch grid (default :attr:`grid`).
+
+        Spans (while a profiler runs): ``engine.launch``, which gives the
+        batch the id that the pending tuple carries to :meth:`_finalize`,
+        around ``engine.prepare_queries`` (the upload inside it) and the
+        kernel's ``ops.fused_topk``."""
+        tok = (RECORDER.begin("engine.launch", RECORDER.new_batch())
+               if _profiler._is_profiler_enabled else None)
+        try:
+            return self._launch_body(queries, k, filter_mask, snap, grid,
+                                     None if tok is None else tok.batch)
+        finally:
+            if tok is not None:
+                RECORDER.end(tok)
+
+    def _launch_body(self, queries, k, filter_mask, snap, grid, batch):
         sp = self.space
         grid = self.grid if grid is None else grid
         if snap is None:
@@ -894,10 +917,14 @@ class SearchEngine:
                 "CUSTOM metric spaces need a user-provided score function; "
                 "use ops.distances directly"
             )
+        tok = (RECORDER.begin("engine.prepare_queries")
+               if _profiler._is_profiler_enabled else None)
         prep = sp.prepare_queries(queries)
+        if tok is not None:
+            RECORDER.end(tok)
         nv = snap.num_valid
         if nv == 0:  # empty space: all-sentinel results
-            return (None, None, prep, 0, None, snap)
+            return (None, None, prep, 0, None, snap, batch)
         k_eff = min(k, nv)
         data, norms, eff_mask, rowsums = snap.live()
         if filter_mask is not None:
@@ -924,7 +951,7 @@ class SearchEngine:
                     sp.metric, valid_mask=eff_mask, scale=prep.dot_scale,
                     bias_row=rowsums, bias_scale=prep.bias_scale, grid=grid,
                 )
-            return (scores, idx, prep, k_eff, None, snap)
+            return (scores, idx, prep, k_eff, None, snap, batch)
         # "high" and "high_verified" split f32 spaces only; bf16 rows with
         # bf16 queries run "default" (kernel_precision), f16 "highest".
         f32 = sp.dtype == DataType.FLOAT32
@@ -946,7 +973,7 @@ class SearchEngine:
                                        k_eff, sp.metric)
             if k_fetch < nv:  # else every valid row was re-scored
                 vcheck = (boundary, self._verify_eps(prep, snap), eff_mask)
-        return (scores, idx, prep, k_eff, vcheck, snap)
+        return (scores, idx, prep, k_eff, vcheck, snap, batch)
 
     def _verify_eps(self, prep, snap: SpaceSnapshot | None = None) -> np.ndarray:
         """Per-query bound on |"high" score − exact f32 score| in the
@@ -1013,12 +1040,30 @@ class SearchEngine:
         fails it (scores within the bf16x3 band across more than
         ``verify_margin`` rows at the boundary), re-run the batch at
         ``"highest"`` so the result is exact whatever the data. The re-run
-        and the IDs read the snapshot that the launch read."""
+        and the IDs read the snapshot that the launch read.
+
+        Spans (while a profiler runs): ``engine.finalize``, of the launch's
+        batch, around ``engine.readback`` (the host blocked until the answer
+        is on the host, the certificate's boundary and any re-run among it)
+        and ``engine.host_result``."""
+        batch = pending[-1]
+        tok = (RECORDER.begin("engine.finalize",
+                              RECORDER.new_batch() if batch is None else batch)
+               if _profiler._is_profiler_enabled else None)
+        try:
+            return self._finalize_body(pending, k)
+        finally:
+            if tok is not None:
+                RECORDER.end(tok)
+
+    def _finalize_body(self, pending, k: int) -> SearchResult:
         sp = self.space
-        scores, idx, prep, k_eff, vcheck, snap = pending
+        scores, idx, prep, k_eff, vcheck, snap, _ = pending
         nq = prep.qdev.shape[0]
         if k_eff == 0:  # empty space
             return empty_result(nq, k, sp.metric)
+        tok = (RECORDER.begin("engine.readback")
+               if _profiler._is_profiler_enabled else None)
         scores = scores.cpu().numpy()
         idx = idx.cpu().numpy()
         if vcheck is not None:
@@ -1039,4 +1084,11 @@ class SearchEngine:
                 )
                 scores = scores.cpu().numpy()
                 idx = idx.cpu().numpy()
-        return host_result(scores, idx, prep, k, sp.metric, snap.host_ids)
+        if tok is not None:
+            RECORDER.end(tok)
+        tok = (RECORDER.begin("engine.host_result")
+               if _profiler._is_profiler_enabled else None)
+        res = host_result(scores, idx, prep, k, sp.metric, snap.host_ids)
+        if tok is not None:
+            RECORDER.end(tok)
+        return res

@@ -41,8 +41,10 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from ..format.constants import DataType, DistanceMetric
+from ..utils.timing import RECORDER
 
 from . import select
 from .grid import check_grid, wave_blocks
@@ -433,26 +435,37 @@ def fused_topk(
 
     ``grid``: a :class:`.grid.Grid` of ``waves`` (the multiple of one wave
     of scan blocks; no ``tile``), or None for one wave. The plain version
-    ignores it; the answer is the same."""
-    metric = DistanceMetric(metric)
-    if metric not in _METRICS:
-        raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
-    _check_precision(precision, db)
-    grid = check_grid(grid, (), "fused_topk")
-    if (seed_s is None) != (seed_i is None):
-        raise ValueError("seed_s and seed_i come together")
-    if queries.device.type == "cpu":
-        _check_dtypes(queries, db, bias_row, affine)
-        if seed_i is not None and _seed_stride != 1:
-            seed_i = torch.where(seed_i >= 0, seed_i * _seed_stride, seed_i)
-        return fused_topk_reference(queries, db, db_norms, num_valid, k,
-                                    metric, valid_mask, precision, scale,
-                                    bias_row, bias_scale, affine, seed_s, seed_i,
-                                    exclude_stride, raw_scores)
-    seed = None if seed_s is None else (seed_s, seed_i, _seed_stride)
-    return _fused_topk_cuda(queries, db, db_norms, num_valid, k, metric,
-                            valid_mask, precision, scale, bias_row, bias_scale,
-                            affine, seed, exclude_stride, raw_scores, grid)
+    ignores it; the answer is the same.
+
+    While a profiler runs the call is the span ``ops.fused_topk``: on CUDA
+    the host wrapper (checks, the library's handle, the outputs, the grid,
+    the ctypes calls) up to its last enqueue; on the CPU the plain
+    version's whole computation."""
+    tok = (RECORDER.begin("ops.fused_topk") if _profiler._is_profiler_enabled
+           else None)
+    try:
+        metric = DistanceMetric(metric)
+        if metric not in _METRICS:
+            raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
+        _check_precision(precision, db)
+        grid = check_grid(grid, (), "fused_topk")
+        if (seed_s is None) != (seed_i is None):
+            raise ValueError("seed_s and seed_i come together")
+        if queries.device.type == "cpu":
+            _check_dtypes(queries, db, bias_row, affine)
+            if seed_i is not None and _seed_stride != 1:
+                seed_i = torch.where(seed_i >= 0, seed_i * _seed_stride, seed_i)
+            return fused_topk_reference(queries, db, db_norms, num_valid, k,
+                                        metric, valid_mask, precision, scale,
+                                        bias_row, bias_scale, affine, seed_s, seed_i,
+                                        exclude_stride, raw_scores)
+        seed = None if seed_s is None else (seed_s, seed_i, _seed_stride)
+        return _fused_topk_cuda(queries, db, db_norms, num_valid, k, metric,
+                                valid_mask, precision, scale, bias_row, bias_scale,
+                                affine, seed, exclude_stride, raw_scores, grid)
+    finally:
+        if tok is not None:
+            RECORDER.end(tok)
 
 
 def _check_seed(seed, nq: int, k: int, dev) -> None:
