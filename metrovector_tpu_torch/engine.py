@@ -55,7 +55,7 @@ from .ops.distances import distances_np, rescore_topk
 from .ops.grid import check_grid
 from .ops.topk_kernel import fused_topk, kernel_precision
 from .utils.timing import RECORDER
-from .utils.transfer import put_chunked
+from .utils.transfer import Readback, put_chunked, upload
 from .utils.tune import tune_grid, tuned_grid
 
 PRECISIONS = ("highest", "high", "high_verified", "default")
@@ -711,8 +711,13 @@ class DeviceSpace:
         in ``[o_q − 127, o_q + 127]`` quantize exactly; queries spanning
         0..255 do not (``o_q = 128`` leaves 128 on one side, so ``s_q =
         128/127``), as in the reference. uint8 cosine keeps f32 queries
-        for the dequantizing scan. The copy to the device is the span
-        ``engine.upload`` while a profiler runs."""
+        for the dequantizing scan.
+
+        The copy to the device (:func:`~.utils.transfer.upload`; the span
+        ``engine.upload`` while a profiler runs) goes through pinned memory
+        without blocking on a CUDA device: it waits for no batch already
+        queued on the card, and the caller's array is free once this
+        returns."""
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -724,12 +729,12 @@ class DeviceSpace:
         if self.metric == DistanceMetric.COSINE:
             q = q / np.maximum(np.sqrt(qnorms)[:, None], 1e-30)
 
-        def upload(arr):
+        def send(arr):
             if self.padded_dim != self.dim:
                 arr = np.pad(arr, ((0, 0), (0, self.padded_dim - self.dim)))
             tok = (RECORDER.begin("engine.upload")
                    if _profiler._is_profiler_enabled else None)
-            out = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+            out = upload(arr, self.device)
             if tok is not None:
                 RECORDER.end(tok)
             return out
@@ -737,7 +742,7 @@ class DeviceSpace:
         if self.dtype == DataType.INT8:
             qscale = float(np.abs(q).max()) / 127.0 or 1.0
             qq = np.clip(np.rint(q / qscale), -128, 127).astype(np.int8)
-            return PreparedQueries(qdev=upload(qq), sq_norms=qnorms,
+            return PreparedQueries(qdev=send(qq), sq_norms=qnorms,
                                    dot_scale=qscale * self.scale)
         if self.dtype == DataType.UINT8 and self.metric != DistanceMetric.COSINE:
             o_q = float(np.round((q.min() + q.max()) / 2.0))
@@ -753,10 +758,10 @@ class DeviceSpace:
             const = (
                 s * s_q * (128.0 - zp) * qsum + s * o_q * (128.0 - zp) * d
             ).astype(np.float32)
-            return PreparedQueries(qdev=upload(qq), sq_norms=qnorms,
+            return PreparedQueries(qdev=send(qq), sq_norms=qnorms,
                                    dot_scale=s_q * s, bias_scale=s * o_q,
                                    const=const)
-        qdev = upload(q.astype(np.float32, copy=False))
+        qdev = send(q.astype(np.float32, copy=False))
         if self.dtype == DataType.BFLOAT16 or (
                 self.dtype == DataType.FLOAT32 and self.precision == "default"):
             qdev = qdev.to(torch.bfloat16).float()
@@ -793,6 +798,12 @@ class SearchEngine:
         storage. ``verify_stats`` counts certified queries and those that
         fell back.
 
+        On a CUDA device each batch's answer is read back through pinned
+        memory on an event of its own (:class:`~.utils.transfer.Readback`).
+        ``readback_stats`` counts the read-backs after which the card still
+        had work queued (``"overlapped"``: :meth:`search_pipelined`'s batch
+        in flight) and those after which it was drained (``"drained"``).
+
         ``grid``: the kernels' launch grid (:class:`~.ops.grid.Grid` or a
         mapping with its ``waves``); None adopts the grid that
         :meth:`autotune` persisted in the file, if any, else one wave."""
@@ -809,6 +820,8 @@ class SearchEngine:
             raise ValueError(f"verify_margin must be >= 1, got {verify_margin}")
         self.verify_margin = int(verify_margin)
         self.verify_stats = {"certified": 0, "fallbacks": 0}
+        self.readback_stats = {"overlapped": 0, "drained": 0}
+        self._stats_lock = threading.Lock()  # MicroBatcher finalizes on its own thread
 
     @classmethod
     def open(cls, path, space_name: str | None = None, **kw) -> "SearchEngine":
@@ -877,7 +890,9 @@ class SearchEngine:
     def search_pipelined(self, query_batches, k: int = 10):
         """Results of an iterable of batches in order, with one batch in
         flight: batch ``i+1`` is uploaded and launched before batch ``i`` is
-        read back."""
+        read back. On a CUDA device the read-back of batch ``i`` waits for
+        batch ``i`` alone, so the card scans batch ``i+1`` while the host
+        turns batch ``i`` into its result and readies batch ``i+2``."""
         pending = None
         for q in query_batches:
             launched = self._launch(q, k)
@@ -893,6 +908,11 @@ class SearchEngine:
         :class:`SpaceSnapshot` the launch read (taken once, here, unless
         given), so that the whole search reads one state of the space.
         ``grid``: the launch grid (default :attr:`grid`).
+
+        On a CUDA device the launch ends with the answer's copies to pinned
+        host memory and their event (:class:`~.utils.transfer.Readback`),
+        enqueued right after the batch's last kernel and so before any later
+        batch's upload and scan.
 
         Spans (while a profiler runs): ``engine.launch``, which gives the
         batch the id that the pending tuple carries to :meth:`_finalize`,
@@ -924,7 +944,7 @@ class SearchEngine:
             RECORDER.end(tok)
         nv = snap.num_valid
         if nv == 0:  # empty space: all-sentinel results
-            return (None, None, prep, 0, None, snap, batch)
+            return (None, None, prep, 0, None, snap, None, batch)
         k_eff = min(k, nv)
         data, norms, eff_mask, rowsums = snap.live()
         if filter_mask is not None:
@@ -951,7 +971,7 @@ class SearchEngine:
                     sp.metric, valid_mask=eff_mask, scale=prep.dot_scale,
                     bias_row=rowsums, bias_scale=prep.bias_scale, grid=grid,
                 )
-            return (scores, idx, prep, k_eff, None, snap, batch)
+            return self._pending(scores, idx, prep, k_eff, None, snap, batch)
         # "high" and "high_verified" split f32 spaces only; bf16 rows with
         # bf16 queries run "default" (kernel_precision), f16 "highest".
         f32 = sp.dtype == DataType.FLOAT32
@@ -973,7 +993,17 @@ class SearchEngine:
                                        k_eff, sp.metric)
             if k_fetch < nv:  # else every valid row was re-scored
                 vcheck = (boundary, self._verify_eps(prep, snap), eff_mask)
-        return (scores, idx, prep, k_eff, vcheck, snap, batch)
+        return self._pending(scores, idx, prep, k_eff, vcheck, snap, batch)
+
+    @staticmethod
+    def _pending(scores, idx, prep, k_eff, vcheck, snap, batch):
+        """The pending tuple of a launch. On a CUDA device the answer's
+        read-back (with ``high_verified``'s boundary) is enqueued here, right
+        after the batch's last kernel."""
+        sent = None
+        if scores.device.type == "cuda":
+            sent = Readback(scores, idx, *(() if vcheck is None else vcheck[:1]))
+        return (scores, idx, prep, k_eff, vcheck, snap, sent, batch)
 
     def _verify_eps(self, prep, snap: SpaceSnapshot | None = None) -> np.ndarray:
         """Per-query bound on |"high" score − exact f32 score| in the
@@ -1042,10 +1072,15 @@ class SearchEngine:
         ``"highest"`` so the result is exact whatever the data. The re-run
         and the IDs read the snapshot that the launch read.
 
+        On a CUDA device the read-back waits for the launch's own event, then
+        copies the answer out of pinned memory into arrays of its own, and
+        counts it in ``readback_stats``; the rare re-run reads back
+        synchronously.
+
         Spans (while a profiler runs): ``engine.finalize``, of the launch's
         batch, around ``engine.readback`` (the host blocked until the answer
-        is on the host, the certificate's boundary and any re-run among it)
-        and ``engine.host_result``."""
+        is on the host and copied out, the certificate's boundary and any
+        re-run among it) and ``engine.host_result``."""
         batch = pending[-1]
         tok = (RECORDER.begin("engine.finalize",
                               RECORDER.new_batch() if batch is None else batch)
@@ -1058,19 +1093,25 @@ class SearchEngine:
 
     def _finalize_body(self, pending, k: int) -> SearchResult:
         sp = self.space
-        scores, idx, prep, k_eff, vcheck, snap, _ = pending
+        scores, idx, prep, k_eff, vcheck, snap, sent, _ = pending
         nq = prep.qdev.shape[0]
         if k_eff == 0:  # empty space
             return empty_result(nq, k, sp.metric)
         tok = (RECORDER.begin("engine.readback")
                if _profiler._is_profiler_enabled else None)
-        scores = scores.cpu().numpy()
-        idx = idx.cpu().numpy()
+        if sent is None:  # the CPU: the answer is in host memory already
+            answer = (scores, idx, *(() if vcheck is None else vcheck[:1]))
+            host = [t.cpu().numpy() for t in answer]
+        else:
+            host, drained = sent.wait()
+            with self._stats_lock:
+                self.readback_stats["drained" if drained else "overlapped"] += 1
+        scores, idx = host[:2]
         if vcheck is not None:
             # A row not fetched has an exact score ≤ b + eps; if the exact
             # k-th candidate clears that strictly, the top k is exact.
-            boundary, eps, eff_mask = vcheck
-            b = boundary.cpu().numpy()
+            _, eps, eff_mask = vcheck
+            b = host[2]
             ok = np.isneginf(b) | (scores[:, k_eff - 1] > b + eps)
             self.verify_stats["certified"] += int(ok.sum())
             if not ok.all():

@@ -1,10 +1,20 @@
-"""Host → device upload of a corpus block in bounded chunks.
+"""Copies between the host and the device.
 
-The counterpart of :func:`metrovector_tpu.utils.transfer.put_chunked`. The
-source is usually a read-only zero-copy view of the mapped file. On a CUDA
-device each chunk (≤ 256 MB) is copied into one pinned staging buffer and
-from there into a preallocated device tensor, so the host never holds a
-second full-size copy and the device holds exactly the result.
+:func:`put_chunked`, the counterpart of
+:func:`metrovector_tpu.utils.transfer.put_chunked`, uploads a corpus block in
+bounded chunks. The source is usually a read-only zero-copy view of the
+mapped file. On a CUDA device each chunk (≤ 256 MB) is copied into one
+pinned staging buffer and from there into a preallocated device tensor, so
+the host never holds a second full-size copy and the device holds exactly
+the result.
+
+:func:`upload` and :class:`Readback` move a search's small per-batch
+arrays (the queries up, the answer down) through pinned memory with
+non-blocking copies on the current stream, so that neither direction waits
+for work the card has queued after it. Their pinned blocks come from
+torch's caching host allocator, which hands a block out again only once the
+copies that used it are done, so a steady loop of batches allocates no
+pinned memory after its first few.
 """
 
 from __future__ import annotations
@@ -54,3 +64,37 @@ def put_chunked(
         if pinned:  # the staging buffer is refilled next round
             torch.cuda.current_stream(device).synchronize()
     return out
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on ``device``. On a CUDA device it is staged into pinned host
+    memory and copied from there without blocking, on the current stream:
+    the call does not wait for the card's queued work, and ``arr`` is free
+    to change as soon as it returns. Elsewhere a plain copy."""
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return src.to(device)
+    return src.pin_memory().to(device, non_blocking=True)
+
+
+class Readback:
+    """CUDA tensors on their way to the host: non-blocking copies into pinned
+    host memory, enqueued on the current stream when this is made, and an
+    event recorded after them. :meth:`wait` waits for that event alone, so
+    for the work enqueued before it, never for work enqueued later."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.stream = torch.cuda.current_stream(tensors[0].device)
+        self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     .copy_(t, non_blocking=True) for t in tensors]
+        self.done = torch.cuda.Event()
+        self.done.record(self.stream)
+
+    def wait(self) -> tuple[list[np.ndarray], bool]:
+        """The tensors as numpy arrays of their own (none shares the pinned
+        blocks, which go back to the allocator with this object), and
+        whether the stream was drained once they had arrived: False where
+        later work was still queued on it."""
+        self.done.synchronize()
+        drained = self.stream.query()
+        return [t.numpy().copy() for t in self.host], drained

@@ -5,6 +5,8 @@ queries, filters, tombstones, an empty space and ``k`` above the corpus
 size; ``DeviceSpace.from_state`` fed from a JAX ``DeviceSpace``; the
 shared ``MicroBatcher`` over the port's engine; and the chunked upload."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -300,12 +302,22 @@ def test_microbatcher_over_port_engine(tmp_path):
         np.testing.assert_array_equal(r.ids[0], want.ids[i])
 
 
-def test_search_pipelined_matches_search(tmp_path):
-    path, x, q = _file(tmp_path)
+@pytest.mark.parametrize("k", [4, N + 5])
+@pytest.mark.parametrize("dtype", [DataType.FLOAT32, DataType.INT8,
+                                   DataType.UINT8, DataType.BFLOAT16])
+def test_search_pipelined_matches_search(tmp_path, dtype, k):
+    """Each batch's answer equals ``search``'s, also where ``k`` exceeds the
+    rows, and an answer held from an early batch is unchanged by the
+    batches read back after it."""
+    path, x, q = _file(tmp_path, dtype=dtype)
     port = SearchEngine.open(path, device="cpu")
     batches = [q[:2], q[2:], x[:3]]
-    for batch, res in zip(batches, port.search_pipelined(iter(batches), k=4)):
-        _assert_same(res, port.search(batch, k=4))
+    held = [(res, copy.deepcopy(res))
+            for res in port.search_pipelined(iter(batches), k=k)]
+    assert len(held) == len(batches)
+    for batch, (res, kept) in zip(batches, held):
+        _assert_same(res, kept)
+        _assert_same(res, port.search(batch, k=k))
 
 
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
