@@ -916,8 +916,9 @@ class SearchEngine:
 
         Spans (while a profiler runs): ``engine.launch``, which gives the
         batch the id that the pending tuple carries to :meth:`_finalize`,
-        around ``engine.prepare_queries`` (the upload inside it) and the
-        kernel's ``ops.fused_topk``."""
+        around ``engine.prepare_queries`` (the upload inside it), the
+        kernel's ``ops.fused_topk`` and, at ``high_verified``,
+        ``engine.rescore`` (K3's enqueue)."""
         tok = (RECORDER.begin("engine.launch", RECORDER.new_batch())
                if _profiler._is_profiler_enabled else None)
         try:
@@ -989,8 +990,12 @@ class SearchEngine:
             # The k_fetch-th "high" score: every row not fetched lost to it,
             # so its exact score is at most boundary + eps.
             boundary = scores[:, -1]
+            tok = (RECORDER.begin("engine.rescore")
+                   if _profiler._is_profiler_enabled else None)
             scores, idx = rescore_topk(prep.qdev, data, norms, idx,
                                        k_eff, sp.metric)
+            if tok is not None:
+                RECORDER.end(tok)
             if k_fetch < nv:  # else every valid row was re-scored
                 vcheck = (boundary, self._verify_eps(prep, snap), eff_mask)
         return self._pending(scores, idx, prep, k_eff, vcheck, snap, batch)
@@ -1080,7 +1085,11 @@ class SearchEngine:
         Spans (while a profiler runs): ``engine.finalize``, of the launch's
         batch, around ``engine.readback`` (the host blocked until the answer
         is on the host and copied out, the certificate's boundary and any
-        re-run among it) and ``engine.host_result``."""
+        re-run among it; inside it, at ``high_verified``, ``engine.verify``
+        around the certificate's check and ``engine.fallback`` around the
+        ``"highest"`` re-run and its read-back) and ``engine.host_result``.
+        ``verify_stats`` is updated under the lock that guards
+        ``readback_stats``."""
         batch = pending[-1]
         tok = (RECORDER.begin("engine.finalize",
                               RECORDER.new_batch() if batch is None else batch)
@@ -1112,10 +1121,18 @@ class SearchEngine:
             # k-th candidate clears that strictly, the top k is exact.
             _, eps, eff_mask = vcheck
             b = host[2]
+            vtok = (RECORDER.begin("engine.verify")
+                    if _profiler._is_profiler_enabled else None)
             ok = np.isneginf(b) | (scores[:, k_eff - 1] > b + eps)
-            self.verify_stats["certified"] += int(ok.sum())
-            if not ok.all():
-                self.verify_stats["fallbacks"] += int((~ok).sum())
+            certified = int(ok.sum())
+            with self._stats_lock:
+                self.verify_stats["certified"] += certified
+                self.verify_stats["fallbacks"] += len(ok) - certified
+            if vtok is not None:
+                RECORDER.end(vtok)
+            if certified < len(ok):
+                ftok = (RECORDER.begin("engine.fallback")
+                        if _profiler._is_profiler_enabled else None)
                 # vcheck comes with high_verified, which f32 spaces alone
                 # run: f32 rows, so "highest" is the FFMA kernel's exact scan.
                 data, norms, _, _ = snap.live()
@@ -1125,6 +1142,8 @@ class SearchEngine:
                 )
                 scores = scores.cpu().numpy()
                 idx = idx.cpu().numpy()
+                if ftok is not None:
+                    RECORDER.end(ftok)
         if tok is not None:
             RECORDER.end(tok)
         tok = (RECORDER.begin("engine.host_result")

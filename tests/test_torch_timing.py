@@ -5,10 +5,13 @@ Chrome trace that holds the block's ``record_function`` span and raises
 where it cannot trace, and ``sync_time`` returns the call's result. The
 program's spans (``timing.RECORDER``): recorded only under a profiler, the
 engine's names, parents and batch ids in ``search`` and
-``search_pipelined``, the cap, and their place on the Chrome trace's
-clock."""
+``search_pipelined``, ``high_verified``'s re-score, certificate and fallback
+spans and its ``verify_stats`` under two finalizing threads, the cap, and
+their place on the Chrome trace's clock."""
 
 import json
+import sys
+import threading
 import time
 
 import numpy as np
@@ -141,6 +144,98 @@ def test_pipelined_spans_pair_each_launch_with_its_finalize():
     for t in tops:
         assert _tree(kept, t) == (LAUNCH if t.name == "engine.launch" else FINALIZE)
     assert all(a.end_ns <= b.start_ns for a, b in zip(tops, tops[1:]))
+
+
+VERIFIED_LAUNCH = ("engine.launch", [("engine.prepare_queries", [("engine.upload", [])]),
+                                     ("ops.fused_topk", []), ("engine.rescore", [])])
+
+
+def _verified_finalize(fell):
+    """The finalize tree at ``high_verified``: the certificate's check and,
+    where it failed, the ``"highest"`` re-run, both inside the read-back."""
+    inside = [("engine.verify", [])]
+    if fell:
+        inside.append(("engine.fallback", [("ops.fused_topk", [])]))
+    return ("engine.finalize", [("engine.readback", inside), ("engine.host_result", [])])
+
+
+def _verified_engine(dim=24):
+    """A CPU engine at ``high_verified`` over N(0, 1) rows (the certificate
+    holds) with 40 copies of one row (a query on them cannot be
+    certified), and one query of each kind."""
+    rng = np.random.default_rng(11)
+    data = rng.standard_normal((300, dim)).astype(np.float32)
+    data[100:140] = data[7]
+    space = DeviceSpace(data=torch.from_numpy(data),
+                        norms=torch.from_numpy((data * data).sum(1)), num_valid=300,
+                        dim=dim, metric=DistanceMetric.L2, dtype=DataType.FLOAT32,
+                        name="s", precision="high_verified")
+    eng = SearchEngine(space, device="cpu", precision="high_verified")
+    certified = rng.standard_normal((1, dim)).astype(np.float32)
+    tied = (data[7] + 1e-4 * rng.standard_normal(dim)).astype(np.float32)[None]
+    return eng, certified, tied
+
+
+def test_verified_spans_nest_in_launch_and_readback():
+    eng, certified, tied = _verified_engine()
+    for q, fell in ((certified, False), (tied, True)):
+        before = dict(eng.verify_stats)
+        res, kept = _traced(lambda: eng.search(q, k=5))
+        np.testing.assert_array_equal(res.indices, eng.search(q, k=5).indices)
+        assert eng.verify_stats["fallbacks"] - before["fallbacks"] == 2 * fell
+        tops = [s for s in kept if s.parent is None]
+        assert [_tree(kept, t) for t in tops] == [VERIFIED_LAUNCH, _verified_finalize(fell)]
+    # pipelined: each batch's spans under its own launch and finalize
+    res, kept = _traced(lambda: list(eng.search_pipelined([certified, tied, certified], k=5)))
+    tops = [s for s in kept if s.parent is None]
+    fin = [t for t in tops if t.name == "engine.finalize"]
+    assert [_tree(kept, t) for t in fin] == [_verified_finalize(f) for f in (False, True, False)]
+    assert all(_tree(kept, t) == VERIFIED_LAUNCH for t in tops if t.name == "engine.launch")
+    assert len({t.batch for t in fin}) == 3
+
+
+def test_verified_spans_need_a_profiler(monkeypatch):
+    eng, certified, tied = _verified_engine()
+    timing.clear_spans()
+
+    def never(*a, **k):
+        raise AssertionError("a span was begun with no profiler running")
+
+    monkeypatch.setattr(timing.RECORDER, "begin", never)
+    eng.search(np.concatenate([certified, tied]), k=5)
+    list(eng.search_pipelined([certified, tied], k=5))
+    monkeypatch.undo()
+    assert timing.spans() == [] and timing.RECORDER.dropped == 0
+    assert eng.verify_stats == {"certified": 2, "fallbacks": 2}
+
+
+def test_verify_stats_count_every_query_with_two_finalizing_threads():
+    """Two threads finalize at once, with the interpreter switching threads
+    as often as it can: no count is lost."""
+    eng, certified, tied = _verified_engine()
+    both = np.concatenate([certified, tied])
+    rounds, errors = 60, []
+
+    def work():
+        try:
+            for _ in range(rounds):
+                eng.search(both, k=5)
+        except Exception as e:  # noqa: BLE001 - reported by the main thread
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in threads)
+    # each search: the N(0, 1) query certified, the tied one not
+    assert eng.verify_stats == {"certified": 2 * rounds, "fallbacks": 2 * rounds}
 
 
 def test_span_cap_drops_and_counts():
