@@ -9,10 +9,11 @@ CUDA raises: nothing falls back to the CPU.
 
 f32 spaces run at ``precision="highest"`` (exact f32, the FFMA kernel),
 ``"high"`` (the bf16x3 split on the tensor cores), ``"high_verified"``
-(``"high"`` over-fetched, re-scored exactly and certified, else re-run at
-``"highest"``) and ``"default"`` (bf16 rows and bf16-rounded queries on the
-device, the one-pass bf16 kernel on the tensor cores). f16 spaces stay f16
-on the device (f16 ⊂ f32, so results equal the reference's f32 upcast;
+(``"high"`` over-fetched, re-scored exactly and certified query by query,
+the queries that fail re-run at ``"highest"``) and ``"default"`` (bf16 rows
+and bf16-rounded queries on the device, the one-pass bf16 kernel on the
+tensor cores). f16 spaces stay f16 on the device (f16 ⊂ f32, so results
+equal the reference's f32 upcast;
 ``"high"`` and ``"high_verified"`` run ``"highest"`` there, as the
 reference does), or bf16 at ``"default"`` with f32 queries, as the
 reference keeps them, on the FFMA kernel. bf16 spaces go up as bf16 with
@@ -793,10 +794,10 @@ class SearchEngine:
         the tensor cores, f32-faithful to about 2⁻¹⁶ relative, so sub-ulp
         near-ties may swap; ``"high_verified"``, the ``"high"`` scan fetches
         ``k + verify_margin`` candidates, an exact f32 re-score of just those
-        returns the top k, and a certificate (:meth:`_verify_eps`) proves it
-        exact or the batch re-runs at ``"highest"``; ``"default"``, bf16
-        storage. ``verify_stats`` counts certified queries and those that
-        fell back.
+        returns the top k, and a certificate (:meth:`_verify_eps`) proves
+        each query's answer exact or the failing queries re-run at
+        ``"highest"``; ``"default"``, bf16 storage. ``verify_stats`` counts
+        certified queries and those that fell back.
 
         On a CUDA device each batch's answer is read back through pinned
         memory on an event of its own (:class:`~.utils.transfer.Readback`).
@@ -1071,16 +1072,17 @@ class SearchEngine:
 
     def _finalize(self, pending, k: int) -> SearchResult:
         """Read back and convert to a user-facing result. For a
-        ``high_verified`` launch, check the certificate and, where any query
-        fails it (scores within the bf16x3 band across more than
-        ``verify_margin`` rows at the boundary), re-run the batch at
-        ``"highest"`` so the result is exact whatever the data. The re-run
+        ``high_verified`` launch, check the certificate of each query and
+        re-run the queries that fail it (scores within the bf16x3 band across
+        more than ``verify_margin`` rows at the boundary) at ``"highest"``, as
+        one sub-batch gathered on the device, so the result is exact whatever
+        the data; certified queries keep K3's re-scored answer. The re-run
         and the IDs read the snapshot that the launch read.
 
         On a CUDA device the read-back waits for the launch's own event, then
         copies the answer out of pinned memory into arrays of its own, and
-        counts it in ``readback_stats``; the rare re-run reads back
-        synchronously.
+        counts it in ``readback_stats``; the re-run of the failing queries
+        reads back synchronously.
 
         Spans (while a profiler runs): ``engine.finalize``, of the launch's
         batch, around ``engine.readback`` (the host blocked until the answer
@@ -1135,13 +1137,17 @@ class SearchEngine:
                         if _profiler._is_profiler_enabled else None)
                 # vcheck comes with high_verified, which f32 spaces alone
                 # run: f32 rows, so "highest" is the FFMA kernel's exact scan.
+                # Only the failing queries re-run: each query's dots and its
+                # selection do not depend on the others in its launch.
+                fail = np.flatnonzero(~ok)
                 data, norms, _, _ = snap.live()
-                scores, idx = fused_topk(
-                    prep.qdev, data, norms, snap.num_valid, k_eff,
+                sub = prep.qdev.index_select(0, upload(fail, prep.qdev.device))
+                fs, fi = fused_topk(
+                    sub, data, norms, snap.num_valid, k_eff,
                     sp.metric, valid_mask=eff_mask, grid=self.grid,
                 )
-                scores = scores.cpu().numpy()
-                idx = idx.cpu().numpy()
+                scores[fail] = fs.cpu().numpy()
+                idx[fail] = fi.cpu().numpy()
                 if ftok is not None:
                     RECORDER.end(ftok)
         if tok is not None:
